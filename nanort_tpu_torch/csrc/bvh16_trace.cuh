@@ -1,0 +1,226 @@
+// In-kernel BVH16 trace for NVIDIA Hopper (sm_90a): one ray per thread,
+// closest-hit (with the aux row's material id and geometric normal) or
+// occlusion, Moller-Trumbore leaf test.
+//
+// Replaces nanort_tpu/traverse/fused_trace.py::make_tracer (K2), the
+// trace primitive that the TPU's fused path tracer (models/pt_fused.py::
+// _pt_kernel_bvh, K4) calls from inside its megakernel. It walks the SAME
+// dense BVH16 node rows (build/bvh8.py::collapse_bvh8(width=16)), leaf
+// rows and aux rows (traverse/fused_trace.py::build_aux_rows), and keeps
+// make_tracer's semantics op for op:
+//   * degenerate rays (NaN/inf or |x| >= 3e38 origin or direction, zero
+//     direction) become misses (fused_trace.py:134-145);
+//   * safe_inv maps |d| < FLT_EPSILON to inf signed by the sign bit;
+//   * the slab test takes (lo - o) * inv and (hi - o) * inv * 1.00000024
+//     and folds them with NaN-PROPAGATING max/min, bounded by s_min and
+//     the ray's current t: a child whose slab gives 0 * inf is never
+//     visited (jnp.maximum propagates NaN; fmaxf would drop it);
+//   * the MT test accepts tt >= s_min && tt <= t and replaces on <= in
+//     slot order; occlusion stores t = -(tt + 1) and answers t < 0, so a
+//     blocker at exactly tt == tmax occludes;
+//   * closest-hit answers hit = t < s_max && ok && s_max > s_min, so a
+//     hit at exactly tt == tmax is a miss; a miss reports t = tmax,
+//     u = v = 0, prim -1, material 0 and a zero normal.
+// It does not copy the TPU's scheme, one SMEM stack per (S, 128) block
+// with OR-reduced slab votes and a child order from ray 0's octant. Each
+// thread has a private stack of depth * 15 + 1 entries (a near-first walk
+// never holds more, as for K1) and takes the child order from its own
+// ray's octant: that changes the prim only between hits at exactly equal
+// t, the repository's tie contract.
+//
+// What bounds it on this card: dependent row fetches (a 512-byte node row
+// must arrive before the next node index is known) and divergence: bounce
+// and shadow rays of neighbouring lanes point anywhere, so a warp runs the
+// union of 32 unrelated walks. The design keeps the per-ray work minimal
+// (no ray tests a node or leaf it does not hit itself, occlusion exits at
+// its first blocker, rays with an empty [tmin, tmax] skip the walk) and
+// leaves coherence (ray sorting, sample-major lanes, warp-wide queues) to
+// the caller and to later work.
+//
+// Numerics: compile with --fmad=false (every product separately rounded,
+// as the plain torch version, traverse/fused_trace.py::
+// trace_bvh16_reference, computes it), IEEE division, no -ftz.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace bvh16 {
+
+constexpr int kStackCap = 512;           // per-thread stack ceiling
+constexpr float kBig = 3.0e38f;          // degenerate-ray threshold
+constexpr float kMaxMult = 1.00000024f;  // 4-ulp exit-plane inflation
+
+struct Record {
+  float t, u, v;
+  int pid;
+  bool hit;
+  int mid;
+  float gx, gy, gz;
+};
+
+// jnp.maximum / jnp.minimum: NaN in either operand gives NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+__device__ __forceinline__ float safe_inv(float d) {
+  if (fabsf(d) < FLT_EPSILON) {
+    return __float_as_int(d) < 0 ? -INFINITY : INFINITY;
+  }
+  return 1.0f / d;
+}
+
+// Node row (width 16): child w box at lanes [6w, 6w+6), meta at 96+w
+// (>= 0 internal row, < 0 leaf row -(meta+1)), leaf count at 112+w, the
+// order axis riding lane 112 as cnt + 16 * axis. Stack entries: node row
+// >= 0, or -1 - (leaf_row << 4 | count) for a leaf.
+//
+// Occlusion: rec.hit is the answer, the other fields are unset.
+// kAux: fill mid / normal from the aux row (closest-hit only).
+template <bool kOcclusion, bool kAux>
+__device__ Record trace(const float* __restrict__ nodes,
+                        const float* __restrict__ leafs,
+                        const float* __restrict__ aux, int stack_size,
+                        int* err, float ox, float oy, float oz, float dx,
+                        float dy, float dz, float tmin, float tmax) {
+  const bool okr = fabsf(ox) < kBig && fabsf(oy) < kBig && fabsf(oz) < kBig &&
+                   fabsf(dx) < kBig && fabsf(dy) < kBig && fabsf(dz) < kBig &&
+                   fabsf(dx) + fabsf(dy) + fabsf(dz) > 0.0f;
+  const float sox = okr ? ox : 0.0f, soy = okr ? oy : 0.0f,
+              soz = okr ? oz : 0.0f;
+  const float sdx = okr ? dx : 1.0f, sdy = okr ? dy : 0.0f,
+              sdz = okr ? dz : 0.0f;
+  const float s_min = okr ? tmin : INFINITY;
+  const float s_max = okr ? tmax : INFINITY;
+  const float ix = safe_inv(sdx), iy = safe_inv(sdy), iz = safe_inv(sdz);
+  const bool snx = sdx < 0.0f, sny = sdy < 0.0f, snz = sdz < 0.0f;
+
+  float t_b = s_max, u_b = 0.0f, v_b = 0.0f;
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  int p_b = -1, m_b = 0;
+  bool found = false;
+
+  // with s_min > s_max (or NaN) no slab and no triangle can pass
+  if (s_min <= s_max) {
+    int stack[kStackCap];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+      const int e = stack[--sp];
+      if (e >= 0) {
+        const float* row = nodes + (size_t)e * 128;
+        unsigned mask = 0u;
+#pragma unroll
+        for (int w = 0; w < 16; ++w) {
+          const float b0x = __ldg(row + 6 * w), b0y = __ldg(row + 6 * w + 1),
+                      b0z = __ldg(row + 6 * w + 2);
+          const float b1x = __ldg(row + 6 * w + 3),
+                      b1y = __ldg(row + 6 * w + 4),
+                      b1z = __ldg(row + 6 * w + 5);
+          const float lox = snx ? b1x : b0x, hix = snx ? b0x : b1x;
+          const float loy = sny ? b1y : b0y, hiy = sny ? b0y : b1y;
+          const float loz = snz ? b1z : b0z, hiz = snz ? b0z : b1z;
+          const float t0 = max_nan(max_nan((lox - sox) * ix, (loy - soy) * iy),
+                                   max_nan((loz - soz) * iz, s_min));
+          const float t1 =
+              min_nan(min_nan((hix - sox) * ix * kMaxMult,
+                              (hiy - soy) * iy * kMaxMult),
+                      min_nan((hiz - soz) * iz * kMaxMult, t_b));
+          mask |= (unsigned)(t0 <= t1) << w;
+        }
+        if (mask == 0u) continue;
+        const float v112 = __ldg(row + 112);
+        const int axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
+        // children are stored near-to-far along the order axis; the LIFO
+        // stack takes them far-first so the nearest pops first
+        const bool neg = axis == 0 ? snx : (axis == 1 ? sny : snz);
+        for (int j = 0; j < 16; ++j) {
+          const int cc = neg ? j : 15 - j;
+          if (!((mask >> cc) & 1u)) continue;
+          const int meta = (int)__ldg(row + 96 + cc);
+          int entry = meta;
+          if (meta < 0) {
+            const int cnt = ((int)__ldg(row + 112 + cc)) & 15;
+            entry = -1 - (((-meta - 1) << 4) | cnt);
+          }
+          if (sp >= stack_size) {  // never truncate silently
+            atomicOr(err, 1);
+            sp = 0;
+            break;
+          }
+          stack[sp++] = entry;
+        }
+      } else {
+        const int packed = -1 - e;
+        const float* lrow = leafs + (size_t)(packed >> 4) * 128;
+        const int cnt = packed & 15;
+        for (int ti = 0; ti < cnt; ++ti) {
+          const float* q = lrow + 9 * ti;
+          const float p0x = __ldg(q), p0y = __ldg(q + 1), p0z = __ldg(q + 2);
+          const float e1x = __ldg(q + 3) - p0x, e1y = __ldg(q + 4) - p0y,
+                      e1z = __ldg(q + 5) - p0z;
+          const float e2x = __ldg(q + 6) - p0x, e2y = __ldg(q + 7) - p0y,
+                      e2z = __ldg(q + 8) - p0z;
+          const float pvx = sdy * e2z - sdz * e2y;
+          const float pvy = sdz * e2x - sdx * e2z;
+          const float pvz = sdx * e2y - sdy * e2x;
+          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+          const float invd = 1.0f / (det == 0.0f ? 1.0f : det);
+          const float tx = sox - p0x, ty = soy - p0y, tz = soz - p0z;
+          const float uu = (tx * pvx + ty * pvy + tz * pvz) * invd;
+          const float qx = ty * e1z - tz * e1y;
+          const float qy = tz * e1x - tx * e1z;
+          const float qz = tx * e1y - ty * e1x;
+          const float vv = (sdx * qx + sdy * qy + sdz * qz) * invd;
+          const float tt = (e2x * qx + e2y * qy + e2z * qz) * invd;
+          const bool ok = det != 0.0f && uu >= 0.0f && vv >= 0.0f &&
+                          uu + vv <= 1.0f && tt >= s_min && tt <= t_b;
+          if (!ok) continue;
+          if (kOcclusion) {
+            t_b = -tt - 1.0f;
+            found = true;
+            break;
+          }
+          t_b = tt;
+          u_b = uu;
+          v_b = vv;
+          p_b = (int)__ldg(lrow + 90 + ti);
+          if (kAux) {
+            const float* arow = aux + (size_t)(packed >> 4) * 128;
+            m_b = (int)__ldg(arow + 32 + ti);
+            gx = __ldg(arow + 3 * ti);
+            gy = __ldg(arow + 3 * ti + 1);
+            gz = __ldg(arow + 3 * ti + 2);
+          }
+        }
+        if (kOcclusion && found) break;
+      }
+    }
+  }
+
+  Record r;
+  if (kOcclusion) {
+    r.hit = t_b < 0.0f;
+    return r;
+  }
+  const bool hit = t_b < s_max && okr && s_max > s_min;
+  r.hit = hit;
+  r.t = hit ? t_b : tmax;
+  r.u = hit ? u_b : 0.0f;
+  r.v = hit ? v_b : 0.0f;
+  r.pid = hit ? p_b : -1;
+  r.mid = hit ? m_b : 0;
+  r.gx = hit ? gx : 0.0f;
+  r.gy = hit ? gy : 0.0f;
+  r.gz = hit ? gz : 0.0f;
+  return r;
+}
+
+}  // namespace bvh16

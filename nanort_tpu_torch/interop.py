@@ -1,9 +1,9 @@
 """Carry the JAX package's objects into the port, through NumPy.
 
 The tests feed both packages one identical binary BVH, one identical
-BVH8/BVH16 table set and one identical ray batch: take the JAX objects'
-fields with ``np.asarray`` and rebuild the port's objects here. Nothing
-in this module imports jax.
+BVH8/BVH16 table set, one identical ray batch and one identical
+path-tracer scene: take the JAX objects' fields with ``np.asarray`` and
+rebuild the port's objects here. Nothing in this module imports jax.
 """
 
 from __future__ import annotations
@@ -35,6 +35,44 @@ def scene_from_numpy(nodes, leafs, num_nodes, num_leaf_rows, depth,
         num_nodes=int(num_nodes), num_leaf_rows=int(num_leaf_rows),
         depth=int(depth), max_leaf=int(max_leaf), width=int(width),
     )
+
+
+def pt_scene_from_numpy(vertices, faces, material_ids, materials,
+                        light_faces, packed, face_table=None,
+                        light_table=None, facevarying_normals=None,
+                        scene8=None, fused_aux=None, device="cpu"):
+    """A port ``PTScene`` on ``device`` from a JAX ``PTScene``'s fields
+    as NumPy arrays, so both packages render from the same tables.
+
+    ``materials``: the six material arrays in ``Materials`` field order
+    (diffuse, emission, specular, transmittance, ior, dissolve);
+    ``packed``: (nodes, soup, num_nodes, num_prims, max_leaf);
+    ``scene8``: a port ``BVH8Scene`` (``scene_from_numpy``) or None."""
+    from .models.path_tracer import Materials, PTScene
+    from .ops.triangle import TriangleMesh
+    from .traverse.packed import PackedScene
+
+    def t(x, dtype=np.float32):
+        if x is None:
+            return None
+        return torch.from_numpy(np.array(x, dtype, order="C"))
+
+    nodes, soup, num_nodes, num_prims, max_leaf = packed
+    scene = PTScene(
+        mesh=TriangleMesh(t(vertices), t(faces, np.int32)),
+        packed=PackedScene(t(nodes), t(soup), int(num_nodes),
+                           int(num_prims),
+                           None if max_leaf is None else int(max_leaf)),
+        materials=Materials(*(t(m) for m in materials)),
+        material_ids=t(material_ids, np.int32),
+        facevarying_normals=t(facevarying_normals),
+        light_faces=t(light_faces, np.int32),
+        scene8=scene8,
+        face_table=t(face_table),
+        light_table=t(light_table),
+        fused_aux=t(fused_aux),
+    )
+    return scene.to(device)
 
 
 def rays_from_numpy(org, dir, min_t, max_t, device=None) -> Rays:

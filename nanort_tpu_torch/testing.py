@@ -7,9 +7,19 @@ within a few ulp; and ``u``/``v`` within an absolute error, since ulp
 distance is meaningless near a zero barycentric. Used by the tests (port
 against the JAX package) and by ``chip_smoke.py`` (kernel against the
 brute-force oracle on the card). Works on NumPy arrays and tensors.
+
+``run_without_fma`` runs a test file's JAX side in a process whose XLA
+CPU backend emits no FMA instructions, so the JAX package's kernels in
+interpret mode round every product separately, as the port's kernels
+(built with ``--fmad=false``) and their plain versions do.
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 
@@ -73,3 +83,29 @@ def compare_hits(got, want, t_ulps: int = T_ULPS,
     r["ok"] = (r["hit_mismatch"] == 0 and r["prim_mismatch"] == 0
                and t_ulp <= t_ulps and uv <= uv_atol)
     return r
+
+
+def run_without_fma(script: str, inputs: dict, timeout: float = 600.0) -> dict:
+    """Run ``python script IN OUT`` and return the arrays it saved.
+
+    ``inputs`` (name -> array) are saved to the npz ``IN``; the script
+    writes its results to the npz ``OUT``. The child's XLA CPU backend
+    is held to AVX (``--xla_cpu_max_isa=AVX``), which has no FMA: jitted
+    XLA on an FMA machine otherwise contracts ``a * b + c``, and a
+    kernel run in interpret mode then differs from the same kernel with
+    separately rounded products in the last ulp."""
+    with tempfile.TemporaryDirectory() as d:
+        inp, out = os.path.join(d, "in.npz"), os.path.join(d, "out.npz")
+        np.savez(inp, **inputs)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+            p for p in (root, os.environ.get("PYTHONPATH")) if p))
+        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                            + " --xla_cpu_max_isa=AVX").strip()
+        r = subprocess.run([sys.executable, script, inp, out], env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        if r.returncode != 0:
+            raise RuntimeError(f"{script} failed:\n{r.stdout[-2000:]}"
+                               f"{r.stderr[-6000:]}")
+        with np.load(out) as z:
+            return {k: z[k] for k in z.files}

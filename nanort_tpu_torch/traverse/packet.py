@@ -158,7 +158,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
         v = torch.empty_like(t)
         pid = torch.empty(n, dtype=PRIM_ID_DTYPE, device=dev)
         err = torch.zeros(1, dtype=torch.int32, device=dev)
-        lib = _ext.load()
+        lib = _ext.load("packet_traverse")
         ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream

@@ -192,6 +192,39 @@ def test_shared_library_builds_once_and_reports_errors(tmp_path, monkeypatch):
         [os.path.basename(path), os.path.basename(path2)])
 
 
+def test_changed_header_rebuilds(tmp_path, monkeypatch):
+    """A library is named by its sources AND the headers they include
+    (``deps``): editing only the header builds a new library."""
+    import shutil
+
+    from nanort_tpu_torch import _toolchain
+    from nanort_tpu_torch.traverse import _ext
+
+    monkeypatch.setattr(_toolchain, "BUILD_DIR", str(tmp_path / "build"))
+    hdr = tmp_path / "val.h"
+    hdr.write_text("#define VAL 1\n")
+    src = tmp_path / "one.cc"
+    src.write_text('#include "val.h"\nextern "C" int one() { return VAL; }\n')
+    cmd = ["g++", "-shared", "-fPIC", f"-I{tmp_path}"]
+    name = _toolchain.library_path("one", [str(src)], cmd, (str(hdr),))
+    assert name == _toolchain.library_path("one", [str(src)], cmd,
+                                           (str(hdr),))
+    assert name != _toolchain.library_path("one", [str(src)], cmd)
+    hdr.write_text("#define VAL 2\n")
+    assert _toolchain.library_path("one", [str(src)], cmd,
+                                   (str(hdr),)) != name
+    if shutil.which("g++") is not None:
+        path = _toolchain.build_shared_library("one", [str(src)], cmd,
+                                               deps=(str(hdr),))
+        assert _ctypes_one(path) == 2
+    # the CUDA sources that include the K2 header list it as a dependency
+    for lib in ("bvh16_trace", "pt_fused"):
+        src_name, deps, _ = _ext.KERNELS[lib]
+        text = open(os.path.join(_ext.CSRC, src_name)).read()
+        assert '#include "bvh16_trace.cuh"' in text
+        assert deps == ("bvh16_trace.cuh",)
+
+
 def _ctypes_one(path):
     import ctypes
 
