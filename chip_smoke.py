@@ -36,15 +36,39 @@ nothing of JAX. Phases, one line or more each:
 8. config B: ``render_path_traced`` on the Cornell box at 512^2 x 100
    spp x 10 bounces (K3), one warm-up and 3 timed repetitions;
 9. midscale: the same on the dense scene (K4 on K2, 25 sample-major
-   lanes, 4 azimuth strata, 32 x 128 pixel tiles).
+   lanes, 4 azimuth strata, 32 x 128 pixel tiles);
+10. K1-woop against its plain version on the card: the dense scene built
+    with ``engine="turbo"`` (leaf 9, Woop table) and phase 7's 65,536
+    incoherent rays, closest-hit and any-hit, which must agree bit for
+    bit; then woop against watertight on the same rays (hit-mask and prim
+    agreement, kernel ms and their ratio);
+11. the megabatch route at full width: ``render_path_traced(...,
+    fused=False)`` on the midscale scene at 512^2 x 100 spp x 10 bounces,
+    ``engine="turbo"`` then ``"pallas"``, one warm-up and 3 timed
+    renders each; 80 K1 launches a render (4 megabatches of 6,553,600
+    rays x 10 bounces x closest + shadow) and no other kernel; the image
+    mean within 2% of phase 9's; for each engine, one more render keeps
+    the kernel's input and records of bounce 2 of the first megabatch
+    (the closest-hit and the shadow trace: 6,553,600 sorted rays each,
+    the dead ones at the tail; bounce 2 is the first whose closest-hit
+    trace holds ended paths), which must agree bit for bit with the
+    plain version on the same tensors; then one more turbo render split into
+    its layers (trace kernel, sort and unsort, shading) with CUDA events;
+12. the two megabatch engines without a kernel: the wavefront walk on the
+    midscale scene at 512^2 x 4 spp, and brute force on the Cornell box
+    at 512^2 x 16 spp.
 
-It then prints one JSON line per kernel and, last, the ok line. Any
-failed phase exits non-zero without the ok line; so does a machine
-without CUDA.
+It then prints one JSON line with every kernel (its launches on the main
+path, its error against its plain version, its time, its plain
+version's time, and its bound: the larger of the bytes it must move over
+3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s,
+counted by the plain version) and, last, the ok line. Any failed phase
+exits non-zero without the ok line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -55,6 +79,19 @@ import time
 import numpy as np
 
 FAILURES: list[str] = []
+
+# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# float32 operations of one unit of work, counted from the kernels'
+# source: one child's slab test (6 sub, 9 mul, 7 compare/select), one
+# watertight triangle test (9 sub, 12 shear, 9 edge, 2 det, 8 t, 1 div,
+# 3 mul, 6 compare), one Woop test (3 sub, 10 for o'z and d'z, 1 div,
+# 1 mul, 24 for u and v, 5 compare), one Moller-Trumbore test, and one
+# path vertex's shading (fresnel, lobe pick, light sample, ONB, next
+# direction; about 200)
+SLAB_OPS, WT_OPS, WOOP_OPS, MT_OPS, SHADE_OPS = 22, 50, 44, 51, 200
 
 
 def check(cond: bool, what: str):
@@ -104,9 +141,115 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def path_tracer_phases(dev) -> list[dict]:
-    """Phases 7-9 (K2, K3, K4 and the config-B and midscale renders);
-    returns their entries of the ``kernels`` line."""
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_b = n_bytes / HBM_BYTES_S * 1e3
+    t_o = n_ops / F32_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def trace_ops(stats: dict, width: int, tri_ops: int) -> float:
+    """Operations of the node pops and triangle tests a plain traversal
+    counted."""
+    return stats.get("nodes", 0) * width * SLAB_OPS + stats.get(
+        "tris", 0) * tri_ops
+
+
+@contextlib.contextmanager
+def patched(mod, name, fn):
+    """``mod.name`` replaced by ``fn`` inside the block."""
+    old = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, old)
+
+
+def record_err(got, want) -> float:
+    """Largest |difference| of two traversal records' t (where both are
+    finite), u and v."""
+    import torch
+
+    fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
+    return max(max_abs(got[0], want[0], fin), max_abs(got[1], want[1]),
+               max_abs(got[2], want[2]))
+
+
+def capture_bounce(scene, cam_rays, bounce: int) -> list:
+    """One more megabatch render (seed 3, 100 spp, 10 bounces) that keeps
+    what the traversal kernel was given and gave back on bounce
+    ``bounce`` of the first megabatch: its closest-hit trace and its
+    shadow trace, each ``(sorted rays, keyword arguments, hits)``."""
+    from nanort_tpu_torch.models import path_tracer
+    from nanort_tpu_torch.traverse import packet
+
+    kept, calls = [], [0]
+    real = packet.traverse_bvh8
+
+    def keep(scene8, rays, *a, **k):
+        out = real(scene8, rays, *a, **k)
+        if calls[0] in (2 * bounce, 2 * bounce + 1):
+            kept.append((rays, dict(k), out))
+        calls[0] += 1
+        return out
+
+    with patched(packet, "traverse_bvh8", keep):
+        path_tracer.render_path_traced(scene, cam_rays, 3, spp=100,
+                                       max_bounces=10, fused=False)
+    return kept
+
+
+def hold_megabatch_trace(scene8, rays, kw, got) -> dict:
+    """A trace captured from the megabatch route against the plain
+    version on the same tensors (bit for bit), with the kernel
+    relaunched on them for its time, and the plain version's work
+    count."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.traverse import packet
+
+    woop = kw.get("intersector") == "woop"
+    occ = kw.get("occlusion", False)
+    check(kw.get("skip_prim_id") is None and kw.get("options") is None,
+          f"megabatch trace with unexpected arguments {sorted(kw)}")
+    n = rays.org.shape[0]
+    dead = rays.max_t <= rays.min_t
+    n_dead = int(dead.sum())
+    stats = {}
+
+    def plain():
+        holder["want"] = packet._traverse_reference(
+            scene8.nodes, scene8.leafs_woop if woop else scene8.leafs,
+            scene8.width, rays.org, rays.dir, rays.min_t, rays.max_t, None,
+            None, False, nt.BVHTraceOptions().exact_edge_fallback and not woop,
+            occ, packet.stack_slots(scene8), woop=woop, stats=stats)
+
+    holder = {}
+    p_ms = cuda_ms(plain, 1)[0]
+    want = holder.pop("want")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = record_err(got, want)
+    del want
+    k_ms = median(cuda_ms(lambda: packet.traverse_bvh8(scene8, rays, **kw),
+                          5))
+    return {"rays": n, "dead": n_dead,
+            "dead_tail": bool(dead[n - n_dead:].all()),
+            "dead_hits": int(got.hit[dead].sum()),
+            "hits": int(got.hit.sum()), "same": same, "err": err,
+            "ms": k_ms, "plain_ms": p_ms, "stats": stats}
+
+
+def path_tracer_phases(dev) -> tuple[list[dict], int, float]:
+    """Phases 7-12 (K2, K3, K4, the config-B and midscale renders, K1-woop
+    and the megabatch route); returns their entries of the ``kernels``
+    line, the watertight K1 launches of phase 11 and that kernel's
+    largest error on its phase-11 traces."""
     import torch
 
     import nanort_tpu_torch as nt
@@ -157,12 +300,13 @@ def path_tracer_phases(dev) -> list[dict]:
         return fused_trace.trace_bvh16(s8, rays, dense.fused_aux,
                                        occlusion=occ, want_aux=not occ)
 
-    def k2_plain(occ):
+    def k2_plain(occ, stats=None):
         return fused_trace.trace_bvh16_reference(
             nodes, leafs, None if occ else aux, rays.org, rays.dir,
-            rays.min_t, rays.max_t, occ, slots)
+            rays.min_t, rays.max_t, occ, slots, stats=stats)
 
-    got, want = k2(False), k2_plain(False)
+    k2_stats = {}
+    got, want = k2(False), k2_plain(False, k2_stats)
     occ, occ_want = k2(True), k2_plain(True)
     fields = ("t", "u", "v", "prim_id", "hit", "material_id", "normal")
     frac = {f: same_frac(getattr(got, f), getattr(want, f)) for f in fields}
@@ -179,6 +323,11 @@ def path_tracer_phases(dev) -> list[dict]:
         f"plain {k2_plain_ms:.1f} ms")
     check(min(frac.values()) == 1.0 and occ_frac == 1.0,
           "K2 disagrees with its plain version")
+    # outputs: t, u, v f32, pid, hit, material id i32, normal 3 x f32
+    k2_bound = bound(n * (32 + 36) + nbytes(nodes, leafs, aux),
+                     trace_ops(k2_stats, 16, MT_OPS))
+    say(f"K2 work on these rays (plain version's count): {k2_stats}; "
+        f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     # 1,024 of them against a brute Moller-Trumbore sweep (the same
     # per-triangle arithmetic; equal-t ties may pick either prim)
     tri = pt_fused.build_fused_tables(dense)[0]
@@ -215,8 +364,19 @@ def path_tracer_phases(dev) -> list[dict]:
         return r.org.reshape(-1, 3), r.dir.reshape(-1, 3)
 
     SPP, MB, AZ, SEED = 4, 10, 4, 11
-    entries = []
     k3_res = {}
+    k3_count = {"tris": 0, "shade": 0}
+
+    def counting_mt(tri, *c):
+        # the plain K3's sweeps: closest (tmin = eps_t) and shadow
+        tmin, tmax = c[-2], c[-1]
+        live = int((tmax > tmin).sum())
+        k3_count["tris"] += live * tri.shape[0]
+        if tmin.numel() and float(tmin[0]) == pt_fused._EPS_T:
+            k3_count["shade"] += live
+        return real_mt(tri, *c)
+
+    real_mt = pt_fused._brute_mt
     c_org, c_dir = cam_rays(64, 64, 5.0)
     tri3, face3, light3 = pt_fused.build_fused_tables(cornell)
     lights3 = pt_fused._lights(cornell, dev)
@@ -231,7 +391,10 @@ def path_tracer_phases(dev) -> list[dict]:
                 tri3, face3, lights3, c_org, c_dir, SEED, SPP, MB, 3, trig,
                 AZ) / float(SPP)
 
-        got, want = k3(), k3_plain()
+        got = k3()
+        with (patched(pt_fused, "_brute_mt", counting_mt) if trig == "poly"
+              else contextlib.nullcontext()):
+            want = k3_plain()
         fr, err = same_frac(got, want), max_abs(got, want)
         ms = median(cuda_ms(k3, 5))
         p_ms = min(cuda_ms(k3_plain, 1))
@@ -244,10 +407,27 @@ def path_tracer_phases(dev) -> list[dict]:
               f"K3 trig={trig} disagrees with its plain version")
         check(bool(torch.isfinite(got).all()), f"K3 trig={trig} not finite")
 
+    R3 = c_org.shape[0]
+    k3_bound = bound(R3 * (24 + 12) + nbytes(tri3, face3, light3),
+                     k3_count["tris"] * MT_OPS + k3_count["shade"] * SHADE_OPS)
+    say(f"K3 work (plain version's count, poly): {k3_count}; bound "
+        f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
+
     d_org, d_dir = cam_rays(64, 64, 2.6)
     mat4, light4, _, _, _ = pt_fused.build_fused_bvh_tables(dense)
     lights4 = pt_fused._lights(dense, dev)
     k4_res = {}
+    k4_count = {}
+    real_tr = fused_trace.trace_bvh16_reference
+
+    def counting_tr(nodes, leafs, aux, org, dir, tmin, tmax, occlusion,
+                    slots):
+        if not occlusion:
+            k4_count["shade"] = k4_count.get("shade", 0) + int(
+                (tmax > tmin).sum())
+        return real_tr(nodes, leafs, aux, org, dir, tmin, tmax, occlusion,
+                       slots, stats=k4_count)
+
     for lanes in (1, 4):
         o_l = d_org.repeat_interleave(lanes, 0)
         d_l = d_dir.repeat_interleave(lanes, 0)
@@ -263,7 +443,12 @@ def path_tracer_phases(dev) -> list[dict]:
                 SPP // lanes, MB, 3, "poly", AZ, lanes)
             return pt_fused.lane_sums(sums, lanes) / float(SPP)
 
-        got, want = k4(), k4_plain()
+        got = k4()
+        if lanes == 4:
+            k4_count.clear()
+        with (patched(fused_trace, "trace_bvh16_reference", counting_tr)
+              if lanes == 4 else contextlib.nullcontext()):
+            want = k4_plain()
         fr, err = same_frac(got, want), max_abs(got, want)
         ms = median(cuda_ms(k4, 5))
         p_ms = min(cuda_ms(k4_plain, 1))
@@ -275,6 +460,13 @@ def path_tracer_phases(dev) -> list[dict]:
         check(fr == 1.0, f"K4 spp_lanes={lanes} disagrees with its plain "
               "version")
         check(bool(torch.isfinite(got).all()), "K4 image not finite")
+
+    R4 = d_org.shape[0] * 4
+    k4_bound = bound(R4 * (24 + 12) + nbytes(mat4, light4, nodes, leafs, aux),
+                     trace_ops(k4_count, 16, MT_OPS)
+                     + k4_count.get("shade", 0) * SHADE_OPS)
+    say(f"K4 work (plain version's count, spp_lanes 4): {k4_count}; bound "
+        f"{k4_bound[0]:.4f} ms ({k4_bound[1]})")
 
     # K4 against K3 on the Cornell box with BVH16 tables attached (leaf 4)
     bvh, _ = nt.build_triangle_bvh(TriangleMesh(cv, cf), nt.BVHBuildOptions(
@@ -301,6 +493,15 @@ def path_tracer_phases(dev) -> list[dict]:
     report_render("phase 8: config B, procedural_cornell 32 tris, K3", img,
                   ms_b, busy, counts, {"pt_fused_brute": 4})
     launches_b = counts["pt_fused_brute"]
+    mean_b = float(img.mean())
+    # the render's work, scaled from phase 7's 4,096-ray x 4-spp sample
+    # of the same view (per-sample work does not depend on resolution)
+    scale = 512 * 512 * 100 / (R3 * SPP)
+    rb = bound(512 * 512 * (24 + 12) + nbytes(tri3, face3, light3),
+               (k3_count["tris"] * MT_OPS + k3_count["shade"] * SHADE_OPS)
+               * scale)
+    say(f"phase 8 render bound (phase 7's K3 work x {scale:.0f}): "
+        f"{rb[0]:.4f} ms ({rb[1]})")
 
     # ---- 9. midscale at full size (K4 on K2)
     cam = look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0), width=512,
@@ -311,6 +512,19 @@ def path_tracer_phases(dev) -> list[dict]:
                   f"{path_tracer.default_spp_lanes(100, 4)}", img, ms_m,
                   busy, counts, {"pt_fused_bvh": 4, "bvh16_trace": 4})
     launches_m, launches_k2 = counts["pt_fused_bvh"], counts["bvh16_trace"]
+    mean_m = float(img.mean())
+    scale = 512 * 512 * 100 / (d_org.shape[0] * SPP)
+    rb = bound(512 * 512 * (24 + 12)
+               + nbytes(mat4, light4, nodes, leafs, aux),
+               (trace_ops(k4_count, 16, MT_OPS)
+                + k4_count.get("shade", 0) * SHADE_OPS) * scale)
+    say(f"phase 9 render bound (phase 7's K4 work x {scale:.0f}): "
+        f"{rb[0]:.4f} ms ({rb[1]})")
+    del img
+    torch.cuda.empty_cache()
+
+    woop_entry, launches_pallas, pallas_err = megabatch_phases(
+        dev, (dv, df, dm, dmats), dense, cornell, rays, mean_b, mean_m)
 
     return [{
         "name": "bvh16_trace",
@@ -321,6 +535,9 @@ def path_tracer_phases(dev) -> list[dict]:
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
     }, {
         "name": "pt_fused_brute",
         "route": "cuda",
@@ -330,6 +547,9 @@ def path_tracer_phases(dev) -> list[dict]:
         "max_abs_err": k3_res["poly"][1],
         "ms": k3_res["poly"][2],
         "plain_ms": k3_res["poly"][3],
+        "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1],
+        "library_ms": None,
     }, {
         "name": "pt_fused_bvh",
         "route": "cuda",
@@ -339,7 +559,255 @@ def path_tracer_phases(dev) -> list[dict]:
         "max_abs_err": max(r[1] for r in k4_res.values()),
         "ms": k4_res[4][2],
         "plain_ms": k4_res[4][3],
-    }]
+        "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1],
+        "library_ms": None,
+    }, woop_entry], launches_pallas, pallas_err
+
+
+def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
+                     mean_m) -> tuple[dict, int, float]:
+    """Phases 10-12: K1-woop against its plain version and against the
+    watertight test, the megabatch route at full width (turbo, pallas)
+    with each engine's bounce-2 traces held to the plain version, and
+    its two engines without a kernel. Returns K1-woop's entry of the
+    ``kernels`` line, the watertight K1 launches of phase 11 and the
+    watertight kernel's largest error on its phase-11 traces."""
+    import torch
+
+    from nanort_tpu_torch.models import path_tracer
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.traverse import packet, ray_sort
+
+    # ---- 10. K1-woop against its plain version
+    t0 = time.perf_counter()
+    turbo = path_tracer.make_pt_scene(*dense_arrays, engine="turbo",
+                                      device=dev)
+    torch.cuda.synchronize()
+    s8 = turbo.scene8
+    say(f"# phase 10: turbo scene (leaf 9, Woop table) on the host "
+        f"{time.perf_counter() - t0:.2f} s: {s8.num_nodes} nodes, "
+        f"{s8.num_leaf_rows} leaf rows, depth {s8.depth}, max leaf "
+        f"{s8.max_leaf}")
+    check(s8.leafs_woop is not None and s8.max_leaf <= 9,
+          "the turbo scene has no Woop table")
+    n = rays.org.shape[0]
+    slots = packet.stack_slots(s8)
+
+    def kern(occ, inter="woop"):
+        return packet.traverse_bvh8(s8, rays, occlusion=occ,
+                                    intersector=inter)
+
+    def plain(occ, stats=None):
+        return packet._traverse_reference(
+            s8.nodes, s8.leafs_woop, 16, rays.org, rays.dir, rays.min_t,
+            rays.max_t, None, None, False, False, occ, slots, woop=True,
+            stats=stats)
+
+    woop_stats = {}
+    res = {}
+    for occ in (False, True):
+        got = kern(occ)
+        want = plain(occ, woop_stats if not occ else None)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = record_err(got, want)
+        res[occ] = (got, same, err)
+        say(f"K1-woop {'any-hit' if occ else 'closest'} on {n} incoherent "
+            f"rays at {len(dense_arrays[1])} tris: {int(got.hit.sum())} hits; "
+            f"kernel == plain bit for bit: {same}; max abs err {err}")
+        check(same, f"K1-woop (occlusion={occ}) disagrees with its plain "
+              "version")
+    wt = kern(False, "watertight")
+    wh, gh = wt.hit, res[False][0].hit
+    both = wh & gh
+    hit_agree = float((wh == gh).float().mean())
+    prim_agree = float((wt.prim_id[both] == res[False][0].prim_id[both])
+                       .float().mean())
+    ms_w = median(cuda_ms(lambda: kern(False), 10))
+    ms_wt = median(cuda_ms(lambda: kern(False, "watertight"), 10))
+    ms_wo = median(cuda_ms(lambda: kern(True), 10))
+    ms_wto = median(cuda_ms(lambda: kern(True, "watertight"), 10))
+    plain_ms = min(cuda_ms(lambda: plain(False), 1))
+    woop_bound = bound(n * (32 + 20) + nbytes(s8.nodes, s8.leafs_woop),
+                       trace_ops(woop_stats, 16, WOOP_OPS))
+    say(f"K1-woop vs watertight on the same rays: hit masks agree on "
+        f"{hit_agree} of rays, prims on {prim_agree} of common hits; "
+        f"closest woop {ms_w:.4f} ms vs watertight {ms_wt:.4f} ms (ratio "
+        f"{ms_w / ms_wt:.3f}), any-hit {ms_wo:.4f} vs {ms_wto:.4f} (ratio "
+        f"{ms_wo / ms_wto:.3f}) (medians of 10); plain {plain_ms:.1f} ms; "
+        f"work {woop_stats}, bound {woop_bound[0]:.4f} ms ({woop_bound[1]})")
+    check(hit_agree > 0.999, "woop and watertight hit masks disagree")
+    woop_err = max(res[False][2], res[True][2])
+    del res, wt, wh, gh, both
+    torch.cuda.empty_cache()
+
+    # ---- 11. the megabatch route at full width
+    cam = look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0), width=512,
+                  height=512, fov=45.0, device=dev)
+    cam_rays = pinhole_rays(cam)
+    launches, held = {}, {}
+    for name, scene, key in (("turbo", turbo, "packet_traverse_woop"),
+                             ("pallas", dense, "packet_traverse")):
+        torch.cuda.reset_peak_memory_stats(dev)
+        img, ms, busy, counts = time_render(scene, cam_rays, fused=False)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        report_render(f"phase 11: megabatch route, engine {name!r}, "
+                      f"{len(dense_arrays[1])} tris, 4 megabatches of "
+                      f"6,553,600 rays; peak device memory {peak:.2f} GiB",
+                      img, ms, busy, counts, {key: 4 * 80})
+        rel = abs(float(img.mean()) - mean_m) / mean_m
+        say(f"phase 11 {name}: image mean {float(img.mean())} vs phase 9's "
+            f"K4 {mean_m} (relative {rel:.5f})")
+        check(rel < 0.02, f"megabatch {name} image mean far from K4's")
+        launches[name] = counts[key]
+        del img
+        torch.cuda.empty_cache()
+        # the kernel's records on bounce 2 of the first megabatch (sorted
+        # bounce and shadow rays, dead rays at the tail: the first bounce
+        # whose closest-hit trace holds ended paths) against its plain
+        # version on the same tensors
+        for kind, (r, kw, got) in zip(("closest", "shadow"),
+                                      capture_bounce(scene, cam_rays, 2)):
+            h = hold_megabatch_trace(scene.scene8, r, kw, got)
+            del r, got
+            torch.cuda.empty_cache()
+            held[name, kind] = h
+            say(f"phase 11 {name}, bounce 2 {kind} trace of the first "
+                f"megabatch: {h['rays']} sorted rays, {h['dead']} dead (at "
+                f"the tail: {h['dead_tail']}, hits among them "
+                f"{h['dead_hits']}), {h['hits']} hits; kernel == plain bit "
+                f"for bit: {h['same']}; max abs err {h['err']}; kernel "
+                f"{h['ms']:.3f} ms (median of 5), plain {h['plain_ms']:.1f} "
+                f"ms; work {h['stats']}")
+            check(h["same"], f"megabatch {name} {kind} trace disagrees with "
+                  "the plain version")
+            check(h["rays"] == 6_553_600 and h["dead"] > 0 and h["dead_tail"]
+                  and h["dead_hits"] == 0,
+                  f"megabatch {name} {kind} trace: {h}")
+
+    # one more turbo render, split into its layers with CUDA events
+    spans = {"trace_paths": [], "_trace": [], "traverse_bvh8": []}
+
+    def timed(fn, name):
+        def wrapped(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        return wrapped
+
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for mod, name in ((path_tracer, "trace_paths"),
+                          (path_tracer, "_trace"), (packet, "traverse_bvh8")):
+            stack.enter_context(patched(mod, name,
+                                        timed(getattr(mod, name), name)))
+        total = cuda_ms(lambda: path_tracer.render_path_traced(
+            turbo, cam_rays, 3, spp=100, max_bounces=10, fused=False), 1)[0]
+    wall = (time.perf_counter() - t0) * 1e3
+    sums = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    layers = {
+        "trace kernel": sums["traverse_bvh8"],
+        "sort, permute, unsort": sums["_trace"] - sums["traverse_bvh8"],
+        "shading, RNG": sums["trace_paths"] - sums["_trace"],
+        "megabatch setup, accumulate": total - sums["trace_paths"],
+    }
+    say(f"phase 11 turbo render by layer (CUDA events; {total:.1f} ms on "
+        f"the device, {wall:.1f} ms host wall): "
+        + ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})"
+                    for k, v in layers.items())
+        + f"; {len(spans['traverse_bvh8'])} traversal launches")
+    del spans
+    torch.cuda.empty_cache()
+
+    # and once more, counting the work of every trace on every 1,000th of
+    # its sorted rays with the plain version (not timed)
+    work = {"rays": 0, "bytes": 0, "nodes": 0, "tris": 0}
+
+    def counting(scene, r, *a, **k):
+        out = real_traverse(scene, r, *a, **k)
+        sample = type(r)(*(x[::1000].contiguous() for x in r))
+        st = {}
+        packet._traverse_reference(
+            scene.nodes, scene.leafs_woop, 16, sample.org, sample.dir,
+            sample.min_t, sample.max_t, None, None, False, False,
+            k.get("occlusion", False), packet.stack_slots(scene), woop=True,
+            stats=st)
+        work["rays"] += r.org.shape[0]
+        work["bytes"] += r.org.shape[0] * (32 + 20) + nbytes(
+            scene.nodes, scene.leafs_woop)
+        work["nodes"] += st.get("nodes", 0) * 1000
+        work["tris"] += st.get("tris", 0) * 1000
+        return out
+
+    real_traverse = packet.traverse_bvh8
+    with patched(packet, "traverse_bvh8", counting):
+        path_tracer.render_path_traced(turbo, cam_rays, 3, spp=100,
+                                       max_bounces=10, fused=False)
+    rb = bound(work["bytes"], trace_ops(work, 16, WOOP_OPS))
+    say(f"phase 11 turbo render, K1-woop's work over its 80 launches "
+        f"(every 1,000th sorted ray, x1000): {work}; bound {rb[0]:.4f} ms "
+        f"({rb[1]}) against {layers['trace kernel']:.1f} ms measured")
+
+    # ---- 12. the engines without a kernel
+    wf = path_tracer.make_pt_scene(*dense_arrays, device=dev)
+    for what, scene, spp, ref in (
+            ("wavefront walk, midscale scene", wf, 4, mean_m),
+            ("brute force, Cornell box", cornell, 16, mean_b)):
+        cam = look_at(eye=(0, 0.0, 2.6 if scene is wf else 5.0),
+                      center=(0, 0, 0), width=512, height=512, fov=45.0,
+                      device=dev)
+        holder = {}
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        ms = cuda_ms(lambda: holder.__setitem__(
+            "img", path_tracer.render_path_traced(
+                scene, pinhole_rays(cam), 3, spp=spp, max_bounces=10,
+                fused=False)), 1)[0]
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        img = holder["img"]
+        rel = abs(float(img.mean()) - ref) / ref
+        samples = 512 * 512 * spp
+        say(f"# phase 12: {what}, 512x512 x {spp} spp x 10 bounces: "
+            f"{ms / 1e3:.4f} s on the device ({wall:.4f} s host wall) = "
+            f"{samples / (ms / 1e3) / 1e6:.2f} Msamples/s; image mean "
+            f"{float(img.mean())} vs the fused route's {ref} (relative "
+            f"{rel:.5f}); launches {counts}")
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+              f"phase 12 {what}: bad image")
+        check(rel < 0.03, f"phase 12 {what}: image mean far from the "
+              "fused route's")
+        check(sum(counts.values()) == 0, f"phase 12 {what} launched a kernel")
+    turbo_tables = (turbo.scene8.nodes, turbo.scene8.leafs_woop)
+    del wf, turbo
+    torch.cuda.empty_cache()
+
+    # K1-woop's entry at the main path's shape: the turbo render's bounce-2
+    # closest-hit trace (6,553,600 sorted rays)
+    mb = held["turbo", "closest"]
+    mb_bound = bound(mb["rays"] * (32 + 20) + nbytes(*turbo_tables),
+                     trace_ops(mb["stats"], 16, WOOP_OPS))
+    say(f"phase 11 K1-woop on the bounce-2 closest trace: bound "
+        f"{mb_bound[0]:.4f} ms ({mb_bound[1]}) against {mb['ms']:.3f} ms")
+    return {
+        "name": "packet_traverse_woop",
+        "route": "cuda",
+        "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
+        "replaces": "nanort_tpu/traverse/pallas_packet.py:283",
+        "launches": launches["turbo"],
+        "max_abs_err": max([woop_err] + [held["turbo", k]["err"]
+                                         for k in ("closest", "shadow")]),
+        "ms": mb["ms"],
+        "plain_ms": mb["plain_ms"],
+        "bound_ms": mb_bound[0],
+        "bound_by": mb_bound[1],
+        "library_ms": None,
+    }, launches["pallas"], max(held["pallas", k]["err"]
+                               for k in ("closest", "shadow"))
 
 
 def launch_counts() -> dict:
@@ -347,21 +815,22 @@ def launch_counts() -> dict:
     from nanort_tpu_torch.models import pt_fused
     from nanort_tpu_torch.traverse import fused_trace, packet
 
-    return {"packet_traverse": packet.LAUNCHES,
-            "bvh16_trace": fused_trace.LAUNCHES, **pt_fused.LAUNCHES}
+    return {**packet.LAUNCHES, "bvh16_trace": fused_trace.LAUNCHES,
+            **pt_fused.LAUNCHES}
 
 
 def zero_launch_counts():
     from nanort_tpu_torch.models import pt_fused
     from nanort_tpu_torch.traverse import fused_trace, packet
 
-    packet.LAUNCHES = fused_trace.LAUNCHES = 0
-    for k in pt_fused.LAUNCHES:
-        pt_fused.LAUNCHES[k] = 0
+    fused_trace.LAUNCHES = 0
+    for counts in (packet.LAUNCHES, pt_fused.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
-def time_render(scene, rays):
-    """``render_path_traced(seed=3, spp=100, max_bounces=10)``: one
+def time_render(scene, rays, **kw):
+    """``render_path_traced(seed=3, spp=100, max_bounces=10, **kw)``: one
     warm-up and 3 repetitions timed with CUDA events. Returns the last
     image, the 3 times in ms, the device's share of the 3 calls' host
     wall time (call to synchronised end) and every kernel's launches
@@ -375,7 +844,7 @@ def time_render(scene, rays):
 
     def run():
         holder["img"] = path_tracer.render_path_traced(
-            scene, rays, 3, spp=100, max_bounces=10)
+            scene, rays, 3, spp=100, max_bounces=10, **kw)
 
     run()
     torch.cuda.synchronize()  # the warm-up's kernel is not in the wall
@@ -559,13 +1028,14 @@ def main() -> int:
     )
     slots = packet.stack_slots(scene)
 
-    def plain():
+    def plain(rays=sub, stats=None):
         return packet._traverse_reference(
-            scene.nodes, scene.leafs, 16, sub.org, sub.dir, sub.min_t,
-            sub.max_t, None, None, False, True, False, slots)
+            scene.nodes, scene.leafs, 16, rays.org, rays.dir, rays.min_t,
+            rays.max_t, None, None, False, True, False, slots, stats=stats)
 
+    k1_stats = {}
     got = packet.traverse_bvh8(scene, sub)
-    ref = plain()
+    ref = plain(stats=k1_stats)
     same = all(torch.equal(a, b) for a, b in zip(got, ref))
     fin = torch.isfinite(got.t) & torch.isfinite(ref[0])
     max_abs = max(float((got.t - ref[0])[fin].abs().max()),
@@ -579,6 +1049,18 @@ def main() -> int:
         f"max abs err {max_abs}; kernel {kernel_ms:.3f} ms (median of 10), "
         f"plain {plain_ms:.1f} ms (best of 2)")
     check(same, "kernel and plain version disagree at full scene size")
+    tables = nbytes(scene.nodes, scene.leafs)
+    k1_bound = bound(2 * m * (32 + 20) + tables,
+                     trace_ops(k1_stats, 16, WT_OPS))
+    say(f"phase 5 work (plain version's count): {k1_stats}; bound "
+        f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+    # the frame's work, counted on every 1,024th ray of the tiled frame
+    frame_stats = {}
+    plain(nt.Rays(*(x[::1024].contiguous() for x in rays_t)), frame_stats)
+    frame_bound = bound(res * res * (32 + 20) + tables,
+                        trace_ops(frame_stats, 16, WT_OPS) * 1024)
+    say(f"8192^2 frame work (every 1,024th ray, x1024): {frame_stats}; "
+        f"bound {frame_bound[0]:.4f} ms ({frame_bound[1]})")
 
     # ---- 6. the main path, 8192^2
     del rays_t, untile, sub, got, ref
@@ -641,18 +1123,23 @@ def main() -> int:
 
     del rays, rays_t, untile, hits, holder, scene, scene_h, bvh, fr, fh
     torch.cuda.empty_cache()
-    k2k4 = path_tracer_phases(dev)
+    k2k5, launches_pt, err_pt = path_tracer_phases(dev)
+    say(f"packet_traverse launches on the main paths: {launches} (phase 6) "
+        f"+ {launches_pt} (phase 11, pallas)")
 
     say(json.dumps({"kernels": [{
         "name": "packet_traverse",
         "route": "cuda",
         "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
         "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
-        "launches": launches,
-        "max_abs_err": max_abs,
+        "launches": launches + launches_pt,
+        "max_abs_err": max(max_abs, err_pt),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }] + k2k4}))
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
+    }] + k2k5}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
               file=sys.stderr)

@@ -31,6 +31,15 @@ Leaf table rows pack up to 10 triangles (one binary-BVH leaf each):
   lanes [9t, 9t+9):   triangle t vertices (p0, p1, p2 xyz)
   lane  90 + t:       triangle t original prim id (exact float integer)
 
+The optional Woop table (``woop=True``, the turbo intersector's input)
+has one row for each leaf row, holding the same triangles in the same
+slots as per-triangle unit-triangle transforms
+(``_woop_transforms_from``):
+
+  lanes [12t, 12t+9):    triangle t transform M, row-major
+  lanes [12t+9, 12t+12): triangle t anchor vertex p0
+  lane  108 + t:         triangle t original prim id (exact float integer)
+
 The collapse walks the binary tree (build.sah output, reference layout
 nanort.h:1759-1890) and repeatedly expands the largest-surface-area member
 of the cut until 8 slots fill — the standard greedy BVH2->BVH8 conversion.
@@ -65,6 +74,10 @@ class BVH8Scene:
     depth: int  # BVH8 tree depth (stack sizing)
     max_leaf: int  # max triangles in any leaf row (kernel unroll bound)
     width: int = 8
+    # optional Woop unit-triangle leaf table (collapse_bvh8(woop=True)),
+    # row for row beside ``leafs``: the input of the turbo intersector
+    # (traverse_bvh8(..., intersector="woop"))
+    leafs_woop: np.ndarray | None = None
 
     def _replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -89,8 +102,10 @@ class BVH8Scene:
         def move(x):
             return torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
 
-        return dataclasses.replace(self, nodes=move(self.nodes),
-                                   leafs=move(self.leafs))
+        return dataclasses.replace(
+            self, nodes=move(self.nodes), leafs=move(self.leafs),
+            leafs_woop=None if self.leafs_woop is None
+            else move(self.leafs_woop))
 
 
 def table_depth(nodes: np.ndarray, width: int) -> int:
@@ -147,11 +162,69 @@ def _fill_leaf_segments(rows, seg_row, seg_slot, seg_len, seg_src, vals,
         ]
 
 
+def _woop_transforms_from(vertices, faces, indices) -> np.ndarray:
+    """Per-triangle Woop unit-triangle transforms for the leaf-ordered
+    stream ``indices``: (L, 12) f32 rows of [M row-major | anchor p0].
+
+    Each triangle is baked as the affine transform into its own "unit
+    triangle" space (Woop et al. 2004): columns of E = [e1, e2, n] with
+    e1 = p1-p0, e2 = p2-p0, n = e1 x e2, stored as M = E^-1 plus the
+    anchor vertex p0, so the traversal's o' = M (o - p0) and d' = M d
+    give t = -o'z / d'z, u = o'x + t d'x, v = o'y + t d'y with the plain
+    unit-triangle test u >= 0, v >= 0, u+v <= 1. Storing p0
+    (translate-then-rotate) rather than the fused offset b = -M p0 keeps
+    the origin-relative coordinates well-conditioned far from the world
+    origin. Degenerate (zero-area) triangles get a zero matrix: d'z = 0
+    for every ray, so they never report a hit.
+
+    This intersector trades the watertight guarantees (nanort.h:993-1229)
+    for fewer leaf operations: edge-crossing rays may pick the
+    neighbouring triangle (equal t) or, rarely, slip through a shared
+    edge.
+
+    Chunked with manual cross products: whole-array np.cross/np.stack
+    allocate ~350 MB of f64 temporaries and first-touch page faults on
+    one host core cost ~25 s / 2M tris."""
+    vertices = np.asarray(vertices, np.float64)
+    faces = np.asarray(faces)
+    L = indices.shape[0]
+    flat = np.empty((L, 12), np.float32)
+    CHUNK = 1 << 18
+    for a in range(0, L, CHUNK):
+        b = min(a + CHUNK, L)
+        tri = vertices[faces[indices[a:b]]]  # (c, 3, 3) f64
+        p0 = tri[:, 0]
+        e1 = tri[:, 1] - p0
+        e2 = tri[:, 2] - p0
+
+        def cross(x, y):
+            return (
+                x[:, 1] * y[:, 2] - x[:, 2] * y[:, 1],
+                x[:, 2] * y[:, 0] - x[:, 0] * y[:, 2],
+                x[:, 0] * y[:, 1] - x[:, 1] * y[:, 0],
+            )
+
+        nx, ny, nz = cross(e1, e2)
+        det = nx * nx + ny * ny + nz * nz
+        ok = det > 0.0
+        inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+        n3 = np.stack([nx, ny, nz], axis=1)
+        r0 = cross(e2, n3)
+        r1 = cross(n3, e1)
+        for k in range(3):
+            flat[a:b, k] = r0[k] * inv
+            flat[a:b, 3 + k] = r1[k] * inv
+            flat[a:b, 6 + k] = n3[:, k] * inv
+            flat[a:b, 9 + k] = p0[:, k]
+    return flat
+
+
 def collapse_bvh8(
     bvh: BVH,
     vertices,
     faces,
     width: int = 8,
+    woop: bool = False,
 ) -> BVH8Scene:
     """Collapse the binary BVH into width-wide packet-kernel tables.
 
@@ -163,6 +236,10 @@ def collapse_bvh8(
     10M-tri scene's nodes shrink from 260 MB — forced all-HBM mode — to
     under the VMEM budget) at the cost of nothing but equal-t tie order,
     which is unordered across engines anyway (the equal-t tie contract).
+
+    ``woop=True`` also bakes the Woop unit-triangle table with the SAME
+    row layout (12 lanes a triangle and the prim ids at lane 108, so
+    rows hold at most 9 triangles).
     """
     if width not in (8, 16):
         raise ValueError(f"width must be 8 or 16: {width}")
@@ -196,6 +273,9 @@ def collapse_bvh8(
             f"max_leaf_primitives<={MAX_LEAF_TRIS}"
         )
     cap = int(counts.max(initial=1))
+    if woop and cap > 9:
+        raise ValueError("woop rows hold <= 9 tris; build with "
+                         "max_leaf_primitives <= 9")
 
     # ---- node collapse (vectorized, level-synchronous BFS) ----
     # The serial preorder emitter cost ~300 s of host Python at 10M tris;
@@ -514,6 +594,14 @@ def collapse_bvh8(
         leafs, seg_row, seg_slot, seg_len, seg_src, tri_all, 9, 0, 90,
         pid_all,
     )
+    leafs_woop = None
+    if woop:
+        leafs_woop = np.zeros((max(m_rows, 1), 128), np.float32)
+        _fill_leaf_segments(
+            leafs_woop, seg_row, seg_slot, seg_len, seg_src,
+            _woop_transforms_from(vertices, faces, indices), 12, 0, 108,
+            pid_all,
+        )
     return BVH8Scene(
         nodes=nodes,
         leafs=leafs,
@@ -522,6 +610,7 @@ def collapse_bvh8(
         depth=max_depth + 1,
         max_leaf=max_leaf_out,
         width=W,
+        leafs_woop=leafs_woop,
     )
 
 

@@ -1,10 +1,10 @@
 """ctypes bridge to the native C++ SAH builder.
 
-A copy of ``nanort_tpu.build.native`` that compiles the SAME source,
-``nanort_tpu/native/sah_builder.cc``, with the same g++ flags into the
-port's own build directory (``nanort_tpu_torch/_build/``, keyed by a
-hash of source and flags) — never into ``nanort_tpu/native/`` — so both
-packages build bit-identical trees. The BVH build is host-side,
+A copy of ``nanort_tpu.build.native`` that compiles the port's own copy
+of the builder, ``nanort_tpu_torch/csrc/sah_builder.cc``, with the same
+g++ flags into the port's build directory (``nanort_tpu_torch/_build/``,
+keyed by a hash of source and flags), so both packages build
+bit-identical trees. The BVH build is host-side,
 once-per-scene work where the reference uses multithreaded C++
 (nanort.h:1997-2073); the NumPy builder is correct but ~0.03 Mtris/s.
 When no toolchain is available the builder falls back to the NumPy path
@@ -28,9 +28,7 @@ from ..core.bvh import BVH
 from ..core.options import BVHBuildOptions, BVHBuildStatistics
 
 _SRC = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..", "nanort_tpu",
-    "native", "sah_builder.cc",
-)
+    os.path.dirname(os.path.abspath(__file__)), "..", "csrc", "sah_builder.cc")
 _CMD = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
         "-pthread"]
 

@@ -1,8 +1,10 @@
 // Wide-BVH ray traversal for NVIDIA Hopper (sm_90a): closest-hit or
-// any-hit, watertight triangle test with the Dekker exact-edge fallback.
+// any-hit, watertight triangle test with the Dekker exact-edge fallback,
+// or the Woop unit-triangle test (the "turbo" intersector).
 //
 // Replaces nanort_tpu/traverse/pallas_packet.py::_kernel_body (the TPU
-// kernel behind traverse_bvh8). It computes what that kernel computes per
+// kernel behind traverse_bvh8), with its intersector="woop" leaf test
+// (pallas_packet.py:283-332). It computes what that kernel computes per
 // ray, over the SAME BVH8/BVH16 node rows and leaf rows that
 // build/bvh8.py::collapse_bvh8 emits, but not the way it computes it:
 // the TPU kernel walks a (sub, 128) packet through one scalar stack held
@@ -28,6 +30,12 @@
 // ops/triangle.py) does; an FMA would change U/V/W in the last bit and
 // break the Dekker split, which assumes separately rounded products.
 // Divisions are IEEE (no -use_fast_math), denormals are kept (no -ftz).
+// The Woop test's 1/d'z must stay a true division: for a ray parallel to
+// the triangle's plane it is +-inf, and the inf or NaN t that follows
+// fails every comparison, so the triangle is missed.
+//
+// The leaf test is a template parameter, so the watertight instantiation
+// is the same code, with the same registers, as without the Woop test.
 //
 // Interface: a plain C function (ctypes, no PyTorch headers) that
 // launches on the caller's stream, allocates nothing, and returns
@@ -69,6 +77,10 @@ struct Params {
   int range_lo;
   int range_hi;
 };
+// With the Woop test, ``leafs`` is the scene's leafs_woop table: one row
+// for each watertight leaf row, triangle t at lanes [12t, 12t+12) as its
+// row-major unit-triangle transform M (9 lanes) and anchor vertex p0 (3),
+// its prim id at lane 108 + t.
 
 __device__ __forceinline__ float sel3(int k, float x, float y, float z) {
   return k == 0 ? x : (k == 1 ? y : z);
@@ -106,6 +118,7 @@ __device__ __forceinline__ float prod_diff(float a, float b, float c,
 
 struct RayState {
   float ox, oy, oz;     // sanitized origin
+  float dx, dy, dz;     // sanitized direction (Woop test)
   float ix, iy, iz;     // safe inverse direction
   bool nx, ny, nz;      // direction sign (d < 0) for slab planes and order
   int kx, ky, kz;       // watertight shear axes
@@ -184,6 +197,33 @@ __device__ __forceinline__ bool hit_triangle(const RayState& r,
   return edge_ok && det_ok && tt <= t_cur && tt >= r.min_t;
 }
 
+// Woop unit-triangle test of one triangle of a leafs_woop row
+// (traverse/packet.py::_woop_test, pallas_packet.py:287-330): o' = M (o -
+// p0), d' = M d, t = -o'z / d'z, u = o'x + t d'x, v = o'y + t d'y, sums in
+// that order. Returns true on acceptance.
+__device__ __forceinline__ bool hit_triangle_woop(const RayState& r,
+                                                  const float* m,
+                                                  float t_cur, int cull,
+                                                  float& tt, float& uu,
+                                                  float& vv) {
+  const float rx = r.ox - __ldg(m + 9);
+  const float ry = r.oy - __ldg(m + 10);
+  const float rz = r.oz - __ldg(m + 11);
+  const float m00 = __ldg(m + 0), m01 = __ldg(m + 1), m02 = __ldg(m + 2);
+  const float m10 = __ldg(m + 3), m11 = __ldg(m + 4), m12 = __ldg(m + 5);
+  const float m20 = __ldg(m + 6), m21 = __ldg(m + 7), m22 = __ldg(m + 8);
+  const float opz = m20 * rx + m21 * ry + m22 * rz;
+  const float dpz = m20 * r.dx + m21 * r.dy + m22 * r.dz;
+  const float rcp = 1.0f / dpz;
+  tt = -opz * rcp;
+  uu = (m00 * rx + m01 * ry + m02 * rz) +
+       tt * (m00 * r.dx + m01 * r.dy + m02 * r.dz);
+  vv = (m10 * rx + m11 * ry + m12 * rz) +
+       tt * (m10 * r.dx + m11 * r.dy + m12 * r.dz);
+  return uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt <= t_cur &&
+         tt >= r.min_t && (!cull || dpz < 0.0f);
+}
+
 // Node row layouts (build/bvh8.py):
 //   W == 16: child w box at lanes [6w, 6w+6), meta at 96+w, leaf count at
 //            112+w; the order axis rides the child-0 count as cnt + 16*axis
@@ -191,7 +231,7 @@ __device__ __forceinline__ bool hit_triangle(const RayState& r,
 //            order axis at lane 80
 // meta >= 0: internal node row; meta < 0: leaf row -(meta + 1).
 // Stack entries: node row >= 0, or -1 - (leaf_row << 4 | count) for a leaf.
-template <int W>
+template <int W, bool kWoop>
 __global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= p.n_rays) return;
@@ -217,6 +257,7 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
 
   RayState r;
   r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
   r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
   r.nx = dx < 0.0f; r.ny = dy < 0.0f; r.nz = dz < 0.0f;
   r.min_t = min_t;
@@ -247,7 +288,10 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
 
   int stack[kStackCap];
   int sp = 0;
-  stack[sp++] = 0;  // root node row
+  // a ray whose interval is empty or NaN fails every slab test: retire it
+  // before its first node (ray_sort.py sorts such rays last, so whole
+  // warps of them exit here)
+  if (min_t <= t_best) stack[sp++] = 0;  // root node row
   while (sp > 0) {
     const int e = stack[--sp];
     if (e >= 0) {
@@ -306,11 +350,13 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
       const int cnt = packed & 15;
       for (int ti = 0; ti < cnt; ++ti) {
         float tt, uu, vv;
-        if (!hit_triangle(r, row + 9 * ti, t_best, p.cull_back_face,
-                          p.exact_edge, tt, uu, vv)) {
-          continue;
-        }
-        const int pid = (int)__ldg(row + 90 + ti);
+        const bool ok =
+            kWoop ? hit_triangle_woop(r, row + 12 * ti, t_best,
+                                      p.cull_back_face, tt, uu, vv)
+                  : hit_triangle(r, row + 9 * ti, t_best, p.cull_back_face,
+                                 p.exact_edge, tt, uu, vv);
+        if (!ok) continue;
+        const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
         if (pid == skip) continue;
         if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
         t_best = tt;
@@ -339,7 +385,7 @@ extern "C" int nrt_packet_traverse(
     const float* min_t, const float* max_t, const int* skip, float* t_out,
     float* u_out, float* v_out, long long* pid_out, int* err, long long n_rays,
     int width, int stack_size, int occlusion, int cull_back_face,
-    int exact_edge, int use_range, int range_lo, int range_hi,
+    int exact_edge, int use_range, int range_lo, int range_hi, int woop,
     void* stream) {
   if (stack_size < 1 || stack_size > kStackCap) return (int)cudaErrorInvalidValue;
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
@@ -350,9 +396,15 @@ extern "C" int nrt_packet_traverse(
   const unsigned grid = (unsigned)((n_rays + kBlock - 1) / kBlock);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (width == 16) {
-    traverse_kernel<16><<<grid, kBlock, 0, s>>>(p);
+    if (woop) {
+      traverse_kernel<16, true><<<grid, kBlock, 0, s>>>(p);
+    } else {
+      traverse_kernel<16, false><<<grid, kBlock, 0, s>>>(p);
+    }
+  } else if (woop) {
+    traverse_kernel<8, true><<<grid, kBlock, 0, s>>>(p);
   } else {
-    traverse_kernel<8><<<grid, kBlock, 0, s>>>(p);
+    traverse_kernel<8, false><<<grid, kBlock, 0, s>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -27,27 +27,32 @@ def bvh_from_numpy(bmin, bmax, flag, axis, data, indices) -> BVH:
 
 
 def scene_from_numpy(nodes, leafs, num_nodes, num_leaf_rows, depth,
-                     max_leaf, width) -> BVH8Scene:
-    """A port ``BVH8Scene`` (host tables) from a BVH8/BVH16 table set."""
+                     max_leaf, width, leafs_woop=None) -> BVH8Scene:
+    """A port ``BVH8Scene`` (host tables) from a BVH8/BVH16 table set,
+    with its Woop table when it has one."""
     return BVH8Scene(
         nodes=np.ascontiguousarray(nodes, np.float32),
         leafs=np.ascontiguousarray(leafs, np.float32),
         num_nodes=int(num_nodes), num_leaf_rows=int(num_leaf_rows),
         depth=int(depth), max_leaf=int(max_leaf), width=int(width),
+        leafs_woop=None if leafs_woop is None
+        else np.ascontiguousarray(leafs_woop, np.float32),
     )
 
 
 def pt_scene_from_numpy(vertices, faces, material_ids, materials,
                         light_faces, packed, face_table=None,
                         light_table=None, facevarying_normals=None,
-                        scene8=None, fused_aux=None, device="cpu"):
-    """A port ``PTScene`` on ``device`` from a JAX ``PTScene``'s fields
-    as NumPy arrays, so both packages render from the same tables.
+                        scene8=None, fused_aux=None, device="cuda"):
+    """A port ``PTScene`` on ``device`` (the card unless the caller asks
+    for another device) from a JAX ``PTScene``'s fields as NumPy arrays,
+    so both packages render from the same tables.
 
     ``materials``: the six material arrays in ``Materials`` field order
     (diffuse, emission, specular, transmittance, ior, dissolve);
     ``packed``: (nodes, soup, num_nodes, num_prims, max_leaf);
-    ``scene8``: a port ``BVH8Scene`` (``scene_from_numpy``) or None."""
+    ``scene8``: a port ``BVH8Scene`` (``scene_from_numpy``, with its
+    ``leafs_woop`` for a turbo scene) or None."""
     from .models.path_tracer import Materials, PTScene
     from .ops.triangle import TriangleMesh
     from .traverse.packed import PackedScene
@@ -75,8 +80,9 @@ def pt_scene_from_numpy(vertices, faces, material_ids, materials,
     return scene.to(device)
 
 
-def rays_from_numpy(org, dir, min_t, max_t, device=None) -> Rays:
-    """Contiguous float32 ``Rays`` on ``device`` from four arrays."""
+def rays_from_numpy(org, dir, min_t, max_t, device="cuda") -> Rays:
+    """Contiguous float32 ``Rays`` on ``device`` (the card unless the
+    caller asks for another device) from four arrays."""
 
     def t(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=device)

@@ -35,9 +35,10 @@ class Camera(NamedTuple):
 
 
 def look_at(eye, center, up=(0.0, 1.0, 0.0), width=512, height=512,
-            fov=45.0, dtype=torch.float32, device=None) -> Camera:
+            fov=45.0, dtype=torch.float32, device="cuda") -> Camera:
     """Camera basis from eye/center/up, computed in float64 on the host
-    and stored as ``dtype`` tensors on ``device``."""
+    and stored as ``dtype`` tensors on ``device`` (the card unless the
+    caller asks for another device)."""
     eye = np.asarray(eye, np.float64)
     center = np.asarray(center, np.float64)
     up = np.asarray(up, np.float64)

@@ -203,14 +203,15 @@ def check_overflow(err: torch.Tensor, slots: int):
 
 
 def trace_bvh16_reference(nodes, leafs, aux, org, dir, tmin, tmax,
-                          occlusion: bool, slots: int):
+                          occlusion: bool, slots: int, stats=None):
     """Plain torch version of K2 on flat rays: a batched per-ray stack
     walk in the kernel's child order with the kernel's arithmetic (every
     product its own op, true divisions, NaN-propagating folds). Every
     loop step pops one entry for every live ray: node entries slab-test
     16 children and push the hits far-first; leaf entries run the
     Moller-Trumbore test on their triangles. Returns what ``trace_bvh16``
-    returns."""
+    returns. ``stats``, a dict, gains the work this batch needed:
+    ``"nodes"`` popped and triangles tested (``"tris"``)."""
     dev = org.device
     n = org.shape[0]
     inf = float("inf")
@@ -252,6 +253,10 @@ def trace_bvh16_reference(nodes, leafs, aux, org, dir, tmin, tmax,
 
         # ---- node entries: slab-test 16 children, push hits far-first
         ni = idx[e >= 0]
+        if stats is not None:
+            stats["nodes"] = stats.get("nodes", 0) + int(ni.numel())
+            stats["tris"] = stats.get("tris", 0) + int(
+                ((-1 - e[e < 0]) & 15).sum())
         if ni.numel():
             rows = nodes.index_select(0, e[e >= 0])
             m = ni.shape[0]

@@ -3,12 +3,13 @@ of ``nanort_tpu.traverse.pallas_packet``).
 
 ``traverse_bvh8`` traces rays through the BVH8/BVH16 tables of
 ``build.bvh8.collapse_bvh8``: closest-hit or any-hit (``occlusion``),
-the watertight intersector with the Dekker exact-edge fallback, and the
-skip / prim-range / back-face filters. On CUDA tensors it launches the
-hand-written kernel ``csrc/packet_traverse.cu`` (one thread per ray, a
-private stack); on CPU tensors it runs ``_traverse_reference``, the plain
-torch version of the same per-ray traversal — the same child order and
-the same arithmetic, so the two agree bit for bit.
+the watertight intersector with the Dekker exact-edge fallback or the
+Woop unit-triangle test (``intersector="woop"``, over ``leafs_woop``),
+and the skip / prim-range / back-face filters. On CUDA tensors it
+launches the hand-written kernel ``csrc/packet_traverse.cu`` (one thread
+per ray, a private stack); on CPU tensors it runs ``_traverse_reference``,
+the plain torch version of the same per-ray traversal — the same child
+order and the same arithmetic, so the two agree bit for bit.
 
 Equal-t ties: the last equal-t hit in this per-ray near-first order
 wins. The TPU kernel's order is packet-granular, so ``prim_id`` may
@@ -35,8 +36,11 @@ STACK_CAP = 512  # kStackCap in csrc/packet_traverse.cu
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
 
-# Kernel launches made by traverse_bvh8 (never by the plain version).
-LAUNCHES = 0
+# Kernel launches made by traverse_bvh8 (never by the plain version),
+# by leaf test: "packet_traverse" (watertight), "packet_traverse_woop".
+LAUNCHES = {"packet_traverse": 0, "packet_traverse_woop": 0}
+INTERSECTORS = ("watertight", "woop")
+WOOP_MAX_LEAF = 9  # 12 lanes a triangle + the prim-id block at lane 108
 
 
 def stack_slots(scene: BVH8Scene) -> int:
@@ -92,7 +96,8 @@ def _flat(x: torch.Tensor, trailing: tuple, name: str) -> torch.Tensor:
 def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                   options: BVHTraceOptions = BVHTraceOptions(),
                   skip_prim_id=None, occlusion: bool = False,
-                  specialize: tuple | None = None) -> Hits:
+                  specialize: tuple | None = None,
+                  intersector: str = "watertight") -> Hits:
     """Trace ``rays`` against a BVH8/BVH16 scene (float32).
 
     ``occlusion=True`` is the any-hit mode: each ray stops at its first
@@ -101,12 +106,33 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     tensor overriding ``options.skip_prim_id``. ``specialize`` is
     accepted for API parity (``detect_specialization``) and validated.
 
+    ``intersector="woop"`` tests the triangles of ``scene.leafs_woop``
+    (``collapse_bvh8(..., woop=True)``, at most 9 a row) with the Woop
+    unit-triangle test (pallas_packet.py:283-332) in place of the
+    watertight one; it has no edge functions, so ``exact_edge_fallback``
+    does not apply. Its records may differ from the watertight ones
+    within an ulp of an edge (a hit against a miss, or the neighbouring
+    prim), the JAX package's own contract for it.
+
     Rays keep their batch shape. Misses report ``t = max_t`` (``+inf``
     for degenerate rays in closest-hit mode), ``u = v = 0`` and
-    ``prim_id = 0xFFFFFFFF``.
+    ``prim_id = 0xFFFFFFFF``. Rays with an empty interval
+    (``max_t < min_t``) or a NaN bound cannot hit and retire before
+    their first node.
     """
-    global LAUNCHES
     _check_specialize(specialize)
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {intersector!r}")
+    woop = intersector == "woop"
+    exact_edge = options.exact_edge_fallback and not woop
+    if woop:
+        if scene.leafs_woop is None:
+            raise ValueError(
+                "intersector='woop' needs the Woop leaf table: build the "
+                "scene with collapse_bvh8(..., woop=True)")
+        if scene.max_leaf > WOOP_MAX_LEAF:
+            raise ValueError("woop rows hold <= 9 triangles; rebuild "
+                             "with max_leaf_primitives<=9")
     if scene.width not in (8, 16):
         raise ValueError(f"width must be 8 or 16: {scene.width}")
     slots = stack_slots(scene)
@@ -125,7 +151,8 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     max_t = _flat(rays.max_t, (), "max_t")
     n = org.shape[0]
     nodes = _table(scene.nodes, dev)
-    leafs = _table(scene.leafs, dev)
+    # woop rows pair one to one with the watertight leaf rows
+    leafs = _table(scene.leafs_woop if woop else scene.leafs, dev)
     for name, tab in (("nodes", nodes), ("leafs", leafs)):
         if (tab.dtype != torch.float32 or tab.ndim != 2
                 or tab.shape[1] != LANES or not tab.is_contiguous()):
@@ -145,8 +172,8 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     if dev.type == "cpu":
         t, u, v, pid = _traverse_reference(
             nodes, leafs, scene.width, org, dir, min_t, max_t, skip,
-            prim_range, options.cull_back_face, options.exact_edge_fallback,
-            occlusion, slots)
+            prim_range, options.cull_back_face, exact_edge, occlusion,
+            slots, woop)
     elif dev.type == "cuda":
         for name, tab in (("nodes", nodes), ("leafs", leafs)):
             if tab.data_ptr() % 16:
@@ -166,13 +193,14 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                 ptr(nodes), ptr(leafs), ptr(org), ptr(dir), ptr(min_t),
                 ptr(max_t), ptr(skip32), ptr(t), ptr(u), ptr(v), ptr(pid),
                 ptr(err), n, scene.width, slots, int(occlusion),
-                int(options.cull_back_face),
-                int(options.exact_edge_fallback), int(prim_range is not None),
+                int(options.cull_back_face), int(exact_edge),
+                int(prim_range is not None),
                 prim_range[0] if prim_range else 0,
-                prim_range[1] if prim_range else 0, ctypes.c_void_p(stream))
+                prim_range[1] if prim_range else 0, int(woop),
+                ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
-        LAUNCHES += 1
+        LAUNCHES["packet_traverse_woop" if woop else "packet_traverse"] += 1
         # checked on the stream, without a host sync: an overflow can only
         # come from a scene.depth that BVH8Scene.to did not check, and it
         # fails the next synchronising call (a device assert)
@@ -184,15 +212,51 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     return Hits(t.view(bs), u.view(bs), v.view(bs), pid.view(bs))
 
 
+def _woop_test(rows, o, d, min_t, t_cur, cull_back_face):
+    """Woop unit-triangle test of (m, 9) triangles of ``leafs_woop``
+    rows against m rays, the operations of pallas_packet.py:287-330 in
+    their order (``M (o - p0)``, then ``t = -o'z / d'z``). Hits farther
+    than ``t_cur`` reject, an equal distance is accepted. Returns
+    ``(valid, tt, u, v, prim_ids)``."""
+    m = rows.shape[0]
+    tri = rows[:, :108].view(m, 9, 12)
+    ox, oy, oz = (o[:, a, None] for a in range(3))
+    dx, dy, dz = (d[:, a, None] for a in range(3))
+    rx = ox - tri[..., 9]
+    ry = oy - tri[..., 10]
+    rz = oz - tri[..., 11]
+
+    def row_dot(k, x, y, z):
+        return (tri[..., 3 * k] * x + tri[..., 3 * k + 1] * y
+                + tri[..., 3 * k + 2] * z)
+
+    opz = row_dot(2, rx, ry, rz)
+    dpz = row_dot(2, dx, dy, dz)
+    # a true division: +-inf for a ray parallel to the plane, and the
+    # inf or NaN tt that follows fails every test below
+    rcp = torch.ones_like(dpz) / dpz
+    tt = -opz * rcp
+    uu = row_dot(0, rx, ry, rz) + tt * row_dot(0, dx, dy, dz)
+    vv = row_dot(1, rx, ry, rz) + tt * row_dot(1, dx, dy, dz)
+    valid = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+             & (tt <= t_cur[:, None]) & (tt >= min_t[:, None]))
+    if cull_back_face:
+        valid &= dpz < 0.0
+    return valid, tt, uu, vv, rows[:, 108:117].long()
+
+
 def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
                         prim_range, cull_back_face, exact_edge_fallback,
-                        occlusion, slots):
+                        occlusion, slots, woop=False, stats=None):
     """Plain torch version of the kernel: a batched per-ray stack
     traversal over the same tables, in the same child order, with the
-    same arithmetic (``ops/triangle.py``). Every loop step pops one
-    entry for every live ray: node entries run ``width`` slab tests and
-    push their hit children far-first; leaf entries test their <= 10
-    triangles. Returns flat ``(t, u, v, prim_id)``."""
+    same arithmetic (``ops/triangle.py``, or ``_woop_test`` when
+    ``woop``). Every loop step pops one entry for every live ray: node
+    entries run ``width`` slab tests and push their hit children
+    far-first; leaf entries test their <= 10 (woop: <= 9) triangles.
+    Returns flat ``(t, u, v, prim_id)``. ``stats``, a dict, gains the
+    work this batch needed: ``"nodes"`` popped and triangles tested
+    (``"tris"``)."""
     dev = org.device
     n = org.shape[0]
     inf = float("inf")
@@ -212,9 +276,12 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
     found = torch.zeros(n, dtype=torch.bool, device=dev)
     # column ``slots`` is a write sink for children that are not pushed
     stack = torch.zeros((n, slots + 1), dtype=torch.int64, device=dev)
-    sp = torch.ones(n, dtype=torch.int64, device=dev)  # root row 0 at slot 0
+    # root row 0 at slot 0; a ray whose interval is empty or NaN
+    # (!(min_t <= max_t)) fails every slab test and retires at once
+    sp = (mint <= t_best).long()
     ar_w = torch.arange(width, device=dev)
-    ar_l = torch.arange(10, device=dev)
+    n_slots = 9 if woop else 10
+    ar_l = torch.arange(n_slots, device=dev)
     if width == 16:
         meta_lane, count_lane = 96, 112
     else:
@@ -232,6 +299,10 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
 
         # ---- node entries: slab-test every child, push hits far-first
         ni = idx[e >= 0]
+        if stats is not None:
+            stats["nodes"] = stats.get("nodes", 0) + int(ni.numel())
+            stats["tris"] = stats.get("tris", 0) + int(
+                ((-1 - e[e < 0]) & 15).sum())
         if ni.numel():
             rows = nodes.index_select(0, e[e >= 0])
             m = ni.shape[0]
@@ -280,15 +351,19 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
             rows = leafs.index_select(0, packed >> 4)
             cnt = packed & 15
             m = li.shape[0]
-            tri = rows[:, :90].view(m, 10, 9)
-            pids = rows[:, 90:100].long()
-            co = RayCoeffs(*(c[li][:, None] for c in coeffs))
             tc = t_best[li]
-            valid, tt, uu, vv = intersect_triangles(
-                co, o[li][:, None, :], mint[li][:, None], tc[:, None],
-                tri[..., 0:3], tri[..., 3:6], tri[..., 6:9],
-                cull_back_face=cull_back_face,
-                exact_edge_fallback=exact_edge_fallback)
+            if woop:
+                valid, tt, uu, vv, pids = _woop_test(
+                    rows, o[li], d[li], mint[li], tc, cull_back_face)
+            else:
+                tri = rows[:, :90].view(m, 10, 9)
+                pids = rows[:, 90:100].long()
+                co = RayCoeffs(*(c[li][:, None] for c in coeffs))
+                valid, tt, uu, vv = intersect_triangles(
+                    co, o[li][:, None, :], mint[li][:, None], tc[:, None],
+                    tri[..., 0:3], tri[..., 3:6], tri[..., 6:9],
+                    cull_back_face=cull_back_face,
+                    exact_edge_fallback=exact_edge_fallback)
             valid &= ar_l < cnt[:, None]
             if skip is not None:
                 valid &= pids != skip[li][:, None]
@@ -299,12 +374,12 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
             t_m = torch.where(valid, tt, inf)
             t_min = t_m.amin(1)
             if occlusion:
-                sel = torch.where(valid, ar_l, 10).amin(1)
+                sel = torch.where(valid, ar_l, n_slots).amin(1)
             else:
                 sel = torch.where(valid & (t_m == t_min[:, None]), ar_l,
                                   -1).amax(1)
             any_v = valid.any(1)
-            take = sel.clamp(0, 9)[:, None]
+            take = sel.clamp(0, n_slots - 1)[:, None]
             t_best[li] = torch.where(any_v, tt.gather(1, take)[:, 0], tc)
             u_best[li] = torch.where(any_v, uu.gather(1, take)[:, 0], u_best[li])
             v_best[li] = torch.where(any_v, vv.gather(1, take)[:, 0], v_best[li])

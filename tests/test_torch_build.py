@@ -160,7 +160,7 @@ def test_interop_bvh_and_rays_round_trip(scene_mesh):
     org = rng.normal(size=(33, 3)).astype(np.float32)
     d = rng.normal(size=(33, 3)).astype(np.float32)
     jr = jrt.make_rays(org, d)
-    tr = interop.rays_from_numpy(*(np.asarray(x) for x in jr))
+    tr = interop.rays_from_numpy(*(np.asarray(x) for x in jr), device="cpu")
     for a, b in zip(tr, jr):
         assert a.dtype == torch.float32 and _same_arrays(a.numpy(), b)
 

@@ -40,7 +40,8 @@ def _port_scene(name):
     """(BVH16 scene, aux rows, material ids) on the host."""
     if name == "dense_cornell":
         v, f, mids, mats = make_cornell_dense_pt_scene(2000)
-        s = path_tracer.make_pt_scene(v, f, mids, mats, engine="pallas")
+        s = path_tracer.make_pt_scene(v, f, mids, mats, engine="pallas",
+                                      device="cpu")
         return s.scene8, s.fused_aux, mids
     import nanort_tpu_torch as nt
     from nanort_tpu_torch.build.bvh8 import collapse_bvh8

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain torch
-version on the same tables and rays — K1 (csrc/packet_traverse.cu vs
-traverse/packet.py::_traverse_reference), K2 (csrc/bvh16_trace.cu vs
+version on the same tables and rays — K1 and K1-woop
+(csrc/packet_traverse.cu vs traverse/packet.py::_traverse_reference,
+watertight and Woop leaf tests), K2 (csrc/bvh16_trace.cu vs
 traverse/fused_trace.py::trace_bvh16_reference), K3 and K4
 (csrc/pt_fused.cu vs models/pt_fused.py::_render_fused_reference and
 _render_fused_bvh_reference). Tolerance: bit-identical results (kernel
@@ -10,7 +11,11 @@ are built with --fmad=false). The one exception is the path tracers'
 the kernel's cosf/sinf and torch's CPU sin/cos differ in the last ulp,
 which flips a later lobe pick on a few paths (an H100 run gave 93.5%
 identical pixels), so it is held to 85% identical pixels and the image
-mean within 2%.
+mean within 2%. The megabatch route (``render_path_traced(...,
+fused=False)``) must launch K1 or K1-woop for every trace and never a
+plain version, and ``trace_paths`` on the card must agree with its CPU
+run on the same draws on at least 99% of rays (its shading is plain
+torch on both; cos/sin come from two float64 libms).
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where only torch is installed:
@@ -43,11 +48,11 @@ def dev():
     return torch.device("cuda")
 
 
-def _scene(v, f, width):
+def _scene(v, f, width, woop=False):
     bvh, _ = nt.build_triangle_bvh(
         TriangleMesh(v, f),
         nt.BVHBuildOptions(min_leaf_primitives=9, max_leaf_primitives=9))
-    return collapse_bvh8(bvh, v, f, width=width)
+    return collapse_bvh8(bvh, v, f, width=width, woop=woop)
 
 
 def _rays(n, seed, broken=True):
@@ -64,10 +69,12 @@ def _rays(n, seed, broken=True):
 
 
 def _same_on_both(scene, rays, dev, **kw):
-    before = packet.LAUNCHES
+    key = ("packet_traverse_woop" if kw.get("intersector") == "woop"
+           else "packet_traverse")
+    before = dict(packet.LAUNCHES)
     got = packet.traverse_bvh8(scene.to(dev),
                                nt.Rays(*(x.to(dev) for x in rays)), **kw)
-    assert packet.LAUNCHES == before + 1
+    assert packet.LAUNCHES == {**before, key: before[key] + 1}
     want = packet.traverse_bvh8(scene, rays, **kw)
     for a, b in zip(got, want):
         assert a.is_cuda
@@ -105,9 +112,39 @@ def test_kernel_matches_plain_camera_frame(dev):
     from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 
     cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=256, height=256,
-                  fov=60.0)
+                  fov=60.0, device="cpu")
     rays_t, _ = packet.tile_image_rays(pinhole_rays(cam), 128, 64)
     _same_on_both(_scene(v, f, 16), rays_t, dev)
+
+
+@pytest.mark.parametrize("opt", ["closest", "cull", "range"])
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("width", [8, 16])
+def test_woop_kernel_matches_plain_small_scene(dev, width, occlusion, opt):
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
+    _same_on_both(_scene(v, f, width, woop=True), _rays(3001, 5), dev,
+                  options=OPTIONS[opt], occlusion=occlusion,
+                  intersector="woop")
+
+
+def test_woop_kernel_matches_plain_with_skip_and_dead_rays(dev):
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
+    scene = _scene(v, f, 16, woop=True)
+    rays = _rays(3001, 6)
+    first = packet.traverse_bvh8(scene, rays, intersector="woop")
+    max_t = torch.where(torch.arange(3001) % 3 == 0, 0.0, rays.max_t)
+    rays = rays._replace(max_t=max_t.contiguous())
+    _same_on_both(scene, rays, dev, skip_prim_id=first.prim_id,
+                  intersector="woop")
+
+
+def test_woop_kernel_matches_plain_camera_frame(dev):
+    v, f = make_subdivided_sphere_scene(100_000)
+    cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=256, height=256,
+                  fov=60.0, device="cpu")
+    rays_t, _ = packet.tile_image_rays(pinhole_rays(cam), 128, 64)
+    _same_on_both(_scene(v, f, 16, woop=True), rays_t, dev,
+                  intersector="woop")
 
 
 def test_kernel_rejects_host_tables(dev):
@@ -124,12 +161,14 @@ def test_kernel_rejects_host_tables(dev):
 @pytest.fixture(scope="module")
 def dense_pt():
     sv, sf, mids, mats = make_cornell_dense_pt_scene(2000)
-    return path_tracer.make_pt_scene(sv, sf, mids, mats, engine="pallas")
+    return path_tracer.make_pt_scene(sv, sf, mids, mats, engine="pallas",
+                                     device="cpu")
 
 
 @pytest.fixture(scope="module")
 def cornell_pt():
-    return path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0))
+    return path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0),
+                                     device="cpu")
 
 
 def _incoherent(n, seed):
@@ -150,7 +189,7 @@ def _incoherent(n, seed):
 
 def _cam(w, h, eye_z):
     cam = look_at(eye=(0, 0.0, eye_z), center=(0, 0, 0), width=w, height=h,
-                  fov=45.0)
+                  fov=45.0, device="cpu")
     r = pinhole_rays(cam)
     return r.org.reshape(-1, 3), r.dir.reshape(-1, 3)
 
@@ -248,3 +287,56 @@ def _same_image(got, want, trig):
     same = (got == want).all(1).float().mean()
     assert same > 0.85, same
     assert abs(float(got.mean() - want.mean())) < 0.02 * float(want.mean())
+
+
+# ------------------------------------------------------ megabatch route
+
+@pytest.fixture(scope="module")
+def dense_turbo():
+    sv, sf, mids, mats = make_cornell_dense_pt_scene(2000)
+    return path_tracer.make_pt_scene(sv, sf, mids, mats, engine="turbo",
+                                     device="cpu")
+
+
+def test_megabatch_route_launches_kernels_only(dev, dense_pt, dense_turbo,
+                                               monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(packet, "_traverse_reference", plain)
+    cam = look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0), width=32, height=16,
+                  fov=45.0, device=dev)
+    for scene, key in ((dense_pt, "packet_traverse"),
+                       (dense_turbo, "packet_traverse_woop")):
+        before = dict(packet.LAUNCHES)
+        fused = dict(pt_fused.LAUNCHES)
+        img = path_tracer.render_path_traced(
+            scene.to(dev), pinhole_rays(cam), 3, spp=4, max_bounces=5,
+            fused=False, spp_batch=2)
+        assert img.shape == (16, 32, 3) and img.is_cuda
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+        # 2 megabatches x 5 bounces x (closest + shadow)
+        assert packet.LAUNCHES == {**before, key: before[key] + 20}
+        assert pt_fused.LAUNCHES == fused
+
+
+@pytest.mark.parametrize("engine", ["turbo", "wavefront", "brute"])
+def test_trace_paths_on_card_matches_cpu(dev, dense_turbo, cornell_pt,
+                                         engine):
+    if engine == "wavefront":
+        sv, sf, mids, mats = make_cornell_dense_pt_scene(2000)
+        scene = path_tracer.make_pt_scene(sv, sf, mids, mats, device="cpu")
+    else:
+        scene = dense_turbo if engine == "turbo" else cornell_pt
+    org, d = _cam(24, 20, 2.6 if engine != "brute" else 5.0)
+    draws = torch.from_numpy(np.random.default_rng(12).uniform(
+        size=(6, org.shape[0], 6)).astype(np.float32))
+    want = path_tracer.trace_paths(scene, org, d, max_bounces=6,
+                                   has_normals=False, draws=draws)
+    got = path_tracer.trace_paths(scene.to(dev), org.to(dev), d.to(dev),
+                                  max_bounces=6, has_normals=False,
+                                  draws=draws.to(dev))
+    assert got.is_cuda
+    same = (got.cpu() == want).all(1).float().mean()
+    assert same >= 0.99, same
+    assert abs(float(got.mean() - want.mean())) < 1e-3 * float(want.mean())

@@ -68,7 +68,8 @@ def world():
     d = rng.uniform(-0.8, 0.8, (n, 3)) - org
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
     jrays = jrt.make_rays(org, d)
-    trays = interop.rays_from_numpy(*(np.asarray(x) for x in jrays))
+    trays = interop.rays_from_numpy(*(np.asarray(x) for x in jrays),
+                                    device="cpu")
     want = _jax_brute(jmesh, jrays)
     return dict(v=v, f=f, jmesh=jmesh, jbvh=jbvh, scenes=scenes, jrays=jrays,
                 trays=trays, want=want)
@@ -214,7 +215,8 @@ def _camera_rays(res=64):
     cam = j_cams.look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=res,
                          height=res, fov=60.0)
     jr = j_cams.pinhole_rays(cam)
-    return jr, interop.rays_from_numpy(*(np.asarray(x) for x in jr))
+    return jr, interop.rays_from_numpy(*(np.asarray(x) for x in jr),
+                                       device="cpu")
 
 
 def test_tile_untile_match_jax():
@@ -260,7 +262,7 @@ def test_detect_specialization_matches_jax(batch, sub):
     want = jp.detect_specialization(jrt.Rays(*(jax.numpy.asarray(x) for x in r)),
                                     sub=sub)
     got = packet.detect_specialization(
-        interop.rays_from_numpy(*r), sub=sub)
+        interop.rays_from_numpy(*r, device="cpu"), sub=sub)
     assert got == want
 
 

@@ -81,7 +81,7 @@ def test_make_pt_scene_tables_match_jax(name):
 
     make, arg = SCENE_ARGS[name]
     engine = "pallas" if name == "dense" else "wavefront"
-    port = path_tracer.make_pt_scene(*make(arg), engine=engine)
+    port = path_tracer.make_pt_scene(*make(arg), engine=engine, device="cpu")
     want = jpt.make_pt_scene(*getattr(jproc, make.__name__)(arg),
                              engine=engine)
     _assert_same_tables(_tables(port), _tables(want))
@@ -195,23 +195,53 @@ def test_router_defaults_and_refusals():
     assert path_tracer.default_spp_lanes(100, 4) == 25
     assert path_tracer.default_spp_lanes(4, 2) == 2
     assert path_tracer.default_spp_lanes(4, 4) == 1
-    scene = path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0))
+    scene = path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0),
+                                      device="cpu")
     rays = pinhole_rays(look_at(eye=(0, 0, 5.0), center=(0, 0, 0), width=4,
-                                height=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        path_tracer.render_path_traced(scene, rays, 3, spp=1, fused=False)
-    big = path_tracer.make_pt_scene(*make_cornell_dense_pt_scene(600))
-    assert big.mesh.faces.shape[0] > path_tracer.BRUTE_MAX_TRIS
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        path_tracer.render_path_traced(big, rays, 3, spp=1)
-    with pytest.raises(NotImplementedError, match="K1-woop"):
+                                height=4, device="cpu"))
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(path_tracer, "render_megabatch", _recording(
+            path_tracer.render_megabatch, calls))
+        # fused=False renders, on the megabatch route
+        img = path_tracer.render_path_traced(scene, rays, 3, spp=1,
+                                             max_bounces=3, fused=False)
+        assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
+        assert len(calls) == 1
+        # a scene neither fused kernel takes falls to the megabatch route
+        big = path_tracer.make_pt_scene(*make_cornell_dense_pt_scene(600),
+                                        device="cpu")
+        assert big.mesh.faces.shape[0] > path_tracer.BRUTE_MAX_TRIS
+        assert not (pt_fused.fused_eligible(big)
+                    or pt_fused.fused_bvh_eligible(big))
+        img = path_tracer.render_path_traced(big, rays, 3, spp=1,
+                                             max_bounces=3)
+        assert len(calls) == 2 and bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="neither fused kernel"):
+        path_tracer.render_path_traced(big, rays, 3, spp=1, fused=True)
+    # engine="turbo" builds leaf-9 BVH16 tables with their Woop table
+    turbo = path_tracer.make_pt_scene(*make_cornell_dense_pt_scene(600),
+                                      engine="turbo", device="cpu")
+    s8 = turbo.scene8
+    assert s8.leafs_woop is not None and s8.max_leaf <= 9
+    assert s8.leafs_woop.shape == s8.leafs.shape
+    assert pt_fused.fused_bvh_eligible(turbo)
+    with pytest.raises(ValueError, match="unknown engine"):
         path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0),
-                                  engine="turbo")
+                                  engine="woop", device="cpu")
+
+
+def _recording(fn, calls):
+    def wrapped(*a, **k):
+        calls.append(k)
+        return fn(*a, **k)
+
+    return wrapped
 
 
 def _cam_rays(w, h, eye):
     return pinhole_rays(look_at(eye=eye, center=(0, 0, 0), width=w,
-                                height=h, fov=45.0))
+                                height=h, fov=45.0, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -253,7 +283,7 @@ def _port_scene_from(z):
         z["light_faces"],
         (z["packed_nodes"], z["packed_soup"], *z["sizes"], None),
         face_table=z["face_table"], light_table=z["light_table"],
-        scene8=scene8, fused_aux=z.get("aux"))
+        scene8=scene8, fused_aux=z.get("aux"), device="cpu")
 
 
 @pytest.mark.parametrize("job", ["brute_poly", "bvh_tiles"])
@@ -276,7 +306,7 @@ def test_pt_scene_from_numpy_round_trip():
     """The carried scene holds the same tables as the port's own build
     and keeps every tensor's dtype."""
     port = path_tracer.make_pt_scene(*make_cornell_dense_pt_scene(2000),
-                                     engine="pallas")
+                                     engine="pallas", device="cpu")
     z = _tables(port)
     carried = _port_scene_from(z)
     _assert_same_tables(_tables(carried), z)

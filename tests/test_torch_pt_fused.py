@@ -37,7 +37,7 @@ torch.set_num_threads(1)
 
 def _cam(w, h, eye):
     r = pinhole_rays(look_at(eye=eye, center=(0, 0, 0), width=w, height=h,
-                             fov=45.0))
+                             fov=45.0, device="cpu"))
     return r.org.reshape(-1, 3), r.dir.reshape(-1, 3)
 
 
@@ -78,12 +78,14 @@ JOBS = {
 
 @pytest.fixture(scope="module")
 def scenes():
-    cornell = path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0))
+    cornell = path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0),
+                                        device="cpu")
     v, f, m, mats = make_cornell_dense_pt_scene(2000)
     return {"cornell": cornell, "cornell26": _tilted_normals(cornell),
             "cornell_dark": _no_lights(cornell),
             "dense": path_tracer.make_pt_scene(v, f, m, mats,
-                                               engine="pallas")}
+                                               engine="pallas",
+                                               device="cpu")}
 
 
 @pytest.fixture(scope="module")

@@ -46,7 +46,7 @@ def test_main_path_slice_matches_jax():
     bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), opts)
     scene = collapse_bvh8(bvh, v, f, width=16).to("cpu")
     cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=RES, height=RES,
-                  fov=60.0)
+                  fov=60.0, device="cpu")
     rays = pinhole_rays(cam)
     rays_t, untile = tile_image_rays(rays, *TILE)
     spec = detect_specialization(rays_t, sub=1)
