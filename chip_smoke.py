@@ -8,8 +8,9 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a),
 nothing of JAX. Phases, one line or more each:
 
 1. the card (``nvidia-smi`` name and power limit);
-2. the builds: the three CUDA sources (one nvcc each, started together)
-   and the native SAH builder (g++), with their seconds;
+2. the builds: the four CUDA sources (one nvcc each, started together)
+   and the native SAH builder (g++), with their seconds (and, beside
+   them, a ``ptxas -v`` report of K5 and K2, printed in phase 14);
 3. small-scene parity: cornell box + UV sphere, 3,000 seeded rays, the
    kernel at widths 16 and 8 against the brute-force oracle on the card,
    for closest-hit, skip_prim_id, cull_back_face, prim_ids_range,
@@ -56,7 +57,24 @@ nothing of JAX. Phases, one line or more each:
     its layers (trace kernel, sort and unsort, shading) with CUDA events;
 12. the two megabatch engines without a kernel: the wavefront walk on the
     midscale scene at 512^2 x 4 spp, and brute force on the Cornell box
-    at 512^2 x 16 spp.
+    at 512^2 x 16 spp;
+13. config A on the K1 route: ``render_ao`` at 512^2 x 8 AO samples on
+    the Cornell box + UV sphere (16,138 triangles, leaf 8, BVH16), one
+    warm-up and 3 renders timed with CUDA events; 2 K1 launches a render
+    and no other kernel; both traces of one render (the 262,144 tiled
+    primary rays and the 2,097,152 tile-ordered occlusion rays, skipping
+    the hit prim, dead where the pixel missed) held to the plain version
+    on the same tensors, bit for bit;
+14. K2's watertight test with and without a per-ray skip on phase 7's
+    rays against its plain version and 1,024 of them against brute
+    force, then K5: ``render_ao_fused`` on phase 13's scene, rays and
+    draws (1 launch a render, a warm-up and 3 timed), the kernel against
+    its plain version on the full 512^2 x 8-sample input bit for bit,
+    and against phase 13's render under the tie contract;
+15. the stack engine (plain torch, no kernel): ``render_aovs`` at 512^2
+    on config A's scene against phase 13's primary records, ``render_ao``
+    at 128^2 against the K1 route, and the graft entry's shape (16^2
+    rays, 234 triangles) against brute force.
 
 It then prints one JSON line with every kernel (its launches on the main
 path, its error against its plain version, its time, its plain
@@ -68,6 +86,7 @@ exits non-zero without the ok line; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -90,8 +109,11 @@ F32_OPS_S = 67e12
 # 3 mul, 6 compare), one Woop test (3 sub, 10 for o'z and d'z, 1 div,
 # 1 mul, 24 for u and v, 5 compare), one Moller-Trumbore test, and one
 # path vertex's shading (fresnel, lobe pick, light sample, ONB, next
-# direction; about 200)
+# direction; about 200), and one AO sample's share of the fused AO pass
+# (15 for its world direction, plus an eighth of the pixel's ~40 for the
+# normal flip, the offset point and the basis: about 20)
 SLAB_OPS, WT_OPS, WOOP_OPS, MT_OPS, SHADE_OPS = 22, 50, 44, 51, 200
+AO_OPS = 20
 
 
 def check(cond: bool, what: str):
@@ -245,11 +267,12 @@ def hold_megabatch_trace(scene8, rays, kw, got) -> dict:
             "ms": k_ms, "plain_ms": p_ms, "stats": stats}
 
 
-def path_tracer_phases(dev) -> tuple[list[dict], int, float]:
+def path_tracer_phases(dev) -> tuple[list[dict], int, float, tuple]:
     """Phases 7-12 (K2, K3, K4, the config-B and midscale renders, K1-woop
     and the megabatch route); returns their entries of the ``kernels``
-    line, the watertight K1 launches of phase 11 and that kernel's
-    largest error on its phase-11 traces."""
+    line, the watertight K1 launches of phase 11, that kernel's largest
+    error on its phase-11 traces, and phase 7's K2 inputs (the dense
+    scene's BVH16 and aux tables, its incoherent rays and its mesh)."""
     import torch
 
     import nanort_tpu_torch as nt
@@ -562,7 +585,8 @@ def path_tracer_phases(dev) -> tuple[list[dict], int, float]:
         "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1],
         "library_ms": None,
-    }, woop_entry], launches_pallas, pallas_err
+    }, woop_entry], launches_pallas, pallas_err, (s8, dense.fused_aux, rays,
+                                                  dense.mesh)
 
 
 def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
@@ -810,48 +834,409 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
                                for k in ("closest", "shadow"))
 
 
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
-    from nanort_tpu_torch.models import pt_fused
+def capture_traces(render) -> list:
+    """Run ``render()`` once more and keep what the K1 kernel was given
+    and gave back on each of its launches: ``(rays, positional
+    arguments, keyword arguments, hits)``."""
+    from nanort_tpu_torch.traverse import packet
+
+    kept = []
+    real = packet.traverse_bvh8
+
+    def keep(scene8, rays, *a, **k):
+        out = real(scene8, rays, *a, **k)
+        kept.append((rays, a, dict(k), out))
+        return out
+
+    with patched(packet, "traverse_bvh8", keep):
+        render()
+    return kept
+
+
+def hold_k1_trace(scene8, rays, args, kw, got) -> dict:
+    """A K1 trace captured from config A's render against the plain
+    version on the same tensors (bit for bit), the kernel relaunched on
+    them for its time, and the plain version's work count."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.traverse import packet
+
+    opts = args[0] if args else kw.get("options", nt.BVHTraceOptions())
+    occ = kw.get("occlusion", False)
+    skip = kw.get("skip_prim_id")
+    skip = None if skip is None else skip.reshape(-1).long()
+    org, dirs = rays.org.reshape(-1, 3), rays.dir.reshape(-1, 3)
+    n = org.shape[0]
+    dead = (rays.max_t < rays.min_t).reshape(-1)
+    stats, holder = {}, {}
+
+    def plain():
+        holder["want"] = packet._traverse_reference(
+            scene8.nodes, scene8.leafs, scene8.width, org, dirs,
+            rays.min_t.reshape(-1), rays.max_t.reshape(-1), skip, None,
+            opts.cull_back_face, opts.exact_edge_fallback, occ,
+            packet.stack_slots(scene8), stats=stats)
+
+    p_ms = cuda_ms(plain, 1)[0]
+    want = holder.pop("want")
+    got_flat = [x.reshape(-1) for x in got]
+    same = all(torch.equal(a, b) for a, b in zip(got_flat, want))
+    err = record_err(got_flat, want)
+    del want
+    k_ms = median(cuda_ms(lambda: packet.traverse_bvh8(scene8, rays, *args,
+                                                       **kw), 5))
+    hit = got.hit.reshape(-1)
+    return {"rays": n, "dead": int(dead.sum()),
+            "dead_hits": int(hit[dead].sum()), "hits": int(hit.sum()),
+            "skip": skip is not None, "occlusion": occ, "same": same,
+            "err": err, "ms": k_ms, "plain_ms": p_ms, "stats": stats}
+
+
+def config_a_phases(dev, k2_inputs, usage, res: int = 512,
+                    sphere=(64, 128), stack_res: int = 128) -> tuple:
+    """Phases 13-15: config A on the K1 route, K2's watertight test and
+    K5, and the stack engine. ``k2_inputs``: phase 7's dense BVH16 scene,
+    aux rows, incoherent rays and mesh; ``usage``: a future of the
+    ``ptxas -v`` reports. Returns the ``kernels`` entries of K2-watertight
+    and K5, and K1's launches and largest error in phase 13."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.io.procedural import (
+        make_cornell_box, make_uv_sphere, merge_meshes)
+    from nanort_tpu_torch.models import ao_fused, objrender
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import compare_hits
     from nanort_tpu_torch.traverse import fused_trace, packet
 
-    return {**packet.LAUNCHES, "bvh16_trace": fused_trace.LAUNCHES,
-            **pt_fused.LAUNCHES}
+    S = 8
+    n_px = res * res
+    # ---- 13. config A on the K1 route
+    t0 = time.perf_counter()
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(*sphere, 0.6))
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    s16 = collapse_bvh8(bvh, v, f, width=16).to(dev)
+    mesh = TriangleMesh(torch.from_numpy(v).to(dev),
+                        torch.from_numpy(f).to(dev))
+    setup_s = time.perf_counter() - t0
+    say(f"# phase 13: config A scene {len(f)} tris, native build + BVH16 "
+        f"collapse {setup_s:.2f} s: {s16.num_nodes} nodes, "
+        f"{s16.num_leaf_rows} leaf rows, depth {s16.depth}, max leaf "
+        f"{s16.max_leaf}")
+    if sphere == (64, 128):
+        check(len(f) == 16_138, f"config A has {len(f)} tris, not 16,138")
+    cam = look_at(eye=(0, 0.0, 5.0), center=(0, 0, 0), width=res,
+                  height=res, fov=45.0, device=dev)
+    rays = pinhole_rays(cam)
+    spec = packet.detect_specialization(rays)
+    holder = {}
+
+    def render_k1():
+        holder["k1"] = objrender.render_ao(
+            bvh, mesh, rays, seed=7, n_samples=S, max_leaf=8, scene8=s16,
+            specialize=spec)
+
+    ms_k1, busy_k1, counts = time_calls(render_k1)
+    aovs_k1, hits_k1 = holder.pop("k1")
+    best = min(ms_k1) / 1e3
+    launches_k1 = counts["packet_traverse"]
+    say(f"# phase 13: config A on K1, render_ao {res}x{res} x {S} AO "
+        f"samples: seconds {[round(t / 1e3, 5) for t in ms_k1]}, best "
+        f"{best:.5f} s = {n_px * (1 + S) / best / 1e6:.1f} effective "
+        f"Mrays/s; device busy {busy_k1:.4f} of the host wall; hit "
+        f"fraction {float(aovs_k1['hit'].float().mean()):.5f}, AO mean over "
+        f"hits {float(aovs_k1['ao'][aovs_k1['hit']].mean()):.5f}; launches "
+        f"{counts}")
+    check(counts == {**{k: 0 for k in counts}, "packet_traverse": 8},
+          f"config A on K1: launches {counts}, expected 2 K1 a render")
+    ao = aovs_k1["ao"]
+    check(tuple(ao.shape) == (res, res) and bool(torch.isfinite(ao).all())
+          and 0.0 < float(ao.mean()) < 1.0, "config A: bad AO image")
+    held = {}
+    for kind, (r, a, kw, got) in zip(("primary", "occlusion"),
+                                     capture_traces(render_k1)):
+        h = hold_k1_trace(s16, r, a, kw, got)
+        held[kind] = h
+        say(f"phase 13 K1 {kind} trace: {h['rays']} rays (skip "
+            f"{h['skip']}, any-hit {h['occlusion']}), {h['dead']} dead "
+            f"(hits among them {h['dead_hits']}), {h['hits']} hits; kernel "
+            f"== plain bit for bit: {h['same']}; max abs err {h['err']}; "
+            f"kernel {h['ms']:.3f} ms (median of 5), plain "
+            f"{h['plain_ms']:.1f} ms; work {h['stats']}")
+        check(h["same"], f"config A K1 {kind} trace disagrees with the "
+              "plain version")
+    check(held["primary"]["rays"] == n_px
+          and held["occlusion"]["rays"] == S * n_px
+          and held["occlusion"]["skip"] and held["occlusion"]["occlusion"]
+          and held["occlusion"]["dead_hits"] == 0,
+          f"config A's K1 traces are not the route's: {held}")
+    holder.clear()
+    torch.cuda.empty_cache()
+
+    # ---- 14. K2 watertight alone, then K5
+    d_s8, d_aux, k2_rays, d_mesh = k2_inputs
+    nodes, leafs, aux_t, slots = fused_trace._check_tables(d_s8, d_aux, dev)
+    first = fused_trace.trace_bvh16(d_s8, k2_rays, intersector="watertight")
+    n2 = k2_rays.org.shape[0]
+    skip = torch.where(torch.arange(n2, device=dev) % 2 == 0,
+                       first.prim_id, -1)
+
+    def k2(occ, sk=None):
+        return fused_trace.trace_bvh16(
+            d_s8, k2_rays, d_aux, occlusion=occ, want_aux=not occ,
+            intersector="watertight", skip=sk)
+
+    def k2_plain(occ, sk=None, stats=None):
+        return fused_trace.trace_bvh16_reference(
+            nodes, leafs, None if occ else aux_t, k2_rays.org, k2_rays.dir,
+            k2_rays.min_t, k2_rays.max_t, occ, slots, stats=stats,
+            intersector="watertight", skip=sk)
+
+    k2_stats, k2_err, k2_same = {}, 0.0, True
+    for name, occ, sk in (("closest+aux", False, None),
+                          ("closest+aux, skip", False, skip),
+                          ("occlusion", True, None),
+                          ("occlusion, skip", True, skip)):
+        got = k2(occ, sk)
+        want = k2_plain(occ, sk, k2_stats if name == "closest+aux" else None)
+        if occ:
+            got, want = (got,), (want,)
+        same = all(torch.equal(a, b) for a, b in zip(got, want)
+                   if b is not None)
+        k2_same &= same
+        if not occ:
+            k2_err = max(k2_err, max_abs(got.t, want.t, got.hit),
+                         max_abs(got.u, want.u), max_abs(got.v, want.v),
+                         max_abs(got.normal, want.normal))
+        say(f"K2 watertight {name}, {n2} incoherent rays: "
+            f"{int(got[0].sum()) if occ else int(got.hit.sum())} "
+            f"{'occluded' if occ else 'hits'}; kernel == plain bit for bit: "
+            f"{same}")
+    check(k2_same, "K2 watertight disagrees with its plain version")
+    k2w_ms = median(cuda_ms(lambda: k2(False), 5))
+    k2w_skip_ms = median(cuda_ms(lambda: k2(True, skip), 5))
+    k2w_plain_ms = min(cuda_ms(lambda: k2_plain(False), 1))
+    k2w_bound = bound(n2 * (32 + 36) + nbytes(nodes, leafs, aux_t),
+                      trace_ops(k2_stats, 16, WT_OPS))
+    say(f"K2 watertight: kernel closest+aux {k2w_ms:.3f} ms, occlusion with "
+        f"skip {k2w_skip_ms:.3f} ms (medians of 5); plain {k2w_plain_ms:.1f} "
+        f"ms; max abs err {k2_err}; work {k2_stats}, bound "
+        f"{k2w_bound[0]:.4f} ms ({k2w_bound[1]})")
+    # 1,024 well-formed rays against brute force (the watertight test;
+    # K2 rejects a hit at exactly tt == tmax, which these rays never meet)
+    good = ((k2_rays.dir.abs().sum(1) > 0)
+            & torch.isfinite(k2_rays.org).all(1)).nonzero().squeeze(1)
+    sel = good[:: max(1, good.numel() // 1024)][:1024]
+    sub = nt.Rays(*(x[sel].contiguous() for x in k2_rays))
+    rec = fused_trace.trace_bvh16(d_s8, sub, intersector="watertight")
+    got = nt.Hits(rec.t, rec.u, rec.v,
+                  torch.where(rec.hit, rec.prim_id.long(), nt.INVALID_PRIM_ID))
+    brute = nt.brute_force_traverse(d_mesh, sub)
+    c = compare_hits(got, brute)
+    occ = fused_trace.trace_bvh16(d_s8, sub, occlusion=True,
+                                  intersector="watertight")
+    occ_ok = torch.equal(occ, brute.hit)
+    say(f"K2 watertight vs brute force on {sel.numel()} rays: {c}; "
+        f"occlusion equal to brute hits: {occ_ok}")
+    check(c["ok"] and occ_ok, "K2 watertight disagrees with brute force")
+    del first, skip, got, want
+    torch.cuda.empty_cache()
+
+    # K5 on phase 13's scene, rays and draws (seed 7)
+    aux_a = ao_fused.build_ao_aux(mesh, s16)
+
+    def render_k5():
+        holder["k5"] = ao_fused.render_ao_fused(mesh, rays, 7, s16, aux_a,
+                                                n_samples=S)
+
+    ms_k5, busy_k5, counts = time_calls(render_k5)
+    aovs_k5, hits_k5 = holder.pop("k5")
+    best5 = min(ms_k5) / 1e3
+    launches_k5 = counts["ao_fused"]
+    launches_k2w = counts["bvh16_trace_watertight"]
+    say(f"# phase 14: config A on K5, render_ao_fused {res}x{res} x {S}: "
+        f"seconds {[round(t / 1e3, 5) for t in ms_k5]}, best {best5:.5f} s "
+        f"= {n_px * (1 + S) / best5 / 1e6:.1f} effective Mrays/s; device "
+        f"busy {busy_k5:.4f} of the host wall; K5/K1 render time "
+        f"{best5 / best:.3f}; launches {counts}")
+    check(counts == {**{k: 0 for k in counts}, "ao_fused": 4,
+                     "bvh16_trace_watertight": 4},
+          f"config A on K5: launches {counts}, expected 1 K5 a render")
+    # the kernel against its plain version on the full input
+    flat = [x.reshape(-1, *x.shape[2:]).contiguous() for x in rays]
+    draws = objrender.resolve_draws(rays, 7, S, True).reshape(
+        S, n_px, 3).contiguous()
+    n5, l5, a5, slots5 = fused_trace._check_tables(s16, aux_a, dev)
+    args5 = (n5, l5, a5, *flat, draws, 1e30, slots5)
+    got5 = ao_fused.ao_fused_outputs(*args5)
+    k5_stats = {}
+    p5_ms = cuda_ms(lambda: holder.__setitem__(
+        "want", ao_fused._ao_fused_reference(*args5, stats=k5_stats)), 1)[0]
+    want5 = holder.pop("want")
+    names5 = ("ao", "t", "u", "v", "prim_id", "hit")
+    frac5 = {k: same_frac(a, b) for k, a, b in zip(names5, got5, want5)}
+    k5_err = max(max_abs(got5[0], want5[0]),
+                 max_abs(got5[1], want5[1], got5[5]),
+                 max_abs(got5[2], want5[2]), max_abs(got5[3], want5[3]))
+    k5_ms = median(cuda_ms(lambda: ao_fused.ao_fused_outputs(*args5), 3))
+    say(f"K5 on the full {n_px}-pixel x {S}-sample input: bit-identical "
+        f"fraction {frac5}; max abs err {k5_err}; kernel {k5_ms:.3f} ms "
+        f"(median of 3), plain {p5_ms:.1f} ms; work {k5_stats}")
+    check(min(frac5.values()) == 1.0, "K5 disagrees with its plain version")
+    # outputs: ao, t, u, v f32, pid, hit i32; inputs: rays, draws, tables
+    k5_bound = bound(n_px * (32 + S * 12 + 24) + nbytes(n5, l5, a5),
+                     trace_ops(k5_stats, 16, WT_OPS)
+                     + k5_stats.get("samples", 0) * AO_OPS)
+    say(f"K5 bound {k5_bound[0]:.4f} ms ({k5_bound[1]}) against "
+        f"{k5_ms:.3f} ms measured")
+    # K5 against phase 13's render under the tie contract
+    c = compare_hits(hits_k5, hits_k1)
+    same_ao = float((aovs_k5["ao"] == aovs_k1["ao"]).float().mean())
+    say(f"K5 vs render_ao (K1 route): {c}; identical AO pixels {same_ao:.5f}")
+    check(torch.equal(aovs_k5["hit"], aovs_k1["hit"]) and c["ok"]
+          and same_ao >= 0.97, "K5 and render_ao disagree")
+    text = usage.result()
+    say("ptxas -v (K5, then K2 alone): " + " | ".join(
+        " ".join(ln.split()) for ln in text.splitlines()
+        if "Used" in ln or "spill" in ln))
+    del got5, want5, args5, draws, flat, aovs_k5, hits_k5
+    torch.cuda.empty_cache()
+
+    # ---- 15. the stack engine on the card (plain torch, no kernel)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    aovs_s, hits_s = objrender.render_aovs(bvh, mesh, rays, max_leaf=8)
+    torch.cuda.synchronize()
+    s_aovs = time.perf_counter() - t0
+    c = compare_hits(hits_s, hits_k1)
+    say(f"# phase 15: stack engine render_aovs {res}x{res}, {len(f)} tris: "
+        f"{s_aovs:.3f} s; against phase 13's K1 primary records: {c}")
+    check(c["ok"], "stack render_aovs disagrees with K1")
+    # render_ao on the stack engine, cut to stack_res^2 (the lockstep walk
+    # syncs with the host every step), against the K1 route
+    cam_s = look_at(eye=(0, 0.0, 5.0), center=(0, 0, 0), width=stack_res,
+                    height=stack_res, fov=45.0, device=dev)
+    rays_s = pinhole_rays(cam_s)
+    t0 = time.perf_counter()
+    ao_s, hao_s = objrender.render_ao(bvh, mesh, rays_s, seed=7,
+                                      n_samples=S, max_leaf=8)
+    torch.cuda.synchronize()
+    s_ao = time.perf_counter() - t0
+    counts = launch_counts()
+    ao_r, hao_r = objrender.render_ao(bvh, mesh, rays_s, seed=7, n_samples=S,
+                                      max_leaf=8, scene8=s16)
+    c = compare_hits(hao_s, hao_r)
+    same_ao = float((ao_s["ao"] == ao_r["ao"]).float().mean())
+    say(f"phase 15: stack engine render_ao {stack_res}x{stack_res} x {S} "
+        f"(cut from {res}^2): {s_ao:.3f} s; against the K1 route: {c}, "
+        f"identical AO pixels {same_ao:.5f}")
+    check(c["ok"] and same_ao >= 0.97, "stack render_ao disagrees with K1")
+    check(sum(counts.values()) == 0, f"the stack engine launched {counts}")
+    # the graft entry's shape: 16^2 rays, 234 triangles, default build
+    gv, gf = merge_meshes(make_cornell_box(2.0), make_uv_sphere(8, 16, 0.5))
+    gmesh = TriangleMesh(torch.from_numpy(gv).to(dev),
+                         torch.from_numpy(gf).to(dev))
+    gbvh, _ = nt.build_triangle_bvh(TriangleMesh(gv, gf))
+    grays = pinhole_rays(look_at(eye=(0.0, 0.0, 2.5), center=(0, 0, 0),
+                                 width=16, height=16, fov=60.0, device=dev))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    gaovs, ghits = objrender.render_aovs(gbvh, gmesh, grays)
+    torch.cuda.synchronize()
+    s_g = time.perf_counter() - t0
+    counts = launch_counts()
+    c = compare_hits(ghits, nt.brute_force_traverse(gmesh, grays))
+    say(f"phase 15: graft shape render_aovs 16x16, {len(gf)} tris: "
+        f"{s_g:.3f} s, rgb {tuple(gaovs['rgb'].shape)}, against brute force: "
+        f"{c}; launches {counts}")
+    check(len(gf) == 234 and tuple(gaovs["rgb"].shape) == (16, 16, 3)
+          and bool(torch.isfinite(gaovs["rgb"]).all()) and c["ok"],
+          "graft-shape render_aovs failed")
+    check(sum(counts.values()) == 0, f"the stack engine launched {counts}")
+
+    k1_err = max(h["err"] for h in held.values())
+    return [{
+        "name": "bvh16_trace_watertight",
+        "route": "cuda",
+        "source": "nanort_tpu_torch/csrc/bvh16_trace.cuh",
+        "replaces": "nanort_tpu/traverse/fused_trace.py:104",
+        "launches": launches_k2w,
+        "max_abs_err": k2_err,
+        "ms": k2w_ms,
+        "plain_ms": k2w_plain_ms,
+        "bound_ms": k2w_bound[0],
+        "bound_by": k2w_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "ao_fused",
+        "route": "cuda",
+        "source": "nanort_tpu_torch/csrc/ao_fused.cu",
+        "replaces": "nanort_tpu/models/ao_fused.py:42",
+        "launches": launches_k5,
+        "max_abs_err": k5_err,
+        "ms": k5_ms,
+        "plain_ms": p5_ms,
+        "bound_ms": k5_bound[0],
+        "bound_by": k5_bound[1],
+        "library_ms": None,
+    }], launches_k1, k1_err
+
+
+def time_calls(fn):
+    """``fn()`` once to warm up and 3 times timed with CUDA events, the
+    launch counts zeroed first. Returns the 3 times in ms, the device's
+    share of their host wall time, and every kernel's launches over the
+    4 calls."""
+    import torch
+
+    zero_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms = cuda_ms(fn, 3)
+    busy = sum(ms) / ((time.perf_counter() - t0) * 1e3)
+    return ms, busy, launch_counts()
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from nanort_tpu_torch.models import ao_fused, pt_fused
+    from nanort_tpu_torch.traverse import fused_trace, packet
+
+    return {**packet.LAUNCHES, **fused_trace.LAUNCHES, **pt_fused.LAUNCHES,
+            "ao_fused": ao_fused.LAUNCHES}
 
 
 def zero_launch_counts():
-    from nanort_tpu_torch.models import pt_fused
+    from nanort_tpu_torch.models import ao_fused, pt_fused
     from nanort_tpu_torch.traverse import fused_trace, packet
 
-    fused_trace.LAUNCHES = 0
-    for counts in (packet.LAUNCHES, pt_fused.LAUNCHES):
+    ao_fused.LAUNCHES = 0
+    for counts in (packet.LAUNCHES, fused_trace.LAUNCHES, pt_fused.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def time_render(scene, rays, **kw):
     """``render_path_traced(seed=3, spp=100, max_bounces=10, **kw)``: one
-    warm-up and 3 repetitions timed with CUDA events. Returns the last
-    image, the 3 times in ms, the device's share of the 3 calls' host
-    wall time (call to synchronised end) and every kernel's launches
-    counted from 0 across the 4 renders."""
-    import torch
-
+    warm-up and 3 repetitions timed with CUDA events (``time_calls``).
+    Returns the last image, the 3 times in ms, the device's share of the
+    3 calls' host wall time and every kernel's launches across the 4
+    renders."""
     from nanort_tpu_torch.models import path_tracer
 
     holder = {}
-    zero_launch_counts()
 
     def run():
         holder["img"] = path_tracer.render_path_traced(
             scene, rays, 3, spp=100, max_bounces=10, **kw)
 
-    run()
-    torch.cuda.synchronize()  # the warm-up's kernel is not in the wall
-    t0 = time.perf_counter()
-    ms = cuda_ms(run, 3)
-    busy = sum(ms) / ((time.perf_counter() - t0) * 1e3)
-    return holder["img"], ms, busy, launch_counts()
+    ms, busy, counts = time_calls(run)
+    return holder["img"], ms, busy, counts
 
 
 def report_render(what, img, ms, busy, launches, expect):
@@ -904,7 +1289,10 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     say(smi)
 
-    # ---- 2. builds
+    # ---- 2. builds (and, beside them, the ptxas reports of K5 and K2)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    usage = pool.submit(lambda: _ext.resource_usage("ao_fused")
+                        + _ext.resource_usage("bvh16_trace"))
     t0 = time.perf_counter()
     k_build = _ext.load_all()
     k_wall = time.perf_counter() - t0
@@ -1123,23 +1511,26 @@ def main() -> int:
 
     del rays, rays_t, untile, hits, holder, scene, scene_h, bvh, fr, fh
     torch.cuda.empty_cache()
-    k2k5, launches_pt, err_pt = path_tracer_phases(dev)
+    k2k5, launches_pt, err_pt, k2_inputs = path_tracer_phases(dev)
+    torch.cuda.empty_cache()
+    entries_a, launches_a, err_a = config_a_phases(dev, k2_inputs, usage)
+    pool.shutdown()
     say(f"packet_traverse launches on the main paths: {launches} (phase 6) "
-        f"+ {launches_pt} (phase 11, pallas)")
+        f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13)")
 
     say(json.dumps({"kernels": [{
         "name": "packet_traverse",
         "route": "cuda",
         "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
         "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
-        "launches": launches + launches_pt,
-        "max_abs_err": max(max_abs, err_pt),
+        "launches": launches + launches_pt + launches_a,
+        "max_abs_err": max(max_abs, err_pt, err_a),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }] + k2k5}))
+    }] + k2k5 + entries_a}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
               file=sys.stderr)

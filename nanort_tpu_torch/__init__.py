@@ -10,6 +10,11 @@ kernels rewritten by hand for NVIDIA Hopper. The main path:
     rays_t, untile = tile_image_rays(rays, 128, 64)
     hits = untile(traverse_bvh8(scene, rays_t))
 
+Config A (``models.objrender``): ``render_aovs`` / ``render_ao`` on K1
+with ``scene8``, or on the reference-exact stack engine
+``traverse_triangles`` without it; ``models.ao_fused.render_ao_fused``
+does the AO pass in one launch (K5).
+
 This package imports torch and NumPy, never jax: ``nanort_tpu``'s own
 ``__init__`` pulls in jax, so nothing here imports from it.
 """
@@ -26,6 +31,7 @@ from .core.ray import PRIM_ID_DTYPE, Hits, Rays, make_rays
 from .build.sah import build_sah
 from .ops.triangle import TriangleMesh, triangle_prim_bounds
 from .traverse.brute import brute_force_traverse
+from .traverse.stack import traverse, traverse_triangles
 
 __version__ = "0.1.0"
 

@@ -17,6 +17,16 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3-vector cross product over the trailing axis, each
+    component ``p - q`` of two separately rounded products in
+    ``jnp.cross``'s order."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
 def length(a: torch.Tensor) -> torch.Tensor:
     """Euclidean length, correctly rounded: torch's vectorized float32
     ``sqrt`` on the CPU is off by one ulp on ~0.7% of inputs, so float32

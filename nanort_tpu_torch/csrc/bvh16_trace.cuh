@@ -1,13 +1,16 @@
 // In-kernel BVH16 trace for NVIDIA Hopper (sm_90a): one ray per thread,
 // closest-hit (with the aux row's material id and geometric normal) or
-// occlusion, Moller-Trumbore leaf test.
+// occlusion, with the Moller-Trumbore leaf test or the watertight one, and
+// an optional per-ray skip of one prim id.
 //
 // Replaces nanort_tpu/traverse/fused_trace.py::make_tracer (K2), the
-// trace primitive that the TPU's fused path tracer (models/pt_fused.py::
-// _pt_kernel_bvh, K4) calls from inside its megakernel. It walks the SAME
-// dense BVH16 node rows (build/bvh8.py::collapse_bvh8(width=16)), leaf
-// rows and aux rows (traverse/fused_trace.py::build_aux_rows), and keeps
-// make_tracer's semantics op for op:
+// trace primitive that the TPU's megakernels call from inside: the fused
+// path tracer (models/pt_fused.py::_pt_kernel_bvh, K4) with the "mt"
+// intersector, the fused AO pass (models/ao_fused.py::_ao_kernel, K5) with
+// "watertight" and skip. It walks the SAME dense BVH16 node rows
+// (build/bvh8.py::collapse_bvh8(width=16)), leaf rows and aux rows
+// (traverse/fused_trace.py::build_aux_rows), and keeps make_tracer's
+// semantics op for op:
 //   * degenerate rays (NaN/inf or |x| >= 3e38 origin or direction, zero
 //     direction) become misses (fused_trace.py:134-145);
 //   * safe_inv maps |d| < FLT_EPSILON to inf signed by the sign bit;
@@ -15,9 +18,24 @@
 //     and folds them with NaN-PROPAGATING max/min, bounded by s_min and
 //     the ray's current t: a child whose slab gives 0 * inf is never
 //     visited (jnp.maximum propagates NaN; fmaxf would drop it);
-//   * the MT test accepts tt >= s_min && tt <= t and replaces on <= in
-//     slot order; occlusion stores t = -(tt + 1) and answers t < 0, so a
-//     blocker at exactly tt == tmax occludes;
+//   * "mt" (kWatertight false): Moller-Trumbore on (p0, e1, e2)
+//     (fused_trace.py:264-313). "watertight": the per-trace shear of
+//     fused_trace.py:159-195 (kz the first axis of largest |d|, kx/ky
+//     swapped when d[kz] < 0), then per triangle the shear-space edge
+//     functions U, V, W, their Dekker double-word recompute when any is
+//     exactly zero, the sign test, det = (U + V) + W, rcp = 1 / det and
+//     t = ((U (shz Az) + V (shz Bz)) + W (shz Cz)) rcp, u = V rcp,
+//     v = W rcp (fused_trace.py:329-390). det == 0 is not tested: with
+//     agreeing signs it forces U = V = W = 0 and t = 0 * inf = NaN, which
+//     fails the range tests. These are not K1's formulas
+//     (packet_traverse.cu): K1 tests det != 0 and divides by a guarded det;
+//   * kSkip: a triangle whose prim id (leaf lane 90 + slot, an exact
+//     float integer) equals the ray's skip is not a hit; -1 skips nothing;
+//   * both tests accept tt >= s_min && tt <= t and replace on <= in slot
+//     order; occlusion stores t = -(tt + 1) and answers t < 0, so a
+//     blocker at exactly tt == tmax occludes, and a ray whose tmax is
+//     negative reports occluded without a walk (the fused AO pass's dead
+//     rays, which it never counts);
 //   * closest-hit answers hit = t < s_max && ok && s_max > s_min, so a
 //     hit at exactly tt == tmax is a miss; a miss reports t = tmax,
 //     u = v = 0, prim -1, material 0 and a zero normal.
@@ -39,7 +57,8 @@
 //
 // Numerics: compile with --fmad=false (every product separately rounded,
 // as the plain torch version, traverse/fused_trace.py::
-// trace_bvh16_reference, computes it), IEEE division, no -ftz.
+// trace_bvh16_reference, computes it, and as the Dekker split needs),
+// IEEE division, no -ftz.
 
 #pragma once
 
@@ -53,6 +72,7 @@ namespace bvh16 {
 constexpr int kStackCap = 512;           // per-thread stack ceiling
 constexpr float kBig = 3.0e38f;          // degenerate-ray threshold
 constexpr float kMaxMult = 1.00000024f;  // 4-ulp exit-plane inflation
+constexpr float kSplit = 4097.0f;        // Veltkamp split constant for f32
 
 struct Record {
   float t, u, v;
@@ -77,6 +97,33 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / d;
 }
 
+// component k of (x, y, z), as jnp.where selects it
+__device__ __forceinline__ float comp(float x, float y, float z, int k) {
+  return k == 0 ? x : (k == 1 ? y : z);
+}
+
+// a * b = p + err exactly (Dekker/Veltkamp), every product rounded alone
+__device__ __forceinline__ void two_prod(float a, float b, float& p,
+                                         float& err) {
+  p = a * b;
+  const float a1 = a * kSplit;
+  const float ah = a1 - (a1 - a);
+  const float al = a - ah;
+  const float b1 = b * kSplit;
+  const float bh = b1 - (b1 - b);
+  const float bl = b - bh;
+  err = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+}
+
+// a * b - c * d in double-word arithmetic (fused_trace.py:167-181)
+__device__ __forceinline__ float prod_diff(float a, float b, float c,
+                                           float d) {
+  float p1, e1, p2, e2;
+  two_prod(a, b, p1, e1);
+  two_prod(c, d, p2, e2);
+  return (p1 - p2) + (e1 - e2);
+}
+
 // Node row (width 16): child w box at lanes [6w, 6w+6), meta at 96+w
 // (>= 0 internal row, < 0 leaf row -(meta+1)), leaf count at 112+w, the
 // order axis riding lane 112 as cnt + 16 * axis. Stack entries: node row
@@ -84,12 +131,16 @@ __device__ __forceinline__ float safe_inv(float d) {
 //
 // Occlusion: rec.hit is the answer, the other fields are unset.
 // kAux: fill mid / normal from the aux row (closest-hit only).
-template <bool kOcclusion, bool kAux>
+// kWatertight: the watertight leaf test, else Moller-Trumbore.
+// kSkip: triangles of prim id ``skip`` are not hits.
+template <bool kOcclusion, bool kAux, bool kWatertight = false,
+          bool kSkip = false>
 __device__ Record trace(const float* __restrict__ nodes,
                         const float* __restrict__ leafs,
                         const float* __restrict__ aux, int stack_size,
                         int* err, float ox, float oy, float oz, float dx,
-                        float dy, float dz, float tmin, float tmax) {
+                        float dy, float dz, float tmin, float tmax,
+                        int skip = -1) {
   const bool okr = fabsf(ox) < kBig && fabsf(oy) < kBig && fabsf(oz) < kBig &&
                    fabsf(dx) < kBig && fabsf(dy) < kBig && fabsf(dz) < kBig &&
                    fabsf(dx) + fabsf(dy) + fabsf(dz) > 0.0f;
@@ -101,6 +152,27 @@ __device__ Record trace(const float* __restrict__ nodes,
   const float s_max = okr ? tmax : INFINITY;
   const float ix = safe_inv(sdx), iy = safe_inv(sdy), iz = safe_inv(sdz);
   const bool snx = sdx < 0.0f, sny = sdy < 0.0f, snz = sdz < 0.0f;
+
+  // watertight shear, once per trace (fused_trace.py:183-195)
+  int kx = 0, ky = 0, kz = 0;
+  float shx = 0.0f, shy = 0.0f, shz = 0.0f;
+  if (kWatertight) {
+    const float adx = fabsf(sdx), ady = fabsf(sdy), adz = fabsf(sdz);
+    kz = ady > adx ? 1 : 0;
+    const float amax = ady > adx ? ady : adx;
+    kz = adz > amax ? 2 : kz;
+    kx = (kz + 1) % 3;
+    ky = (kx + 1) % 3;
+    const float dkz = comp(sdx, sdy, sdz, kz);
+    if (dkz < 0.0f) {
+      const int k = kx;
+      kx = ky;
+      ky = k;
+    }
+    shx = comp(sdx, sdy, sdz, kx) / dkz;
+    shy = comp(sdx, sdy, sdz, ky) / dkz;
+    shz = 1.0f / dkz;
+  }
 
   float t_b = s_max, u_b = 0.0f, v_b = 0.0f;
   float gx = 0.0f, gy = 0.0f, gz = 0.0f;
@@ -163,25 +235,61 @@ __device__ Record trace(const float* __restrict__ nodes,
         const int cnt = packed & 15;
         for (int ti = 0; ti < cnt; ++ti) {
           const float* q = lrow + 9 * ti;
-          const float p0x = __ldg(q), p0y = __ldg(q + 1), p0z = __ldg(q + 2);
-          const float e1x = __ldg(q + 3) - p0x, e1y = __ldg(q + 4) - p0y,
-                      e1z = __ldg(q + 5) - p0z;
-          const float e2x = __ldg(q + 6) - p0x, e2y = __ldg(q + 7) - p0y,
-                      e2z = __ldg(q + 8) - p0z;
-          const float pvx = sdy * e2z - sdz * e2y;
-          const float pvy = sdz * e2x - sdx * e2z;
-          const float pvz = sdx * e2y - sdy * e2x;
-          const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-          const float invd = 1.0f / (det == 0.0f ? 1.0f : det);
-          const float tx = sox - p0x, ty = soy - p0y, tz = soz - p0z;
-          const float uu = (tx * pvx + ty * pvy + tz * pvz) * invd;
-          const float qx = ty * e1z - tz * e1y;
-          const float qy = tz * e1x - tx * e1z;
-          const float qz = tx * e1y - ty * e1x;
-          const float vv = (sdx * qx + sdy * qy + sdz * qz) * invd;
-          const float tt = (e2x * qx + e2y * qy + e2z * qz) * invd;
-          const bool ok = det != 0.0f && uu >= 0.0f && vv >= 0.0f &&
-                          uu + vv <= 1.0f && tt >= s_min && tt <= t_b;
+          float tt, uu, vv;
+          bool ok;
+          if (kWatertight) {
+            const float ax = __ldg(q) - sox, ay = __ldg(q + 1) - soy,
+                        az = __ldg(q + 2) - soz;
+            const float bx = __ldg(q + 3) - sox, by = __ldg(q + 4) - soy,
+                        bz = __ldg(q + 5) - soz;
+            const float cx = __ldg(q + 6) - sox, cy = __ldg(q + 7) - soy,
+                        cz = __ldg(q + 8) - soz;
+            const float Az = comp(ax, ay, az, kz), Bz = comp(bx, by, bz, kz),
+                        Cz = comp(cx, cy, cz, kz);
+            const float Ax = comp(ax, ay, az, kx) - shx * Az;
+            const float Ay = comp(ax, ay, az, ky) - shy * Az;
+            const float Bx = comp(bx, by, bz, kx) - shx * Bz;
+            const float By = comp(bx, by, bz, ky) - shy * Bz;
+            const float Cx = comp(cx, cy, cz, kx) - shx * Cz;
+            const float Cy = comp(cx, cy, cz, ky) - shy * Cz;
+            float U = Cx * By - Cy * Bx;
+            float V = Ax * Cy - Ay * Cx;
+            float W = Bx * Ay - By * Ax;
+            if (U == 0.0f || V == 0.0f || W == 0.0f) {
+              U = prod_diff(Cx, By, Cy, Bx);
+              V = prod_diff(Ax, Cy, Ay, Cx);
+              W = prod_diff(Bx, Ay, By, Ax);
+            }
+            const bool edge_ok = min_nan(min_nan(U, V), W) >= 0.0f ||
+                                 max_nan(max_nan(U, V), W) <= 0.0f;
+            const float det = U + V + W;
+            const float rcp = 1.0f / det;
+            tt = (U * (shz * Az) + V * (shz * Bz) + W * (shz * Cz)) * rcp;
+            uu = V * rcp;
+            vv = W * rcp;
+            ok = edge_ok && tt >= s_min && tt <= t_b;
+          } else {
+            const float p0x = __ldg(q), p0y = __ldg(q + 1), p0z = __ldg(q + 2);
+            const float e1x = __ldg(q + 3) - p0x, e1y = __ldg(q + 4) - p0y,
+                        e1z = __ldg(q + 5) - p0z;
+            const float e2x = __ldg(q + 6) - p0x, e2y = __ldg(q + 7) - p0y,
+                        e2z = __ldg(q + 8) - p0z;
+            const float pvx = sdy * e2z - sdz * e2y;
+            const float pvy = sdz * e2x - sdx * e2z;
+            const float pvz = sdx * e2y - sdy * e2x;
+            const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+            const float invd = 1.0f / (det == 0.0f ? 1.0f : det);
+            const float tx = sox - p0x, ty = soy - p0y, tz = soz - p0z;
+            uu = (tx * pvx + ty * pvy + tz * pvz) * invd;
+            const float qx = ty * e1z - tz * e1y;
+            const float qy = tz * e1x - tx * e1z;
+            const float qz = tx * e1y - ty * e1x;
+            vv = (sdx * qx + sdy * qy + sdz * qz) * invd;
+            tt = (e2x * qx + e2y * qy + e2z * qz) * invd;
+            ok = det != 0.0f && uu >= 0.0f && vv >= 0.0f &&
+                 uu + vv <= 1.0f && tt >= s_min && tt <= t_b;
+          }
+          if (kSkip) ok = ok && (int)__ldg(lrow + 90 + ti) != skip;
           if (!ok) continue;
           if (kOcclusion) {
             t_b = -tt - 1.0f;

@@ -88,3 +88,4 @@ def rays_from_numpy(org, dir, min_t, max_t, device="cuda") -> Rays:
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=device)
 
     return Rays(t(org), t(dir), t(min_t), t(max_t))
+

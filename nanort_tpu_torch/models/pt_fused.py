@@ -46,7 +46,7 @@ PT_FUSED_MAX_TRIS = 256  # csrc/pt_fused.cu kMaxTris (shared-memory table)
 
 # Kernel launches by the wrappers below (never by the plain versions).
 # Every "pt_fused_bvh" launch also runs K2 and counts in
-# traverse.fused_trace.LAUNCHES.
+# traverse.fused_trace.LAUNCHES["bvh16_trace"].
 LAUNCHES = {"pt_fused_brute": 0, "pt_fused_bvh": 0}
 
 _M32 = 0xFFFFFFFF
@@ -641,7 +641,7 @@ def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
             raise RuntimeError(f"pt_fused_bvh kernel launch failed: CUDA "
                                f"error {rc}")
         LAUNCHES["pt_fused_bvh"] += 1
-        fused_trace.LAUNCHES += 1  # K2 runs inside this launch
+        fused_trace.LAUNCHES["bvh16_trace"] += 1  # K2 runs inside
         fused_trace.check_overflow(err, slots)
     return _div(lane_sums(sums, K), float(spp))
 

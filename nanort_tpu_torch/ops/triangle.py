@@ -170,3 +170,47 @@ def triangle_prim_bounds(mesh: TriangleMesh):
     = vertex mean, matching TriangleSAHPred (nanort.h:906-910)."""
     tri = _to_numpy(mesh.vertices)[_to_numpy(mesh.faces)]  # (F, 3, 3)
     return tri.min(axis=1), tri.max(axis=1), tri.mean(axis=1)
+
+
+# ---------------------------------------------------------------------------
+# The triangle primitive protocol of the stack engine (traverse/stack.py):
+# prepare once per ray batch, then intersect a leaf window per step.
+# ---------------------------------------------------------------------------
+
+class TriangleRayCtx(NamedTuple):
+    """Per-ray traversal context (reference PrepareTraversal state)."""
+
+    coeffs: RayCoeffs
+    org: torch.Tensor
+    min_t: torch.Tensor
+
+
+def triangle_num_prims(mesh: TriangleMesh) -> int:
+    return int(mesh.faces.shape[0])
+
+
+def triangle_prepare(mesh: TriangleMesh, rays) -> TriangleRayCtx:
+    del mesh
+    return TriangleRayCtx(coeffs=ray_coeffs(rays.dir), org=rays.org,
+                          min_t=rays.min_t)
+
+
+def make_triangle_intersect(cull_back_face: bool = False,
+                            exact_edge_fallback: bool = True):
+    """The leaf intersect function of the traversal protocol:
+    ``(mesh, ctx, prim_ids, t_cur) -> (valid, t, u, v)``, where
+    ``prim_ids`` is ``(..., L)`` and the fields of ``ctx`` and ``t_cur``
+    carry the leading batch dims (the ray axis of the rays being tested).
+    ``mesh`` fields must be tensors on the rays' device."""
+
+    def intersect(mesh: TriangleMesh, ctx: TriangleRayCtx, prim_ids, t_cur):
+        faces = mesh.faces[prim_ids.long()]
+        p0, p1, p2 = gather_triangle_vertices(mesh.vertices, faces)
+        # ray fields gain the trailing leaf axis
+        coeffs = RayCoeffs(*(c[..., None] for c in ctx.coeffs))
+        return intersect_triangles(
+            coeffs, ctx.org[..., None, :], ctx.min_t[..., None],
+            t_cur[..., None], p0, p1, p2, cull_back_face=cull_back_face,
+            exact_edge_fallback=exact_edge_fallback)
+
+    return intersect

@@ -12,6 +12,7 @@ module is imported.
     packet_traverse.cu  K1 and K1-woop, traverse/packet.py::traverse_bvh8
     bvh16_trace.cu      K2 on its own, traverse/fused_trace.py::trace_bvh16
     pt_fused.cu         K3 and K4 (K4 runs K2), models/pt_fused.py
+    ao_fused.cu         K5 (runs K2 watertight), models/ao_fused.py
 """
 
 from __future__ import annotations
@@ -20,9 +21,11 @@ import concurrent.futures
 import ctypes
 import os
 import shutil
+import subprocess
+import tempfile
 import threading
 
-from .._toolchain import build_shared_library
+from .._toolchain import BUILD_DIR, build_shared_library
 
 CSRC = os.path.normpath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "csrc"))
@@ -39,13 +42,16 @@ KERNELS = {
         "nrt_packet_traverse": [_P] * 12 + [_L] + [_I] * 9 + [_P],
     }),
     "bvh16_trace": ("bvh16_trace.cu", ("bvh16_trace.cuh",), {
-        "nrt_bvh16_trace": [_P] * 15 + [_L] + [_I] * 3 + [_P],
+        "nrt_bvh16_trace": [_P] * 16 + [_L] + [_I] * 4 + [_P],
     }),
     "pt_fused": ("pt_fused.cu", ("bvh16_trace.cuh",), {
         "nrt_pt_fused_brute": ([_P, _I, _P, _I, _P, _I, _F, _P, _P, _P, _L]
                                + [_I] * 6 + [_P]),
         "nrt_pt_fused_bvh": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
                               _L] + [_I] * 8 + [_P]),
+    }),
+    "ao_fused": ("ao_fused.cu", ("bvh16_trace.cuh",), {
+        "nrt_ao_fused": [_P] * 15 + [_L, _I, _F, _F, _I, _P],
     }),
 }
 
@@ -110,3 +116,22 @@ def load_all() -> dict:
             if n not in _libs:
                 _libs[n] = _bind(n, path)
     return {n: s for n, (_, s) in done.items()}
+
+
+def resource_usage(name: str) -> str:
+    """What ``ptxas -v`` reports for library ``name``'s kernels (registers,
+    spill stores and loads, stack frame), compiled with the same flags
+    into a throwaway cubin under ``_build/``."""
+    src = KERNELS[name][0]
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                "-fPIC")]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        r = subprocess.run(
+            [find_nvcc()] + flags + ["-Xptxas", "-v", "-cubin", "-o",
+                                     os.path.join(d, "k.cubin"),
+                                     os.path.join(CSRC, src)],
+            capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"ptxas report for {name} failed:\n{r.stderr}")
+    return r.stderr + r.stdout

@@ -10,16 +10,18 @@ version, ``trace_bvh16_reference``: a batched per-ray stack walk with the
 same child order and the same arithmetic, which agrees with the kernel
 bit for bit. On CPU tensors ``trace_bvh16`` runs the plain version.
 
-Semantics are make_tracer's ``"mt"`` intersector (see the note at the
-top of ``bvh16_trace.cuh``). They differ from ``traverse_bvh8`` (K1) in
-two ways that are part of the contract: slab folds propagate NaN (a
-child whose slab gives ``0 * inf`` is not visited), and a closest hit at
-exactly ``tt == tmax`` is a miss (occlusion counts it). Equal-t ties:
-the child order comes from each ray's own octant, so ``prim_id`` may
-differ from the JAX package's only between hits at exactly equal t.
-
-The ``"watertight"`` intersector and the ``skip`` argument serve only the
-fused AO kernel (K5), which is not ported yet.
+Semantics are make_tracer's, with its two intersectors (see the note at
+the top of ``bvh16_trace.cuh``): ``"mt"`` (Moller-Trumbore, the path
+tracer's) and ``"watertight"`` (with the Dekker exact-edge recompute, the
+fused AO pass's), and its per-ray ``skip`` of one prim id. They differ
+from ``traverse_bvh8`` (K1) in ways that are part of the contract: slab
+folds propagate NaN (a child whose slab gives ``0 * inf`` is not
+visited), a closest hit at exactly ``tt == tmax`` is a miss (occlusion
+counts it), and the watertight ``t`` is
+``((U (shz Az) + V (shz Bz)) + W (shz Cz)) / det`` with no ``det != 0``
+test. Equal-t ties: the child order comes from each ray's own octant, so
+``prim_id`` may differ from the JAX package's only between hits at
+exactly equal t.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..core.math import safe_inverse
 from ..core.ray import Rays
+from ..ops.triangle import _exact_prod_diff, ray_coeffs
 from . import _ext
 from .packet import _table, stack_slots
 
@@ -40,10 +43,13 @@ STACK_CAP = 512  # bvh16::kStackCap in csrc/bvh16_trace.cuh
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier
 
-# Launches that run K2: trace_bvh16's own kernel, and every launch of the
-# BVH path-tracing megakernel (models/pt_fused.render_fused_bvh), which
-# runs K2 inside. The plain versions never count.
-LAUNCHES = 0
+# Launches that run K2, by leaf test: trace_bvh16's own kernel, every
+# launch of the BVH path-tracing megakernel (models/pt_fused.
+# render_fused_bvh, "mt") and of the fused AO pass (models/ao_fused.
+# render_ao_fused, "watertight"), which run K2 inside. The plain versions
+# never count.
+LAUNCHES = {"bvh16_trace": 0, "bvh16_trace_watertight": 0}
+INTERSECTORS = ("mt", "watertight")
 
 
 def required_stack_slots(depth: int, width: int = 16) -> int:
@@ -135,7 +141,8 @@ def _check_tables(scene, aux, dev):
 
 
 def trace_bvh16(scene, rays: Rays, aux=None, occlusion: bool = False,
-                want_aux: bool = False):
+                want_aux: bool = False, intersector: str = "mt",
+                skip=None):
     """Trace flat ``rays`` (``(R, 3)`` org/dir, ``(R,)`` min_t/max_t,
     contiguous float32) through a BVH16 scene (``collapse_bvh8(...,
     width=16)``, tables on the rays' device).
@@ -143,11 +150,14 @@ def trace_bvh16(scene, rays: Rays, aux=None, occlusion: bool = False,
     ``occlusion=True`` returns a bool tensor: some hit in
     ``[min_t, max_t]``. Otherwise returns a ``TraceRecord``; ``want_aux``
     also reads the material id and geometric normal from ``aux``
-    (``build_aux_rows``). On CUDA tensors this launches the K2 kernel; on
+    (``build_aux_rows``). ``intersector``: ``"mt"`` or ``"watertight"``.
+    ``skip``: an optional per-ray int tensor, the prim id each ray does
+    not hit (-1: none). On CUDA tensors this launches the K2 kernel; on
     CPU tensors it runs ``trace_bvh16_reference``."""
-    global LAUNCHES
     if want_aux and (aux is None or occlusion):
         raise ValueError("want_aux needs aux rows and closest-hit mode")
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {intersector!r}")
     dev = rays.org.device
     for name in ("org", "dir", "min_t", "max_t"):
         x = getattr(rays, name)
@@ -158,11 +168,16 @@ def trace_bvh16(scene, rays: Rays, aux=None, occlusion: bool = False,
     n = org.shape[0]
     if tmin.shape[0] != n or tmax.shape[0] != n:
         raise ValueError("one min_t and one max_t per ray")
+    if skip is not None:
+        skip = torch.as_tensor(skip, device=dev).reshape(-1).to(torch.int32)
+        if skip.shape[0] != n:
+            raise ValueError("skip must hold one prim id per ray")
     nodes, leafs, aux_t, slots = _check_tables(
         scene, aux if want_aux else None, dev)
     if dev.type == "cpu":
         return trace_bvh16_reference(nodes, leafs, aux_t, org, dir, tmin,
-                                     tmax, occlusion, slots)
+                                     tmax, occlusion, slots,
+                                     intersector=intersector, skip=skip)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     f32 = dict(dtype=torch.float32, device=dev)
@@ -182,12 +197,14 @@ def trace_bvh16(scene, rays: Rays, aux=None, occlusion: bool = False,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.nrt_bvh16_trace(
             ptr(nodes), ptr(leafs), ptr(aux_t), ptr(org), ptr(dir),
-            ptr(tmin), ptr(tmax), ptr(t), ptr(u), ptr(v), ptr(pid),
-            ptr(hit), ptr(mid), ptr(gn), ptr(err), n, slots, int(occlusion),
-            int(want_aux), ctypes.c_void_p(stream))
+            ptr(tmin), ptr(tmax), ptr(skip), ptr(t), ptr(u), ptr(v),
+            ptr(pid), ptr(hit), ptr(mid), ptr(gn), ptr(err), n, slots,
+            int(occlusion), int(want_aux), int(intersector == "watertight"),
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"bvh16_trace kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    LAUNCHES["bvh16_trace_watertight" if intersector == "watertight"
+             else "bvh16_trace"] += 1
     check_overflow(err, slots)
     if occlusion:
         return hit.bool()
@@ -202,16 +219,84 @@ def check_overflow(err: torch.Tensor, slots: int):
                         "slots): scene.depth does not describe the tables")
 
 
+def _mt_test(tri, o, d, s_min, t_cur):
+    """Moller-Trumbore on (m, 10) leaf slots of (p0, p1, p2) rows against
+    m rays (nanort_tpu/traverse/fused_trace.py:264-291): ``(ok, tt, u,
+    v)``."""
+    one = torch.ones((), device=tri.device)
+    p0x, p0y, p0z = tri[..., 0], tri[..., 1], tri[..., 2]
+    e1x, e1y, e1z = tri[..., 3] - p0x, tri[..., 4] - p0y, tri[..., 5] - p0z
+    e2x, e2y, e2z = tri[..., 6] - p0x, tri[..., 7] - p0y, tri[..., 8] - p0z
+    dx, dy, dz = (d[:, k, None] for k in range(3))
+    ox, oy, oz = (o[:, k, None] for k in range(3))
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    invd = one / torch.where(det == 0.0, one, det)
+    tx, ty, tz = ox - p0x, oy - p0y, oz - p0z
+    uu = (tx * pvx + ty * pvy + tz * pvz) * invd
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    vv = (dx * qx + dy * qy + dz * qz) * invd
+    tt = (e2x * qx + e2y * qy + e2z * qz) * invd
+    ok = ((det != 0.0) & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt >= s_min[:, None]) & (tt <= t_cur[:, None]))
+    return ok, tt, uu, vv
+
+
+def _watertight_test(tri, o, co, s_min, t_cur):
+    """make_tracer's watertight test on (m, 10) leaf slots against m rays
+    with shear coefficients ``co`` (nanort_tpu/traverse/fused_trace.py:
+    329-370): shear-space edge functions, their Dekker recompute when any
+    is exactly zero, ``t = (U (shz Az) + V (shz Bz) + W (shz Cz)) / det``
+    with no det test (a zero det gives a NaN t that fails the range
+    tests). Returns ``(ok, tt, u, v)``."""
+
+    def comp(x, y, z, k):
+        return torch.where(k == 0, x, torch.where(k == 1, y, z))
+
+    a = [tri[..., c] - o[:, c, None] for c in range(3)]
+    b = [tri[..., 3 + c] - o[:, c, None] for c in range(3)]
+    c3 = [tri[..., 6 + c] - o[:, c, None] for c in range(3)]
+    kx, ky, kz, shx, shy, shz = (x[:, None] for x in co)
+    Az, Bz, Cz = comp(*a, kz), comp(*b, kz), comp(*c3, kz)
+    Ax = comp(*a, kx) - shx * Az
+    Ay = comp(*a, ky) - shy * Az
+    Bx = comp(*b, kx) - shx * Bz
+    By = comp(*b, ky) - shy * Bz
+    Cx = comp(*c3, kx) - shx * Cz
+    Cy = comp(*c3, ky) - shy * Cz
+    U = Cx * By - Cy * Bx
+    V = Ax * Cy - Ay * Cx
+    W = Bx * Ay - By * Ax
+    zm = (U == 0.0) | (V == 0.0) | (W == 0.0)
+    U = torch.where(zm, _exact_prod_diff(Cx, By, Cy, Bx), U)
+    V = torch.where(zm, _exact_prod_diff(Ax, Cy, Ay, Cx), V)
+    W = torch.where(zm, _exact_prod_diff(Bx, Ay, By, Ax), W)
+    # NaN-propagating min/max, as jnp.minimum / jnp.maximum
+    edge_ok = ((torch.minimum(torch.minimum(U, V), W) >= 0.0)
+               | (torch.maximum(torch.maximum(U, V), W) <= 0.0))
+    det = U + V + W
+    rcp = torch.ones_like(det) / det
+    tt = (U * (shz * Az) + V * (shz * Bz) + W * (shz * Cz)) * rcp
+    ok = edge_ok & (tt >= s_min[:, None]) & (tt <= t_cur[:, None])
+    return ok, tt, V * rcp, W * rcp
+
+
 def trace_bvh16_reference(nodes, leafs, aux, org, dir, tmin, tmax,
-                          occlusion: bool, slots: int, stats=None):
+                          occlusion: bool, slots: int, stats=None,
+                          intersector: str = "mt", skip=None):
     """Plain torch version of K2 on flat rays: a batched per-ray stack
     walk in the kernel's child order with the kernel's arithmetic (every
     product its own op, true divisions, NaN-propagating folds). Every
     loop step pops one entry for every live ray: node entries slab-test
     16 children and push the hits far-first; leaf entries run the
-    Moller-Trumbore test on their triangles. Returns what ``trace_bvh16``
-    returns. ``stats``, a dict, gains the work this batch needed:
-    ``"nodes"`` popped and triangles tested (``"tris"``)."""
+    ``intersector``'s test on their triangles, less those of the ray's
+    ``skip`` prim id (an int tensor, -1 for none, or None). Returns what
+    ``trace_bvh16`` returns. ``stats``, a dict, gains the work this batch
+    needed: ``"nodes"`` popped and triangles tested (``"tris"``)."""
     dev = org.device
     n = org.shape[0]
     inf = float("inf")
@@ -224,6 +309,9 @@ def trace_bvh16_reference(nodes, leafs, aux, org, dir, tmin, tmax,
     s_max = torch.where(okr, tmax, inf)
     inv = safe_inverse(d)
     neg = d < 0
+    # the watertight shear, per ray (nanort_tpu/traverse/fused_trace.py:
+    # 183-195)
+    co = ray_coeffs(d) if intersector == "watertight" else None
 
     t_b = s_max.clone()
     u_b = torch.zeros(n, device=dev)
@@ -239,7 +327,6 @@ def trace_bvh16_reference(nodes, leafs, aux, org, dir, tmin, tmax,
     sp = (s_min <= s_max).long()
     ar_w = torch.arange(16, device=dev)
     ar_l = torch.arange(10, device=dev)
-    one = torch.ones((), device=dev)
 
     while True:
         live = sp > 0
@@ -293,7 +380,7 @@ def trace_bvh16_reference(nodes, leafs, aux, org, dir, tmin, tmax,
             stack[ni[:, None].expand(m, 16), pos] = entry
             sp[ni] = new_sp
 
-        # ---- leaf entries: Moller-Trumbore on the row's triangles
+        # ---- leaf entries: the leaf test on the row's triangles
         li = idx[e < 0]
         if li.numel():
             packed = -1 - e[e < 0]
@@ -302,27 +389,15 @@ def trace_bvh16_reference(nodes, leafs, aux, org, dir, tmin, tmax,
             cnt = packed & 15
             m = li.shape[0]
             tri = rows[:, :90].view(m, 10, 9)
-            p0x, p0y, p0z = tri[..., 0], tri[..., 1], tri[..., 2]
-            e1x, e1y, e1z = tri[..., 3] - p0x, tri[..., 4] - p0y, tri[..., 5] - p0z
-            e2x, e2y, e2z = tri[..., 6] - p0x, tri[..., 7] - p0y, tri[..., 8] - p0z
-            dx, dy, dz = (d[li, k][:, None] for k in range(3))
-            ox, oy, oz = (o[li, k][:, None] for k in range(3))
-            pvx = dy * e2z - dz * e2y
-            pvy = dz * e2x - dx * e2z
-            pvz = dx * e2y - dy * e2x
-            det = e1x * pvx + e1y * pvy + e1z * pvz
-            invd = one / torch.where(det == 0.0, one, det)
-            tx, ty, tz = ox - p0x, oy - p0y, oz - p0z
-            uu = (tx * pvx + ty * pvy + tz * pvz) * invd
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            vv = (dx * qx + dy * qy + dz * qz) * invd
-            tt = (e2x * qx + e2y * qy + e2z * qz) * invd
             tc = t_b[li]
-            ok = ((det != 0.0) & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                  & (tt >= s_min[li][:, None]) & (tt <= tc[:, None])
-                  & (ar_l < cnt[:, None]))
+            if co is None:
+                ok, tt, uu, vv = _mt_test(tri, o[li], d[li], s_min[li], tc)
+            else:
+                ok, tt, uu, vv = _watertight_test(
+                    tri, o[li], [x[li] for x in co], s_min[li], tc)
+            ok &= ar_l < cnt[:, None]
+            if skip is not None:
+                ok &= rows[:, 90:100].int() != skip[li][:, None]
             any_ok = ok.any(1)
             if occlusion:
                 # the first accepted slot ends the ray: t := -(tt + 1)

@@ -27,7 +27,8 @@ from ..build.bvh8 import BVH8Scene
 from ..core.math import safe_inverse
 from ..core.options import BVHTraceOptions, INVALID_PRIM_ID, PRIM_RANGE_MAX
 from ..core.ray import PRIM_ID_DTYPE, Hits, Rays
-from ..ops.triangle import RayCoeffs, intersect_triangles, ray_coeffs
+from ..ops.triangle import (RayCoeffs, TriangleMesh, intersect_triangles,
+                            ray_coeffs)
 from . import _ext
 
 LANES = 128
@@ -407,6 +408,58 @@ def traverse_bvh8_exact(scene: BVH8Scene, rays: Rays,
     ``traverse_bvh8`` with ``exact_edge_fallback=True``."""
     opts = dataclasses.replace(options, exact_edge_fallback=True)
     return traverse_bvh8(scene, rays, opts, skip_prim_id)
+
+
+def traverse_bvh8_exact_fused(scene: BVH8Scene, rays: Rays,
+                              options: BVHTraceOptions = BVHTraceOptions(),
+                              skip_prim_id=None, specialize=None):
+    """Exact-edge traversal under its JAX name, returning ``(hits,
+    overflow)``. The TPU package runs a flag-only pass and retraces the
+    flagged rows within a fixed capacity, and ``overflow`` says whether
+    that capacity was exceeded; this port's kernel does the exact-edge
+    recompute inline, so ``overflow`` is always a device ``False``."""
+    if not options.exact_edge_fallback:
+        raise ValueError("exact_fused requires exact_edge_fallback=True")
+    hits = traverse_bvh8(scene, rays, options, skip_prim_id,
+                         specialize=specialize)
+    return hits, torch.zeros((), dtype=torch.bool, device=rays.org.device)
+
+
+def refit_hits_watertight(mesh: TriangleMesh, rays: Rays, hits: Hits,
+                          options: BVHTraceOptions = BVHTraceOptions()
+                          ) -> Hits:
+    """Recompute each hit's (t, u, v) with the reference watertight test
+    (nanort.h:993-1229) against the already-selected triangle: one
+    triangle per ray, plain torch (an XLA pass in the JAX package,
+    pallas_packet.py:2548).
+
+    Pairs with ``intersector="woop"``: the Woop kernel picks the prim,
+    this pass restores watertight records for it. Where the watertight
+    re-test rejects the hit (only within an ulp of an edge), or the ray
+    missed, the record is kept as it is. ``mesh`` fields may be NumPy
+    arrays or tensors."""
+    bs = rays.batch_shape
+    dev = rays.org.device
+    org = rays.org.reshape(-1, 3)
+    dir = rays.dir.reshape(-1, 3)
+    pid = hits.prim_id.reshape(-1)
+    hit = pid != INVALID_PRIM_ID
+    verts = torch.as_tensor(mesh.vertices, device=dev)
+    faces = torch.as_tensor(mesh.faces, device=dev).long()
+    tri9 = verts[faces].reshape(-1, 9).to(torch.float32)
+    g = tri9[torch.where(hit, pid, 0)]
+    valid, tt, uu, vv = intersect_triangles(
+        ray_coeffs(dir), org, rays.min_t.reshape(-1),
+        rays.max_t.reshape(-1), g[:, 0:3], g[:, 3:6], g[:, 6:9],
+        cull_back_face=options.cull_back_face,
+        exact_edge_fallback=options.exact_edge_fallback)
+    valid &= hit
+
+    def keep(new, old):
+        return torch.where(valid, new, old.reshape(-1)).reshape(bs)
+
+    return Hits(keep(tt, hits.t), keep(uu, hits.u), keep(vv, hits.v),
+                hits.prim_id)
 
 
 def detect_specialization(rays: Rays, sub: int | None = None) -> tuple | None:

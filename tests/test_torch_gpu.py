@@ -2,9 +2,13 @@
 version on the same tables and rays — K1 and K1-woop
 (csrc/packet_traverse.cu vs traverse/packet.py::_traverse_reference,
 watertight and Woop leaf tests), K2 (csrc/bvh16_trace.cu vs
-traverse/fused_trace.py::trace_bvh16_reference), K3 and K4
+traverse/fused_trace.py::trace_bvh16_reference, Moller-Trumbore and
+watertight, with and without a per-ray skip), K3 and K4
 (csrc/pt_fused.cu vs models/pt_fused.py::_render_fused_reference and
-_render_fused_bvh_reference). Tolerance: bit-identical results (kernel
+_render_fused_bvh_reference), K5 (csrc/ao_fused.cu vs
+models/ao_fused.py::_ao_fused_reference). Config A's render_ao must
+launch K1 and never a plain version, and the stack engine (plain torch)
+must give on the card what it gives on the CPU. Tolerance: bit-identical results (kernel
 and plain version share one child order and one arithmetic; the kernels
 are built with --fmad=false). The one exception is the path tracers'
 ``trig="native"``, whose cos/sin come from two builds of the CUDA libm;
@@ -33,7 +37,7 @@ from nanort_tpu_torch.build.bvh8 import collapse_bvh8
 from nanort_tpu_torch.io.procedural import (
     make_cornell_box, make_cornell_dense_pt_scene, make_cornell_pt_scene,
     make_subdivided_sphere_scene, make_uv_sphere, merge_meshes)
-from nanort_tpu_torch.models import path_tracer, pt_fused
+from nanort_tpu_torch.models import ao_fused, objrender, path_tracer, pt_fused
 from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
 from nanort_tpu_torch.traverse import fused_trace, packet
@@ -198,11 +202,12 @@ def _cam(w, h, eye_z):
 def test_bvh16_trace_matches_plain(dev, dense_pt, mode):
     rays = _incoherent(4099, 3)
     kw = dict(occlusion=mode == "occlusion", want_aux=mode == "closest_aux")
-    before = fused_trace.LAUNCHES
+    before = dict(fused_trace.LAUNCHES)
     got = fused_trace.trace_bvh16(dense_pt.scene8.to(dev),
                                   nt.Rays(*(x.to(dev) for x in rays)),
                                   dense_pt.fused_aux.to(dev), **kw)
-    assert fused_trace.LAUNCHES == before + 1
+    assert fused_trace.LAUNCHES == {**before,
+                                    "bvh16_trace": before["bvh16_trace"] + 1}
     want = fused_trace.trace_bvh16(dense_pt.scene8, rays,
                                    dense_pt.fused_aux, **kw)
     if mode == "occlusion":
@@ -250,11 +255,13 @@ def test_pt_fused_bvh_matches_plain(dev, dense_pt, spp_lanes, strata):
     org, d = _cam(16, 12, 2.6)
     kw = dict(max_bounces=5, trig="poly", azimuth_strata=strata,
               spp_lanes=spp_lanes)
-    before = (pt_fused.LAUNCHES["pt_fused_bvh"], fused_trace.LAUNCHES)
+    before = (pt_fused.LAUNCHES["pt_fused_bvh"],
+              fused_trace.LAUNCHES["bvh16_trace"])
     got = pt_fused.render_fused_bvh(dense_pt.to(dev), org.to(dev), d.to(dev),
                                     9, 8, **kw)
     assert (pt_fused.LAUNCHES["pt_fused_bvh"],
-            fused_trace.LAUNCHES) == (before[0] + 1, before[1] + 1)
+            fused_trace.LAUNCHES["bvh16_trace"]) == (before[0] + 1,
+                                                     before[1] + 1)
     want = pt_fused.render_fused_bvh(dense_pt, org, d, 9, 8, **kw)
     _same_image(got, want, "poly")
 
@@ -340,3 +347,104 @@ def test_trace_paths_on_card_matches_cpu(dev, dense_turbo, cornell_pt,
     same = (got.cpu() == want).all(1).float().mean()
     assert same >= 0.99, same
     assert abs(float(got.mean() - want.mean())) < 1e-3 * float(want.mean())
+
+
+# ------------------------------------------- config A: K2 watertight, K5
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("mode", ["closest", "closest_aux", "occlusion"])
+def test_bvh16_trace_watertight_matches_plain(dev, dense_pt, mode, skip):
+    rays = _incoherent(4099, 4)
+    kw = dict(occlusion=mode == "occlusion", want_aux=mode == "closest_aux",
+              intersector="watertight")
+    if skip:
+        first = fused_trace.trace_bvh16(dense_pt.scene8, rays,
+                                        intersector="watertight")
+        kw["skip"] = torch.where(torch.arange(4099) % 2 == 0,
+                                 first.prim_id, -1)
+    before = dict(fused_trace.LAUNCHES)
+    got = fused_trace.trace_bvh16(
+        dense_pt.scene8.to(dev), nt.Rays(*(x.to(dev) for x in rays)),
+        dense_pt.fused_aux.to(dev),
+        **{k: (x.to(dev) if isinstance(x, torch.Tensor) else x)
+           for k, x in kw.items()})
+    key = "bvh16_trace_watertight"
+    assert fused_trace.LAUNCHES == {**before, key: before[key] + 1}
+    want = fused_trace.trace_bvh16(dense_pt.scene8, rays, dense_pt.fused_aux,
+                                   **kw)
+    if mode == "occlusion":
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        if b is not None:
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.fixture(scope="module")
+def config_a_small():
+    """Config A's scene at the graft size: 234 triangles, leaf 8."""
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(8, 16, 0.5))
+    mesh = TriangleMesh(v, f)
+    bvh, _ = nt.build_triangle_bvh(mesh, nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    s16 = collapse_bvh8(bvh, v, f, width=16)
+    return mesh, bvh, s16, ao_fused.build_ao_aux(mesh, s16)
+
+
+@pytest.mark.parametrize("n_samples", [3, 8])
+def test_ao_fused_matches_plain(dev, config_a_small, n_samples):
+    mesh, _, s16, aux = config_a_small
+    cam = look_at(eye=(0.31, 0.17, 5.0), center=(0, 0, 0), width=40,
+                  height=24, fov=45.0, device="cpu")
+    rays = pinhole_rays(cam)
+    draws = objrender.ao_hemisphere_draws(torch.Generator().manual_seed(2),
+                                          n_samples, (24, 40))
+    before = (ao_fused.LAUNCHES,
+              fused_trace.LAUNCHES["bvh16_trace_watertight"])
+    got, got_h = ao_fused.render_ao_fused(
+        mesh, nt.Rays(*(x.to(dev) for x in rays)), None, s16.to(dev),
+        aux.to(dev), n_samples=n_samples, draws=draws.to(dev))
+    assert (ao_fused.LAUNCHES, fused_trace.LAUNCHES[
+        "bvh16_trace_watertight"]) == (before[0] + 1, before[1] + 1)
+    want, want_h = ao_fused.render_ao_fused(
+        mesh, rays, None, s16.to("cpu"), aux, n_samples=n_samples,
+        draws=draws)
+    for k in want:
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
+    for a, b in zip(got_h, want_h):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_render_ao_launches_k1_only(dev, config_a_small, monkeypatch):
+    mesh, bvh, s16, _ = config_a_small
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(packet, "_traverse_reference", plain)
+    cam = look_at(eye=(0, 0.0, 5.0), center=(0, 0, 0), width=64, height=64,
+                  fov=45.0, device=dev)
+    before = dict(packet.LAUNCHES)
+    aovs, _ = objrender.render_ao(bvh, mesh, pinhole_rays(cam), seed=7,
+                                  max_leaf=8, scene8=s16.to(dev))
+    assert aovs["ao"].is_cuda and aovs["ao"].shape == (64, 64)
+    assert 0.0 < float(aovs["ao"].mean()) < 1.0
+    # the primary pass and one occlusion megabatch
+    assert packet.LAUNCHES == {**before, "packet_traverse":
+                               before["packet_traverse"] + 2}
+
+
+def test_stack_engine_on_card_matches_cpu(dev, config_a_small):
+    mesh, bvh, _, _ = config_a_small
+    cam = look_at(eye=(0, 0.0, 5.0), center=(0, 0, 0), width=16, height=16,
+                  fov=45.0, device="cpu")
+    rays = pinhole_rays(cam)
+    draws = objrender.ao_hemisphere_draws(torch.Generator().manual_seed(3),
+                                          4, (16, 16))
+    want, want_h = objrender.render_ao(bvh, mesh, rays, n_samples=4,
+                                       max_leaf=8, draws=draws)
+    got, got_h = objrender.render_ao(
+        bvh, mesh, nt.Rays(*(x.to(dev) for x in rays)), n_samples=4,
+        max_leaf=8, draws=draws.to(dev))
+    for a, b in zip(got_h, want_h):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    assert torch.equal(got["ao"].cpu(), want["ao"])
