@@ -74,7 +74,26 @@ nothing of JAX. Phases, one line or more each:
 15. the stack engine (plain torch, no kernel): ``render_aovs`` at 512^2
     on config A's scene against phase 13's primary records, ``render_ao``
     at 128^2 against the K1 route, and the graft entry's shape (16^2
-    rays, 234 triangles) against brute force.
+    rays, 234 triangles) against brute force;
+16. incoherent random (``bench_matrix.py:322-365``): the ~1M-triangle
+    sphere at leaf 8, BVH8, ``make_treelets(1024)``, 4,194,304 random
+    rays (seed 11) through ``traverse_bvh8_binned(K=8, octant_major,
+    sub=16)``, one warm-up and 3 runs timed by the host clock; one more
+    run split into its layers with CUDA events; the records against
+    global ``traverse_bvh8`` (t bit-equal), global K1 unsorted and
+    sorted beside it; the first 64 packets of a captured round-1 K1
+    launch held to the plain version with the same roots, bit for bit;
+17. incoherent bounce (``bench_matrix.py:367-411``): 1024^2 primaries
+    on phase 16's scene, 4 cosine AO rays a hit (max_t 0.5, dead where
+    the pixel missed), ``traverse_bvh8_sorted(occlusion=True)``, a
+    warm-up and 3 timed; 131,072 of its sorted rays held to the plain
+    version bit for bit;
+18. K1's modes: the counters on phase 5's rays (== plain) and over the
+    8192^2 frame (the frame's work and bound); the zero-edge flags on
+    phase 5's rays (== plain, sound) and on an axis-aligned case, and
+    ``traverse_bvh8_exact`` / ``_exact_fused`` against single-pass
+    exact; ``interleave`` 2 and 4 on the frame, on phase 16's rays and
+    (== plain) on phase 5's rays; K1's ``ptxas -v`` report.
 
 It then prints one JSON line with every kernel (its launches on the main
 path, its error against its plain version, its time, its plain
@@ -172,6 +191,12 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def row_bytes(stats: dict) -> int:
+    """Bytes of the distinct node and leaf rows (128 float32 lanes each)
+    that a plain traversal read: the table bytes its rays need."""
+    return (stats["node_rows"] + stats["leaf_rows"]) * 128 * 4
 
 
 def trace_ops(stats: dict, width: int, tri_ops: int) -> float:
@@ -652,7 +677,7 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
     ms_wo = median(cuda_ms(lambda: kern(True), 10))
     ms_wto = median(cuda_ms(lambda: kern(True, "watertight"), 10))
     plain_ms = min(cuda_ms(lambda: plain(False), 1))
-    woop_bound = bound(n * (32 + 20) + nbytes(s8.nodes, s8.leafs_woop),
+    woop_bound = bound(n * (32 + 20) + row_bytes(woop_stats),
                        trace_ops(woop_stats, 16, WOOP_OPS))
     say(f"K1-woop vs watertight on the same rays: hit masks agree on "
         f"{hit_agree} of rays, prims on {prim_agree} of common hits; "
@@ -853,10 +878,12 @@ def capture_traces(render) -> list:
     return kept
 
 
-def hold_k1_trace(scene8, rays, args, kw, got) -> dict:
-    """A K1 trace captured from config A's render against the plain
-    version on the same tensors (bit for bit), the kernel relaunched on
-    them for its time, and the plain version's work count."""
+def hold_k1_trace(scene8, rays, args, kw, got, m: int | None = None) -> dict:
+    """A captured K1 trace (its rays, positional and keyword arguments
+    and records), or its first ``m`` rays, against the plain version on
+    the same tensors (bit for bit, per-packet roots included), the
+    kernel relaunched on them for its time, and the plain version's work
+    count."""
     import torch
 
     import nanort_tpu_torch as nt
@@ -864,33 +891,45 @@ def hold_k1_trace(scene8, rays, args, kw, got) -> dict:
 
     opts = args[0] if args else kw.get("options", nt.BVHTraceOptions())
     occ = kw.get("occlusion", False)
+    flat = nt.Rays(rays.org.reshape(-1, 3), rays.dir.reshape(-1, 3),
+                   rays.min_t.reshape(-1), rays.max_t.reshape(-1))
+    n = flat.org.shape[0] if m is None else m
+    flat = nt.Rays(*(x[:n].contiguous() for x in flat))
+    kw = dict(kw)
     skip = kw.get("skip_prim_id")
-    skip = None if skip is None else skip.reshape(-1).long()
-    org, dirs = rays.org.reshape(-1, 3), rays.dir.reshape(-1, 3)
-    n = org.shape[0]
-    dead = (rays.max_t < rays.min_t).reshape(-1)
+    if skip is not None:
+        skip = skip.reshape(-1)[:n].long()
+        kw["skip_prim_id"] = skip
+    start = None
+    if kw.get("packet_roots") is not None:
+        pk = kw["sub"] * packet.LANES
+        check(n % pk == 0, f"a slice of {n} rays is not whole packets of {pk}")
+        kw["packet_roots"] = kw["packet_roots"][:n // pk].contiguous()
+        start = kw["packet_roots"].long().repeat_interleave(pk)
+    dead = flat.max_t < flat.min_t
     stats, holder = {}, {}
 
     def plain():
         holder["want"] = packet._traverse_reference(
-            scene8.nodes, scene8.leafs, scene8.width, org, dirs,
-            rays.min_t.reshape(-1), rays.max_t.reshape(-1), skip, None,
-            opts.cull_back_face, opts.exact_edge_fallback, occ,
-            packet.stack_slots(scene8), stats=stats)
+            scene8.nodes, scene8.leafs, scene8.width, flat.org, flat.dir,
+            flat.min_t, flat.max_t, skip, None, opts.cull_back_face,
+            opts.exact_edge_fallback, occ, packet.stack_slots(scene8),
+            stats=stats, start=start)
 
     p_ms = cuda_ms(plain, 1)[0]
     want = holder.pop("want")
-    got_flat = [x.reshape(-1) for x in got]
+    got_flat = [x.reshape(-1)[:n] for x in got]
     same = all(torch.equal(a, b) for a, b in zip(got_flat, want))
     err = record_err(got_flat, want)
     del want
-    k_ms = median(cuda_ms(lambda: packet.traverse_bvh8(scene8, rays, *args,
+    k_ms = median(cuda_ms(lambda: packet.traverse_bvh8(scene8, flat, *args,
                                                        **kw), 5))
-    hit = got.hit.reshape(-1)
+    hit = got_flat[3] != nt.INVALID_PRIM_ID
     return {"rays": n, "dead": int(dead.sum()),
             "dead_hits": int(hit[dead].sum()), "hits": int(hit.sum()),
             "skip": skip is not None, "occlusion": occ, "same": same,
-            "err": err, "ms": k_ms, "plain_ms": p_ms, "stats": stats}
+            "err": err, "ms": k_ms, "plain_ms": p_ms, "stats": stats,
+            "roots": 0 if start is None else kw["packet_roots"].numel()}
 
 
 def config_a_phases(dev, k2_inputs, usage, res: int = 512,
@@ -1186,6 +1225,483 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
     }], launches_k1, k1_err
 
 
+def span_timer():
+    """``(wrap, spans)``: ``wrap(name, fn)`` records CUDA events around
+    each call of ``fn``; ``spans()`` synchronises and returns the device
+    ms of each name, summed over its calls."""
+    import torch
+
+    pending = []
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            pending.append((name, e0, e1))
+            return out
+
+        return timed
+
+    def spans():
+        torch.cuda.synchronize()
+        out = {}
+        for name, e0, e1 in pending:
+            out[name] = out.get(name, 0.0) + e0.elapsed_time(e1)
+        return out
+
+    return wrap, spans
+
+
+def incoherent_phases(dev, n_tris: int = 1_000_000, R: int = 4_194_304,
+                      n_treelets: int = 1024, res: int = 1024,
+                      hold_packets: int = 64, hold_rays: int = 131_072
+                      ) -> tuple:
+    """Phases 16 and 17: the incoherent-ray workloads of
+    ``bench_matrix.py:322-411`` (the defaults are theirs). Returns the
+    ``packet_traverse[roots]`` entry of the ``kernels`` line, phase 16's
+    BVH8 scene (on the card) and its random rays, and phase 17's
+    watertight K1 launches and largest error."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.io.procedural import make_subdivided_sphere_scene
+    from nanort_tpu_torch.models import objrender
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import compare_hits
+    from nanort_tpu_torch.traverse import packet, ray_sort, treelet
+
+    # ---- 16. incoherent random: the treelet-binned engine
+    t0 = time.perf_counter()
+    v, f = make_subdivided_sphere_scene(n_tris)
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    s8h = collapse_bvh8(bvh, v, f)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tl, s8h = treelet.make_treelets(s8h, n_treelets)
+    tl_s = time.perf_counter() - t0
+    s8 = s8h.to(dev)
+    rng = np.random.default_rng(11)
+    lo, hi = np.asarray(bvh.bmin[0]), np.asarray(bvh.bmax[0])
+    org = rng.uniform(lo, hi, (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = nt.make_rays(torch.from_numpy(org).to(dev),
+                        torch.from_numpy(d.astype(np.float32)).to(dev))
+    del org, d
+    say(f"# phase 16: {len(f)} tris, leaf 8, BVH8 {s8.num_nodes} nodes, "
+        f"{s8.num_leaf_rows} leaf rows, depth {s8.depth}; scene + build + "
+        f"collapse {build_s:.2f} s; make_treelets({n_treelets}) {tl_s:.2f} s: "
+        f"{tl.count} treelets, {s8.nodes.shape[0] - s8.num_nodes - 1} "
+        f"synthetic rows; {R} random rays (seed 11)")
+    # the greedy frontier stops where no split fits the target
+    check(len(f) >= 0.95 * n_tris and n_treelets - 8 < tl.count <= n_treelets,
+          f"phase 16 scene: {len(f)} tris, {tl.count} treelets")
+    kw = dict(treelets=tl, K=8, octant_major=True, sub=16)
+    holder = {}
+
+    def run():
+        holder["h"] = treelet.traverse_bvh8_binned(s8, rays, **kw)
+
+    zero_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    launches = counts["packet_traverse[roots]"]
+    h = holder.pop("h")
+    best = min(secs)
+    say(f"# phase 16: traverse_bvh8_binned(K=8, octant_major, sub=16) "
+        f"seconds {[round(s, 4) for s in secs]}, best {best:.4f} s = "
+        f"{R / best / 1e6:.2f} Mrays/s; hits {int(h.hit.sum())}; launches "
+        f"{counts}")
+    check(launches >= 8 and sum(counts.values()) == launches,
+          f"phase 16 launches {counts}")
+
+    # layer split of one more run, CUDA events around each stage
+    wrap, spans = span_timer()
+    names = (("_morton_presort", "Morton sort"),
+             ("_treelet_klists", "dense K-lists"),
+             ("_pair_order", "pair order"), ("_pair_fill", "pair fill"),
+             ("_pair_merge", "merge"),
+             ("_completion_sweep", "completion sweep"))
+    with contextlib.ExitStack() as stack:
+        for attr, name in names:
+            stack.enter_context(patched(treelet, attr,
+                                        wrap(name, getattr(treelet, attr))))
+        stack.enter_context(patched(packet, "traverse_bvh8", wrap(
+            "K1 with roots", packet.traverse_bvh8)))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        split = spans()
+    total = e0.elapsed_time(e1)
+    top = sum(v for k, v in split.items() if k != "completion sweep")
+    say("phase 16 layer split (device ms of one run; the completion "
+        "sweep's K-lists, pairs and K1 are counted in their rows too): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f", other {total - top:.2f}; total {total:.2f}")
+
+    # the records against global K1 on the same rays (t bit-equal)
+    glob = packet.traverse_bvh8(s8, rays)
+    c = compare_hits(h, glob, t_ulps=0)
+    say(f"phase 16 binned vs global traverse_bvh8: {c}; t bit-equal "
+        f"{torch.equal(h.t, glob.t)}")
+    check(c["ok"] and torch.equal(h.t, glob.t),
+          "binned records disagree with global K1")
+    del h, glob
+    g_ms = median(cuda_ms(lambda: packet.traverse_bvh8(s8, rays), 5))
+    s_ms = median(cuda_ms(lambda: ray_sort.traverse_bvh8_sorted(s8, rays), 3))
+    say(f"phase 16 yardsticks on the same rays: global K1 unsorted "
+        f"{g_ms:.3f} ms = {R / g_ms / 1e3:.1f} Mrays/s; "
+        f"traverse_bvh8_sorted {s_ms:.3f} ms; binned / global "
+        f"{best * 1e3 / g_ms:.1f}x")
+
+    # one round-1 K1 launch, its first 64 packets held to the plain version
+    kept = capture_traces(run)
+    say("phase 16 K1 launches of one run (slots, packets): "
+        + ", ".join(f"{r.org.shape[0]} / {k['packet_roots'].shape[0]}"
+                    for r, _, k, _ in kept))
+    r1, a1, k1kw, out1 = kept[0]
+    held = hold_k1_trace(s8, r1, a1, k1kw, out1,
+                         hold_packets * 16 * packet.LANES)
+    # the slice's packets reach a few of the 1,023 treelet subtrees: only
+    # the rows its rays read count, not the whole tables
+    roots_bound = bound(held["rays"] * (32 + 20) + row_bytes(held["stats"])
+                        + 4 * held["roots"],
+                        trace_ops(held["stats"], 8, WT_OPS))
+    say(f"phase 16 round-1 launch, first {hold_packets} packets "
+        f"({held['rays']} slots, "
+        f"{held['dead']} padding, {held['hits']} hits): kernel == plain "
+        f"with the same roots bit for bit: {held['same']}; max abs err "
+        f"{held['err']}; kernel {held['ms']:.3f} ms (median of 5), plain "
+        f"{held['plain_ms']:.1f} ms; work {held['stats']}; bound "
+        f"{roots_bound[0]:.4f} ms ({roots_bound[1]})")
+    check(held["same"], "K1 with roots disagrees with its plain version")
+    del kept, r1, out1
+    torch.cuda.empty_cache()
+
+    # ---- 17. incoherent bounce: AO rays off 1024^2 primaries, sorted
+    cam = look_at(eye=(0, 0, 2.2), center=(0, 0, 0), width=res,
+                  height=res, fov=60.0, device=dev)
+    rays_p, _ = packet.tile_image_rays(pinhole_rays(cam), 128, 32)
+    hp = packet.traverse_bvh8(s8, rays_p, specialize=packet.detect_specialization(
+        rays_p))
+    hitm = hp.hit
+    mesh = TriangleMesh(torch.from_numpy(v).to(dev),
+                        torch.from_numpy(f).to(dev).long())
+    S = 4
+    n = objrender.face_normals(mesh, hp.prim_id)
+    x = rays_p.org + rays_p.dir * hp.t[:, None]
+    n = torch.where((n * rays_p.dir).sum(-1, keepdim=True) > 0, -n, n)
+    t_o, b_o = objrender.build_onb(n)
+    local = objrender._cosine_hemisphere(
+        torch.Generator(device=dev).manual_seed(3), (S, n.shape[0]),
+        torch.float32, dev)
+    wdir = (local[..., 0:1] * t_o + local[..., 1:2] * b_o
+            + local[..., 2:3] * n)
+    borg = (x + n * 1e-3).expand(S, -1, -1).reshape(-1, 3)
+    bmax = torch.where(hitm.expand(S, -1).reshape(-1), 0.5, -1.0)
+    brays = nt.make_rays(borg, wdir.reshape(-1, 3), max_t=bmax)
+    RB = brays.org.shape[0]
+    del x, n, t_o, b_o, local, wdir, borg
+
+    def run_ao():
+        holder["hb"] = ray_sort.traverse_bvh8_sorted(s8, brays,
+                                                     occlusion=True)
+
+    ms, busy, counts = time_calls(run_ao)
+    hb = holder.pop("hb")
+    live = brays.max_t > brays.min_t
+    best = min(ms) / 1e3
+    say(f"# phase 17: {RB} AO rays ({res}^2 primaries x {S}, hit fraction "
+        f"{float(hitm.float().mean()):.5f}, {int(live.sum())} live), "
+        f"traverse_bvh8_sorted(occlusion=True) ms "
+        f"{[round(t, 3) for t in ms]}, best {best * 1e3:.3f} ms = "
+        f"{RB / best / 1e6:.1f} Mrays/s; device busy {busy:.4f}; occluded "
+        f"{int(hb.hit.sum())}; launches {counts}")
+    check(counts["packet_traverse"] == 4 and sum(counts.values()) == 4,
+          f"phase 17 launches {counts}")
+    check(not bool(hb.hit[~live].any()), "a dead AO ray hit")
+    (sr, sa, skw, sout), = capture_traces(run_ao)
+    held_b = hold_k1_trace(s8, sr, sa, skw, sout, hold_rays)
+    say(f"phase 17 sorted trace, first {held_b['rays']} rays ({held_b['hits']} "
+        f"occluded): kernel == plain bit for bit: {held_b['same']}; max abs "
+        f"err {held_b['err']}; kernel {held_b['ms']:.3f} ms, plain "
+        f"{held_b['plain_ms']:.1f} ms; work {held_b['stats']}")
+    check(held_b["same"], "the phase-17 trace disagrees with the plain version")
+    launches_17 = counts["packet_traverse"]
+    del brays, hb, sr, sout, rays_p, hp, mesh
+    torch.cuda.empty_cache()
+    entry = {
+        "name": "packet_traverse[roots]",
+        "route": "cuda",
+        "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
+        "replaces": "nanort_tpu/traverse/pallas_packet.py:256",
+        "launches": launches,
+        "max_abs_err": held["err"],
+        "ms": held["ms"],
+        "plain_ms": held["plain_ms"],
+        "bound_ms": roots_bound[0],
+        "bound_by": roots_bound[1],
+        "library_ms": None,
+    }
+    return entry, s8, rays, launches_17, held_b["err"]
+
+
+def edge_rays(dev, n: int):
+    """Phase 18's axis-aligned case, ``testing.zero_edge_rays``: the
+    Cornell box (leaf 2, BVH8) on the card and ``n`` rays parallel to z
+    onto its back wall's diagonal, whose edge functions round to 0."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import zero_edge_rays
+
+    v, f, org, d = zero_edge_rays(n)
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=2, max_leaf_primitives=2))
+    return (collapse_bvh8(bvh, v, f).to(dev),
+            nt.make_rays(torch.from_numpy(org).to(dev),
+                         torch.from_numpy(d).to(dev)))
+
+
+def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
+                   n_edge: int = 65_536) -> tuple:
+    """Phase 18: K1's counters, zero-edge flags and K1b on the card.
+    ``scene``/``sub``: phase 4's BVH16 scene and phase 5's 131,072 rays;
+    ``s8i``/``rays_i``: phase 16's BVH8 scene and random rays;
+    ``usage_k1``: a future of K1's ``ptxas -v`` report. Returns the
+    entries of the ``kernels`` line and the frame's bound from the
+    counters."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.traverse import packet
+
+    m2 = sub.org.shape[0]
+    slots = packet.stack_slots(scene)
+    tables = nbytes(scene.nodes, scene.leafs)
+    fast = nt.BVHTraceOptions(exact_edge_fallback=False)
+
+    def plain(**k):
+        stats = {}
+        holder = {}
+
+        def run():
+            holder["out"] = packet._traverse_reference(
+                scene.nodes, scene.leafs, 16, sub.org, sub.dir, sub.min_t,
+                sub.max_t, None, None, False,
+                k.get("exact", True), False, slots, stats=stats,
+                debug_counts=k.get("debug_counts", False),
+                flag_zero_edges=k.get("flags", False))
+
+        ms = cuda_ms(run, 1)[0]
+        return holder["out"], ms, stats
+
+    def kernel_ms(**k):
+        return median(cuda_ms(lambda: packet.traverse_bvh8(scene, sub, **k),
+                              10))
+
+    # ---- 18. counters: phase 5's rays, then the 8192^2 frame
+    got = packet.traverse_bvh8(scene, sub, debug_counts=True)
+    want, c_plain_ms, st = plain(debug_counts=True)
+    c_same = all(torch.equal(a, b) for a, b in zip(got, want))
+    c_err = record_err(list(got), want)
+    c_ms = kernel_ms(debug_counts=True)
+    base_ms = kernel_ms()
+    sums = (int(got.u.sum()), int(got.v.sum()))
+    check(c_same and sums == (st["nodes"], st["leaves"]),
+          "the counts kernel disagrees with its plain version")
+    tris_per_leaf = st["tris"] / max(st["leaves"], 1)
+    c_bound = bound(m2 * (32 + 20) + row_bytes(st),
+                    (sums[0] * 16 * SLAB_OPS
+                     + sums[1] * tris_per_leaf * WT_OPS))
+    say(f"# phase 18 counters on phase 5's {m2} rays: kernel == plain bit "
+        f"for bit: {c_same}; node pops {sums[0]}, leaf pops {sums[1]} "
+        f"(plain stats {st}); counts kernel {c_ms:.3f} ms vs plain K1 "
+        f"{base_ms:.3f} ms (medians of 10); plain {c_plain_ms:.1f} ms; bound "
+        f"{c_bound[0]:.4f} ms ({c_bound[1]})")
+    del got, want
+    cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=res, height=res,
+                  fov=60.0, device=dev)
+    rays_t, _ = packet.tile_image_rays(pinhole_rays(cam), min(128, res), 64)
+    spec = packet.detect_specialization(rays_t, sub=packet.DEF_SUB)
+    zero_launch_counts()
+    holder = {}
+
+    def frame_counts():
+        holder["c"] = packet.traverse_bvh8(scene, rays_t, specialize=spec,
+                                           debug_counts=True)
+
+    f_ms = cuda_ms(frame_counts, 1)[0]
+    counts_launches = launch_counts()["packet_traverse[counts]"]
+    fc = holder.pop("c")
+    f_nodes = int(fc.u.double().sum())
+    f_leaves = int(fc.v.double().sum())
+    f_ops = f_nodes * 16 * SLAB_OPS + f_leaves * tris_per_leaf * WT_OPS
+    frame_bound = bound(res * res * (32 + 20) + tables, f_ops)
+    say(f"phase 18 {res}^2 frame counters ({counts_launches} launch, "
+        f"{f_ms:.3f} ms): node pops {f_nodes}, leaf pops {f_leaves} "
+        f"(x {tris_per_leaf:.3f} tris a leaf pop, phase 5's plain ratio) "
+        f"-> {f_ops / 1e9:.3f} G operations; frame bound "
+        f"{frame_bound[0]:.4f} ms ({frame_bound[1]})")
+    check(counts_launches == 1 and f_nodes > 0, "frame counters")
+    del fc
+
+    # ---- 18. interleave: the frame, phase 16's rays, phase 5's rays
+    zero_launch_counts()
+    il = {}
+    for what, s, r, kw in ((f"{res}^2 frame", scene, rays_t,
+                            dict(specialize=spec)),
+                           ("phase 16 random", s8i, rays_i, {})):
+        ref = packet.traverse_bvh8(s, r, **kw)
+        line = []
+        for K in (1, 2, 4):
+            out = packet.traverse_bvh8(s, r, interleave=K, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            ms = median(cuda_ms(lambda: packet.traverse_bvh8(
+                s, r, interleave=K, **kw), 3))
+            il[(what, K)] = ms
+            line.append(f"K={K} {ms:.3f} ms (same as K=1: {same})")
+            check(same, f"interleave={K} on the {what} changes records")
+            del out
+        say(f"phase 18 interleave on the {what} ({r.org.shape[0]} rays, "
+            f"medians of 3): " + "; ".join(line))
+        del ref
+    il_launches = launch_counts()
+    del rays_t
+    torch.cuda.empty_cache()
+    want, p_ms, st5 = plain()
+    k_bound = bound(m2 * (32 + 20) + row_bytes(st5),
+                    trace_ops(st5, 16, WT_OPS))
+    il_entries = []
+    for K in (2, 4):
+        got = packet.traverse_bvh8(scene, sub, interleave=K)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = record_err(list(got), want)
+        ms = kernel_ms(interleave=K)
+        say(f"phase 18 interleave={K} on phase 5's rays: kernel == plain bit "
+            f"for bit: {same}; {ms:.3f} ms vs K=1 {base_ms:.3f} ms (medians "
+            f"of 10); launches on the frame and phase 16's rays "
+            f"{il_launches[f'packet_traverse[interleave={K}]']}")
+        check(same, f"interleave={K} disagrees with the plain version")
+        il_entries.append({
+            "name": f"packet_traverse[interleave={K}]",
+            "route": "cuda",
+            "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
+            "replaces": "nanort_tpu/traverse/pallas_packet.py:1060",
+            "launches": il_launches[f"packet_traverse[interleave={K}]"],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": p_ms,
+            "bound_ms": k_bound[0],
+            "bound_by": k_bound[1],
+            "library_ms": None,
+        })
+    del got, want
+
+    # ---- 18. zero-edge flags: phase 5's rays, then the axis-aligned case
+    (fh, fl) = packet.traverse_bvh8(scene, sub, fast, _flag_zero_edges=True)
+    want, f_plain_ms, st_f = plain(exact=False, flags=True)
+    f_same = (all(torch.equal(a, b) for a, b in zip(fh, want[:4]))
+              and torch.equal(fl, want[4]))
+    f_err = max(record_err(list(fh), want), max_abs(fl, want[4]))
+    fl_ms = kernel_ms(options=fast, _flag_zero_edges=True)
+    exact = packet.traverse_bvh8(scene, sub)
+    differ = torch.zeros_like(fl, dtype=torch.bool)
+    for a, b in zip(fh, exact):
+        differ |= a != b
+    sound = not bool((differ & (fl == 0)).any())
+    say(f"# phase 18 flags on phase 5's {m2} rays: kernel == plain bit for "
+        f"bit: {f_same}; flagged {int(fl.sum())}, records changed by the "
+        f"recompute {int(differ.sum())}, all flagged: {sound}; flags kernel "
+        f"{fl_ms:.3f} ms vs exact K1 {base_ms:.3f} ms; plain "
+        f"{f_plain_ms:.1f} ms")
+    check(f_same and sound, "the flags kernel is wrong on phase 5's rays")
+    f_bound = bound(m2 * (32 + 24) + row_bytes(st_f),
+                    trace_ops(st_f, 16, WT_OPS))
+    del fh, fl, want, exact
+    box, erays = edge_rays(dev, n_edge)
+    hb, fb = packet.traverse_bvh8(box, erays, fast, _flag_zero_edges=True)
+    wb = packet._traverse_reference(
+        box.nodes, box.leafs, 8, erays.org, erays.dir, erays.min_t,
+        erays.max_t, None, None, False, False, False,
+        packet.stack_slots(box), flag_zero_edges=True)
+    e_same = (all(torch.equal(a, b) for a, b in zip(hb, wb[:4]))
+              and torch.equal(fb, wb[4]))
+    e_err = max(record_err(list(hb), wb), max_abs(fb, wb[4]))
+    eb = packet.traverse_bvh8(box, erays)
+    differ = torch.zeros_like(fb, dtype=torch.bool)
+    for a, b in zip(hb, eb):
+        differ |= a != b
+    sound = not bool((differ & (fb == 0)).any())
+    say(f"phase 18 flags on the axis-aligned case (Cornell box, {n_edge} "
+        f"z-parallel rays onto the back wall's diagonal): kernel == plain "
+        f"(records and flags) bit for bit: {e_same}; max abs err {e_err}; "
+        f"flagged {int(fb.sum())} (plain {int(wb[4].sum())}), changed by "
+        f"the recompute {int(differ.sum())}, all flagged: {sound}")
+    check(e_same and sound and int(fb.sum()) > 0,
+          "the flags kernel is wrong on the axis-aligned case")
+    del wb
+    zero_launch_counts()
+    lines = []
+    for what, s, r in (("phase 5", scene, sub), ("axis-aligned", box, erays)):
+        single = packet.traverse_bvh8(s, r)
+        for name, fn in (
+                ("exact", lambda: packet.traverse_bvh8_exact(s, r)),
+                ("exact_fused", lambda: packet.traverse_bvh8_exact_fused(s, r))):
+            out = fn()
+            ovf = False
+            if name == "exact_fused":
+                out, ovf = out
+                ovf = bool(ovf)
+            same = all(torch.equal(a, b) for a, b in zip(out, single))
+            ms = median(cuda_ms(fn, 5))
+            lines.append(f"{what} {name} {ms:.3f} ms, == single-pass exact "
+                         f"{same} (overflow {ovf})")
+            check(same or ovf, f"{name} on {what} differs from single pass")
+        lines.append(f"{what} single-pass exact {median(cuda_ms(lambda: packet.traverse_bvh8(s, r), 5)):.3f} ms")
+    flags_launches = launch_counts()["packet_traverse[flags]"]
+    say("phase 18 two-pass exact (medians of 5): " + "; ".join(lines)
+        + f"; flags launches {flags_launches}")
+    text = usage_k1.result()
+    say("ptxas -v (K1, all instantiations): " + " | ".join(
+        " ".join(ln.split()) for ln in text.splitlines()
+        if "Compiling" in ln or "Used" in ln or "spill" in ln))
+
+    def entry(name, replaces, launches, err, ms, plain_ms, b):
+        return {"name": name, "route": "cuda",
+                "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+    entries = [entry("packet_traverse[counts]",
+                     "nanort_tpu/traverse/pallas_packet.py:556",
+                     counts_launches, c_err, c_ms, c_plain_ms, c_bound),
+               entry("packet_traverse[flags]",
+                     "nanort_tpu/traverse/pallas_packet.py:376",
+                     flags_launches, max(f_err, e_err), fl_ms, f_plain_ms,
+                     f_bound)]
+    return entries + il_entries, frame_bound
+
+
 def time_calls(fn):
     """``fn()`` once to warm up and 3 times timed with CUDA events, the
     launch counts zeroed first. Returns the 3 times in ms, the device's
@@ -1259,6 +1775,7 @@ def report_render(what, img, ms, busy, launches, expect):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1293,6 +1810,7 @@ def main() -> int:
     pool = concurrent.futures.ThreadPoolExecutor(1)
     usage = pool.submit(lambda: _ext.resource_usage("ao_fused")
                         + _ext.resource_usage("bvh16_trace"))
+    usage_k1 = pool.submit(lambda: _ext.resource_usage("packet_traverse"))
     t0 = time.perf_counter()
     k_build = _ext.load_all()
     k_wall = time.perf_counter() - t0
@@ -1438,7 +1956,7 @@ def main() -> int:
         f"plain {plain_ms:.1f} ms (best of 2)")
     check(same, "kernel and plain version disagree at full scene size")
     tables = nbytes(scene.nodes, scene.leafs)
-    k1_bound = bound(2 * m * (32 + 20) + tables,
+    k1_bound = bound(2 * m * (32 + 20) + row_bytes(k1_stats),
                      trace_ops(k1_stats, 16, WT_OPS))
     say(f"phase 5 work (plain version's count): {k1_stats}; bound "
         f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
@@ -1451,7 +1969,7 @@ def main() -> int:
         f"bound {frame_bound[0]:.4f} ms ({frame_bound[1]})")
 
     # ---- 6. the main path, 8192^2
-    del rays_t, untile, sub, got, ref
+    del rays_t, untile, got, ref  # sub: phase 5's rays, for phase 18
     torch.cuda.empty_cache()
     stage_ms = {}
 
@@ -1509,28 +2027,38 @@ def main() -> int:
     say(f"frame sample vs brute force (1024 pixels): {c}")
     check(c["ok"], "full-frame sample disagrees with brute force")
 
-    del rays, rays_t, untile, hits, holder, scene, scene_h, bvh, fr, fh
+    # phase 4's scene and phase 5's rays stay for phase 18
+    del rays, rays_t, untile, hits, holder, scene_h, bvh, fr, fh
     torch.cuda.empty_cache()
     k2k5, launches_pt, err_pt, k2_inputs = path_tracer_phases(dev)
     torch.cuda.empty_cache()
     entries_a, launches_a, err_a = config_a_phases(dev, k2_inputs, usage)
+    del k2_inputs
+    torch.cuda.empty_cache()
+    roots_entry, s8i, rays_i, launches_17, err_17 = incoherent_phases(dev)
+    entries_18, frame_bound_18 = k1_mode_phases(dev, scene, sub, s8i, rays_i,
+                                                usage_k1)
     pool.shutdown()
     say(f"packet_traverse launches on the main paths: {launches} (phase 6) "
-        f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13)")
+        f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13) + "
+        f"{launches_17} (phase 17); the 8192^2 frame's bound from its "
+        f"counters {frame_bound_18[0]:.4f} ms ({frame_bound_18[1]})")
+    say(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from its start "
+        "to the kernels line")
 
     say(json.dumps({"kernels": [{
         "name": "packet_traverse",
         "route": "cuda",
         "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
         "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
-        "launches": launches + launches_pt + launches_a,
-        "max_abs_err": max(max_abs, err_pt, err_a),
+        "launches": launches + launches_pt + launches_a + launches_17,
+        "max_abs_err": max(max_abs, err_pt, err_a, err_17),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }] + k2k5 + entries_a}))
+    }] + k2k5 + entries_a + [roots_entry] + entries_18}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
               file=sys.stderr)

@@ -108,17 +108,19 @@ class BVH8Scene:
             else move(self.leafs_woop))
 
 
-def table_depth(nodes: np.ndarray, width: int) -> int:
+def table_depth(nodes: np.ndarray, width: int, roots=(0,)) -> int:
     """Node levels of a BVH8/BVH16 table set, walked from root row 0
-    (``collapse_bvh8``'s ``depth``). A child slot is internal when its
-    box is not the inverted empty box and its meta lane is >= 0."""
+    (``collapse_bvh8``'s ``depth``), or the most levels below any of
+    ``roots`` (the rows are walked together, level by level). A child
+    slot is internal when its box is not the inverted empty box and its
+    meta lane is >= 0."""
     if width == 16:
         box_lanes = 6 * np.arange(16)
         meta_lanes = 96 + np.arange(16)
     else:
         box_lanes = 8 * np.arange(8)
         meta_lanes = 64 + np.arange(8)
-    frontier = np.zeros(1, np.int64)
+    frontier = np.asarray(roots, np.int64).reshape(-1)
     for depth in range(1, nodes.shape[0] + 1):
         rows = nodes[frontier]
         meta = rows[:, meta_lanes]

@@ -37,6 +37,28 @@
 // The leaf test is a template parameter, so the watertight instantiation
 // is the same code, with the same registers, as without the Woop test.
 //
+// The TPU kernel's other modes, each a template parameter, so the
+// instantiations above keep their code when a mode is off:
+//   kRoots     (packet_roots, pallas_packet.py:256): each ray starts at
+//              its packet's root row, roots[i / packet], in place of row
+//              0 (the treelet engine roots each packet at its treelet).
+//              The mode kernels below take roots too, when given.
+//   kCounts    (debug_counts, :556-558, :1050-1053): u and v carry this
+//              ray's node pops and leaf pops as floats (exact below
+//              2^24). The TPU kernel counts per packet; here each thread
+//              walks one ray, so the counters are per ray.
+//   kFlags     (_flag_zero_edges, :376-381, :1047-1048): an int32 a ray,
+//              set when the ray tested a triangle whose U, V or W was 0
+//              before any exact recompute: the rays whose records could
+//              change with the exact-edge recompute.
+//   kK > 1     (interleave, K1b, _kernel_body_il :1060): K rays a
+//              thread, each with its own stack, one pop per live ray per
+//              loop step, so a thread has K independent row fetches to
+//              wait on. Each ray's pop sequence is that of kK == 1, so
+//              its records are bit-identical. The TPU reason for K1b
+//              (amortising the vector-to-scalar drain) has no Hopper
+//              counterpart; this is the nearest one, latency hiding.
+//
 // Interface: a plain C function (ctypes, no PyTorch headers) that
 // launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
@@ -63,12 +85,15 @@ struct Params {
   const float* min_t;   // (R,)
   const float* max_t;   // (R,)
   const int* skip;      // (R,) per-ray skip prim id, or null
+  const int* roots;     // (ceil(R / packet),) start node rows, or null
   float* t_out;         // (R,)
-  float* u_out;         // (R,)
-  float* v_out;         // (R,)
+  float* u_out;         // (R,) node pops with kCounts
+  float* v_out;         // (R,) leaf pops with kCounts
   long long* pid_out;   // (R,) 0xFFFFFFFF on a miss
+  int* flags;           // (R,) zero-edge flags with kFlags, else null
   int* err;             // (1,) set to 1 when a stack overflows
   long long n_rays;
+  long long packet;     // rays per packet of ``roots``
   int stack_size;       // <= kStackCap
   int occlusion;        // any-hit: stop at the first accepted hit
   int cull_back_face;
@@ -156,11 +181,14 @@ __device__ __forceinline__ bool slab(const RayState& r, float t_best,
 }
 
 // Watertight test of one triangle (ops/triangle.py::intersect_triangles,
-// same operations in the same order). Returns true on acceptance.
+// same operations in the same order). Returns true on acceptance. With
+// kFlag, ORs into ``zero`` whether U, V or W was 0 before the recompute.
+template <bool kFlag>
 __device__ __forceinline__ bool hit_triangle(const RayState& r,
                                              const float* v, float t_cur,
                                              int cull, int exact, float& tt,
-                                             float& uu, float& vv) {
+                                             float& uu, float& vv,
+                                             int& zero) {
   const float ax3 = __ldg(v + 0) - r.ox, ay3 = __ldg(v + 1) - r.oy,
               az3 = __ldg(v + 2) - r.oz;
   const float bx3 = __ldg(v + 3) - r.ox, by3 = __ldg(v + 4) - r.oy,
@@ -179,7 +207,9 @@ __device__ __forceinline__ bool hit_triangle(const RayState& r,
   float U = Cx * By - Cy * Bx;
   float V = Ax * Cy - Ay * Cx;
   float W = Bx * Ay - By * Ax;
-  if (exact && (U == 0.0f || V == 0.0f || W == 0.0f)) {
+  const bool any_zero = U == 0.0f || V == 0.0f || W == 0.0f;
+  if (kFlag) zero |= (int)any_zero;
+  if (exact && any_zero) {
     U = prod_diff(Cx, By, Cy, Bx);
     V = prod_diff(Ax, Cy, Ay, Cx);
     W = prod_diff(Bx, Ay, By, Ax);
@@ -224,18 +254,22 @@ __device__ __forceinline__ bool hit_triangle_woop(const RayState& r,
          tt >= r.min_t && (!cull || dpz < 0.0f);
 }
 
-// Node row layouts (build/bvh8.py):
-//   W == 16: child w box at lanes [6w, 6w+6), meta at 96+w, leaf count at
-//            112+w; the order axis rides the child-0 count as cnt + 16*axis
-//   W == 8:  child c box at lanes [8c, 8c+6), meta at 64+c, count at 72+c,
-//            order axis at lane 80
-// meta >= 0: internal node row; meta < 0: leaf row -(meta + 1).
-// Stack entries: node row >= 0, or -1 - (leaf_row << 4 | count) for a leaf.
-template <int W, bool kWoop>
-__global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= p.n_rays) return;
+// One ray's walk: its set-up, its best record and its stack pointer (the
+// stack itself is the caller's), plus the counters and the flag of the
+// debug modes (dead code, and no registers, when those are off).
+struct Walk {
+  RayState r;
+  float t_best, max_t_in, u_best, v_best;
+  int pid_best, skip, sp;
+  bool found;
+  int n_nodes, n_leaves, zero;
+};
 
+// Set up ray i and push its start node: row 0, or (kRoots, when the
+// launch has roots) its packet's root.
+template <bool kRoots>
+__device__ __forceinline__ void begin(const Params& p, long long i, Walk& w,
+                                      int* stack) {
   float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
   float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
   const float max_t_in = p.max_t[i];
@@ -255,7 +289,7 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
     t_best = INFINITY;
   }
 
-  RayState r;
+  RayState& r = w.r;
   r.ox = ox; r.oy = oy; r.oz = oz;
   r.dx = dx; r.dy = dy; r.dz = dz;
   r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
@@ -280,131 +314,241 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
     r.sy = sel3(ky, dx, dy, dz) / dkz;
     r.sz = 1.0f / dkz;
   }
-  const int skip = p.skip ? p.skip[i] : -1;
-
-  float u_best = 0.0f, v_best = 0.0f;
-  int pid_best = -1;
-  bool found = false;
-
-  int stack[kStackCap];
-  int sp = 0;
+  w.skip = p.skip ? p.skip[i] : -1;
+  w.t_best = t_best;
+  w.max_t_in = max_t_in;
+  w.u_best = 0.0f;
+  w.v_best = 0.0f;
+  w.pid_best = -1;
+  w.found = false;
+  w.n_nodes = 0;
+  w.n_leaves = 0;
+  w.zero = 0;
+  w.sp = 0;
   // a ray whose interval is empty or NaN fails every slab test: retire it
-  // before its first node (ray_sort.py sorts such rays last, so whole
-  // warps of them exit here)
-  if (min_t <= t_best) stack[sp++] = 0;  // root node row
-  while (sp > 0) {
-    const int e = stack[--sp];
-    if (e >= 0) {
-      const float* row = p.nodes + (size_t)e * 128;
-      unsigned mask = 0u;
-      if (W == 16) {
+  // before its first node (ray_sort.py sorts such rays last, and the
+  // treelet engine's padding slots are such rays, so whole warps of them
+  // exit here)
+  if (min_t <= t_best) {
+    stack[w.sp++] = kRoots && p.roots ? p.roots[i / p.packet] : 0;
+  }
+}
+
+// Node row layouts (build/bvh8.py):
+//   W == 16: child w box at lanes [6w, 6w+6), meta at 96+w, leaf count at
+//            112+w; the order axis rides the child-0 count as cnt + 16*axis
+//   W == 8:  child c box at lanes [8c, 8c+6), meta at 64+c, count at 72+c,
+//            order axis at lane 80 (make_treelets' synthetic rows fold it
+//            into lane 72 instead and leave lane 80 at 0, so they are
+//            walked in x order: only the order changes, never a record)
+// meta >= 0: internal node row; meta < 0: leaf row -(meta + 1).
+// Stack entries: node row >= 0, or -1 - (leaf_row << 4 | count) for a leaf.
+//
+// Pops one entry of a live ray's stack and runs it: a node's slab tests
+// and pushes, or a leaf row's triangle tests.
+template <int W, bool kWoop, bool kCounts, bool kFlags>
+__device__ __forceinline__ void step(const Params& p, Walk& w, int* stack) {
+  const RayState& r = w.r;
+  const int e = stack[--w.sp];
+  if (e >= 0) {
+    if (kCounts) ++w.n_nodes;
+    const float* row = p.nodes + (size_t)e * 128;
+    unsigned mask = 0u;
+    if (W == 16) {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {  // two children per 3 float4 loads
-          const float4 a = __ldg(reinterpret_cast<const float4*>(row + 12 * q));
-          const float4 b = __ldg(reinterpret_cast<const float4*>(row + 12 * q + 4));
-          const float4 c = __ldg(reinterpret_cast<const float4*>(row + 12 * q + 8));
-          mask |= (unsigned)slab(r, t_best, a.x, a.y, a.z, a.w, b.x, b.y) << (2 * q);
-          mask |= (unsigned)slab(r, t_best, b.z, b.w, c.x, c.y, c.z, c.w) << (2 * q + 1);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float4 a = __ldg(reinterpret_cast<const float4*>(row + 8 * c));
-          const float2 b = __ldg(reinterpret_cast<const float2*>(row + 8 * c + 4));
-          mask |= (unsigned)slab(r, t_best, a.x, a.y, a.z, a.w, b.x, b.y) << c;
-        }
-      }
-      if (mask == 0u) continue;
-      constexpr int kMeta = W == 16 ? 96 : 64;
-      constexpr int kCount = W == 16 ? 112 : 72;
-      int axis;
-      if (W == 16) {
-        const float v112 = __ldg(row + 112);
-        axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
-      } else {
-        const float a80 = __ldg(row + 80);
-        axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
-      }
-      // children are stored near-to-far along the order axis; the LIFO
-      // stack takes them far-first so the nearest pops first
-      const bool neg = axis == 0 ? r.nx : (axis == 1 ? r.ny : r.nz);
-      for (int j = 0; j < W; ++j) {
-        const int cc = neg ? j : W - 1 - j;
-        if (!((mask >> cc) & 1u)) continue;
-        const int meta = (int)__ldg(row + kMeta + cc);
-        int entry = meta;
-        if (meta < 0) {
-          const int cnt = ((int)__ldg(row + kCount + cc)) & 15;
-          entry = -1 - (((-meta - 1) << 4) | cnt);
-        }
-        if (sp >= p.stack_size) {  // never truncate silently
-          atomicOr(p.err, 1);
-          sp = 0;
-          break;
-        }
-        stack[sp++] = entry;
+      for (int q = 0; q < 8; ++q) {  // two children per 3 float4 loads
+        const float4 a = __ldg(reinterpret_cast<const float4*>(row + 12 * q));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(row + 12 * q + 4));
+        const float4 c = __ldg(reinterpret_cast<const float4*>(row + 12 * q + 8));
+        mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << (2 * q);
+        mask |= (unsigned)slab(r, w.t_best, b.z, b.w, c.x, c.y, c.z, c.w) << (2 * q + 1);
       }
     } else {
-      const int packed = -1 - e;
-      const float* row = p.leafs + (size_t)(packed >> 4) * 128;
-      const int cnt = packed & 15;
-      for (int ti = 0; ti < cnt; ++ti) {
-        float tt, uu, vv;
-        const bool ok =
-            kWoop ? hit_triangle_woop(r, row + 12 * ti, t_best,
-                                      p.cull_back_face, tt, uu, vv)
-                  : hit_triangle(r, row + 9 * ti, t_best, p.cull_back_face,
-                                 p.exact_edge, tt, uu, vv);
-        if (!ok) continue;
-        const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
-        if (pid == skip) continue;
-        if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
-        t_best = tt;
-        u_best = uu;
-        v_best = vv;
-        pid_best = pid;
-        found = true;
-        if (p.occlusion) break;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(row + 8 * c));
+        const float2 b = __ldg(reinterpret_cast<const float2*>(row + 8 * c + 4));
+        mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << c;
       }
-      if (p.occlusion && found) break;
     }
+    if (mask == 0u) return;
+    constexpr int kMeta = W == 16 ? 96 : 64;
+    constexpr int kCount = W == 16 ? 112 : 72;
+    int axis;
+    if (W == 16) {
+      const float v112 = __ldg(row + 112);
+      axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
+    } else {
+      const float a80 = __ldg(row + 80);
+      axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
+    }
+    // children are stored near-to-far along the order axis; the LIFO
+    // stack takes them far-first so the nearest pops first
+    const bool neg = axis == 0 ? r.nx : (axis == 1 ? r.ny : r.nz);
+    for (int j = 0; j < W; ++j) {
+      const int cc = neg ? j : W - 1 - j;
+      if (!((mask >> cc) & 1u)) continue;
+      const int meta = (int)__ldg(row + kMeta + cc);
+      int entry = meta;
+      if (meta < 0) {
+        const int cnt = ((int)__ldg(row + kCount + cc)) & 15;
+        entry = -1 - (((-meta - 1) << 4) | cnt);
+      }
+      if (w.sp >= p.stack_size) {  // never truncate silently
+        atomicOr(p.err, 1);
+        w.sp = 0;
+        return;
+      }
+      stack[w.sp++] = entry;
+    }
+  } else {
+    if (kCounts) ++w.n_leaves;
+    const int packed = -1 - e;
+    const float* row = p.leafs + (size_t)(packed >> 4) * 128;
+    const int cnt = packed & 15;
+    for (int ti = 0; ti < cnt; ++ti) {
+      float tt, uu, vv;
+      const bool ok =
+          kWoop ? hit_triangle_woop(r, row + 12 * ti, w.t_best,
+                                    p.cull_back_face, tt, uu, vv)
+                : hit_triangle<kFlags>(r, row + 9 * ti, w.t_best,
+                                       p.cull_back_face, p.exact_edge, tt,
+                                       uu, vv, w.zero);
+      if (!ok) continue;
+      const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
+      if (pid == w.skip) continue;
+      if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
+      w.t_best = tt;
+      w.u_best = uu;
+      w.v_best = vv;
+      w.pid_best = pid;
+      w.found = true;
+      if (p.occlusion) break;
+    }
+    if (p.occlusion && w.found) w.sp = 0;  // any-hit: retire
   }
+}
 
-  // decode as traverse_bvh8 does (pallas_packet.py:2289-2304)
-  const bool hit = p.occlusion ? found : t_best < max_t_in;
-  p.t_out[i] = p.occlusion ? (hit ? t_best : max_t_in) : t_best;
-  p.u_out[i] = hit ? u_best : 0.0f;
-  p.v_out[i] = hit ? v_best : 0.0f;
-  p.pid_out[i] = hit ? (long long)pid_best : kInvalidPrim;
+// Decode as traverse_bvh8 does (pallas_packet.py:2289-2304) and store.
+template <bool kCounts, bool kFlags>
+__device__ __forceinline__ void finish(const Params& p, long long i,
+                                       const Walk& w) {
+  const bool hit = p.occlusion ? w.found : w.t_best < w.max_t_in;
+  p.t_out[i] = p.occlusion ? (hit ? w.t_best : w.max_t_in) : w.t_best;
+  if (kCounts) {
+    p.u_out[i] = (float)w.n_nodes;
+    p.v_out[i] = (float)w.n_leaves;
+  } else {
+    p.u_out[i] = hit ? w.u_best : 0.0f;
+    p.v_out[i] = hit ? w.v_best : 0.0f;
+  }
+  p.pid_out[i] = hit ? (long long)w.pid_best : kInvalidPrim;
+  if (kFlags) p.flags[i] = w.zero;
+}
+
+// One thread, one ray. kRoots is a template parameter so that the
+// instantiations without modes keep the code they had before roots.
+template <int W, bool kWoop, bool kCounts, bool kFlags, bool kRoots>
+__global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= p.n_rays) return;
+  int stack[kStackCap];
+  Walk w;
+  begin<kRoots>(p, i, w, stack);
+  while (w.sp > 0) step<W, kWoop, kCounts, kFlags>(p, w, stack);
+  finish<kCounts, kFlags>(p, i, w);
+}
+
+// One thread, kK rays (K1b): block b holds rays [b*kBlock*kK,
+// (b+1)*kBlock*kK), ray k of a thread at threadIdx.x + k*kBlock, so the
+// 32 lanes of a warp walk 32 neighbouring rays at every k.
+template <int W, bool kWoop, int kK>
+__global__ void __launch_bounds__(kBlock) traverse_kernel_il(Params p) {
+  const long long first = (long long)blockIdx.x * (kBlock * kK) + threadIdx.x;
+  int stack[kK][kStackCap];
+  Walk w[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const long long i = first + (long long)k * kBlock;
+    w[k].sp = 0;
+    if (i < p.n_rays) begin<true>(p, i, w[k], stack[k]);
+  }
+  for (;;) {
+    bool live = false;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      if (w[k].sp > 0) step<W, kWoop, false, false>(p, w[k], stack[k]);
+      live |= w[k].sp > 0;
+    }
+    if (!live) break;
+  }
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const long long i = first + (long long)k * kBlock;
+    if (i < p.n_rays) finish<false, false>(p, i, w[k]);
+  }
+}
+
+template <int W, bool kWoop>
+void launch(const Params& p, int counts, int flags, int interleave,
+            cudaStream_t s) {
+  const long long n = p.n_rays;
+  const unsigned g1 = (unsigned)((n + kBlock - 1) / kBlock);
+  if (interleave == 2) {
+    const unsigned g = (unsigned)((n + 2 * kBlock - 1) / (2 * kBlock));
+    traverse_kernel_il<W, kWoop, 2><<<g, kBlock, 0, s>>>(p);
+  } else if (interleave == 4) {
+    const unsigned g = (unsigned)((n + 4 * kBlock - 1) / (4 * kBlock));
+    traverse_kernel_il<W, kWoop, 4><<<g, kBlock, 0, s>>>(p);
+  } else if (counts) {
+    traverse_kernel<W, kWoop, true, false, true><<<g1, kBlock, 0, s>>>(p);
+  } else if (flags) {
+    if constexpr (!kWoop) {
+      traverse_kernel<W, false, false, true, true><<<g1, kBlock, 0, s>>>(p);
+    }
+  } else if (p.roots) {
+    traverse_kernel<W, kWoop, false, false, true><<<g1, kBlock, 0, s>>>(p);
+  } else {
+    traverse_kernel<W, kWoop, false, false, false><<<g1, kBlock, 0, s>>>(p);
+  }
 }
 
 }  // namespace
 
+// counts, flags and interleave > 1 are exclusive modes; flags need the
+// watertight test; roots (with packet > 0) combine with any mode.
 extern "C" int nrt_packet_traverse(
     const float* nodes, const float* leafs, const float* org, const float* dir,
-    const float* min_t, const float* max_t, const int* skip, float* t_out,
-    float* u_out, float* v_out, long long* pid_out, int* err, long long n_rays,
-    int width, int stack_size, int occlusion, int cull_back_face,
-    int exact_edge, int use_range, int range_lo, int range_hi, int woop,
-    void* stream) {
+    const float* min_t, const float* max_t, const int* skip, const int* roots,
+    float* t_out, float* u_out, float* v_out, long long* pid_out, int* flags,
+    int* err, long long n_rays, long long packet, int width, int stack_size,
+    int occlusion, int cull_back_face, int exact_edge, int use_range,
+    int range_lo, int range_hi, int woop, int counts, int zero_flags,
+    int interleave, void* stream) {
   if (stack_size < 1 || stack_size > kStackCap) return (int)cudaErrorInvalidValue;
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
+  if (interleave != 1 && interleave != 2 && interleave != 4)
+    return (int)cudaErrorInvalidValue;
+  if ((counts != 0) + (zero_flags != 0) + (interleave > 1) > 1)
+    return (int)cudaErrorInvalidValue;
+  if (zero_flags && (woop || flags == nullptr)) return (int)cudaErrorInvalidValue;
+  if (roots && packet < 1) return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  Params p{nodes, leafs, org, dir, min_t, max_t, skip, t_out, u_out, v_out,
-           pid_out, err, n_rays, stack_size, occlusion, cull_back_face,
-           exact_edge, use_range, range_lo, range_hi};
-  const unsigned grid = (unsigned)((n_rays + kBlock - 1) / kBlock);
+  Params p{nodes, leafs, org, dir, min_t, max_t, skip, roots, t_out,
+           u_out, v_out, pid_out, flags, err, n_rays, packet, stack_size,
+           occlusion, cull_back_face, exact_edge, use_range, range_lo,
+           range_hi};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (width == 16) {
     if (woop) {
-      traverse_kernel<16, true><<<grid, kBlock, 0, s>>>(p);
+      launch<16, true>(p, counts, zero_flags, interleave, s);
     } else {
-      traverse_kernel<16, false><<<grid, kBlock, 0, s>>>(p);
+      launch<16, false>(p, counts, zero_flags, interleave, s);
     }
   } else if (woop) {
-    traverse_kernel<8, true><<<grid, kBlock, 0, s>>>(p);
+    launch<8, true>(p, counts, zero_flags, interleave, s);
   } else {
-    traverse_kernel<8, false><<<grid, kBlock, 0, s>>>(p);
+    launch<8, false>(p, counts, zero_flags, interleave, s);
   }
   return (int)cudaGetLastError();
 }

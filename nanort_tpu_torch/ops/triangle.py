@@ -92,13 +92,16 @@ def _exact_prod_diff(a, b, c, d):
 
 def intersect_triangles(coeffs: RayCoeffs, org, min_t, t_cur, p0, p1, p2,
                         cull_back_face: bool = False,
-                        exact_edge_fallback: bool = True):
+                        exact_edge_fallback: bool = True,
+                        zero_edges: bool = False):
     """Watertight test of broadcast (ray, triangle) pairs.
 
     ``coeffs``/``org``/``min_t``/``t_cur`` are per-ray, ``p0``/``p1``/
     ``p2`` are triangle vertices ``(..., 3)``; all broadcast. Hits
     farther than ``t_cur`` reject, an equal distance is accepted.
-    Returns ``(valid, tt, u, v)`` with the broadcast batch shape.
+    Returns ``(valid, tt, u, v)`` with the broadcast batch shape, and with
+    ``zero_edges`` a fifth mask: where U, V or W was 0 before the exact
+    recompute (the pairs whose result the recompute could change).
     """
     A = p0 - org
     B = p1 - org
@@ -119,8 +122,8 @@ def intersect_triangles(coeffs: RayCoeffs, org, min_t, t_cur, p0, p1, p2,
     v_e = ax * cy - ay * cx
     w_e = bx * ay - by * ax
 
+    any_zero = (u_e == 0) | (v_e == 0) | (w_e == 0)
     if exact_edge_fallback:
-        any_zero = (u_e == 0) | (v_e == 0) | (w_e == 0)
         u_e = torch.where(any_zero, _exact_prod_diff(cx, by, cy, bx), u_e)
         v_e = torch.where(any_zero, _exact_prod_diff(ax, cy, ay, cx), v_e)
         w_e = torch.where(any_zero, _exact_prod_diff(bx, ay, by, ax), w_e)
@@ -141,6 +144,8 @@ def intersect_triangles(coeffs: RayCoeffs, org, min_t, t_cur, p0, p1, p2,
     tt = t_num * rcp_det
 
     valid = edge_ok & det_ok & (tt <= t_cur) & (tt >= min_t)
+    if zero_edges:
+        return valid, tt, v_e * rcp_det, w_e * rcp_det, any_zero
     return valid, tt, v_e * rcp_det, w_e * rcp_det
 
 

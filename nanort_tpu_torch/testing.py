@@ -8,6 +8,9 @@ distance is meaningless near a zero barycentric. Used by the tests (port
 against the JAX package) and by ``chip_smoke.py`` (kernel against the
 brute-force oracle on the card). Works on NumPy arrays and tensors.
 
+``zero_edge_rays`` makes the axis-aligned case that the zero-edge flags
+and the two-pass exact traversals are tested on.
+
 ``run_without_fma`` runs a test file's JAX side in a process whose XLA
 CPU backend emits no FMA instructions, so the JAX package's kernels in
 interpret mode round every product separately, as the port's kernels
@@ -83,6 +86,27 @@ def compare_hits(got, want, t_ulps: int = T_ULPS,
     r["ok"] = (r["hit_mismatch"] == 0 and r["prim_mismatch"] == 0
                and t_ulp <= t_ulps and uv <= uv_atol)
     return r
+
+
+def zero_edge_rays(n: int, seed: int = 4):
+    """A scene and rays whose edge functions round to 0: the Cornell box
+    (axis-aligned quads, each split along a diagonal) and ``n`` rays
+    parallel to -z onto its back wall's diagonal, offset from it by less
+    than an ulp of the edge products. Returns NumPy ``(vertices, faces,
+    org, dir)``; about two in three rays test a triangle with a zero
+    edge function, and a few of them change their record under the
+    exact-edge recompute."""
+    from .io.procedural import make_cornell_box
+
+    v, f = make_cornell_box(2.0)
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-0.9, 0.9, n).astype(np.float32)
+    eps = rng.choice(np.asarray([0.0, 1e-9, -1e-9, 3e-8, -3e-8], np.float32),
+                     n)
+    org = np.stack([a, -a + eps, np.full(n, 0.5, np.float32)], 1)
+    d = np.zeros_like(org)
+    d[:, 2] = -1.0
+    return v, f, org, d
 
 
 def run_without_fma(script: str, inputs: dict, timeout: float = 600.0) -> dict:

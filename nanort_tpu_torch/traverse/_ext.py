@@ -9,7 +9,8 @@ separately rounded, as the plain torch versions compute them (see the
 note at the top of each source). Nothing is built or imported when this
 module is imported.
 
-    packet_traverse.cu  K1 and K1-woop, traverse/packet.py::traverse_bvh8
+    packet_traverse.cu  K1 (with its modes), K1-woop and K1b,
+                        traverse/packet.py::traverse_bvh8
     bvh16_trace.cu      K2 on its own, traverse/fused_trace.py::trace_bvh16
     pt_fused.cu         K3 and K4 (K4 runs K2), models/pt_fused.py
     ao_fused.cu         K5 (runs K2 watertight), models/ao_fused.py
@@ -39,7 +40,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # function returns cudaGetLastError() as an int
 KERNELS = {
     "packet_traverse": ("packet_traverse.cu", (), {
-        "nrt_packet_traverse": [_P] * 12 + [_L] + [_I] * 9 + [_P],
+        "nrt_packet_traverse": [_P] * 14 + [_L] * 2 + [_I] * 12 + [_P],
     }),
     "bvh16_trace": ("bvh16_trace.cu", ("bvh16_trace.cuh",), {
         "nrt_bvh16_trace": [_P] * 16 + [_L] + [_I] * 4 + [_P],

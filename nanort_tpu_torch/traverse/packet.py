@@ -14,6 +14,15 @@ order and the same arithmetic, so the two agree bit for bit.
 Equal-t ties: the last equal-t hit in this per-ray near-first order
 wins. The TPU kernel's order is packet-granular, so ``prim_id`` may
 legally differ from the JAX package's at exactly equal t.
+
+The TPU kernel's other modes are the same kernel's: per-packet start
+nodes (``packet_roots``, the treelet engine's), visit counters
+(``debug_counts``, per ray here), zero-edge flags (``_flag_zero_edges``,
+the first pass of ``traverse_bvh8_exact`` and ``_exact_fused``) and
+``interleave`` (K1b: K rays a thread). Its TPU memory and scheduling
+knobs (``scene_space``, ``vmem_mb``, ``node_split``/``leaf_split``,
+``frustum``, ``pop_n``/``lq_cap``, ``t_sync_every``, ``refit_inkernel``,
+``_oracle_t``) have no counterpart and are not taken.
 """
 
 from __future__ import annotations
@@ -37,10 +46,16 @@ STACK_CAP = 512  # kStackCap in csrc/packet_traverse.cu
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
 
-# Kernel launches made by traverse_bvh8 (never by the plain version),
-# by leaf test: "packet_traverse" (watertight), "packet_traverse_woop".
-LAUNCHES = {"packet_traverse": 0, "packet_traverse_woop": 0}
+# Kernel launches made by traverse_bvh8 (never by the plain version), one
+# key a launch: the mode it ran in ("[interleave=K]", "[counts]",
+# "[flags]", else "[roots]" when it had packet roots), or else its leaf
+# test: "packet_traverse" (watertight), "packet_traverse_woop".
+LAUNCHES = {"packet_traverse": 0, "packet_traverse_woop": 0,
+            "packet_traverse[roots]": 0, "packet_traverse[counts]": 0,
+            "packet_traverse[flags]": 0, "packet_traverse[interleave=2]": 0,
+            "packet_traverse[interleave=4]": 0}
 INTERSECTORS = ("watertight", "woop")
+INTERLEAVES = (1, 2, 4)
 WOOP_MAX_LEAF = 9  # 12 lanes a triangle + the prim-id block at lane 108
 
 
@@ -98,7 +113,9 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                   options: BVHTraceOptions = BVHTraceOptions(),
                   skip_prim_id=None, occlusion: bool = False,
                   specialize: tuple | None = None,
-                  intersector: str = "watertight") -> Hits:
+                  intersector: str = "watertight", sub: int = DEF_SUB,
+                  packet_roots=None, debug_counts: bool = False,
+                  interleave: int = 1, _flag_zero_edges: bool = False):
     """Trace ``rays`` against a BVH8/BVH16 scene (float32).
 
     ``occlusion=True`` is the any-hit mode: each ray stops at its first
@@ -120,12 +137,47 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     ``prim_id = 0xFFFFFFFF``. Rays with an empty interval
     (``max_t < min_t``) or a NaN bound cannot hit and retire before
     their first node.
+
+    The modes of the TPU kernel (pallas_packet.py:2183-2307):
+
+    - ``packet_roots``: one start node row per packet of ``sub * 128``
+      consecutive rays (``ceil(R / (sub * 128))`` of them, int), in place
+      of the root row 0. Each root's subtree must fit the stack that
+      ``scene.depth`` sizes (``treelet.make_treelets`` checks its roots).
+    - ``debug_counts=True``: ``u`` and ``v`` carry each ray's node pops
+      and leaf pops as floats; ``t`` and ``prim_id`` are the records.
+      The TPU kernel counts per packet and writes the packet's counts to
+      every ray; this kernel walks one ray a thread, so its counters are
+      per ray (a deliberate deviation).
+    - ``_flag_zero_edges=True`` returns ``(hits, flags)``: an int32 a
+      ray, 1 where the ray tested a triangle whose U, V or W was 0 before
+      any exact recompute. Every ray whose record could change with the
+      recompute is flagged. Needs the watertight test.
+    - ``interleave=K`` (1, 2 or 4; K1b): each thread walks K rays, with
+      the same records as ``interleave=1``. The kernel implements it
+      without ``debug_counts`` and ``_flag_zero_edges``; those
+      combinations raise (the JAX package warns and falls back to 1).
+
+    ``sub`` only groups rays into packets for ``packet_roots``.
     """
     _check_specialize(specialize)
     if intersector not in INTERSECTORS:
         raise ValueError(f"unknown intersector {intersector!r}")
     woop = intersector == "woop"
     exact_edge = options.exact_edge_fallback and not woop
+    if interleave not in INTERLEAVES:
+        raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
+    if interleave > 1 and (debug_counts or _flag_zero_edges):
+        raise ValueError("the interleaved kernel runs without debug_counts "
+                         "and _flag_zero_edges")
+    if debug_counts and _flag_zero_edges:
+        raise ValueError("debug_counts and _flag_zero_edges are separate "
+                         "kernels: ask for one")
+    if _flag_zero_edges and woop:
+        raise ValueError("flag_zero_edges requires the watertight "
+                         "intersector")
+    if int(sub) != sub or sub < 1:
+        raise ValueError(f"sub must be a positive int: {sub}")
     if woop:
         if scene.leafs_woop is None:
             raise ValueError(
@@ -169,22 +221,53 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             raise ValueError("skip_prim_id must hold one id per ray")
     lo, hi = options.prim_ids_range
     prim_range = None if (lo, hi) == (0, PRIM_RANGE_MAX) else (int(lo), int(hi))
+    packet = int(sub) * LANES
+    roots = None
+    if packet_roots is not None:
+        roots = torch.as_tensor(packet_roots, device=dev).reshape(-1)
+        if roots.dtype.is_floating_point or roots.dtype == torch.bool:
+            raise ValueError("packet_roots must be integer node rows")
+        if roots.shape[0] != -(-n // packet):
+            raise ValueError(
+                f"packet_roots holds {roots.shape[0]} roots; {n} rays in "
+                f"packets of sub * 128 = {packet} need {-(-n // packet)}")
+    flags = None
 
     if dev.type == "cpu":
-        t, u, v, pid = _traverse_reference(
+        start = None
+        if roots is not None:
+            roots = roots.long()
+            if roots.numel() and not bool(
+                    ((roots >= 0) & (roots < nodes.shape[0])).all()):
+                raise ValueError("packet_roots holds a row outside the "
+                                 "node table")
+            start = roots[torch.arange(n) // packet]
+        out = _traverse_reference(
             nodes, leafs, scene.width, org, dir, min_t, max_t, skip,
             prim_range, options.cull_back_face, exact_edge, occlusion,
-            slots, woop)
+            slots, woop, start=start, debug_counts=debug_counts,
+            flag_zero_edges=_flag_zero_edges)
+        t, u, v, pid = out[:4]
+        if _flag_zero_edges:
+            flags = out[4]
     elif dev.type == "cuda":
         for name, tab in (("nodes", nodes), ("leafs", leafs)):
             if tab.data_ptr() % 16:
                 raise ValueError(f"scene.{name} must be 16-byte aligned")
         # the kernel compares int32 ids; 0xFFFFFFFF wraps to -1 = no skip
         skip32 = None if skip is None else skip.to(torch.int32)
+        if roots is not None:
+            roots = roots.to(torch.int32).contiguous()
+            # checked on the stream, as the overflow word below
+            torch._assert_async(
+                ((roots >= 0) & (roots < nodes.shape[0])).all(),
+                "packet_roots holds a row outside the node table")
         t = torch.empty(n, dtype=torch.float32, device=dev)
         u = torch.empty_like(t)
         v = torch.empty_like(t)
         pid = torch.empty(n, dtype=PRIM_ID_DTYPE, device=dev)
+        if _flag_zero_edges:
+            flags = torch.empty(n, dtype=torch.int32, device=dev)
         err = torch.zeros(1, dtype=torch.int32, device=dev)
         lib = _ext.load("packet_traverse")
         ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
@@ -192,25 +275,44 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.nrt_packet_traverse(
                 ptr(nodes), ptr(leafs), ptr(org), ptr(dir), ptr(min_t),
-                ptr(max_t), ptr(skip32), ptr(t), ptr(u), ptr(v), ptr(pid),
-                ptr(err), n, scene.width, slots, int(occlusion),
+                ptr(max_t), ptr(skip32), ptr(roots), ptr(t), ptr(u),
+                ptr(v), ptr(pid), ptr(flags), ptr(err), n, packet,
+                scene.width, slots, int(occlusion),
                 int(options.cull_back_face), int(exact_edge),
                 int(prim_range is not None),
                 prim_range[0] if prim_range else 0,
                 prim_range[1] if prim_range else 0, int(woop),
+                int(debug_counts), int(_flag_zero_edges), int(interleave),
                 ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
-        LAUNCHES["packet_traverse_woop" if woop else "packet_traverse"] += 1
+        LAUNCHES[_launch_key(woop, roots is not None, debug_counts,
+                             _flag_zero_edges, interleave)] += 1
         # checked on the stream, without a host sync: an overflow can only
-        # come from a scene.depth that BVH8Scene.to did not check, and it
-        # fails the next synchronising call (a device assert)
+        # come from a scene.depth that BVH8Scene.to did not check (or a
+        # root deeper than it), and it fails the next synchronising call
         torch._assert_async(
             err == 0, f"traversal stack overflow ({slots} slots): "
             "scene.depth does not describe the tables")
     else:
         raise ValueError(f"unsupported device {dev}")
-    return Hits(t.view(bs), u.view(bs), v.view(bs), pid.view(bs))
+    hits = Hits(t.view(bs), u.view(bs), v.view(bs), pid.view(bs))
+    if _flag_zero_edges:
+        return hits, flags.view(bs)
+    return hits
+
+
+def _launch_key(woop, roots, counts, flags, interleave) -> str:
+    """The ``LAUNCHES`` key of one launch."""
+    if interleave > 1:
+        return f"packet_traverse[interleave={interleave}]"
+    if counts:
+        return "packet_traverse[counts]"
+    if flags:
+        return "packet_traverse[flags]"
+    if roots:
+        return "packet_traverse[roots]"
+    return "packet_traverse_woop" if woop else "packet_traverse"
 
 
 def _woop_test(rows, o, d, min_t, t_cur, cull_back_face):
@@ -248,16 +350,24 @@ def _woop_test(rows, o, d, min_t, t_cur, cull_back_face):
 
 def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
                         prim_range, cull_back_face, exact_edge_fallback,
-                        occlusion, slots, woop=False, stats=None):
+                        occlusion, slots, woop=False, stats=None, start=None,
+                        debug_counts=False, flag_zero_edges=False):
     """Plain torch version of the kernel: a batched per-ray stack
     traversal over the same tables, in the same child order, with the
     same arithmetic (``ops/triangle.py``, or ``_woop_test`` when
     ``woop``). Every loop step pops one entry for every live ray: node
     entries run ``width`` slab tests and push their hit children
     far-first; leaf entries test their <= 10 (woop: <= 9) triangles.
-    Returns flat ``(t, u, v, prim_id)``. ``stats``, a dict, gains the
-    work this batch needed: ``"nodes"`` popped and triangles tested
-    (``"tris"``)."""
+    ``start`` is each ray's first node row (default row 0).
+
+    Returns flat ``(t, u, v, prim_id)``; with ``debug_counts`` u and v
+    are each ray's node pops and leaf pops, and ``flag_zero_edges`` adds
+    a fifth int32 tensor of zero-edge flags, set over the triangles the
+    kernel tests (in any-hit mode, those up to the first accepted one).
+    ``stats``, a dict, gains the work this batch needed: ``"nodes"`` and
+    ``"leaves"`` popped and triangles tested (``"tris"``), added to what
+    it holds, and the distinct node and leaf rows this call read
+    (``"node_rows"``, ``"leaf_rows"``)."""
     dev = org.device
     n = org.shape[0]
     inf = float("inf")
@@ -277,7 +387,15 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
     found = torch.zeros(n, dtype=torch.bool, device=dev)
     # column ``slots`` is a write sink for children that are not pushed
     stack = torch.zeros((n, slots + 1), dtype=torch.int64, device=dev)
-    # root row 0 at slot 0; a ray whose interval is empty or NaN
+    if start is not None:
+        stack[:, 0] = start
+    n_nodes = torch.zeros(n, dtype=torch.int32, device=dev)
+    n_leaves = torch.zeros(n, dtype=torch.int32, device=dev)
+    zflag = torch.zeros(n, dtype=torch.int32, device=dev)
+    if stats is not None:
+        seen_n = torch.zeros(nodes.shape[0], dtype=torch.bool, device=dev)
+        seen_l = torch.zeros(leafs.shape[0], dtype=torch.bool, device=dev)
+    # the start row at slot 0; a ray whose interval is empty or NaN
     # (!(min_t <= max_t)) fails every slab test and retires at once
     sp = (mint <= t_best).long()
     ar_w = torch.arange(width, device=dev)
@@ -300,10 +418,16 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
 
         # ---- node entries: slab-test every child, push hits far-first
         ni = idx[e >= 0]
+        n_nodes[ni] += 1
+        n_leaves[idx[e < 0]] += 1
         if stats is not None:
             stats["nodes"] = stats.get("nodes", 0) + int(ni.numel())
+            stats["leaves"] = stats.get("leaves", 0) + int(
+                idx.numel() - ni.numel())
             stats["tris"] = stats.get("tris", 0) + int(
                 ((-1 - e[e < 0]) & 15).sum())
+            seen_n[e[e >= 0]] = True
+            seen_l[(-1 - e[e < 0]) >> 4] = True
         if ni.numel():
             rows = nodes.index_select(0, e[e >= 0])
             m = ni.shape[0]
@@ -360,12 +484,14 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
                 tri = rows[:, :90].view(m, 10, 9)
                 pids = rows[:, 90:100].long()
                 co = RayCoeffs(*(c[li][:, None] for c in coeffs))
-                valid, tt, uu, vv = intersect_triangles(
+                valid, tt, uu, vv, zmask = intersect_triangles(
                     co, o[li][:, None, :], mint[li][:, None], tc[:, None],
                     tri[..., 0:3], tri[..., 3:6], tri[..., 6:9],
                     cull_back_face=cull_back_face,
-                    exact_edge_fallback=exact_edge_fallback)
-            valid &= ar_l < cnt[:, None]
+                    exact_edge_fallback=exact_edge_fallback,
+                    zero_edges=True)
+            in_row = ar_l < cnt[:, None]
+            valid &= in_row
             if skip is not None:
                 valid &= pids != skip[li][:, None]
             if prim_range is not None:
@@ -379,6 +505,10 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
             else:
                 sel = torch.where(valid & (t_m == t_min[:, None]), ar_l,
                                   -1).amax(1)
+            if flag_zero_edges and not woop:
+                # the kernel's any-hit loop stops after the accepted slot
+                tested = in_row & (ar_l <= sel[:, None]) if occlusion else in_row
+                zflag[li] |= (zmask & tested).any(1).int()
             any_v = valid.any(1)
             take = sel.clamp(0, n_slots - 1)[:, None]
             t_best[li] = torch.where(any_v, tt.gather(1, take)[:, 0], tc)
@@ -388,41 +518,131 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
                                        pid_best[li])
             found[li] |= any_v
 
+    if stats is not None:
+        stats["node_rows"] = int(seen_n.sum())
+        stats["leaf_rows"] = int(seen_l.sum())
     hit = found if occlusion else t_best < max_t
     t = torch.where(hit, t_best, max_t) if occlusion else t_best
     zero = torch.zeros((), device=dev)
-    return (
-        t,
-        torch.where(hit, u_best, zero),
-        torch.where(hit, v_best, zero),
-        torch.where(hit, pid_best, INVALID_PRIM_ID),
-    )
+    if debug_counts:
+        u, v = n_nodes.float(), n_leaves.float()
+    else:
+        u = torch.where(hit, u_best, zero)
+        v = torch.where(hit, v_best, zero)
+    out = (t, u, v, torch.where(hit, pid_best, INVALID_PRIM_ID))
+    if flag_zero_edges:
+        return out + (zflag,)
+    return out
+
+
+def _flat_rays(rays: Rays) -> Rays:
+    bs = rays.batch_shape
+    return Rays(*(x.reshape((-1,) + x.shape[len(bs):]) for x in rays))
+
+
+def _take_skip(skip_prim_id, idx):
+    """A per-ray ``skip_prim_id`` restricted to rays ``idx`` (an int or
+    None stays as it is)."""
+    if skip_prim_id is None or isinstance(skip_prim_id, int):
+        return skip_prim_id
+    return torch.as_tensor(skip_prim_id, device=idx.device).reshape(-1)[idx]
+
+
+def _merge(hits: Hits, idx, fixed: Hits) -> Hits:
+    """``hits`` with the flat rays ``idx`` replaced by ``fixed`` (equal
+    indices carry equal records)."""
+    def put(full, part):
+        flat = full.reshape(-1).clone()
+        flat[idx] = part.reshape(-1)
+        return flat.view(full.shape)
+
+    return Hits(*(put(a, b) for a, b in zip(hits, fixed)))
 
 
 def traverse_bvh8_exact(scene: BVH8Scene, rays: Rays,
                         options: BVHTraceOptions = BVHTraceOptions(),
-                        skip_prim_id=None) -> Hits:
-    """Exact-edge traversal under its JAX name. The TPU package runs it
-    as a fast pass plus a retrace of flagged packets; this port's kernel
-    does the exact-edge recompute inline in one pass, so this is
-    ``traverse_bvh8`` with ``exact_edge_fallback=True``."""
-    opts = dataclasses.replace(options, exact_edge_fallback=True)
-    return traverse_bvh8(scene, rays, opts, skip_prim_id)
+                        skip_prim_id=None, sub: int = DEF_SUB) -> Hits:
+    """Two-pass exact-edge traversal (pallas_packet.py:2382-2452): the
+    records of ``exact_edge_fallback=True``.
+
+    Pass 1 runs with the exact-edge recompute off and flags every ray
+    that tested a triangle with a zero edge function (the K1 flags
+    kernel); only those rays' records can differ under the recompute.
+    The flags reduce to one per packet of ``sub * 128`` rays, read on
+    the host (one sync). Flagged packets are retraced with exact edges
+    and their records replace pass 1's; when more than ``n_packets //
+    8`` packets are flagged (a degenerate, axis-aligned scene), the
+    whole batch is traced exact instead. Each ray walks alone in this
+    kernel, so the records equal the single-pass exact ones bit for
+    bit. The recompute costs the kernel next to nothing, so the single
+    pass, ``traverse_bvh8``, is the faster way to them (PERF.md)."""
+    opt_fast = dataclasses.replace(options, exact_edge_fallback=False)
+    hits, zflag = traverse_bvh8(scene, rays, opt_fast, skip_prim_id,
+                                _flag_zero_edges=True)
+    packet = sub * LANES
+    zf = zflag.reshape(-1)
+    n = zf.shape[0]
+    n_packets = -(-n // packet)
+    zf = torch.nn.functional.pad(zf, (0, n_packets * packet - n))
+    pidx = zf.view(n_packets, packet).amax(1).nonzero().squeeze(1)
+    if pidx.numel() == 0:
+        return hits
+    opt_exact = dataclasses.replace(options, exact_edge_fallback=True)
+    if pidx.numel() > max(1, n_packets // 8):
+        return traverse_bvh8(scene, rays, opt_exact, skip_prim_id)
+    idx = (pidx[:, None] * packet
+           + torch.arange(packet, device=pidx.device)).reshape(-1)
+    idx = idx.clamp(max=n - 1)  # the tail packet clamps into range
+    sub_rays = Rays(*(x[idx] for x in _flat_rays(rays)))
+    fixed = traverse_bvh8(scene, sub_rays, opt_exact,
+                          _take_skip(skip_prim_id, idx))
+    return _merge(hits, idx, fixed)
 
 
 def traverse_bvh8_exact_fused(scene: BVH8Scene, rays: Rays,
                               options: BVHTraceOptions = BVHTraceOptions(),
-                              skip_prim_id=None, specialize=None):
-    """Exact-edge traversal under its JAX name, returning ``(hits,
-    overflow)``. The TPU package runs a flag-only pass and retraces the
-    flagged rows within a fixed capacity, and ``overflow`` says whether
-    that capacity was exceeded; this port's kernel does the exact-edge
-    recompute inline, so ``overflow`` is always a device ``False``."""
+                              skip_prim_id=None, specialize=None,
+                              fix_rows: int = 2048):
+    """Exact-edge two-pass traversal without a host sync
+    (pallas_packet.py:2455-2545). Returns ``(hits, overflow)``.
+
+    Pass 1 is the flags kernel with the exact recompute off. The flags
+    reduce to one per row of 128 rays; up to ``fix_rows`` flagged rows,
+    in row order, are retraced with exact edges and replace pass 1's
+    records. ``overflow``, a device bool, is True when more rows were
+    flagged: those beyond the capacity keep pass 1's records. Without
+    overflow the records equal the single-pass exact ones bit for bit.
+    The JAX function's ``sub`` and ``fix_sub`` group rays into packets
+    of its TPU kernel; this kernel walks one ray a thread, so they are
+    not taken. ``specialize`` is validated as ``traverse_bvh8`` does. As
+    for ``traverse_bvh8_exact``, the single pass is faster (PERF.md)."""
     if not options.exact_edge_fallback:
         raise ValueError("exact_fused requires exact_edge_fallback=True")
-    hits = traverse_bvh8(scene, rays, options, skip_prim_id,
-                         specialize=specialize)
-    return hits, torch.zeros((), dtype=torch.bool, device=rays.org.device)
+    opt_fast = dataclasses.replace(options, exact_edge_fallback=False)
+    hits, zflag = traverse_bvh8(scene, rays, opt_fast, skip_prim_id,
+                                specialize=specialize, _flag_zero_edges=True)
+    zf = zflag.reshape(-1)
+    n = zf.shape[0]
+    n_rows = -(-n // LANES)
+    zf = torch.nn.functional.pad(zf, (0, n_rows * LANES - n))
+    row_flag = zf.view(n_rows, LANES).amax(1) > 0
+    if fix_rows < 1:
+        raise ValueError(f"fix_rows must be positive: {fix_rows}")
+    overflow = row_flag.sum() > fix_rows
+    # flagged rows first, in row order (a stable sort on "not flagged"),
+    # then unflagged ones as filler, whose records are kept
+    idx_rows = torch.argsort((~row_flag).to(torch.int32),
+                             stable=True)[:fix_rows]
+    valid = row_flag[idx_rows].repeat_interleave(LANES)
+    idx = (idx_rows[:, None] * LANES
+           + torch.arange(LANES, device=idx_rows.device)).reshape(-1)
+    idx = idx.clamp(max=n - 1)  # the tail row clamps into range
+    sub_rays = Rays(*(x[idx] for x in _flat_rays(rays)))
+    fixed = traverse_bvh8(scene, sub_rays, options,
+                          _take_skip(skip_prim_id, idx), specialize=specialize)
+    flat = Hits(*(x.reshape(-1) for x in hits))
+    keep = Hits(*(torch.where(valid, f, a[idx]) for f, a in zip(fixed, flat)))
+    return _merge(hits, idx, keep), overflow
 
 
 def refit_hits_watertight(mesh: TriangleMesh, rays: Rays, hits: Hits,

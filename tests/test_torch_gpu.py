@@ -40,6 +40,7 @@ from nanort_tpu_torch.io.procedural import (
 from nanort_tpu_torch.models import ao_fused, objrender, path_tracer, pt_fused
 from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
+from nanort_tpu_torch.testing import zero_edge_rays
 from nanort_tpu_torch.traverse import fused_trace, packet
 
 pytestmark = pytest.mark.gpu
@@ -75,14 +76,7 @@ def _rays(n, seed, broken=True):
 def _same_on_both(scene, rays, dev, **kw):
     key = ("packet_traverse_woop" if kw.get("intersector") == "woop"
            else "packet_traverse")
-    before = dict(packet.LAUNCHES)
-    got = packet.traverse_bvh8(scene.to(dev),
-                               nt.Rays(*(x.to(dev) for x in rays)), **kw)
-    assert packet.LAUNCHES == {**before, key: before[key] + 1}
-    want = packet.traverse_bvh8(scene, rays, **kw)
-    for a, b in zip(got, want):
-        assert a.is_cuda
-        assert torch.equal(a.cpu(), b)
+    _mode_on_both(scene, rays, dev, key, **kw)
 
 
 OPTIONS = {
@@ -448,3 +442,134 @@ def test_stack_engine_on_card_matches_cpu(dev, config_a_small):
     for a, b in zip(got_h, want_h):
         assert a.is_cuda and torch.equal(a.cpu(), b)
     assert torch.equal(got["ao"].cpu(), want["ao"])
+
+
+# --------------------------------- K1's modes, K1b and the treelet engine
+
+def _modes_scene(width, woop=False):
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
+    return _scene(v, f, width, woop=woop)
+
+
+def _edge_case():
+    """The Cornell box (leaf 2) and ``testing.zero_edge_rays``: edge
+    functions that round to 0; then random rays."""
+    v, f, org, d = zero_edge_rays(512)
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=2, max_leaf_primitives=2))
+    rng = np.random.default_rng(4)
+    r = rng.normal(size=(1500, 3)).astype(np.float32)
+    org = np.concatenate([org, rng.uniform(-0.9, 0.9, (1500, 3)).astype(
+        np.float32)])
+    d = np.concatenate([d, r / np.linalg.norm(r, axis=1, keepdims=True)])
+    return (collapse_bvh8(bvh, v, f, width=8),
+            nt.make_rays(torch.from_numpy(org), torch.from_numpy(d)))
+
+
+def _same_records(got, want):
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def _mode_on_both(scene, rays, dev, key, *args, **kw):
+    """The kernel on the card (one launch, counted under ``key``) and the
+    plain version on the CPU give the same records bit for bit."""
+    before = dict(packet.LAUNCHES)
+    got = packet.traverse_bvh8(
+        scene.to(dev), nt.Rays(*(x.to(dev) for x in rays)), *args,
+        **{k: (x.to(dev) if isinstance(x, torch.Tensor) else x)
+           for k, x in kw.items()})
+    assert packet.LAUNCHES == {**before, key: before[key] + 1}
+    want = packet.traverse_bvh8(scene, rays, *args, **kw)
+    if isinstance(want, tuple) and not isinstance(want, nt.Hits):
+        _same_records(got[0], want[0])
+        got, want = got[1:], want[1:]
+    _same_records(got, want)
+
+
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("width", [8, 16])
+def test_counts_kernel_matches_plain(dev, width, occlusion):
+    _mode_on_both(_modes_scene(width), _rays(3001, 7), dev,
+                  "packet_traverse[counts]", occlusion=occlusion,
+                  debug_counts=True)
+
+
+@pytest.mark.parametrize("case", ["edges", "random"])
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_flags_kernel_matches_plain(dev, occlusion, case):
+    if case == "edges":
+        scene, rays = _edge_case()
+    else:
+        scene, rays = _modes_scene(16), _rays(3001, 8)
+    _mode_on_both(scene, rays, dev, "packet_traverse[flags]",
+                  nt.BVHTraceOptions(exact_edge_fallback=False),
+                  occlusion=occlusion, _flag_zero_edges=True)
+
+
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("intersector", ["watertight", "woop"])
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("width", [8, 16])
+def test_interleave_kernel_matches_plain(dev, width, occlusion, intersector,
+                                         K):
+    _mode_on_both(_modes_scene(width, woop=intersector == "woop"),
+                  _rays(3001, 9), dev, f"packet_traverse[interleave={K}]",
+                  occlusion=occlusion, intersector=intersector, interleave=K)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(occlusion=True),
+                                dict(intersector="woop"),
+                                dict(interleave=2), dict(debug_counts=True)])
+def test_roots_kernel_matches_plain(dev, kw):
+    from nanort_tpu_torch.traverse import treelet
+
+    tl, scene = treelet.make_treelets(
+        _modes_scene(8, woop=kw.get("intersector") == "woop"), 24)
+    rays = _rays(3001, 10)
+    roots = tl.roots[np.random.default_rng(1).integers(0, tl.count, 24)]
+    key = ("packet_traverse[interleave=2]" if "interleave" in kw
+           else "packet_traverse[counts]" if "debug_counts" in kw
+           else "packet_traverse[roots]")
+    _mode_on_both(scene, rays, dev, key, sub=1,
+                  packet_roots=torch.from_numpy(roots), **kw)
+
+
+def test_binned_engine_launches_kernels_only(dev, monkeypatch):
+    from nanort_tpu_torch.traverse import treelet
+
+    tl, scene = treelet.make_treelets(_modes_scene(8), 24)
+    rays = _rays(4099, 11, broken=False)
+    want = treelet.traverse_bvh8_binned(scene, rays, treelets=tl, K=4, sub=1)
+    glob = packet.traverse_bvh8(_modes_scene(8), rays)
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(packet, "_traverse_reference", plain)
+    before = dict(packet.LAUNCHES)
+    got = treelet.traverse_bvh8_binned(
+        scene, nt.Rays(*(x.to(dev) for x in rays)), treelets=tl, K=4, sub=1)
+    sweeps = packet.LAUNCHES["packet_traverse[roots]"] - before[
+        "packet_traverse[roots]"]
+    assert 2 <= sweeps <= 3
+    assert packet.LAUNCHES == {**before, "packet_traverse[roots]":
+                               before["packet_traverse[roots]"] + sweeps}
+    _same_records(got, want)
+    assert torch.equal(got.t.cpu(), glob.t)
+
+
+def test_two_pass_exact_on_card_matches_cpu(dev):
+    scene, rays = _edge_case()
+    rd = nt.Rays(*(x.to(dev) for x in rays))
+    sd = scene.to(dev)
+    single = packet.traverse_bvh8(scene, rays)
+    # sub=1: 4 of 16 packets flag, so the whole batch is retraced; sub=16:
+    # its one packet flags and is retraced
+    for sub in (1, 16):
+        before = packet.LAUNCHES["packet_traverse[flags]"]
+        _same_records(packet.traverse_bvh8_exact(sd, rd, sub=sub), single)
+        assert packet.LAUNCHES["packet_traverse[flags]"] == before + 1
+    got, overflow = packet.traverse_bvh8_exact_fused(sd, rd)
+    assert overflow.is_cuda and not bool(overflow)
+    _same_records(got, single)
