@@ -30,14 +30,23 @@ nothing of JAX. Phases, one line or more each:
    65,536 seeded incoherent rays, closest-hit with aux rows and
    occlusion, and 1,024 of them against a brute-force Moller-Trumbore
    sweep; K3 (``render_fused``) on the 32-triangle Cornell box and K4
-   (``render_fused_bvh``, spp_lanes 1 and 4) on the dense scene, each at
-   4,096 rays x 4 spp x 10 bounces; K4 against K3 on the Cornell box with
+   (``render_fused_bvh``, spp_lanes 1 and 4; its pooled kernel and its
+   lane kernel, ``_schedule="lane"``) on the dense scene, each at 4,096
+   rays x 4 spp x 10 bounces; K4 against K3 on the Cornell box with
    BVH16 tables attached. ``trig="poly"`` must agree bit for bit,
-   ``"native"`` to 99% of pixels;
+   ``"native"`` to 99% of pixels; ``ptxas -v`` of K3 and K4's two
+   kernels, and their resident blocks per SM;
 8. config B: ``render_path_traced`` on the Cornell box at 512^2 x 100
    spp x 10 bounces (K3), one warm-up and 3 timed repetitions;
-9. midscale: the same on the dense scene (K4 on K2, 25 sample-major
-   lanes, 4 azimuth strata, 32 x 128 pixel tiles);
+9. midscale: the same on the dense scene (K4's pooled kernel on K2, 25
+   sample-major lanes, 4 azimuth strata, 32 x 128 pixel tiles), with the
+   pool's waves and regenerations; then the lane and pooled kernels in
+   turns (lane, pooled, pooled, lane) on the same render, whose images
+   must be equal bit for bit, one pooled render each without its
+   dynamic chunks, its shadow sort or any sort, one more pooled render
+   that counts each phase's cycles, both kernels' lane sums with ``trig="poly"`` (equal
+   bit for bit) and 4,096 sampled lanes of them against the plain
+   version (``lane_ids=``), bit for bit;
 10. K1-woop against its plain version on the card: the dense scene built
     with ``engine="turbo"`` (leaf 9, Woop table) and phase 7's 65,536
     incoherent rays, closest-hit and any-hit, which must agree bit for
@@ -292,12 +301,14 @@ def hold_megabatch_trace(scene8, rays, kw, got) -> dict:
             "ms": k_ms, "plain_ms": p_ms, "stats": stats}
 
 
-def path_tracer_phases(dev) -> tuple[list[dict], int, float, tuple]:
+def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
+                                                tuple]:
     """Phases 7-12 (K2, K3, K4, the config-B and midscale renders, K1-woop
     and the megabatch route); returns their entries of the ``kernels``
     line, the watertight K1 launches of phase 11, that kernel's largest
     error on its phase-11 traces, and phase 7's K2 inputs (the dense
-    scene's BVH16 and aux tables, its incoherent rays and its mesh)."""
+    scene's BVH16 and aux tables, its incoherent rays and its mesh).
+    ``usage_pt``: a future of K3's and K4's ``ptxas -v`` report."""
     import torch
 
     import nanort_tpu_torch as nt
@@ -476,14 +487,15 @@ def path_tracer_phases(dev) -> tuple[list[dict], int, float, tuple]:
         return real_tr(nodes, leafs, aux, org, dir, tmin, tmax, occlusion,
                        slots, stats=k4_count)
 
+    k4_lane = {}
     for lanes in (1, 4):
         o_l = d_org.repeat_interleave(lanes, 0)
         d_l = d_dir.repeat_interleave(lanes, 0)
 
-        def k4():
+        def k4(schedule="pool"):
             return pt_fused.render_fused_bvh(
                 dense, d_org, d_dir, SEED, SPP, max_bounces=MB, trig="poly",
-                azimuth_strata=AZ, spp_lanes=lanes)
+                azimuth_strata=AZ, spp_lanes=lanes, _schedule=schedule)
 
         def k4_plain():
             sums = pt_fused._render_fused_bvh_reference(
@@ -508,6 +520,16 @@ def path_tracer_phases(dev) -> tuple[list[dict], int, float, tuple]:
         check(fr == 1.0, f"K4 spp_lanes={lanes} disagrees with its plain "
               "version")
         check(bool(torch.isfinite(got).all()), "K4 image not finite")
+        # the lane kernel, the pooled kernel's yardstick, on the same input
+        got_l = k4("lane")
+        fr_l, err_l = same_frac(got_l, want), max_abs(got_l, want)
+        ms_l = median(cuda_ms(lambda: k4("lane"), 5))
+        k4_lane[lanes] = (fr_l, err_l, ms_l)
+        say(f"K4 lane kernel (_schedule='lane') spp_lanes={lanes}: "
+            f"bit-identical pixels {fr_l}, max abs err {err_l}; kernel "
+            f"{ms_l:.3f} ms (median of 5) vs pooled {ms:.3f} ms")
+        check(fr_l == 1.0, f"K4's lane kernel spp_lanes={lanes} disagrees "
+              "with the plain version")
 
     R4 = d_org.shape[0] * 4
     k4_bound = bound(R4 * (24 + 12) + nbytes(mat4, light4, nodes, leafs, aux),
@@ -515,6 +537,12 @@ def path_tracer_phases(dev) -> tuple[list[dict], int, float, tuple]:
                      + k4_count.get("shade", 0) * SHADE_OPS)
     say(f"K4 work (plain version's count, spp_lanes 4): {k4_count}; bound "
         f"{k4_bound[0]:.4f} ms ({k4_bound[1]})")
+    occ = pt_fused.pool_occupancy()
+    say(f"K4 resident blocks per SM: lane kernel {occ['lane']} x 128 "
+        f"threads, pooled kernel {occ['pool']} x 512 threads "
+        f"({occ['pool_smem_bytes']} bytes of shared pool a block); ptxas "
+        "-v: " + " | ".join(ptxas_lines(usage_pt.result())))
+    check(occ["pool"] >= 1, "the pooled kernel does not fit an SM")
 
     # K4 against K3 on the Cornell box with BVH16 tables attached (leaf 4)
     bvh, _ = nt.build_triangle_bvh(TriangleMesh(cv, cf), nt.BVHBuildOptions(
@@ -568,7 +596,17 @@ def path_tracer_phases(dev) -> tuple[list[dict], int, float, tuple]:
                 + k4_count.get("shade", 0) * SHADE_OPS) * scale)
     say(f"phase 9 render bound (phase 7's K4 work x {scale:.0f}): "
         f"{rb[0]:.4f} ms ({rb[1]})")
-    del img
+    st = dict(zip(pt_fused.POOL_STATS, pt_fused.LAST_POOL_STATS.tolist()))
+    say(f"phase 9 pool (last render): {st['blocks']} blocks, {st['waves']} "
+        f"waves ({st['waves'] / max(st['blocks'], 1):.1f} a block), "
+        f"{st['paths']} regenerations (paths started), {st['closest']} "
+        f"closest-hit and {st['shadows']} shadow traces")
+    check(st["paths"] == 512 * 512 * 100,
+          f"the pool ran {st['paths']} paths")
+    img_m = img
+    launches_lane = k4_schedules(dense, cam, img_m, mat4, light4, lights4,
+                                 nodes, leafs, aux, slots)
+    del img, img_m
     torch.cuda.empty_cache()
 
     woop_entry, launches_pallas, pallas_err = megabatch_phases(
@@ -610,8 +648,157 @@ def path_tracer_phases(dev) -> tuple[list[dict], int, float, tuple]:
         "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1],
         "library_ms": None,
+    }, {
+        # the yardstick: launched by phase 9's turns on the same render
+        "name": "pt_fused_bvh[lane]",
+        "route": "cuda",
+        "source": "nanort_tpu_torch/csrc/pt_fused.cu",
+        "replaces": "nanort_tpu/models/pt_fused.py:532",
+        "launches": launches_lane,
+        "max_abs_err": max(r[1] for r in k4_lane.values()),
+        "ms": k4_lane[4][2],
+        "plain_ms": k4_res[4][3],
+        "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1],
+        "library_ms": None,
     }, woop_entry], launches_pallas, pallas_err, (s8, dense.fused_aux, rays,
                                                   dense.mesh)
+
+
+def ptxas_lines(text: str) -> list[str]:
+    """K3's and K4's kernels in a ``ptxas -v`` report: each kernel's
+    name, registers, spills and stack (the pooled kernel at a 128-entry
+    stack, without cycle counters)."""
+    out, name = [], None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = next((k for k in ("pt_bvh_pool_kernelILi128ELb0E",
+                                     "pt_bvh_lane_kernel", "pt_brute_kernel")
+                         if k in ln), None)
+        elif name and ("Used" in ln or "spill" in ln):
+            out.append(f"{name.split('I')[0]}: {' '.join(ln.split())}")
+    return out
+
+
+def k4_schedules(dense, cam, img_pool, mat, light, lights, nodes, leafs, aux,
+                 slots) -> int:
+    """Phase 9's comparison of K4's two kernels on the midscale render:
+    the lane and pooled kernels in turns through ``render_path_traced``
+    (images equal bit for bit, and equal to the main path's), one pooled
+    render with the cycle counters, both kernels' lane sums with
+    ``trig="poly"`` (equal bit for bit) and 4,096 sampled lanes against
+    the plain version. Returns the lane kernel's launches in the turns."""
+    import functools
+
+    import torch
+
+    from nanort_tpu_torch.models import path_tracer, pt_fused
+    from nanort_tpu_torch.models.cameras import pinhole_rays
+
+    rays = pinhole_rays(cam)
+    real = pt_fused.render_fused_bvh
+    zero_launch_counts()
+
+    def render(schedule):
+        pt_fused.render_fused_bvh = functools.partial(real,
+                                                      _schedule=schedule)
+        try:
+            holder = {}
+            ms = cuda_ms(lambda: holder.__setitem__(
+                "img", path_tracer.render_path_traced(
+                    dense, rays, 3, spp=100, max_bounces=10)), 1)[0]
+            return holder["img"], ms
+        finally:
+            pt_fused.render_fused_bvh = real
+
+    turns = []
+    for schedule in ("lane", "pool", "pool", "lane"):
+        img, ms = render(schedule)
+        turns.append((schedule, ms, torch.equal(img, img_pool)))
+    launches = launch_counts()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    lane_ms = [ms for sch, ms, _ in turns if sch == "lane"]
+    pool_ms = [ms for sch, ms, _ in turns if sch == "pool"]
+    say(f"phase 9 K4 schedules in turns on {smi} (512x512 x 100 spp x 10 "
+        "bounces, render_path_traced, ms): "
+        + ", ".join(f"{sch} {ms:.1f}" for sch, ms, _ in turns)
+        + f"; lane/pooled {min(lane_ms) / min(pool_ms):.3f}x; images equal "
+        f"to the main path's bit for bit: {[e for _, _, e in turns]}; "
+        f"launches {launches}")
+    check(all(e for _, _, e in turns),
+          "K4's lane and pooled kernels give different midscale images")
+    check(launches["pt_fused_bvh"] == 2 and launches["pt_fused_bvh[lane]"]
+          == 2, f"phase 9 turns launched {launches}")
+    check(min(pool_ms) < min(lane_ms),
+          "the pooled kernel is not faster than the lane kernel")
+
+    # what each part of the schedule buys: one render with each left out
+    # (regeneration and the pool stay), images equal bit for bit
+    parts = []
+    for flags, what in ((3, "fixed-stride chunks"), (5, "unsorted shadows"),
+                        (4, "no sort")):
+        pt_fused.POOL_FLAGS = flags
+        try:
+            img, ms = render("pool")
+        finally:
+            pt_fused.POOL_FLAGS = 7
+        parts.append(f"{what} {ms:.1f}")
+        check(torch.equal(img, img_pool), f"the pool with {what} changes "
+              "the image")
+    say(f"phase 9 pooled kernel without one of its parts (ms; all of them "
+        f"{min(pool_ms):.1f}): " + ", ".join(parts))
+
+    # where the pooled kernel's time goes: one render with its counters
+    pt_fused.POOL_PROFILE = True
+    try:
+        _, ms_p = render("pool")
+    finally:
+        pt_fused.POOL_PROFILE = False
+    st = dict(zip(pt_fused.POOL_STATS, pt_fused.LAST_POOL_STATS.tolist()))
+    cyc = {k: v for k, v in st.items() if k.startswith("cyc_")}
+    total = sum(cyc.values())
+    threads = 512
+    say(f"phase 9 pooled kernel by phase ({ms_p:.1f} ms with counters; "
+        "share of each block's cycles): "
+        + ", ".join(f"{k[4:]} {v / total:.4f}" for k, v in cyc.items())
+        + f"; lanes busy inside their trace: closest "
+        f"{st['busy_closest'] / max(st['cyc_trace_closest'] * threads, 1):.4f}"
+        f", shadow "
+        f"{st['busy_shadow'] / max(st['cyc_trace_shadow'] * threads, 1):.4f}")
+
+    # both kernels' lane sums with trig="poly" on the route's own input
+    H = W = 512
+    org = rays.org.reshape(-1, 3)
+    d = rays.dir.reshape(-1, 3)
+    perm = torch.arange(H * W, device=org.device).reshape(
+        H // 32, 32, W // 128, 128).transpose(1, 2).reshape(-1)
+    K = path_tracer.default_spp_lanes(100, 4)
+    org = org[perm].repeat_interleave(K, 0).contiguous()
+    d = d[perm].repeat_interleave(K, 0).contiguous()
+    args = (mat, light, lights, nodes, leafs, aux, slots, org, d, 3,
+            100 // K, 10, 3, "poly", 4, K)
+    sums = {sch: pt_fused._launch_fused_bvh(sch, *args)
+            for sch in ("pool", "lane")}
+    same = torch.equal(sums["pool"], sums["lane"])
+    pick = torch.from_numpy(np.sort(np.random.default_rng(13).choice(
+        org.shape[0], 4096, replace=False))).to(org.device)
+    t0 = time.perf_counter()
+    want = pt_fused._render_fused_bvh_reference(
+        mat, lights, nodes, leafs, aux, slots, org[pick], d[pick], 3,
+        100 // K, 10, 3, "poly", 4, K, lane_ids=pick)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    held = torch.equal(sums["pool"][pick], want)
+    say(f"phase 9 trig='poly': pooled == lane lane sums bit for bit on all "
+        f"{org.shape[0]} lanes: {same}; 4,096 sampled lanes == plain "
+        f"version (lane_ids=) bit for bit: {held} (plain {plain_s:.1f} s), "
+        f"max abs err {max_abs(sums['pool'][pick], want)}")
+    check(same and held, "K4's pooled kernel disagrees on the full-size "
+          "poly input")
+    return launches["pt_fused_bvh[lane]"]
 
 
 def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
@@ -624,6 +811,7 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
     watertight kernel's largest error on its phase-11 traces."""
     import torch
 
+    import nanort_tpu_torch as nt
     from nanort_tpu_torch.models import path_tracer
     from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
     from nanort_tpu_torch.traverse import packet, ray_sort
@@ -734,72 +922,81 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
                   and h["dead_hits"] == 0,
                   f"megabatch {name} {kind} trace: {h}")
 
-    # one more turbo render, split into its layers with CUDA events
-    spans = {"trace_paths": [], "_trace": [], "traverse_bvh8": []}
+    # for each engine, one more render split into its layers with CUDA
+    # events, and one more counting the work of every trace on every
+    # 1,000th of its sorted rays with the plain version (not timed)
+    for name, scene, woop in (("turbo", turbo, True), ("pallas", dense,
+                                                        False)):
+        spans = {"trace_paths": [], "_trace": [], "traverse_bvh8": []}
 
-    def timed(fn, name):
-        def wrapped(*a, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = fn(*a, **k)
-            e1.record()
-            spans[name].append((e0, e1))
+        def timed(fn, what):
+            def wrapped(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                spans[what].append((e0, e1))
+                return out
+            return wrapped
+
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for mod, what in ((path_tracer, "trace_paths"),
+                              (path_tracer, "_trace"),
+                              (packet, "traverse_bvh8")):
+                stack.enter_context(patched(mod, what,
+                                            timed(getattr(mod, what), what)))
+            total = cuda_ms(lambda: path_tracer.render_path_traced(
+                scene, cam_rays, 3, spp=100, max_bounces=10, fused=False),
+                1)[0]
+        wall = (time.perf_counter() - t0) * 1e3
+        sums = {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in spans.items()}
+        layers = {
+            "trace kernel": sums["traverse_bvh8"],
+            "sort, permute, unsort": sums["_trace"] - sums["traverse_bvh8"],
+            "shading, RNG": sums["trace_paths"] - sums["_trace"],
+            "megabatch setup, accumulate": total - sums["trace_paths"],
+        }
+        say(f"phase 11 {name} render by layer (CUDA events; {total:.1f} ms "
+            f"on the device, {wall:.1f} ms host wall): "
+            + ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})"
+                        for k, v in layers.items())
+            + f"; {len(spans['traverse_bvh8'])} traversal launches")
+        del spans
+        torch.cuda.empty_cache()
+
+        work = {"rays": 0, "bytes": 0, "nodes": 0, "tris": 0}
+
+        def counting(s8, r, *a, **k):
+            out = real_traverse(s8, r, *a, **k)
+            sample = type(r)(*(x[::1000].contiguous() for x in r))
+            st = {}
+            leafs = s8.leafs_woop if woop else s8.leafs
+            packet._traverse_reference(
+                s8.nodes, leafs, 16, sample.org, sample.dir, sample.min_t,
+                sample.max_t, None, None, False,
+                nt.BVHTraceOptions().exact_edge_fallback and not woop,
+                k.get("occlusion", False), packet.stack_slots(s8),
+                woop=woop, stats=st)
+            work["rays"] += r.org.shape[0]
+            work["bytes"] += r.org.shape[0] * (32 + 20) + nbytes(s8.nodes,
+                                                                 leafs)
+            work["nodes"] += st.get("nodes", 0) * 1000
+            work["tris"] += st.get("tris", 0) * 1000
             return out
-        return wrapped
 
-    t0 = time.perf_counter()
-    with contextlib.ExitStack() as stack:
-        for mod, name in ((path_tracer, "trace_paths"),
-                          (path_tracer, "_trace"), (packet, "traverse_bvh8")):
-            stack.enter_context(patched(mod, name,
-                                        timed(getattr(mod, name), name)))
-        total = cuda_ms(lambda: path_tracer.render_path_traced(
-            turbo, cam_rays, 3, spp=100, max_bounces=10, fused=False), 1)[0]
-    wall = (time.perf_counter() - t0) * 1e3
-    sums = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    layers = {
-        "trace kernel": sums["traverse_bvh8"],
-        "sort, permute, unsort": sums["_trace"] - sums["traverse_bvh8"],
-        "shading, RNG": sums["trace_paths"] - sums["_trace"],
-        "megabatch setup, accumulate": total - sums["trace_paths"],
-    }
-    say(f"phase 11 turbo render by layer (CUDA events; {total:.1f} ms on "
-        f"the device, {wall:.1f} ms host wall): "
-        + ", ".join(f"{k} {v:.1f} ms ({v / total:.3f})"
-                    for k, v in layers.items())
-        + f"; {len(spans['traverse_bvh8'])} traversal launches")
-    del spans
-    torch.cuda.empty_cache()
-
-    # and once more, counting the work of every trace on every 1,000th of
-    # its sorted rays with the plain version (not timed)
-    work = {"rays": 0, "bytes": 0, "nodes": 0, "tris": 0}
-
-    def counting(scene, r, *a, **k):
-        out = real_traverse(scene, r, *a, **k)
-        sample = type(r)(*(x[::1000].contiguous() for x in r))
-        st = {}
-        packet._traverse_reference(
-            scene.nodes, scene.leafs_woop, 16, sample.org, sample.dir,
-            sample.min_t, sample.max_t, None, None, False, False,
-            k.get("occlusion", False), packet.stack_slots(scene), woop=True,
-            stats=st)
-        work["rays"] += r.org.shape[0]
-        work["bytes"] += r.org.shape[0] * (32 + 20) + nbytes(
-            scene.nodes, scene.leafs_woop)
-        work["nodes"] += st.get("nodes", 0) * 1000
-        work["tris"] += st.get("tris", 0) * 1000
-        return out
-
-    real_traverse = packet.traverse_bvh8
-    with patched(packet, "traverse_bvh8", counting):
-        path_tracer.render_path_traced(turbo, cam_rays, 3, spp=100,
-                                       max_bounces=10, fused=False)
-    rb = bound(work["bytes"], trace_ops(work, 16, WOOP_OPS))
-    say(f"phase 11 turbo render, K1-woop's work over its 80 launches "
-        f"(every 1,000th sorted ray, x1000): {work}; bound {rb[0]:.4f} ms "
-        f"({rb[1]}) against {layers['trace kernel']:.1f} ms measured")
+        real_traverse = packet.traverse_bvh8
+        with patched(packet, "traverse_bvh8", counting):
+            path_tracer.render_path_traced(scene, cam_rays, 3, spp=100,
+                                           max_bounces=10, fused=False)
+        rb = bound(work["bytes"],
+                   trace_ops(work, 16, WOOP_OPS if woop else WT_OPS))
+        say(f"phase 11 {name} render, {'K1-woop' if woop else 'K1'}'s work "
+            f"over its 80 launches (every 1,000th sorted ray, x1000): "
+            f"{work}; bound {rb[0]:.4f} ms ({rb[1]}) against "
+            f"{layers['trace kernel']:.1f} ms measured")
 
     # ---- 12. the engines without a kernel
     wf = path_tracer.make_pt_scene(*dense_arrays, device=dev)
@@ -1390,6 +1587,20 @@ def incoherent_phases(dev, n_tris: int = 1_000_000, R: int = 4_194_304,
         f"{held['plain_ms']:.1f} ms; work {held['stats']}; bound "
         f"{roots_bound[0]:.4f} ms ({roots_bound[1]})")
     check(held["same"], "K1 with roots disagrees with its plain version")
+    # the run's 3 launches: the slice's work scaled by their slots (the
+    # slice is 131,072 of them), the rows read at most the whole tables
+    slots = sum(r.org.shape[0] for r, _, _, _ in kept)
+    scale = slots / held["rays"]
+    run_stats = {k: v * scale for k, v in held["stats"].items()}
+    run_bound = bound(
+        slots * (32 + 20) + 4 * sum(k["packet_roots"].numel()
+                                    for _, _, k, _ in kept)
+        + min(row_bytes(held["stats"]) * scale, nbytes(s8.nodes, s8.leafs)),
+        trace_ops(run_stats, 8, WT_OPS))
+    say(f"phase 16 K1 with roots over the run's {len(kept)} launches "
+        f"({slots} slots; the slice's work x {scale:.2f}, by slots): bound "
+        f"{run_bound[0]:.4f} ms ({run_bound[1]}) against "
+        f"{split['K1 with roots']:.2f} ms measured")
     del kept, r1, out1
     torch.cuda.empty_cache()
 
@@ -1808,6 +2019,8 @@ def main() -> int:
 
     # ---- 2. builds (and, beside them, the ptxas reports of K5 and K2)
     pool = concurrent.futures.ThreadPoolExecutor(1)
+    # first the report that phase 7 prints, the others by phases 14, 18
+    usage_pt = pool.submit(lambda: _ext.resource_usage("pt_fused"))
     usage = pool.submit(lambda: _ext.resource_usage("ao_fused")
                         + _ext.resource_usage("bvh16_trace"))
     usage_k1 = pool.submit(lambda: _ext.resource_usage("packet_traverse"))
@@ -2030,7 +2243,7 @@ def main() -> int:
     # phase 4's scene and phase 5's rays stay for phase 18
     del rays, rays_t, untile, hits, holder, scene_h, bvh, fr, fh
     torch.cuda.empty_cache()
-    k2k5, launches_pt, err_pt, k2_inputs = path_tracer_phases(dev)
+    k2k5, launches_pt, err_pt, k2_inputs = path_tracer_phases(dev, usage_pt)
     torch.cuda.empty_cache()
     entries_a, launches_a, err_a = config_a_phases(dev, k2_inputs, usage)
     del k2_inputs

@@ -19,6 +19,7 @@ This package imports torch and NumPy, never jax: ``nanort_tpu``'s own
 ``__init__`` pulls in jax, so nothing here imports from it.
 """
 
+from .core.aabb import intersect_ray_aabb, max_mult
 from .core.bvh import BVH, compute_skip_links, dump, load, validate
 from .core.math import safe_inverse
 from .core.options import (
@@ -27,11 +28,32 @@ from .core.options import (
     BVHTraceOptions,
     INVALID_PRIM_ID,
 )
-from .core.ray import PRIM_ID_DTYPE, Hits, Rays, make_rays
+from .core.ray import (
+    PRIM_ID_DTYPE,
+    Hits,
+    Rays,
+    RAY_TYPE_DIFFUSE,
+    RAY_TYPE_NONE,
+    RAY_TYPE_PRIMARY,
+    RAY_TYPE_REFLECTION,
+    RAY_TYPE_REFRACTION,
+    RAY_TYPE_SECONDARY,
+    make_rays,
+    no_hits,
+)
 from .build.sah import build_sah
-from .ops.triangle import TriangleMesh, triangle_prim_bounds
+from .ops.triangle import (
+    TriangleMesh,
+    intersect_triangles,
+    ray_coeffs,
+    triangle_prim_bounds,
+)
 from .traverse.brute import brute_force_traverse
-from .traverse.stack import traverse, traverse_triangles
+from .traverse.stack import (
+    list_node_intersections,
+    traverse,
+    traverse_triangles,
+)
 
 __version__ = "0.1.0"
 

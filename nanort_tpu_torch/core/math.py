@@ -55,3 +55,11 @@ def safe_inverse(v: torch.Tensor) -> torch.Tensor:
     signed_inf = torch.copysign(torch.full_like(v, float("inf")), v)
     denom = torch.where(tiny, torch.ones_like(v), v)
     return torch.where(tiny, signed_inf, torch.ones_like(v) / denom)
+
+
+def surface_area(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
+    """Surface area of an AABB batch (reference ``CalculateSurfaceArea``,
+    nanort.h:1277-1282)."""
+    d = bmax - bmin
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                  + d[..., 2] * d[..., 0])

@@ -17,6 +17,14 @@ from .options import INVALID_PRIM_ID
 
 PRIM_ID_DTYPE = torch.int64
 
+# Ray type bitmask (nanort.h:85-94).
+RAY_TYPE_NONE = 0x0
+RAY_TYPE_PRIMARY = 0x1
+RAY_TYPE_SECONDARY = 0x2
+RAY_TYPE_DIFFUSE = 0x4
+RAY_TYPE_REFLECTION = 0x8
+RAY_TYPE_REFRACTION = 0x10
+
 
 class Rays(NamedTuple):
     """A batch of rays. ``org``/``dir``: (..., 3); ``min_t``/``max_t``: (...,)."""
@@ -74,3 +82,22 @@ class Hits(NamedTuple):
     def hit(self) -> torch.Tensor:
         return self.prim_id != INVALID_PRIM_ID
 
+
+def no_hits(batch_shape, dtype=torch.float32, init_t=None,
+            device=None) -> Hits:
+    """All-miss hit record; ``t`` initialized to ``max_t`` like the
+    reference's ``intersector.Update(ray.max_t, -1)`` (nanort.h:2501).
+    New tensors go on ``device`` (default: ``init_t``'s, or the CPU)."""
+    if device is None and isinstance(init_t, torch.Tensor):
+        device = init_t.device
+    bs = tuple(batch_shape)
+    if init_t is None:
+        init_t = torch.full(bs, torch.finfo(dtype).max, dtype=dtype,
+                            device=device)
+    return Hits(
+        t=torch.as_tensor(init_t, dtype=dtype, device=device),
+        u=torch.zeros(bs, dtype=dtype, device=device),
+        v=torch.zeros(bs, dtype=dtype, device=device),
+        prim_id=torch.full(bs, INVALID_PRIM_ID, dtype=PRIM_ID_DTYPE,
+                           device=device),
+    )

@@ -42,9 +42,11 @@
 // It does not copy the TPU's scheme, one SMEM stack per (S, 128) block
 // with OR-reduced slab votes and a child order from ray 0's octant. Each
 // thread has a private stack of depth * 15 + 1 entries (a near-first walk
-// never holds more, as for K1) and takes the child order from its own
-// ray's octant: that changes the prim only between hits at exactly equal
-// t, the repository's tie contract.
+// never holds more, as for K1; the caller sizes the local array, kCap,
+// from it or takes the 512-entry ceiling) and takes the child order from
+// its own ray's octant: that changes the prim only between hits at
+// exactly equal t, the repository's tie contract. A node's 16 child boxes
+// (its row's first 384 bytes) arrive in 24 16-byte loads.
 //
 // What bounds it on this card: dependent row fetches (a 512-byte node row
 // must arrive before the next node index is known) and divergence: bounce
@@ -52,8 +54,7 @@
 // union of 32 unrelated walks. The design keeps the per-ray work minimal
 // (no ray tests a node or leaf it does not hit itself, occlusion exits at
 // its first blocker, rays with an empty [tmin, tmax] skip the walk) and
-// leaves coherence (ray sorting, sample-major lanes, warp-wide queues) to
-// the caller and to later work.
+// leaves coherence to the caller (K4's pooled kernel sorts its rays).
 //
 // Numerics: compile with --fmad=false (every product separately rounded,
 // as the plain torch version, traverse/fused_trace.py::
@@ -133,8 +134,9 @@ __device__ __forceinline__ float prod_diff(float a, float b, float c,
 // kAux: fill mid / normal from the aux row (closest-hit only).
 // kWatertight: the watertight leaf test, else Moller-Trumbore.
 // kSkip: triangles of prim id ``skip`` are not hits.
+// kCap: the private stack's entries (stack_size <= kCap).
 template <bool kOcclusion, bool kAux, bool kWatertight = false,
-          bool kSkip = false>
+          bool kSkip = false, int kCap = kStackCap>
 __device__ Record trace(const float* __restrict__ nodes,
                         const float* __restrict__ leafs,
                         const float* __restrict__ aux, int stack_size,
@@ -181,21 +183,19 @@ __device__ Record trace(const float* __restrict__ nodes,
 
   // with s_min > s_max (or NaN) no slab and no triangle can pass
   if (s_min <= s_max) {
-    int stack[kStackCap];
+    int stack[kCap];
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {
       const int e = stack[--sp];
       if (e >= 0) {
         const float* row = nodes + (size_t)e * 128;
-        unsigned mask = 0u;
-#pragma unroll
-        for (int w = 0; w < 16; ++w) {
-          const float b0x = __ldg(row + 6 * w), b0y = __ldg(row + 6 * w + 1),
-                      b0z = __ldg(row + 6 * w + 2);
-          const float b1x = __ldg(row + 6 * w + 3),
-                      b1y = __ldg(row + 6 * w + 4),
-                      b1z = __ldg(row + 6 * w + 5);
+        // the 16 child boxes are the row's first 384 bytes: 24 16-byte
+        // loads, three for each pair of children (the caller checks that
+        // the table is 16-byte aligned)
+        const float4* row4 = reinterpret_cast<const float4*>(row);
+        auto slab = [&](float b0x, float b0y, float b0z, float b1x, float b1y,
+                        float b1z) {
           const float lox = snx ? b1x : b0x, hix = snx ? b0x : b1x;
           const float loy = sny ? b1y : b0y, hiy = sny ? b0y : b1y;
           const float loz = snz ? b1z : b0z, hiz = snz ? b0z : b1z;
@@ -205,7 +205,16 @@ __device__ Record trace(const float* __restrict__ nodes,
               min_nan(min_nan((hix - sox) * ix * kMaxMult,
                               (hiy - soy) * iy * kMaxMult),
                       min_nan((hiz - soz) * iz * kMaxMult, t_b));
-          mask |= (unsigned)(t0 <= t1) << w;
+          return (unsigned)(t0 <= t1);
+        };
+        unsigned mask = 0u;
+#pragma unroll
+        for (int pr = 0; pr < 8; ++pr) {
+          const float4 a = __ldg(row4 + 3 * pr);
+          const float4 b = __ldg(row4 + 3 * pr + 1);
+          const float4 c = __ldg(row4 + 3 * pr + 2);
+          mask |= slab(a.x, a.y, a.z, a.w, b.x, b.y) << (2 * pr);
+          mask |= slab(b.z, b.w, c.x, c.y, c.z, c.w) << (2 * pr + 1);
         }
         if (mask == 0u) continue;
         const float v112 = __ldg(row + 112);

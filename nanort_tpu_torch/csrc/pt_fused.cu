@@ -5,34 +5,39 @@
 //   * K3, _pt_kernel (brute-force Moller-Trumbore sweep over <= 256
 //     triangles): pt_brute_kernel below;
 //   * K4, _pt_kernel_bvh (the same loop, tracing a BVH16 with
-//     traverse/fused_trace.py::make_tracer, K2): pt_bvh_kernel below,
-//     which calls bvh16::trace (bvh16_trace.cuh).
-// Both share one __device__ bounce_step, the counterpart of _bounce_step
-// (pt_fused.py:137-311): Russian roulette after bounce rr_start, lobe
-// pick, next-event estimation with one shadow ray, emission, cosine /
+//     traverse/fused_trace.py::make_tracer, K2): pt_bvh_pool_kernel below
+//     (the default) or its yardstick pt_bvh_lane_kernel, both calling
+//     bvh16::trace (bvh16_trace.cuh).
+// All share one __device__ bounce_shade, the counterpart of _bounce_step
+// (pt_fused.py:137-311) up to its NEE shadow ray: Russian roulette after
+// bounce rr_start, lobe pick, next-event estimation, emission, cosine /
 // specular / refracted next direction, all driven by the TPU kernels'
 // counter-based lowbias32 generator, ported bit for bit in uint32
 // arithmetic (the counter base seed + (s_eff * (max_bounces + 1) + b) * 16
-// wraps mod 2^32 as the TPU's int32 does).
+// wraps mod 2^32 as the TPU's int32 does). bounce_step adds the shadow
+// ray's answer for the kernels that trace it in the same thread.
 //
-// Layout: each thread owns one lane (one camera ray, or one sample-major
-// copy of one in K4) and runs its spp x bounce loop in registers, as the
-// TPU kernel runs it per (sub, 128) block; it writes its radiance SUMS
-// (R, 3) once at the end. The wrapper (models/pt_fused.py) divides by spp.
+// Layout: K3 and the lane kernel give each thread one lane (one camera
+// ray, or one sample-major copy of one in K4) and run its spp x bounce
+// loop in registers, as the TPU kernel runs it per (sub, 128) block, and
+// write its radiance SUMS (R, 3) once at the end. The pooled kernel runs
+// each (lane, sample) path from a pool in shared memory and writes its
+// radiance to (spp_iters, R, 3) (see "pool" below). The wrapper
+// (models/pt_fused.py) sums the samples in order and divides by spp.
 //
-// What bounds it on this card:
+// What bounds them on this card:
 //   * K3: the per-lane triangle loop. Every bounce sweeps all F triangles
 //     twice (closest hit, then the shadow ray), ~40 flops each; the
 //     triangle table sits in shared memory and every lane of a warp reads
 //     the same row at once (a broadcast), so the sweep runs at the FP32
 //     issue rate; the shadow sweep exits at its first blocker.
 //   * K4: divergent bounce rays and dependent row fetches inside K2 (see
-//     bvh16_trace.cuh). Lanes of a warp are neighbouring pixels (the
-//     caller's 32 x 128 tile order) and, with spp_lanes > 1, copies of ONE
-//     pixel that share a primary hit and an azimuth wedge, so their first
-//     bounces walk similar subtrees; beyond that the warp runs the union
-//     of its lanes' walks. Path regeneration, ray queues and node caches
-//     are later work.
+//     bvh16_trace.cuh). In the lane kernel a warp's lanes are neighbouring
+//     pixels and sample copies: after the first diffuse bounce the warp
+//     walks the union of 32 unrelated subtrees, and a lane whose path has
+//     ended idles until the warp's longest path ends. The pooled kernel
+//     refills ended paths and sorts its pool by origin and direction
+//     before every trace, so a warp's 32 rays are alike and all live.
 //
 // Numerics: compile with --fmad=false, IEEE division and sqrt, no -ftz,
 // so every value is the separately rounded f32 the plain torch version
@@ -145,17 +150,29 @@ struct Lights {
   float inv_n;         // f32(1 / L)
 };
 
+// What one bounce leaves behind (bounce_shade): the path state after it
+// with the NEE shadow ray blocked, the radiance with it unblocked, and
+// the shadow query from the hit point (hx, hy, hz) that decides between
+// the two. ``nee`` false: there is no query, and ``next`` is final.
+struct Shade {
+  PathState next;
+  float ur, ug, ub;
+  float hx, hy, hz, ldx, ldy, ldz, smax;
+  bool nee;
+};
+
 // One bounce's shading, NEE, emission and next direction given the
-// closest-hit record (pt_fused.py:137-311, op for op). ``shadow(hx, hy,
-// hz, dx, dy, dz, smax)`` answers whether [ray_eps, smax] is blocked; it is
-// only asked for lanes with NEE active (the TPU traces the others with
-// smax = 0, which can block nothing).
-template <class Shadow>
-__device__ __forceinline__ void bounce_step(
-    uint32_t ray_id, uint32_t base, PathState& st, float t, bool hitf,
+// closest-hit record (pt_fused.py:137-311, op for op), up to the NEE
+// shadow ray, which the caller answers (bounce_step, or the pooled
+// kernel's shadow pass). The radiance is carried both ways: with the
+// shadow ray blocked, c + 0 then + emission, and unblocked, c + NEE then
+// + emission: the same two additions in the same order as the one-pass
+// ``c + (gate ? nee : 0) + emission``.
+__device__ __forceinline__ Shade bounce_shade(
+    uint32_t ray_id, uint32_t base, const PathState& st, float t, bool hitf,
     bool alive, float nx0, float ny0, float nz0, const Material& m,
-    const Lights& lights, int trig, int az_strata, int wedge,
-    Shadow shadow) {
+    const Lights& lights, int trig, int az_strata, int wedge) {
+  Shade o;
   const bool hit = hitf && alive;
   const float hx = st.px + st.dx * t;
   const float hy = st.py + st.dy * t;
@@ -196,7 +213,13 @@ __device__ __forceinline__ void bounce_step(
   const bool pick_e = !pick_s && !pick_d && !pick_r;
 
   float cr = st.cr, cg = st.cg, cb = st.cb;
-  float wr = st.wr, wg = st.wg, wb = st.wb;
+  float ur = cr, ug = cg, ub = cb;
+  const float wr = st.wr, wg = st.wg, wb = st.wb;
+  o.nee = false;
+  o.hx = hx;
+  o.hy = hy;
+  o.hz = hz;
+  o.ldx = o.ldy = o.ldz = o.smax = 0.0f;
 
   // ---- NEE (MeshLight::sampleDirect) ----
   if (lights.n > 0) {
@@ -229,23 +252,36 @@ __device__ __forceinline__ void bounce_step(
                            : 0.0f;
     const float shadow_max = max_nan(ldist - kRayEps, 0.0f);
     const bool nee_active = hit && pick_d && (lpdf > 0.0f) && !absorbed;
-    const bool blocked =
-        nee_active && shadow(hx, hy, hz, ldx, ldy, ldz, shadow_max);
     const float cos_t = fabsf(dot3(ldx, ldy, ldz, nx, ny, nz));
     const float invpi = (float)(1.0 / 3.141592653589793);
     const float scale = cos_l * cos_t / max_nan(lpdf, 1e-30f);
-    const bool gate = nee_active && !blocked;
-    cr = cr + (gate ? m.kdx * invpi * lex * scale * wr : 0.0f);
-    cg = cg + (gate ? m.kdy * invpi * ley * scale * wg : 0.0f);
-    cb = cb + (gate ? m.kdz * invpi * lez * scale * wb : 0.0f);
+    // the gate is nee_active && !blocked: blocked adds 0, unblocked adds
+    // the light's term (an inactive NEE adds 0 either way)
+    ur = cr + (nee_active ? m.kdx * invpi * lex * scale * wr : 0.0f);
+    ug = cg + (nee_active ? m.kdy * invpi * ley * scale * wg : 0.0f);
+    ub = cb + (nee_active ? m.kdz * invpi * lez * scale * wb : 0.0f);
+    cr = cr + 0.0f;
+    cg = cg + 0.0f;
+    cb = cb + 0.0f;
+    o.nee = nee_active;
+    o.ldx = ldx;
+    o.ldy = ldy;
+    o.ldz = ldz;
+    o.smax = shadow_max;
   }
 
   // ---- emission ----
   const bool emit_gate = hit && pick_e && st.do_em && !absorbed;
   const float cos_e = max_nan(-dot3(onx, ony, onz, dx, dy, dz), 0.0f);
-  cr = cr + (emit_gate ? cos_e * m.kex * wr : 0.0f);
-  cg = cg + (emit_gate ? cos_e * m.key * wg : 0.0f);
-  cb = cb + (emit_gate ? cos_e * m.kez * wb : 0.0f);
+  const float er = emit_gate ? cos_e * m.kex * wr : 0.0f;
+  const float eg = emit_gate ? cos_e * m.key * wg : 0.0f;
+  const float eb = emit_gate ? cos_e * m.kez * wb : 0.0f;
+  o.next.cr = cr + er;
+  o.next.cg = cg + eg;
+  o.next.cb = cb + eb;
+  o.ur = ur + er;
+  o.ug = ug + eg;
+  o.ub = ub + eb;
 
   // ---- next direction ----
   const float ddn = dot3(dx, dy, dz, nx, ny, nz);
@@ -293,20 +329,40 @@ __device__ __forceinline__ void bounce_step(
   const float lwx = pick_s ? m.ksx : (pick_d ? m.kdx : m.ktx);
   const float lwy = pick_s ? m.ksy : (pick_d ? m.kdy : m.kty);
   const float lwz = pick_s ? m.ksz : (pick_d ? m.kdz : m.ktz);
-  st.wr = wr * (hit ? lwx : 1.0f);
-  st.wg = wg * (hit ? lwy : 1.0f);
-  st.wb = wb * (hit ? lwz : 1.0f);
-  st.cr = cr;
-  st.cg = cg;
-  st.cb = cb;
-  st.alive = hit && !pick_e && !absorbed;
-  st.do_em = hit ? !pick_d : st.do_em;
-  st.px = hit ? hx : st.px;
-  st.py = hit ? hy : st.py;
-  st.pz = hit ? hz : st.pz;
-  st.dx = hit ? ndx : dx;
-  st.dy = hit ? ndy : dy;
-  st.dz = hit ? ndz : dz;
+  o.next.wr = wr * (hit ? lwx : 1.0f);
+  o.next.wg = wg * (hit ? lwy : 1.0f);
+  o.next.wb = wb * (hit ? lwz : 1.0f);
+  o.next.alive = hit && !pick_e && !absorbed;
+  o.next.do_em = hit ? !pick_d : st.do_em;
+  o.next.px = hit ? hx : st.px;
+  o.next.py = hit ? hy : st.py;
+  o.next.pz = hit ? hz : st.pz;
+  o.next.dx = hit ? ndx : dx;
+  o.next.dy = hit ? ndy : dy;
+  o.next.dz = hit ? ndz : dz;
+  return o;
+}
+
+// One whole bounce: bounce_shade, then ``shadow(hx, hy, hz, dx, dy, dz,
+// smax)`` answers whether [ray_eps, smax] is blocked. It is only asked
+// for lanes with NEE active (the TPU traces the others with smax = 0,
+// which can block nothing).
+template <class Shadow>
+__device__ __forceinline__ void bounce_step(
+    uint32_t ray_id, uint32_t base, PathState& st, float t, bool hitf,
+    bool alive, float nx0, float ny0, float nz0, const Material& m,
+    const Lights& lights, int trig, int az_strata, int wedge,
+    Shadow shadow) {
+  const Shade o = bounce_shade(ray_id, base, st, t, hitf, alive, nx0, ny0,
+                               nz0, m, lights, trig, az_strata, wedge);
+  const bool blocked =
+      o.nee && shadow(o.hx, o.hy, o.hz, o.ldx, o.ldy, o.ldz, o.smax);
+  st = o.next;
+  if (o.nee && !blocked) {
+    st.cr = o.ur;
+    st.cg = o.ug;
+    st.cb = o.ub;
+  }
 }
 
 struct Loop {
@@ -452,14 +508,35 @@ struct BvhParams {
   const float* aux;    // aux rows, parallel to the leaf rows
   const float* org;    // (RL, 3): each pixel ray spp_lanes times in a row
   const float* dir;
-  float* out;          // (RL, 3) radiance sums over the lane's samples
+  float* out;          // lane: (RL, 3) radiance sums over the lane's
+                       // samples; pool: (spp_iters, RL, 3), one path each
   int* err;            // (1,) set when a trace stack overflows
-  long long n;
+  long long n;         // RL
   int stack_size;
   Loop lp;
 };
 
-__global__ void __launch_bounds__(kBlock) pt_bvh_kernel(BvhParams p) {
+// The material row of a closest-hit record: a miss reads row 0 (gated
+// off by bounce_shade); an id past the table selects nothing, as the
+// TPU's select loop does.
+__device__ __forceinline__ Material hit_material(const BvhParams& p,
+                                                 const bvh16::Record& rec) {
+  const int mid = rec.mid > 0 ? rec.mid : 0;
+  Material m{};
+  if (mid < p.n_mats) m = load_material(p.mat + (size_t)mid * 14);
+  return m;
+}
+
+__device__ __forceinline__ uint32_t counter_base(const Loop& lp,
+                                                 uint32_t s_eff, int b) {
+  return lp.seed +
+         (s_eff * (uint32_t)(lp.max_bounces + 1) + (uint32_t)b) * 16u;
+}
+
+// The yardstick schedule, the pooled kernel's predecessor: one thread a
+// lane, its spp_iters x bounce loop in series; reached only through
+// _schedule="lane".
+__global__ void __launch_bounds__(kBlock) pt_bvh_lane_kernel(BvhParams p) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= p.n) return;
   const uint32_t ray_id = (uint32_t)i;
@@ -476,18 +553,12 @@ __global__ void __launch_bounds__(kBlock) pt_bvh_kernel(BvhParams p) {
     PathState st{ox0, oy0, oz0, dx0, dy0, dz0, 0.0f, 0.0f, 0.0f,
                  1.0f, 1.0f, 1.0f, true, true};
     for (int b = 0; b < lp.max_bounces; ++b) {
-      const uint32_t base =
-          lp.seed +
-          (s_eff * (uint32_t)(lp.max_bounces + 1) + (uint32_t)b) * 16u;
+      const uint32_t base = counter_base(lp, s_eff, b);
       const bool alive = roulette(ray_id, base, b, lp, st);
       const bvh16::Record rec = bvh16::trace<false, true>(
           p.nodes, p.leafs, p.aux, p.stack_size, p.err, st.px, st.py, st.pz,
           st.dx, st.dy, st.dz, kEpsT, alive ? kFar : 0.0f);
-      // a miss reads material row 0 (gated off below); an id past the
-      // table selects nothing, as the TPU's select loop does
-      const int mid = rec.mid > 0 ? rec.mid : 0;
-      Material m{};
-      if (mid < p.n_mats) m = load_material(p.mat + (size_t)mid * 14);
+      const Material m = hit_material(p, rec);
       const int wedge = (s + b * 3) % lp.az_strata;
       auto shadow = [&](float hx, float hy, float hz, float ldx, float ldy,
                         float ldz, float smax) {
@@ -506,6 +577,551 @@ __global__ void __launch_bounds__(kBlock) pt_bvh_kernel(BvhParams p) {
   p.out[3 * i] = ar;
   p.out[3 * i + 1] = ag;
   p.out[3 * i + 2] = ab;
+}
+
+// ------------------------------------------------------------ pool
+//
+// The pooled schedule (the default). A work item is one path: (lane,
+// s), item j = s * RL + lane, so items run in lane order (the lanes of
+// one pixel, then the next pixel of its tile) and each writes its
+// radiance once, to out[s][lane]; the wrapper sums out over s in order,
+// which is the lane kernel's register sum. Every random number depends
+// on (lane, s, b) alone, so the order in which paths run changes no bit.
+//
+// One persistent block an SM (512 threads) keeps 2,048 paths in shared
+// memory and runs waves until the items run out: roulette every path,
+// refill the free slots from a global item counter (one chunk a block),
+// key every live path with the megabatch route's ray-sort key (origin
+// Morton code over the root box, then the direction octant; ray_sort.py),
+// sort the slots by key with a stable radix sort in shared memory, and
+// trace the k-th live path in sorted order: closest hit, then
+// bounce_shade. The NEE shadow rays are keyed and sorted the same way and
+// traced; each answer picks the slot's blocked or unblocked radiance. A
+// path ends at a miss, an emitter pick, absorption, roulette or
+// max_bounces; its slot takes the next item in the next wave, so warps
+// stay full until the items run out.
+//
+// What bounds it: lane divergence inside the traversal (a warp waits for
+// its longest walk) and dependent node fetches. The sort is what buys
+// coherence, and the larger the pool the more (chip_smoke.py phase 9
+// times it without each part): 2,048 slots of 101 bytes fill the 227 KB
+// a block may hold, and 512 threads at <= 128 registers fill the
+// register file. A path's state stays in shared memory between waves;
+// registers hold only the ray in flight.
+
+constexpr int kPoolThreads = 512;
+constexpr int kPoolWarps = kPoolThreads / 32;
+constexpr int kSlotsPerThread = 4;
+constexpr int kPoolSlots = kPoolThreads * kSlotsPerThread;
+constexpr int kGroups = kPoolSlots / 32;       // 32 slots a radix group
+constexpr int kRadixBits = 5;
+constexpr int kRadix = 1 << kRadixBits;
+constexpr int kCounts = kRadix * kGroups;
+constexpr int kScanPer = kCounts / kPoolThreads;
+constexpr int kKeyBits = 19;                   // dead . Morton 15 . octant 3
+constexpr uint32_t kDeadKey = 1u << 18;
+static_assert(kCounts % kPoolThreads == 0 && kPoolSlots <= 65536,
+              "pool shape");
+
+// schedule options (the wrapper's ``flags``)
+constexpr int kSortClosest = 1;  // sort the closest-hit rays by key
+constexpr int kSortShadow = 2;   // sort the shadow rays (else compact)
+constexpr int kDynamic = 4;      // warps take 32-ray chunks of a wave from a
+                                 // counter (else a fixed stride)
+
+// the kernel's counters (the wrapper's ``stats``, int64): the item
+// counter, then totals over the blocks
+enum Stat {
+  kItems = 0,
+  kWaves, kPaths, kClosest, kShadows, kBlocks,
+  // cycles (thread 0's clock64, each phase up to the barrier closing it)
+  kCycRefill, kCycSortC, kCycTraceC, kCycSortS, kCycTraceS,
+  // thread-cycles inside the closest-hit trace + shading, the shadow trace
+  kBusyC, kBusyS,
+  kNumStats
+};
+
+// slot flags
+constexpr uint8_t kOcc = 1;      // holds a live path (alive, b < max_bounces)
+constexpr uint8_t kDoEm = 2;     // the path's do_em
+constexpr uint8_t kShadow = 4;   // a shadow query waits in ur.. / l* / sm
+constexpr uint8_t kEnd = 8;      // the path ends once its query is answered
+
+struct Pool {
+  float px[kPoolSlots], py[kPoolSlots], pz[kPoolSlots];
+  float dx[kPoolSlots], dy[kPoolSlots], dz[kPoolSlots];
+  float cr[kPoolSlots], cg[kPoolSlots], cb[kPoolSlots];
+  float wr[kPoolSlots], wg[kPoolSlots], wb[kPoolSlots];
+  // the pending shadow query: unblocked radiance, direction, tmax
+  float ur[kPoolSlots], ug[kPoolSlots], ub[kPoolSlots];
+  float lx[kPoolSlots], ly[kPoolSlots], lz[kPoolSlots], sm[kPoolSlots];
+  int lane[kPoolSlots], s[kPoolSlots], b[kPoolSlots];
+  uint8_t flags[kPoolSlots];
+  uint32_t key[2][kPoolSlots];
+  uint16_t idx[2][kPoolSlots];
+  int cnt[kCounts];
+  int wsum[kPoolWarps];
+  unsigned long long item0;
+  int nfree, ngot, ticket, nlive, nshadow, chunk_c, chunk_s;
+  bool exhausted;
+  unsigned long long stat[kNumStats];  // this block's totals
+};
+
+struct PoolParams {
+  BvhParams bp;
+  unsigned long long* stats;  // (kNumStats,), see Stat
+  const float* box;  // (6,): the root box's lo, max(hi - lo, 1e-30)
+  int flags;
+  int chunk;         // most items a block claims at once
+};
+
+struct SortBox {
+  float lox, loy, loz, ex, ey, ez;
+};
+
+__device__ __forceinline__ uint32_t expand_bits(uint32_t v) {
+  v = (v * 0x00010001u) & 0xFF0000FFu;
+  v = (v * 0x00000101u) & 0x0F00F00Fu;
+  v = (v * 0x00000011u) & 0xC30C30C3u;
+  v = (v * 0x00000005u) & 0x49249249u;
+  return v;
+}
+
+// cell of one axis on the 32^3 grid: clamp to [0, 31], NaN to 0
+__device__ __forceinline__ uint32_t grid_cell(float o, float lo, float ext) {
+  const float c = (o - lo) / ext * 32.0f;
+  if (c != c) return 0u;
+  return (uint32_t)(int)fminf(fmaxf(c, 0.0f), 31.0f);
+}
+
+// ray_sort.ray_sort_keys (octant_major False) without its dead bit:
+// Morton code of the origin's cell, then the direction octant
+__device__ __forceinline__ uint32_t ray_key(const SortBox& q, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz) {
+  const uint32_t morton = (expand_bits(grid_cell(ox, q.lox, q.ex)) << 2) |
+                          (expand_bits(grid_cell(oy, q.loy, q.ey)) << 1) |
+                          expand_bits(grid_cell(oz, q.loz, q.ez));
+  const uint32_t oct = (dx < 0.0f ? 4u : 0u) | (dy < 0.0f ? 2u : 0u) |
+                       (dz < 0.0f ? 1u : 0u);
+  return (morton << 3) | oct;
+}
+
+// Exclusive prefix sum of sh.cnt in place (all threads).
+__device__ __forceinline__ void scan_counts(Pool& sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int v[kScanPer];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < kScanPer; ++j) {
+    v[j] = sh.cnt[tid * kScanPer + j];
+    sum += v[j];
+  }
+  int inc = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) sh.wsum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kPoolWarps ? sh.wsum[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, wi, o);
+      if (lane >= o) wi += y;
+    }
+    if (lane < kPoolWarps) sh.wsum[lane] = wi - w;
+  }
+  __syncthreads();
+  int run = inc - sum + sh.wsum[warp];
+#pragma unroll
+  for (int j = 0; j < kScanPer; ++j) {
+    sh.cnt[tid * kScanPer + j] = run;
+    run += v[j];
+  }
+  __syncthreads();
+}
+
+// Stable LSD radix sort of (key, slot) pairs in sh.key[0] / sh.idx[0]
+// over the key bits [bit0, bit0 + 5 * passes). Each pass is a counting
+// sort: per 32-slot group the slots of each digit are ranked with
+// __match_any_sync, the (digit, group) counts are scanned in digit-major
+// order, and every pair scatters to its digit's base + rank. Returns the
+// buffer holding the result.
+__device__ __forceinline__ int sort_slots(Pool& sh, int bit0, int passes) {
+  const int tid = threadIdx.x;
+  const uint32_t below = (1u << (tid & 31)) - 1u;
+  int cur = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int shift = bit0 + pass * kRadixBits;
+    for (int j = tid; j < kCounts; j += kPoolThreads) sh.cnt[j] = 0;
+    __syncthreads();
+    uint32_t kk[kSlotsPerThread];
+    int dg[kSlotsPerThread], rk[kSlotsPerThread];
+#pragma unroll
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      const int k = r * kPoolThreads + tid;
+      kk[r] = sh.key[cur][k];
+      dg[r] = (int)((kk[r] >> shift) & (kRadix - 1));
+      const uint32_t peers = __match_any_sync(0xffffffffu, dg[r]);
+      rk[r] = __popc(peers & below);
+      if (rk[r] == 0) sh.cnt[dg[r] * kGroups + (k >> 5)] = __popc(peers);
+    }
+    __syncthreads();
+    scan_counts(sh);
+#pragma unroll
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      const int k = r * kPoolThreads + tid;
+      const int dst = sh.cnt[dg[r] * kGroups + (k >> 5)] + rk[r];
+      sh.key[cur ^ 1][dst] = kk[r];
+      sh.idx[cur ^ 1][dst] = sh.idx[cur][k];
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  return cur;
+}
+
+// Sorts the slots' keys (sh.key[0], slot k at k) fully, or by the dead
+// bit alone (a stable compaction) without ``full``.
+__device__ __forceinline__ int order_slots(Pool& sh, bool full) {
+  return full ? sort_slots(sh, 0, (kKeyBits + kRadixBits - 1) / kRadixBits)
+              : sort_slots(sh, 18, 1);
+}
+
+// The 32-ray chunks of a wave's n sorted rays: a warp takes the next one
+// from ``counter`` (dynamic) or every kPoolWarps-th (fixed stride);
+// ``fn(k)`` runs for each ray k < n, in the lane that owns it.
+template <class Fn>
+__device__ __forceinline__ void for_chunks(int n, int& counter, bool dynamic,
+                                           Fn&& fn) {
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = 0;; ++r) {
+    int c = 0;
+    if (dynamic) {
+      if (lane_id == 0) c = atomicAdd(&counter, 1);
+      c = __shfl_sync(0xffffffffu, c, 0);
+    } else {
+      c = r * kPoolWarps + warp;
+    }
+    if (c * 32 >= n) break;
+    const int k = c * 32 + lane_id;
+    if (k < n) fn(k);
+  }
+}
+
+__device__ __forceinline__ void finish_path(const PoolParams& q, Pool& sh,
+                                            int i) {
+  float* o = q.bp.out + ((size_t)sh.s[i] * (size_t)q.bp.n + sh.lane[i]) * 3;
+  o[0] = sh.cr[i];
+  o[1] = sh.cg[i];
+  o[2] = sh.cb[i];
+  sh.flags[i] = 0;
+}
+
+// Russian roulette for slot i's bounce b (as ``roulette``): ends the
+// path, or scales its weight and keeps it.
+__device__ __forceinline__ void pool_roulette(const PoolParams& q, Pool& sh,
+                                              int i) {
+  const Loop& lp = q.bp.lp;
+  const uint32_t lane = (uint32_t)sh.lane[i];
+  const uint32_t s_eff = (uint32_t)sh.s[i] * (uint32_t)lp.spp_lanes +
+                         lane % (uint32_t)lp.spp_lanes;
+  const int b = sh.b[i];
+  const uint32_t base = counter_base(lp, s_eff, b);
+  const bool rr_apply = b > lp.rr_start;
+  const float u_rr = uniform01(lane, base);
+  const float rr_fac = rr_apply ? 1.25f : 1.0f;
+  sh.wr[i] = sh.wr[i] * rr_fac;
+  sh.wg[i] = sh.wg[i] * rr_fac;
+  sh.wb[i] = sh.wb[i] * rr_fac;
+  if (rr_apply && u_rr < 0.2f) finish_path(q, sh, i);
+}
+
+template <int kCap, bool kProfile>
+__global__ void __launch_bounds__(kPoolThreads, 1)
+    pt_bvh_pool_kernel(PoolParams q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Pool& sh = *reinterpret_cast<Pool*>(smem);
+  const BvhParams& p = q.bp;
+  const Loop& lp = p.lp;
+  const int tid = threadIdx.x, lane_id = tid & 31;
+  const unsigned long long total =
+      (unsigned long long)p.n * (unsigned long long)lp.spp_iters;
+  const bool sort_closest = (q.flags & kSortClosest) != 0;
+  const bool sort_shadow = (q.flags & kSortShadow) != 0;
+  const bool dynamic = (q.flags & kDynamic) != 0;
+  const SortBox box{__ldg(q.box), __ldg(q.box + 1), __ldg(q.box + 2),
+                    __ldg(q.box + 3), __ldg(q.box + 4), __ldg(q.box + 5)};
+
+  for (int k = tid; k < kPoolSlots; k += kPoolThreads) sh.flags[k] = 0;
+  for (int k = tid; k < kNumStats; k += kPoolThreads) sh.stat[k] = 0ull;
+  if (tid == 0) sh.exhausted = false;
+  __syncthreads();
+  long long t_lap = kProfile ? clock64() : 0;
+  unsigned long long busy_c = 0ull, busy_s = 0ull;
+  // thread 0 books the cycles since the last lap to phase k
+  auto lap = [&](int k) {
+    if (kProfile && tid == 0) {
+      const long long now = clock64();
+      sh.stat[k] += (unsigned long long)(now - t_lap);
+      t_lap = now;
+    }
+  };
+
+  for (;;) {
+    // ---- roulette the live paths; count the free slots (every thread
+    // has read the last wave's counters before they are reset)
+    __syncthreads();
+    if (tid == 0) {
+      sh.nfree = 0;
+      sh.ticket = 0;
+      sh.nlive = 0;
+      sh.nshadow = 0;
+      sh.chunk_c = 0;
+      sh.chunk_s = 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      const int i = r * kPoolThreads + tid;
+      if (sh.flags[i] & kOcc) pool_roulette(q, sh, i);
+      const unsigned free_mask =
+          __ballot_sync(0xffffffffu, !(sh.flags[i] & kOcc));
+      if (lane_id == 0 && free_mask) atomicAdd(&sh.nfree, __popc(free_mask));
+    }
+    __syncthreads();
+    // ---- claim a chunk of items for the free slots
+    if (tid == 0) {
+      sh.ngot = 0;
+      if (sh.nfree > 0 && !sh.exhausted) {
+        const int want = min(sh.nfree, q.chunk);
+        const unsigned long long i0 =
+            atomicAdd(q.stats + kItems, (unsigned long long)want);
+        sh.item0 = i0;
+        if (i0 < total) {
+          const unsigned long long left = total - i0;
+          sh.ngot = left < (unsigned long long)want ? (int)left : want;
+        }
+        if (sh.ngot < want) sh.exhausted = true;
+        sh.stat[kPaths] += (unsigned long long)sh.ngot;
+      }
+    }
+    __syncthreads();
+    // ---- start new paths in the free slots; key every slot
+#pragma unroll
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      const int i = r * kPoolThreads + tid;
+      if (!(sh.flags[i] & kOcc)) {
+        const int tk = atomicAdd(&sh.ticket, 1);
+        if (tk < sh.ngot) {
+          const unsigned long long item = sh.item0 + (unsigned long long)tk;
+          const long long lane = (long long)(item % (unsigned long long)p.n);
+          sh.lane[i] = (int)lane;
+          sh.s[i] = (int)(item / (unsigned long long)p.n);
+          sh.b[i] = 0;
+          sh.px[i] = p.org[3 * lane];
+          sh.py[i] = p.org[3 * lane + 1];
+          sh.pz[i] = p.org[3 * lane + 2];
+          sh.dx[i] = p.dir[3 * lane];
+          sh.dy[i] = p.dir[3 * lane + 1];
+          sh.dz[i] = p.dir[3 * lane + 2];
+          sh.cr[i] = sh.cg[i] = sh.cb[i] = 0.0f;
+          sh.wr[i] = sh.wg[i] = sh.wb[i] = 1.0f;
+          sh.flags[i] = kOcc | kDoEm;
+          if (lp.max_bounces == 0) {
+            finish_path(q, sh, i);
+          } else {
+            pool_roulette(q, sh, i);
+          }
+        }
+      }
+      const bool live = (sh.flags[i] & kOcc) != 0;
+      sh.key[0][i] = live ? ray_key(box, sh.px[i], sh.py[i], sh.pz[i],
+                                    sh.dx[i], sh.dy[i], sh.dz[i])
+                          : kDeadKey;
+      sh.idx[0][i] = (uint16_t)i;
+      const unsigned live_mask = __ballot_sync(0xffffffffu, live);
+      if (lane_id == 0 && live_mask) atomicAdd(&sh.nlive, __popc(live_mask));
+    }
+    __syncthreads();
+    lap(kCycRefill);
+    const int nlive = sh.nlive;
+    if (nlive == 0) {
+      if (sh.ngot == 0) break;  // every item claimed, every path done
+      continue;                 // (all new paths ended at once)
+    }
+    if (tid == 0) {
+      sh.stat[kWaves] += 1ull;
+      sh.stat[kClosest] += (unsigned long long)nlive;
+    }
+    // ---- closest hit and shading, the k-th sorted path in turn
+    const int cur = order_slots(sh, sort_closest);
+    lap(kCycSortC);
+    for_chunks(nlive, sh.chunk_c, dynamic, [&](int k) {
+      const long long t0 = kProfile ? clock64() : 0;
+      const int i = sh.idx[cur][k];
+      const uint32_t ray_id = (uint32_t)sh.lane[i];
+      const int s = sh.s[i], b = sh.b[i];
+      const uint32_t s_eff = (uint32_t)s * (uint32_t)lp.spp_lanes +
+                             ray_id % (uint32_t)lp.spp_lanes;
+      const uint32_t base = counter_base(lp, s_eff, b);
+      PathState st{sh.px[i], sh.py[i], sh.pz[i], sh.dx[i], sh.dy[i],
+                   sh.dz[i], sh.cr[i], sh.cg[i], sh.cb[i], sh.wr[i],
+                   sh.wg[i], sh.wb[i], true, (sh.flags[i] & kDoEm) != 0};
+      const bvh16::Record rec = bvh16::trace<false, true, false, false, kCap>(
+          p.nodes, p.leafs, p.aux, p.stack_size, p.err, st.px, st.py, st.pz,
+          st.dx, st.dy, st.dz, kEpsT, kFar);
+      const Material m = hit_material(p, rec);
+      const int wedge = (s + b * 3) % lp.az_strata;
+      const Shade o = bounce_shade(ray_id, base, st, rec.t, rec.hit, true,
+                                   rec.gx, rec.gy, rec.gz, m, p.lights,
+                                   lp.trig, lp.az_strata, wedge);
+      sh.px[i] = o.next.px;
+      sh.py[i] = o.next.py;
+      sh.pz[i] = o.next.pz;
+      sh.dx[i] = o.next.dx;
+      sh.dy[i] = o.next.dy;
+      sh.dz[i] = o.next.dz;
+      sh.cr[i] = o.next.cr;
+      sh.cg[i] = o.next.cg;
+      sh.cb[i] = o.next.cb;
+      sh.wr[i] = o.next.wr;
+      sh.wg[i] = o.next.wg;
+      sh.wb[i] = o.next.wb;
+      sh.b[i] = b + 1;
+      const bool ends = !o.next.alive || b + 1 >= lp.max_bounces;
+      const uint8_t em = o.next.do_em ? kDoEm : 0;
+      if (o.nee) {
+        // the query leaves from the hit point, which is the new origin
+        sh.ur[i] = o.ur;
+        sh.ug[i] = o.ug;
+        sh.ub[i] = o.ub;
+        sh.lx[i] = o.ldx;
+        sh.ly[i] = o.ldy;
+        sh.lz[i] = o.ldz;
+        sh.sm[i] = o.smax;
+        sh.flags[i] = kOcc | kShadow | em | (ends ? kEnd : 0);
+      } else if (ends) {
+        finish_path(q, sh, i);
+      } else {
+        sh.flags[i] = kOcc | em;
+      }
+      if (kProfile) busy_c += (unsigned long long)(clock64() - t0);
+    });
+    __syncthreads();
+    lap(kCycTraceC);
+    if (p.lights.n == 0) continue;
+    // ---- the NEE shadow rays, keyed and sorted (or compacted) alike
+#pragma unroll
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      const int i = r * kPoolThreads + tid;
+      const bool q_on = (sh.flags[i] & kShadow) != 0;
+      sh.key[0][i] = q_on ? ray_key(box, sh.px[i], sh.py[i], sh.pz[i],
+                                    sh.lx[i], sh.ly[i], sh.lz[i])
+                          : kDeadKey;
+      sh.idx[0][i] = (uint16_t)i;
+      const unsigned mask = __ballot_sync(0xffffffffu, q_on);
+      if (lane_id == 0 && mask) atomicAdd(&sh.nshadow, __popc(mask));
+    }
+    __syncthreads();
+    const int nsh = sh.nshadow;
+    if (nsh == 0) {
+      lap(kCycSortS);
+      continue;
+    }
+    if (tid == 0) sh.stat[kShadows] += (unsigned long long)nsh;
+    const int cs = order_slots(sh, sort_shadow);
+    lap(kCycSortS);
+    for_chunks(nsh, sh.chunk_s, dynamic, [&](int k) {
+      const long long t0 = kProfile ? clock64() : 0;
+      const int i = sh.idx[cs][k];
+      const bool blocked =
+          bvh16::trace<true, false, false, false, kCap>(
+              p.nodes, p.leafs, nullptr, p.stack_size, p.err, sh.px[i],
+              sh.py[i], sh.pz[i], sh.lx[i], sh.ly[i], sh.lz[i], kRayEps,
+              sh.sm[i])
+              .hit;
+      if (!blocked) {
+        sh.cr[i] = sh.ur[i];
+        sh.cg[i] = sh.ug[i];
+        sh.cb[i] = sh.ub[i];
+      }
+      if (sh.flags[i] & kEnd) {
+        finish_path(q, sh, i);
+      } else {
+        sh.flags[i] &= (uint8_t)~kShadow;
+      }
+      if (kProfile) busy_s += (unsigned long long)(clock64() - t0);
+    });
+    __syncthreads();
+    lap(kCycTraceS);
+  }
+  // this block's busy thread-cycles and totals, to the wrapper
+  if (kProfile) {
+    for (int o = 16; o > 0; o >>= 1) {
+      busy_c += __shfl_down_sync(0xffffffffu, busy_c, o);
+      busy_s += __shfl_down_sync(0xffffffffu, busy_s, o);
+    }
+    if (lane_id == 0) {
+      atomicAdd(&sh.stat[kBusyC], busy_c);
+      atomicAdd(&sh.stat[kBusyS], busy_s);
+    }
+  }
+  if (tid == 0) sh.stat[kBlocks] = 1ull;
+  __syncthreads();
+  for (int k = 1 + tid; k < kNumStats; k += kPoolThreads) {
+    atomicAdd(q.stats + k, sh.stat[k]);
+  }
+}
+
+template <int kCap, bool kProfile>
+cudaError_t pool_blocks_per_sm(int* per_sm) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      pt_bvh_pool_kernel<kCap, kProfile>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Pool));
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, pt_bvh_pool_kernel<kCap, kProfile>, kPoolThreads,
+      sizeof(Pool));
+}
+
+// One block an SM, at most one per 32 items; a block claims at most its
+// share of the items at once, so that a small render still spreads over
+// every SM (a large one claims a whole pool).
+template <int kCap, bool kProfile>
+cudaError_t launch_pool(PoolParams q, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = pool_blocks_per_sm<kCap, kProfile>(&per_sm);
+  if (e != cudaSuccess) return e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess) {
+    return e;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const unsigned long long items =
+      (unsigned long long)q.bp.n * (unsigned long long)q.bp.lp.spp_iters;
+  unsigned long long grid =
+      (unsigned long long)per_sm * (unsigned long long)sms;
+  if ((items + 31) / 32 < grid) grid = (items + 31) / 32;
+  const unsigned long long share = (items + grid - 1) / grid;
+  q.chunk = share < 32 ? 32 : (share > kPoolSlots ? kPoolSlots : (int)share);
+  pt_bvh_pool_kernel<kCap, kProfile>
+      <<<(unsigned)grid, kPoolThreads, sizeof(Pool), stream>>>(q);
+  return cudaGetLastError();
+}
+
+template <bool kProfile>
+cudaError_t launch_pool_cap(const PoolParams& q, cudaStream_t stream) {
+  const int ss = q.bp.stack_size;
+  if (ss <= 64) return launch_pool<64, kProfile>(q, stream);
+  if (ss <= 128) return launch_pool<128, kProfile>(q, stream);
+  if (ss <= 256) return launch_pool<256, kProfile>(q, stream);
+  return launch_pool<512, kProfile>(q, stream);
 }
 
 bool loop_ok(const Loop& lp) {
@@ -533,7 +1149,7 @@ extern "C" int nrt_pt_fused_brute(
   return (int)cudaGetLastError();
 }
 
-extern "C" int nrt_pt_fused_bvh(
+extern "C" int nrt_pt_fused_bvh_lane(
     const float* mat, int n_mats, const float* light, int n_lights,
     float inv_lights, const float* nodes, const float* leafs, const float* aux,
     const float* org, const float* dir, float* out, int* err, long long n,
@@ -549,6 +1165,49 @@ extern "C" int nrt_pt_fused_bvh(
   BvhParams p{mat, n_mats, Lights{light, n_lights, inv_lights}, nodes, leafs,
               aux, org,    dir,    out, err, n, stack_size, lp};
   const unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
-  pt_bvh_kernel<<<grid, kBlock, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
+  pt_bvh_lane_kernel<<<grid, kBlock, 0,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// ``out`` (spp_iters, n, 3): every path's radiance; ``stats``
+// (kNumStats,) int64 zeros (see Stat); ``box`` (6,): the root box's lo
+// and max(hi - lo, 1e-30) for the sort key; ``flags``: kSortClosest |
+// kSortShadow | kDynamic; ``profile``: count the phases' cycles too. The
+// per-thread stack holds the least of 64, 128, 256, 512 entries that fits
+// ``stack_size``.
+extern "C" int nrt_pt_fused_bvh_pool(
+    const float* mat, int n_mats, const float* light, int n_lights,
+    float inv_lights, const float* nodes, const float* leafs, const float* aux,
+    const float* org, const float* dir, float* out, int* err, long long n,
+    int stack_size, int seed, int spp_iters, int max_bounces, int rr_start,
+    int trig, int az_strata, int spp_lanes, unsigned long long* stats,
+    const float* box, int flags, int profile, void* stream) {
+  const Loop lp{(uint32_t)seed, spp_iters, max_bounces, rr_start,
+                trig,           az_strata, spp_lanes};
+  if (stack_size < 1 || stack_size > bvh16::kStackCap || n_mats < 0 ||
+      n_lights < 0 || !loop_ok(lp) || n > 0x7fffffffLL || flags < 0 ||
+      flags > 7) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n <= 0 || spp_iters == 0) return 0;
+  const PoolParams q{
+      BvhParams{mat, n_mats, Lights{light, n_lights, inv_lights}, nodes,
+                leafs, aux, org, dir, out, err, n, stack_size, lp},
+      stats, box, flags, kPoolSlots};
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return profile ? (int)launch_pool_cap<true>(q, st)
+                 : (int)launch_pool_cap<false>(q, st);
+}
+
+// Resident blocks per SM of the lane kernel (128 threads) and of the
+// pooled kernel (512 threads and its pool) with a 128-entry stack, and
+// the pool's shared bytes: out[0] lane, out[1] pool, out[2] bytes.
+extern "C" int nrt_pt_fused_bvh_occupancy(int* out) {
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, pt_bvh_lane_kernel, kBlock, 0);
+  if (e == cudaSuccess) e = pool_blocks_per_sm<128, false>(out + 1);
+  if (e != cudaSuccess) return (int)e;
+  out[2] = (int)sizeof(Pool);
+  return 0;
 }

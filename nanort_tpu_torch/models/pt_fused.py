@@ -1,14 +1,17 @@
 """Fused path-tracing megakernels (port of ``nanort_tpu.models.pt_fused``).
 
 A whole render — the spp loop, the bounce loop, closest hit, NEE shadow
-rays, light sampling, shading and the RNG — runs in ONE kernel launch,
-with every path's state in registers:
+rays, light sampling, shading and the RNG — runs in ONE kernel launch:
 
 * ``render_fused`` (K3, ``csrc/pt_fused.cu::pt_brute_kernel``) sweeps all
-  triangles of scenes of at most ``PT_FUSED_MAX_TRIS`` triangles;
-* ``render_fused_bvh`` (K4, ``pt_brute_kernel``'s twin
-  ``pt_bvh_kernel``) walks the scene's BVH16 with the in-kernel trace K2
-  (``traverse/fused_trace.py``).
+  triangles of scenes of at most ``PT_FUSED_MAX_TRIS`` triangles, each
+  path's state in registers;
+* ``render_fused_bvh`` (K4) walks the scene's BVH16 with the in-kernel
+  trace K2 (``traverse/fused_trace.py``): ``pt_bvh_pool_kernel`` keeps
+  2,048 paths a block in shared memory, refills ended ones and sorts
+  them by origin and direction before every trace; its yardstick
+  ``pt_bvh_lane_kernel`` (``_schedule="lane"``) runs one lane a thread,
+  as K3 does. Both give the same bits.
 
 Semantics are the JAX package's op for op (reference path_tracer/
 main.cc:785-1009, with its two deliberate deviations: the
@@ -21,9 +24,12 @@ the plain torch versions ``_render_fused_reference`` and
 ``_render_fused_bvh_reference`` (Python loops over samples and bounces,
 vectorised over lanes, with the kernels' arithmetic: separately rounded
 products, true divisions, square roots rounded once from float64,
-NaN-propagating max). With ``trig="poly"`` kernel and plain version
-agree bit for bit; ``"native"`` cos/sin differ between libms in the
-last ulp.
+NaN-propagating max). Every random number depends on (lane, sample,
+bounce) alone, so the order in which the pooled kernel runs its paths
+changes no bit: ``_trace_paths_reference`` runs any set of paths and
+``sample_sums`` adds their radiance in sample order. With
+``trig="poly"`` kernel and plain version agree bit for bit; ``"native"``
+cos/sin differ between libms in the last ulp.
 
 Left out on purpose: the TPU's watchdog chunking and its 120K-triangle
 cap for the BVH route (``PT_FUSED_BVH_MAX_TRIS``), which exist only
@@ -45,9 +51,25 @@ from ..traverse.packet import stack_slots
 PT_FUSED_MAX_TRIS = 256  # csrc/pt_fused.cu kMaxTris (shared-memory table)
 
 # Kernel launches by the wrappers below (never by the plain versions).
-# Every "pt_fused_bvh" launch also runs K2 and counts in
-# traverse.fused_trace.LAUNCHES["bvh16_trace"].
-LAUNCHES = {"pt_fused_brute": 0, "pt_fused_bvh": 0}
+# "pt_fused_bvh" is K4's pooled schedule (the default), "pt_fused_bvh[lane]"
+# its one-lane-a-thread yardstick; each launch of either also runs K2 and
+# counts in traverse.fused_trace.LAUNCHES["bvh16_trace"].
+LAUNCHES = {"pt_fused_brute": 0, "pt_fused_bvh": 0, "pt_fused_bvh[lane]": 0}
+
+# The pooled kernel's options: 1 sorts the closest-hit rays by key, 2 the
+# shadow rays (without either they are only compacted), 4 lets warps take
+# a wave's 32-ray chunks from a counter (else a fixed stride). With
+# POOL_PROFILE the kernel also counts each phase's cycles.
+POOL_FLAGS = 7
+POOL_PROFILE = False
+
+# The last pooled launch's counters, a device tensor (not synchronised),
+# summed over the blocks (csrc/pt_fused.cu ``Stat``).
+POOL_STATS = ("items", "waves", "paths", "closest", "shadows", "blocks",
+              "cyc_refill", "cyc_sort_closest", "cyc_trace_closest",
+              "cyc_sort_shadow", "cyc_trace_shadow", "busy_closest",
+              "busy_shadow")
+LAST_POOL_STATS = None
 
 _M32 = 0xFFFFFFFF
 # The JAX package's multipliers: 0x7FEB352D and the int32 -2073352565,
@@ -318,39 +340,56 @@ def _bounce_step(ray_id, base, st, t, hitf, alive, n0, mat, lights, trig,
             hit & ~pick_e & ~absorbed, torch.where(hit, ~pick_d, do_em))
 
 
-def _render_lanes_reference(org, dirs, seed, spp_iters, max_bounces,
-                            rr_start, trig, az_strata, spp_lanes, lights,
-                            closest, shadow):
-    """The megakernels' lane loop, vectorised over lanes: radiance sums
-    (n, 3). ``closest(px..dz, tmin, tmax)`` returns ``(t, hit, normal3,
-    material14)`` (t = tmax on a miss); ``shadow`` as in _bounce_step."""
+def _trace_paths_reference(org, dirs, ray_id, s, seed, max_bounces,
+                           rr_start, trig, az_strata, spp_lanes, lights,
+                           closest, shadow):
+    """One path a row, vectorised: the path of lane ``ray_id`` at sample
+    iteration ``s`` ((n,) int64 tensors) from ``org``/``dirs`` (n, 3);
+    its radiance (n, 3). ``closest(px..dz, tmin, tmax)`` returns ``(t,
+    hit, normal3, material14)`` (t = tmax on a miss); ``shadow`` as in
+    _bounce_step. A path's numbers depend on (lane, s, bounce) alone, so
+    any grouping of paths gives each the same radiance."""
     dev = org.device
     n = org.shape[0]
-    ray_id = torch.arange(n, dtype=torch.int64, device=dev)
-    lane_s = ray_id % spp_lanes
+    # sample-major lanes: the lane's true sample index seeds its stream
+    s_eff = s * spp_lanes + ray_id % spp_lanes
     zeros = torch.zeros(n, device=dev)
     ones = torch.ones(n, device=dev)
     tmin = torch.full((n,), _EPS_T, device=dev)
-    ar = ag = ab = zeros
+    st = (*org.unbind(1), *dirs.unbind(1), zeros, zeros, zeros,
+          ones, ones, ones, ones.bool(), ones.bool())
+    for b in range(max_bounces):
+        base = (seed + (s_eff * (max_bounces + 1) + b) * 16) & _M32
+        rr_apply = b > rr_start
+        killed = rr_apply & (_uniform(ray_id, base) < _f(0.2))
+        alive = st[12] & ~killed
+        rr_fac = 1.25 if rr_apply else 1.0
+        st = st[:9] + tuple(w * rr_fac for w in st[9:12]) + st[12:]
+        tmax = torch.where(alive, _FAR, 0.0)
+        t, hitf, n0, mat = closest(*st[:6], tmin, tmax)
+        st = _bounce_step(ray_id, base, st, t, hitf, alive, n0, mat, lights,
+                          trig, az_strata, (s + b * 3) % az_strata, shadow)
+    return torch.stack(st[6:9], 1)
+
+
+def _render_lanes_reference(org, dirs, seed, spp_iters, max_bounces,
+                            rr_start, trig, az_strata, spp_lanes, lights,
+                            closest, shadow, lane_ids=None):
+    """The megakernels' lane loop, vectorised over lanes: radiance sums
+    (n, 3), the samples added in order. ``lane_ids`` (n,): the lanes
+    that ``org``/``dirs`` hold (default ``arange(n)``), each run under
+    its true ray id."""
+    dev = org.device
+    n = org.shape[0]
+    ray_id = (torch.arange(n, dtype=torch.int64, device=dev)
+              if lane_ids is None
+              else torch.as_tensor(lane_ids, device=dev).long())
+    acc = torch.zeros((n, 3), device=dev)
     for s in range(spp_iters):
-        # sample-major lanes: the lane's true sample index seeds its stream
-        s_eff = s * spp_lanes + lane_s
-        st = (*org.unbind(1), *dirs.unbind(1), zeros, zeros, zeros,
-              ones, ones, ones, ones.bool(), ones.bool())
-        for b in range(max_bounces):
-            base = (seed + (s_eff * (max_bounces + 1) + b) * 16) & _M32
-            rr_apply = b > rr_start
-            killed = rr_apply & (_uniform(ray_id, base) < _f(0.2))
-            alive = st[12] & ~killed
-            rr_fac = 1.25 if rr_apply else 1.0
-            st = st[:9] + tuple(w * rr_fac for w in st[9:12]) + st[12:]
-            tmax = torch.where(alive, _FAR, 0.0)
-            t, hitf, n0, mat = closest(*st[:6], tmin, tmax)
-            st = _bounce_step(ray_id, base, st, t, hitf, alive, n0, mat,
-                              lights, trig, az_strata,
-                              (s + b * 3) % az_strata, shadow)
-        ar, ag, ab = ar + st[6], ag + st[7], ab + st[8]
-    return torch.stack([ar, ag, ab], 1)
+        acc = acc + _trace_paths_reference(
+            org, dirs, ray_id, torch.full_like(ray_id, s), seed, max_bounces,
+            rr_start, trig, az_strata, spp_lanes, lights, closest, shadow)
+    return acc
 
 
 def _on_active(fn, active, *cols):
@@ -431,11 +470,9 @@ def _render_fused_reference(tri, face, lights, org, dirs, seed, spp,
 
 # ------------------------------------------------------------- K4
 
-def _render_fused_bvh_reference(mat, lights, nodes, leafs, aux, slots, org,
-                                dirs, seed, spp_iters, max_bounces, rr_start,
-                                trig, az_strata, spp_lanes):
-    """Plain torch version of K4 (its traces through
-    ``trace_bvh16_reference``): radiance sums (RL, 3)."""
+def _bvh_tracers(mat, nodes, leafs, aux, slots):
+    """K4's ``closest`` and ``shadow`` for the plain path loop, through
+    ``trace_bvh16_reference``."""
     n_mats = mat.shape[0]
 
     def closest(px, py, pz, dx, dy, dz, tmin, tmax):
@@ -458,9 +495,64 @@ def _render_fused_bvh_reference(mat, lights, nodes, leafs, aux, slots, org,
                 c[-1], True, slots)
         return _on_active(occluded, active, hx, hy, hz, dx, dy, dz, smax)
 
+    return closest, shadow
+
+
+def _render_fused_bvh_reference(mat, lights, nodes, leafs, aux, slots, org,
+                                dirs, seed, spp_iters, max_bounces, rr_start,
+                                trig, az_strata, spp_lanes, lane_ids=None):
+    """Plain torch version of K4, of either schedule (their results are
+    the same bits): radiance sums (n, 3) of the lanes that ``org``/
+    ``dirs`` hold, ``lane_ids`` (default ``arange(n)``) of the (RL, 3)
+    sample-major lanes."""
+    closest, shadow = _bvh_tracers(mat, nodes, leafs, aux, slots)
     return _render_lanes_reference(org, dirs, seed, spp_iters, max_bounces,
                                    rr_start, trig, az_strata, spp_lanes,
-                                   lights, closest, shadow)
+                                   lights, closest, shadow, lane_ids)
+
+
+def sample_sums(per_sample: torch.Tensor) -> torch.Tensor:
+    """(spp_iters, RL, 3) per-path radiance -> (RL, 3) lane sums, added
+    in sample order ``((0 + r0) + r1) + ...``: the lane kernel's register
+    sum and ``_render_lanes_reference``'s, bit for bit."""
+    acc = torch.zeros(per_sample.shape[1:], dtype=per_sample.dtype,
+                      device=per_sample.device)
+    for r in per_sample:
+        acc = acc + r
+    return acc
+
+
+def pool_box(nodes: torch.Tensor):
+    """The pooled kernel's sort box: (lo (3,), max(hi - lo, 1e-30) (3,))
+    of the root row's child boxes (empty slots carry inverted boxes and
+    drop out)."""
+    boxes = nodes[0, :96].view(16, 6)
+    lo = boxes[:, :3].amin(0)
+    hi = boxes[:, 3:].amax(0)
+    return lo, torch.maximum(hi - lo, torch.full_like(lo, 1e-30))
+
+
+def pool_sort_keys(org, dirs, live, lo, ext) -> torch.Tensor:
+    """The pooled kernel's in-kernel sort key (``ray_key`` and the dead
+    key in ``csrc/pt_fused.cu``), in ``ray_sort.ray_sort_keys``'s int64
+    form: dead bit 31 (not ``live``) . origin Morton code on the 32^3
+    grid over the box ``lo`` + ``ext`` . direction octant."""
+    def cell(o, lo_, e):
+        c = (o - lo_) / e * 32.0
+        c = torch.where(torch.isnan(c), 0.0, c)
+        return torch.clamp(c, 0.0, 31.0).long()
+
+    def spread(v):
+        for mul, mask in ((0x00010001, 0xFF0000FF), (0x00000101, 0x0F00F00F),
+                          (0x00000011, 0xC30C30C3), (0x00000005, 0x49249249)):
+            v = (v * mul) & mask
+        return v
+
+    q = [cell(org[:, k], lo[k], ext[k]) for k in range(3)]
+    morton = (spread(q[0]) << 2) | (spread(q[1]) << 1) | spread(q[2])
+    octant = ((dirs[:, 0] < 0).long() << 2 | (dirs[:, 1] < 0).long() << 1
+              | (dirs[:, 2] < 0).long())
+    return (morton << 3) | octant | ((~live).long() << 31)
 
 
 # ------------------------------------------------- tables and routes
@@ -591,15 +683,25 @@ def render_fused(scene, org, dirs, seed: int, spp: int, max_bounces: int = 8,
 def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
                      max_bounces: int = 8, rr_start: int = 3,
                      trig: str = "native", azimuth_strata: int = 1,
-                     spp_lanes: int = 1) -> torch.Tensor:
+                     spp_lanes: int = 1, *,
+                     _schedule: str = "pool") -> torch.Tensor:
     """Radiance means (R, 3) through the BVH megakernel K4.
 
     ``spp_lanes`` (sample-major packing): each ray takes that many
     consecutive lanes, and the sample loop runs ``spp // spp_lanes``
-    times, so a warp's lanes are copies of few pixels that share their
-    primary hit and, through the per-iteration azimuth wedge, a diffuse
-    bounce cone. Requires ``spp % spp_lanes == 0``. The lanes of a ray
-    are summed in lane order, then divided by spp."""
+    times; lane ``l`` of sample ``s`` draws the numbers of sample ``s *
+    spp_lanes + l % spp_lanes``, with the azimuth wedge of iteration
+    ``s``. Requires ``spp % spp_lanes == 0``. The lanes of a ray are
+    summed in lane order, then divided by spp.
+
+    The kernel runs the (lane, sample) paths from a pool in shared
+    memory, sorted by origin and direction before each trace, and writes
+    each path's radiance to a (spp // spp_lanes, RL, 3) buffer, which is
+    summed in sample order (``sample_sums``). ``_schedule="lane"`` runs
+    the one-lane-a-thread kernel instead, the yardstick it replaced; both
+    give the same bits."""
+    if _schedule not in ("pool", "lane"):
+        raise ValueError(f"_schedule must be 'pool' or 'lane': {_schedule}")
     if not fused_bvh_eligible(scene):
         raise ValueError(
             "scene not eligible for the fused BVH kernel "
@@ -627,23 +729,61 @@ def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
             int(spp) // K, int(max_bounces), int(rr_start), trig,
             int(azimuth_strata), K)
     else:
-        sums = torch.empty_like(org)
-        err = torch.zeros(1, dtype=torch.int32, device=dev)
-        lib = _ext.load("pt_fused")
-        with torch.cuda.device(dev):
-            rc = lib.nrt_pt_fused_bvh(
-                _ptr(mat), mat.shape[0], _ptr(light), lights[1], lights[2],
-                _ptr(nodes), _ptr(leafs), _ptr(aux), _ptr(org), _ptr(dirs),
-                _ptr(sums), _ptr(err), org.shape[0], slots, seed,
-                int(spp) // K, int(max_bounces), int(rr_start),
-                int(trig == "poly"), int(azimuth_strata), K, _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"pt_fused_bvh kernel launch failed: CUDA "
-                               f"error {rc}")
-        LAUNCHES["pt_fused_bvh"] += 1
-        fused_trace.LAUNCHES["bvh16_trace"] += 1  # K2 runs inside
-        fused_trace.check_overflow(err, slots)
+        sums = _launch_fused_bvh(_schedule, mat, light, lights, nodes, leafs,
+                                 aux, slots, org, dirs, seed, int(spp) // K,
+                                 int(max_bounces), int(rr_start), trig,
+                                 int(azimuth_strata), K)
     return _div(lane_sums(sums, K), float(spp))
+
+
+def _launch_fused_bvh(schedule, mat, light, lights, nodes, leafs, aux, slots,
+                      org, dirs, seed, spp_iters, max_bounces, rr_start, trig,
+                      az_strata, K):
+    """Launch K4 on CUDA tensors; its lane sums (RL, 3)."""
+    global LAST_POOL_STATS
+    dev = org.device
+    n = org.shape[0]
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    common = (_ptr(mat), mat.shape[0], _ptr(light), lights[1], lights[2],
+              _ptr(nodes), _ptr(leafs), _ptr(aux), _ptr(org), _ptr(dirs))
+    loop = (seed, spp_iters, max_bounces, rr_start, int(trig == "poly"),
+            az_strata, K)
+    lib = _ext.load("pt_fused")
+    with torch.cuda.device(dev):
+        if schedule == "lane":
+            out = torch.empty_like(org)
+            rc = lib.nrt_pt_fused_bvh_lane(*common, _ptr(out), _ptr(err), n,
+                                           slots, *loop, _stream(dev))
+        else:
+            out = torch.empty((spp_iters, n, 3), dtype=torch.float32,
+                              device=dev)
+            stats = torch.zeros(len(POOL_STATS), dtype=torch.int64,
+                                device=dev)
+            box = torch.cat(pool_box(nodes)).contiguous()
+            rc = lib.nrt_pt_fused_bvh_pool(
+                *common, _ptr(out), _ptr(err), n, slots, *loop, _ptr(stats),
+                _ptr(box), int(POOL_FLAGS), int(bool(POOL_PROFILE)),
+                _stream(dev))
+            LAST_POOL_STATS = stats
+    if rc != 0:
+        raise RuntimeError(f"pt_fused_bvh kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["pt_fused_bvh[lane]" if schedule == "lane"
+             else "pt_fused_bvh"] += 1
+    fused_trace.LAUNCHES["bvh16_trace"] += 1  # K2 runs inside
+    fused_trace.check_overflow(err, slots)
+    return out if schedule == "lane" else sample_sums(out)
+
+
+def pool_occupancy() -> dict:
+    """Resident blocks per SM of K4's two kernels on the current card
+    (the pooled one with a 128-entry stack) and the pool's shared
+    bytes: ``{"lane": n, "pool": n, "pool_smem_bytes": b}``."""
+    out = (ctypes.c_int * 3)()
+    rc = _ext.load("pt_fused").nrt_pt_fused_bvh_occupancy(out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return {"lane": out[0], "pool": out[1], "pool_smem_bytes": out[2]}
 
 
 def lane_sums(sums: torch.Tensor, spp_lanes: int) -> torch.Tensor:

@@ -12,7 +12,8 @@ module is imported.
     packet_traverse.cu  K1 (with its modes), K1-woop and K1b,
                         traverse/packet.py::traverse_bvh8
     bvh16_trace.cu      K2 on its own, traverse/fused_trace.py::trace_bvh16
-    pt_fused.cu         K3 and K4 (K4 runs K2), models/pt_fused.py
+    pt_fused.cu         K3 and K4, pooled and lane schedules (K4 runs K2),
+                        models/pt_fused.py
     ao_fused.cu         K5 (runs K2 watertight), models/ao_fused.py
 """
 
@@ -48,8 +49,12 @@ KERNELS = {
     "pt_fused": ("pt_fused.cu", ("bvh16_trace.cuh",), {
         "nrt_pt_fused_brute": ([_P, _I, _P, _I, _P, _I, _F, _P, _P, _P, _L]
                                + [_I] * 6 + [_P]),
-        "nrt_pt_fused_bvh": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
-                              _L] + [_I] * 8 + [_P]),
+        "nrt_pt_fused_bvh_lane": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,
+                                   _P, _P, _L] + [_I] * 8 + [_P]),
+        "nrt_pt_fused_bvh_pool": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,
+                                   _P, _P, _L] + [_I] * 8
+                                  + [_P, _P, _I, _I, _P]),
+        "nrt_pt_fused_bvh_occupancy": [_P],
     }),
     "ao_fused": ("ao_fused.cu", ("bvh16_trace.cuh",), {
         "nrt_ao_fused": [_P] * 15 + [_L, _I, _F, _F, _I, _P],

@@ -205,3 +205,39 @@ def traverse_triangles(bvh, mesh: tri.TriangleMesh, rays: Rays,
                     prepare_fn=tri.triangle_prepare,
                     intersect_fn=intersect_fn, max_leaf=max_leaf,
                     skip_prim_id=skip_prim_id, max_stack=max_stack)
+
+
+def list_node_intersections(bvh, rays: Rays, max_intersections: int = 64):
+    """Collect up to K nearest leaf-node AABB intersections per ray,
+    sorted front-to-back (reference ``BVHAccel::ListNodeIntersections``,
+    nanort.h:2558-2692, the two-level traversal's top-level query).
+
+    Returns (t_min, t_max, node_id) tensors of shape (..., K), K =
+    ``min(max_intersections, leaf count)``; empty slots carry node_id ==
+    ``INVALID_PRIM_ID`` (int64, as prim ids are here) and t = the
+    dtype's max. All leaf boxes are tested in one pass and the K nearest
+    kept by a stable sort of their entry t (the JAX package's scheme: a
+    top-level tree has one leaf per instance)."""
+    flag = np.asarray(bvh.flag)
+    leaf_np = np.nonzero(flag == 1)[0]
+    dev = rays.org.device
+    lo = torch.as_tensor(np.asarray(bvh.bmin)[leaf_np], device=dev)
+    hi = torch.as_tensor(np.asarray(bvh.bmax)[leaf_np], device=dev)
+    leaf_ids = torch.as_tensor(leaf_np, dtype=PRIM_ID_DTYPE, device=dev)
+
+    bs = rays.batch_shape
+    org = rays.org.reshape(-1, 3)
+    d = rays.dir.reshape(-1, 3)
+    inv = safe_inverse(d)
+    hit, tmin, tmax = intersect_ray_aabb(
+        lo[None], hi[None], org[:, None], inv[:, None], (d < 0)[:, None],
+        rays.min_t.reshape(-1)[:, None], rays.max_t.reshape(-1)[:, None])
+    big = torch.finfo(org.dtype).max
+    K = min(max_intersections, lo.shape[0])
+    key = torch.where(hit, tmin, big)
+    order = torch.argsort(key, dim=1, stable=True)[:, :K]
+    hit_k = hit.gather(1, order)
+    t_min_k = key.gather(1, order)
+    t_max_k = torch.where(hit_k, tmax.gather(1, order), big)
+    ids_k = torch.where(hit_k, leaf_ids[order], INVALID_PRIM_ID)
+    return tuple(x.reshape(bs + (K,)) for x in (t_min_k, t_max_k, ids_k))

@@ -5,7 +5,9 @@ watertight and Woop leaf tests), K2 (csrc/bvh16_trace.cu vs
 traverse/fused_trace.py::trace_bvh16_reference, Moller-Trumbore and
 watertight, with and without a per-ray skip), K3 and K4
 (csrc/pt_fused.cu vs models/pt_fused.py::_render_fused_reference and
-_render_fused_bvh_reference), K5 (csrc/ao_fused.cu vs
+_render_fused_bvh_reference; K4's pooled kernel also at edge shapes,
+against its lane kernel, with each schedule option, and with a stack too
+small for the tree), K5 (csrc/ao_fused.cu vs
 models/ao_fused.py::_ao_fused_reference). Config A's render_ao must
 launch K1 and never a plain version, and the stack engine (plain torch)
 must give on the card what it gives on the CPU. Tolerance: bit-identical results (kernel
@@ -276,7 +278,143 @@ def test_render_path_traced_launches_kernels_only(dev, dense_pt, cornell_pt,
                                              3, spp=4, max_bounces=4)
         assert img.shape == (32, 128, 3) and img.is_cuda
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-    assert pt_fused.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    # both routes launch their kernel once; K4 on its pooled schedule
+    assert pt_fused.LAUNCHES == {
+        **before, "pt_fused_brute": before["pt_fused_brute"] + 1,
+        "pt_fused_bvh": before["pt_fused_bvh"] + 1}
+
+
+POOL_CASES = {
+    # name: (camera (w, h), spp, kwargs): fewer paths than one pool, a
+    # lane count that fills no whole block, one sample iteration, no
+    # bounce, one bounce, a scene without lights
+    "few_lanes": ((3, 2), 2, dict(max_bounces=5)),
+    "ragged": ((11, 7), 6, dict(max_bounces=4, spp_lanes=3)),
+    "one_iter": ((16, 12), 4, dict(max_bounces=5, spp_lanes=4)),
+    "mb0": ((16, 12), 4, dict(max_bounces=0)),
+    "mb1": ((16, 12), 4, dict(max_bounces=1, azimuth_strata=2)),
+    "dark": ((16, 12), 4, dict(max_bounces=4)),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_pt_fused_bvh_pool_edge_shapes(dev, dense_pt, case):
+    (w, h), spp, kw = POOL_CASES[case]
+    scene = dense_pt
+    if case == "dark":
+        scene = scene._replace(light_table=scene.light_table[:0],
+                               light_faces=scene.light_faces[:0])
+    org, d = _cam(w, h, 2.6)
+    kw = dict(trig="poly", **kw)
+    before = dict(pt_fused.LAUNCHES)
+    got = pt_fused.render_fused_bvh(scene.to(dev), org.to(dev), d.to(dev), 4,
+                                    spp, **kw)
+    assert pt_fused.LAUNCHES == {**before,
+                                 "pt_fused_bvh": before["pt_fused_bvh"] + 1}
+    want = pt_fused.render_fused_bvh(scene, org, d, 4, spp, **kw)
+    _same_image(got, want, "poly")
+    if case == "mb0":
+        assert not bool(got.any())
+    elif case != "dark":
+        assert float(got.mean()) > 0
+    # every (lane, sample) path was claimed once
+    items = w * h * spp
+    stats = pt_fused.LAST_POOL_STATS.cpu().tolist()
+    assert stats[2] == items and stats[0] >= items and stats[5] >= 1
+    assert stats[3] >= (items if kw["max_bounces"] else 0)
+
+
+@pytest.mark.parametrize("trig", ["poly", "native"])
+def test_pt_fused_bvh_pool_matches_lane(dev, dense_pt, trig):
+    org, d = _cam(64, 64, 2.6)
+    scene = dense_pt.to(dev)
+    kw = dict(max_bounces=6, trig=trig, azimuth_strata=2, spp_lanes=4)
+    before = dict(pt_fused.LAUNCHES)
+    pool = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 5, 8,
+                                     **kw)
+    lane = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 5, 8,
+                                     _schedule="lane", **kw)
+    assert pt_fused.LAUNCHES == {
+        **before, "pt_fused_bvh": before["pt_fused_bvh"] + 1,
+        "pt_fused_bvh[lane]": before["pt_fused_bvh[lane]"] + 1}
+    assert torch.equal(pool, lane)
+    assert bool(torch.isfinite(pool).all()) and float(pool.mean()) > 0
+
+
+@pytest.mark.parametrize("schedule", ["pool", "lane"])
+def test_pt_fused_bvh_small_stack_sets_error_word(dev, dense_pt, schedule,
+                                                  monkeypatch):
+    real = fused_trace._check_tables
+    words = []
+    monkeypatch.setattr(fused_trace, "_check_tables",
+                        lambda *a: real(*a)[:3] + (2,))
+    monkeypatch.setattr(fused_trace, "check_overflow",
+                        lambda err, slots: words.append((err, slots)))
+    org, d = _cam(16, 12, 2.6)
+    pt_fused.render_fused_bvh(dense_pt.to(dev), org.to(dev), d.to(dev), 4, 2,
+                              max_bounces=3, _schedule=schedule)
+    (err, slots), = words
+    assert slots == 2 and err.is_cuda and int(err.item()) != 0
+
+
+def test_pt_fused_bvh_small_stack_raises(dev):
+    # the real check fails the stream, which poisons the process's CUDA
+    # context: run it in a child
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from nanort_tpu_torch.io.procedural import make_cornell_dense_pt_scene
+from nanort_tpu_torch.models import path_tracer, pt_fused
+from nanort_tpu_torch.traverse import fused_trace
+scene = path_tracer.make_pt_scene(*make_cornell_dense_pt_scene(2000),
+                                  engine="pallas", device="cuda")
+real = fused_trace._check_tables
+fused_trace._check_tables = lambda *a: real(*a)[:3] + (2,)
+org = torch.zeros(64, 3, device="cuda")
+d = torch.nn.functional.normalize(torch.randn(64, 3, device="cuda"), dim=1)
+try:
+    pt_fused.render_fused_bvh(scene, org, d, 4, 2, max_bounces=3)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", "overflow" in str(e) or "assert" in str(e).lower())
+"""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=root, timeout=300)
+    assert "RAISED True" in r.stdout, (r.stdout, r.stderr[-2000:])
+
+
+def test_pt_fused_bvh_schedule_keyword(dev, dense_pt):
+    org, d = _cam(4, 4, 2.6)
+    with pytest.raises(ValueError, match="_schedule"):
+        pt_fused.render_fused_bvh(dense_pt.to(dev), org.to(dev), d.to(dev),
+                                  4, 2, _schedule="warp")
+    occ = pt_fused.pool_occupancy()
+    assert occ["lane"] >= 1 and occ["pool"] >= 1
+    assert 0 < occ["pool_smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("flags,profile", [(0, False), (4, False), (7, True)])
+def test_pt_fused_bvh_pool_options_change_no_bit(dev, dense_pt, flags,
+                                                 profile, monkeypatch):
+    # unsorted, compacted-only, fixed-stride and counting runs give the
+    # default's bits
+    org, d = _cam(32, 24, 2.6)
+    scene = dense_pt.to(dev)
+    kw = dict(max_bounces=5, trig="poly", azimuth_strata=2, spp_lanes=2)
+    want = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 4,
+                                     **kw)
+    monkeypatch.setattr(pt_fused, "POOL_FLAGS", flags)
+    monkeypatch.setattr(pt_fused, "POOL_PROFILE", profile)
+    got = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 4,
+                                    **kw)
+    assert torch.equal(got, want)
+    stats = dict(zip(pt_fused.POOL_STATS, pt_fused.LAST_POOL_STATS.tolist()))
+    assert stats["paths"] == 32 * 24 * 4
+    assert (stats["cyc_trace_closest"] > 0) == profile
 
 
 def _same_image(got, want, trig):
