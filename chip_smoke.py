@@ -35,18 +35,18 @@ nothing of JAX. Phases, one line or more each:
    rays x 4 spp x 10 bounces; K4 against K3 on the Cornell box with
    BVH16 tables attached. ``trig="poly"`` must agree bit for bit,
    ``"native"`` to 99% of pixels; ``ptxas -v`` of K3 and K4's two
-   kernels, and their resident blocks per SM;
+   kernels, and their resident blocks per SM; K4's two kernels in turns
+   at 16,384 to 1,048,576 paths (4,096 rays x 4 to 256 spp);
 8. config B: ``render_path_traced`` on the Cornell box at 512^2 x 100
    spp x 10 bounces (K3), one warm-up and 3 timed repetitions;
 9. midscale: the same on the dense scene (K4's pooled kernel on K2, 25
    sample-major lanes, 4 azimuth strata, 32 x 128 pixel tiles), with the
    pool's waves and regenerations; then the lane and pooled kernels in
    turns (lane, pooled, pooled, lane) on the same render, whose images
-   must be equal bit for bit, one pooled render each without its
-   dynamic chunks, its shadow sort or any sort, one more pooled render
-   that counts each phase's cycles, both kernels' lane sums with ``trig="poly"`` (equal
-   bit for bit) and 4,096 sampled lanes of them against the plain
-   version (``lane_ids=``), bit for bit;
+   must be equal bit for bit, one more pooled render in two launches of
+   2 sample iterations each (equal bit for bit), both kernels' lane sums
+   with ``trig="poly"`` (equal bit for bit) and 4,096 sampled lanes of
+   them against the plain version (``lane_ids=``), bit for bit;
 10. K1-woop against its plain version on the card: the dense scene built
     with ``engine="turbo"`` (leaf 9, Woop table) and phase 7's 65,536
     incoherent rays, closest-hit and any-hit, which must agree bit for
@@ -543,6 +543,21 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
         f"({occ['pool_smem_bytes']} bytes of shared pool a block); ptxas "
         "-v: " + " | ".join(ptxas_lines(usage_pt.result())))
     check(occ["pool"] >= 1, "the pooled kernel does not fit an SM")
+    # where the pooled kernel starts to win: 4,096 rays at 4 sample-major
+    # lanes, more samples a step, the two kernels in turns
+    sizes = []
+    for spp in (4, 16, 64, 256):
+        ms_of = {}
+        for schedule in ("lane", "pool", "pool", "lane"):
+            ms_of.setdefault(schedule, []).extend(cuda_ms(
+                lambda: pt_fused.render_fused_bvh(
+                    dense, d_org, d_dir, SEED, spp, max_bounces=MB,
+                    azimuth_strata=AZ, spp_lanes=4, _schedule=schedule), 2))
+        sizes.append(f"{d_org.shape[0] * spp} paths: lane "
+                     f"{min(ms_of['lane']):.3f}, pooled "
+                     f"{min(ms_of['pool']):.3f}")
+    say("K4 by render size (64x64 rays x spp, 10 bounces, spp_lanes 4, "
+        "best of 4 each, ms): " + "; ".join(sizes))
 
     # K4 against K3 on the Cornell box with BVH16 tables attached (leaf 4)
     bvh, _ = nt.build_triangle_bvh(TriangleMesh(cv, cf), nt.BVHBuildOptions(
@@ -667,12 +682,11 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
 
 def ptxas_lines(text: str) -> list[str]:
     """K3's and K4's kernels in a ``ptxas -v`` report: each kernel's
-    name, registers, spills and stack (the pooled kernel at a 128-entry
-    stack, without cycle counters)."""
+    name, registers, spills and stack."""
     out, name = [], None
     for ln in text.splitlines():
         if "Compiling entry function" in ln:
-            name = next((k for k in ("pt_bvh_pool_kernelILi128ELb0E",
+            name = next((k for k in ("pt_bvh_pool_kernel",
                                      "pt_bvh_lane_kernel", "pt_brute_kernel")
                          if k in ln), None)
         elif name and ("Used" in ln or "spill" in ln):
@@ -685,7 +699,7 @@ def k4_schedules(dense, cam, img_pool, mat, light, lights, nodes, leafs, aux,
     """Phase 9's comparison of K4's two kernels on the midscale render:
     the lane and pooled kernels in turns through ``render_path_traced``
     (images equal bit for bit, and equal to the main path's), one pooled
-    render with the cycle counters, both kernels' lane sums with
+    render in two slices of sample iterations, both kernels' lane sums with
     ``trig="poly"`` (equal bit for bit) and 4,096 sampled lanes against
     the plain version. Returns the lane kernel's launches in the turns."""
     import functools
@@ -735,39 +749,20 @@ def k4_schedules(dense, cam, img_pool, mat, light, lights, nodes, leafs, aux,
     check(min(pool_ms) < min(lane_ms),
           "the pooled kernel is not faster than the lane kernel")
 
-    # what each part of the schedule buys: one render with each left out
-    # (regeneration and the pool stay), images equal bit for bit
-    parts = []
-    for flags, what in ((3, "fixed-stride chunks"), (5, "unsorted shadows"),
-                        (4, "no sort")):
-        pt_fused.POOL_FLAGS = flags
-        try:
-            img, ms = render("pool")
-        finally:
-            pt_fused.POOL_FLAGS = 7
-        parts.append(f"{what} {ms:.1f}")
-        check(torch.equal(img, img_pool), f"the pool with {what} changes "
-              "the image")
-    say(f"phase 9 pooled kernel without one of its parts (ms; all of them "
-        f"{min(pool_ms):.1f}): " + ", ".join(parts))
-
-    # where the pooled kernel's time goes: one render with its counters
-    pt_fused.POOL_PROFILE = True
-    try:
-        _, ms_p = render("pool")
-    finally:
-        pt_fused.POOL_PROFILE = False
-    st = dict(zip(pt_fused.POOL_STATS, pt_fused.LAST_POOL_STATS.tolist()))
-    cyc = {k: v for k, v in st.items() if k.startswith("cyc_")}
-    total = sum(cyc.values())
-    threads = 512
-    say(f"phase 9 pooled kernel by phase ({ms_p:.1f} ms with counters; "
-        "share of each block's cycles): "
-        + ", ".join(f"{k[4:]} {v / total:.4f}" for k, v in cyc.items())
-        + f"; lanes busy inside their trace: closest "
-        f"{st['busy_closest'] / max(st['cyc_trace_closest'] * threads, 1):.4f}"
-        f", shadow "
-        f"{st['busy_shadow'] / max(st['cyc_trace_shadow'] * threads, 1):.4f}")
+    # a render whose per-sample buffer passes the cap runs one launch a
+    # slice of its sample iterations: half the 4 iterations a slice here
+    K = path_tracer.default_spp_lanes(100, 4)
+    rl = 512 * 512 * K
+    zero_launch_counts()
+    with patched(pt_fused, "POOL_SLICE_BYTES", 2 * rl * 12):
+        img, ms_s = render("pool")
+    sliced = launch_counts()["pt_fused_bvh"]
+    say(f"phase 9 pooled kernel in slices of 2 sample iterations "
+        f"({2 * rl * 12} bytes a buffer, {sliced} launches): {ms_s:.1f} ms; "
+        f"image equal to the main path's bit for bit: "
+        f"{torch.equal(img, img_pool)}")
+    check(sliced == 2 and torch.equal(img, img_pool),
+          "the sliced pooled render disagrees with the main path's")
 
     # both kernels' lane sums with trig="poly" on the route's own input
     H = W = 512
@@ -775,7 +770,6 @@ def k4_schedules(dense, cam, img_pool, mat, light, lights, nodes, leafs, aux,
     d = rays.dir.reshape(-1, 3)
     perm = torch.arange(H * W, device=org.device).reshape(
         H // 32, 32, W // 128, 128).transpose(1, 2).reshape(-1)
-    K = path_tracer.default_spp_lanes(100, 4)
     org = org[perm].repeat_interleave(K, 0).contiguous()
     d = d[perm].repeat_interleave(K, 0).contiguous()
     args = (mat, light, lights, nodes, leafs, aux, slots, org, d, 3,

@@ -42,11 +42,12 @@
 // It does not copy the TPU's scheme, one SMEM stack per (S, 128) block
 // with OR-reduced slab votes and a child order from ray 0's octant. Each
 // thread has a private stack of depth * 15 + 1 entries (a near-first walk
-// never holds more, as for K1; the caller sizes the local array, kCap,
-// from it or takes the 512-entry ceiling) and takes the child order from
-// its own ray's octant: that changes the prim only between hits at
-// exactly equal t, the repository's tie contract. A node's 16 child boxes
-// (its row's first 384 bytes) arrive in 24 16-byte loads.
+// never holds more, as for K1; the local array holds the 512-entry
+// ceiling, which ran no slower than one sized to the tree's depth) and
+// takes the child order from its own ray's octant: that changes the prim
+// only between hits at exactly equal t, the repository's tie contract. A
+// node's 16 child boxes (its row's first 384 bytes) arrive in 24 16-byte
+// loads.
 //
 // What bounds it on this card: dependent row fetches (a 512-byte node row
 // must arrive before the next node index is known) and divergence: bounce
@@ -134,9 +135,8 @@ __device__ __forceinline__ float prod_diff(float a, float b, float c,
 // kAux: fill mid / normal from the aux row (closest-hit only).
 // kWatertight: the watertight leaf test, else Moller-Trumbore.
 // kSkip: triangles of prim id ``skip`` are not hits.
-// kCap: the private stack's entries (stack_size <= kCap).
 template <bool kOcclusion, bool kAux, bool kWatertight = false,
-          bool kSkip = false, int kCap = kStackCap>
+          bool kSkip = false>
 __device__ Record trace(const float* __restrict__ nodes,
                         const float* __restrict__ leafs,
                         const float* __restrict__ aux, int stack_size,
@@ -183,7 +183,7 @@ __device__ Record trace(const float* __restrict__ nodes,
 
   // with s_min > s_max (or NaN) no slab and no triangle can pass
   if (s_min <= s_max) {
-    int stack[kCap];
+    int stack[kStackCap];
     int sp = 0;
     stack[sp++] = 0;
     while (sp > 0) {

@@ -582,11 +582,13 @@ __global__ void __launch_bounds__(kBlock) pt_bvh_lane_kernel(BvhParams p) {
 // ------------------------------------------------------------ pool
 //
 // The pooled schedule (the default). A work item is one path: (lane,
-// s), item j = s * RL + lane, so items run in lane order (the lanes of
-// one pixel, then the next pixel of its tile) and each writes its
-// radiance once, to out[s][lane]; the wrapper sums out over s in order,
-// which is the lane kernel's register sum. Every random number depends
-// on (lane, s, b) alone, so the order in which paths run changes no bit.
+// s), item j = (s - s0) * RL + lane for the launch's sample iterations
+// [s0, s0 + iters), so items run in lane order (the lanes of one pixel,
+// then the next pixel of its tile) and each writes its radiance once, to
+// out[s - s0][lane]; the wrapper adds out to its running sums over s in
+// order, which is the lane kernel's register sum. Every random number
+// depends on (lane, s, b) alone, so the order in which paths run, and
+// how the iterations are split between launches, changes no bit.
 //
 // One persistent block an SM (512 threads) keeps 2,048 paths in shared
 // memory and runs waves until the items run out: roulette every path,
@@ -602,9 +604,10 @@ __global__ void __launch_bounds__(kBlock) pt_bvh_lane_kernel(BvhParams p) {
 // stay full until the items run out.
 //
 // What bounds it: lane divergence inside the traversal (a warp waits for
-// its longest walk) and dependent node fetches. The sort is what buys
-// coherence, and the larger the pool the more (chip_smoke.py phase 9
-// times it without each part): 2,048 slots of 101 bytes fill the 227 KB
+// its longest walk) and dependent node fetches. The sorts (both the
+// closest-hit and the shadow rays) and warps taking 32-ray chunks from a
+// counter each bought 1.13-1.31x on the midscale render (PERF.md); the
+// larger the pool the more coherence: 2,048 slots of 101 bytes fill the 227 KB
 // a block may hold, and 512 threads at <= 128 registers fill the
 // register file. A path's state stays in shared memory between waves;
 // registers hold only the ray in flight.
@@ -623,23 +626,9 @@ constexpr uint32_t kDeadKey = 1u << 18;
 static_assert(kCounts % kPoolThreads == 0 && kPoolSlots <= 65536,
               "pool shape");
 
-// schedule options (the wrapper's ``flags``)
-constexpr int kSortClosest = 1;  // sort the closest-hit rays by key
-constexpr int kSortShadow = 2;   // sort the shadow rays (else compact)
-constexpr int kDynamic = 4;      // warps take 32-ray chunks of a wave from a
-                                 // counter (else a fixed stride)
-
 // the kernel's counters (the wrapper's ``stats``, int64): the item
 // counter, then totals over the blocks
-enum Stat {
-  kItems = 0,
-  kWaves, kPaths, kClosest, kShadows, kBlocks,
-  // cycles (thread 0's clock64, each phase up to the barrier closing it)
-  kCycRefill, kCycSortC, kCycTraceC, kCycSortS, kCycTraceS,
-  // thread-cycles inside the closest-hit trace + shading, the shadow trace
-  kBusyC, kBusyS,
-  kNumStats
-};
+enum Stat { kItems = 0, kWaves, kPaths, kClosest, kShadows, kBlocks, kNumStats };
 
 // slot flags
 constexpr uint8_t kOcc = 1;      // holds a live path (alive, b < max_bounces)
@@ -671,7 +660,7 @@ struct PoolParams {
   BvhParams bp;
   unsigned long long* stats;  // (kNumStats,), see Stat
   const float* box;  // (6,): the root box's lo, max(hi - lo, 1e-30)
-  int flags;
+  int s0, iters;     // the launch's sample iterations [s0, s0 + iters)
   int chunk;         // most items a block claims at once
 };
 
@@ -745,18 +734,19 @@ __device__ __forceinline__ void scan_counts(Pool& sh) {
   __syncthreads();
 }
 
-// Stable LSD radix sort of (key, slot) pairs in sh.key[0] / sh.idx[0]
-// over the key bits [bit0, bit0 + 5 * passes). Each pass is a counting
-// sort: per 32-slot group the slots of each digit are ranked with
-// __match_any_sync, the (digit, group) counts are scanned in digit-major
-// order, and every pair scatters to its digit's base + rank. Returns the
-// buffer holding the result.
-__device__ __forceinline__ int sort_slots(Pool& sh, int bit0, int passes) {
+// Stable LSD radix sort of the slots' (key, slot) pairs in sh.key[0] /
+// sh.idx[0] (slot k at k) over all kKeyBits key bits; dead slots (bit 18)
+// go to the tail. Each pass is a counting sort: per 32-slot group the
+// slots of each digit are ranked with __match_any_sync, the (digit, group)
+// counts are scanned in digit-major order, and every pair scatters to its
+// digit's base + rank. Returns the buffer holding the result.
+__device__ __forceinline__ int sort_slots(Pool& sh) {
+  constexpr int kPasses = (kKeyBits + kRadixBits - 1) / kRadixBits;
   const int tid = threadIdx.x;
   const uint32_t below = (1u << (tid & 31)) - 1u;
   int cur = 0;
-  for (int pass = 0; pass < passes; ++pass) {
-    const int shift = bit0 + pass * kRadixBits;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int shift = pass * kRadixBits;
     for (int j = tid; j < kCounts; j += kPoolThreads) sh.cnt[j] = 0;
     __syncthreads();
     uint32_t kk[kSlotsPerThread];
@@ -785,28 +775,16 @@ __device__ __forceinline__ int sort_slots(Pool& sh, int bit0, int passes) {
   return cur;
 }
 
-// Sorts the slots' keys (sh.key[0], slot k at k) fully, or by the dead
-// bit alone (a stable compaction) without ``full``.
-__device__ __forceinline__ int order_slots(Pool& sh, bool full) {
-  return full ? sort_slots(sh, 0, (kKeyBits + kRadixBits - 1) / kRadixBits)
-              : sort_slots(sh, 18, 1);
-}
-
 // The 32-ray chunks of a wave's n sorted rays: a warp takes the next one
-// from ``counter`` (dynamic) or every kPoolWarps-th (fixed stride);
-// ``fn(k)`` runs for each ray k < n, in the lane that owns it.
+// from ``counter``; ``fn(k)`` runs for each ray k < n, in the lane that
+// owns it.
 template <class Fn>
-__device__ __forceinline__ void for_chunks(int n, int& counter, bool dynamic,
-                                           Fn&& fn) {
-  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = 0;; ++r) {
+__device__ __forceinline__ void for_chunks(int n, int& counter, Fn&& fn) {
+  const int lane_id = threadIdx.x & 31;
+  for (;;) {
     int c = 0;
-    if (dynamic) {
-      if (lane_id == 0) c = atomicAdd(&counter, 1);
-      c = __shfl_sync(0xffffffffu, c, 0);
-    } else {
-      c = r * kPoolWarps + warp;
-    }
+    if (lane_id == 0) c = atomicAdd(&counter, 1);
+    c = __shfl_sync(0xffffffffu, c, 0);
     if (c * 32 >= n) break;
     const int k = c * 32 + lane_id;
     if (k < n) fn(k);
@@ -815,7 +793,8 @@ __device__ __forceinline__ void for_chunks(int n, int& counter, bool dynamic,
 
 __device__ __forceinline__ void finish_path(const PoolParams& q, Pool& sh,
                                             int i) {
-  float* o = q.bp.out + ((size_t)sh.s[i] * (size_t)q.bp.n + sh.lane[i]) * 3;
+  float* o = q.bp.out +
+             ((size_t)(sh.s[i] - q.s0) * (size_t)q.bp.n + sh.lane[i]) * 3;
   o[0] = sh.cr[i];
   o[1] = sh.cg[i];
   o[2] = sh.cb[i];
@@ -841,7 +820,6 @@ __device__ __forceinline__ void pool_roulette(const PoolParams& q, Pool& sh,
   if (rr_apply && u_rr < 0.2f) finish_path(q, sh, i);
 }
 
-template <int kCap, bool kProfile>
 __global__ void __launch_bounds__(kPoolThreads, 1)
     pt_bvh_pool_kernel(PoolParams q) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -850,10 +828,7 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
   const Loop& lp = p.lp;
   const int tid = threadIdx.x, lane_id = tid & 31;
   const unsigned long long total =
-      (unsigned long long)p.n * (unsigned long long)lp.spp_iters;
-  const bool sort_closest = (q.flags & kSortClosest) != 0;
-  const bool sort_shadow = (q.flags & kSortShadow) != 0;
-  const bool dynamic = (q.flags & kDynamic) != 0;
+      (unsigned long long)p.n * (unsigned long long)q.iters;
   const SortBox box{__ldg(q.box), __ldg(q.box + 1), __ldg(q.box + 2),
                     __ldg(q.box + 3), __ldg(q.box + 4), __ldg(q.box + 5)};
 
@@ -861,16 +836,6 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
   for (int k = tid; k < kNumStats; k += kPoolThreads) sh.stat[k] = 0ull;
   if (tid == 0) sh.exhausted = false;
   __syncthreads();
-  long long t_lap = kProfile ? clock64() : 0;
-  unsigned long long busy_c = 0ull, busy_s = 0ull;
-  // thread 0 books the cycles since the last lap to phase k
-  auto lap = [&](int k) {
-    if (kProfile && tid == 0) {
-      const long long now = clock64();
-      sh.stat[k] += (unsigned long long)(now - t_lap);
-      t_lap = now;
-    }
-  };
 
   for (;;) {
     // ---- roulette the live paths; count the free slots (every thread
@@ -921,7 +886,7 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
           const unsigned long long item = sh.item0 + (unsigned long long)tk;
           const long long lane = (long long)(item % (unsigned long long)p.n);
           sh.lane[i] = (int)lane;
-          sh.s[i] = (int)(item / (unsigned long long)p.n);
+          sh.s[i] = q.s0 + (int)(item / (unsigned long long)p.n);
           sh.b[i] = 0;
           sh.px[i] = p.org[3 * lane];
           sh.py[i] = p.org[3 * lane + 1];
@@ -948,7 +913,6 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
       if (lane_id == 0 && live_mask) atomicAdd(&sh.nlive, __popc(live_mask));
     }
     __syncthreads();
-    lap(kCycRefill);
     const int nlive = sh.nlive;
     if (nlive == 0) {
       if (sh.ngot == 0) break;  // every item claimed, every path done
@@ -959,10 +923,8 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
       sh.stat[kClosest] += (unsigned long long)nlive;
     }
     // ---- closest hit and shading, the k-th sorted path in turn
-    const int cur = order_slots(sh, sort_closest);
-    lap(kCycSortC);
-    for_chunks(nlive, sh.chunk_c, dynamic, [&](int k) {
-      const long long t0 = kProfile ? clock64() : 0;
+    const int cur = sort_slots(sh);
+    for_chunks(nlive, sh.chunk_c, [&](int k) {
       const int i = sh.idx[cur][k];
       const uint32_t ray_id = (uint32_t)sh.lane[i];
       const int s = sh.s[i], b = sh.b[i];
@@ -972,7 +934,7 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
       PathState st{sh.px[i], sh.py[i], sh.pz[i], sh.dx[i], sh.dy[i],
                    sh.dz[i], sh.cr[i], sh.cg[i], sh.cb[i], sh.wr[i],
                    sh.wg[i], sh.wb[i], true, (sh.flags[i] & kDoEm) != 0};
-      const bvh16::Record rec = bvh16::trace<false, true, false, false, kCap>(
+      const bvh16::Record rec = bvh16::trace<false, true>(
           p.nodes, p.leafs, p.aux, p.stack_size, p.err, st.px, st.py, st.pz,
           st.dx, st.dy, st.dz, kEpsT, kFar);
       const Material m = hit_material(p, rec);
@@ -1010,12 +972,10 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
       } else {
         sh.flags[i] = kOcc | em;
       }
-      if (kProfile) busy_c += (unsigned long long)(clock64() - t0);
     });
     __syncthreads();
-    lap(kCycTraceC);
     if (p.lights.n == 0) continue;
-    // ---- the NEE shadow rays, keyed and sorted (or compacted) alike
+    // ---- the NEE shadow rays, keyed and sorted alike
 #pragma unroll
     for (int r = 0; r < kSlotsPerThread; ++r) {
       const int i = r * kPoolThreads + tid;
@@ -1029,18 +989,13 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
     }
     __syncthreads();
     const int nsh = sh.nshadow;
-    if (nsh == 0) {
-      lap(kCycSortS);
-      continue;
-    }
+    if (nsh == 0) continue;
     if (tid == 0) sh.stat[kShadows] += (unsigned long long)nsh;
-    const int cs = order_slots(sh, sort_shadow);
-    lap(kCycSortS);
-    for_chunks(nsh, sh.chunk_s, dynamic, [&](int k) {
-      const long long t0 = kProfile ? clock64() : 0;
+    const int cs = sort_slots(sh);
+    for_chunks(nsh, sh.chunk_s, [&](int k) {
       const int i = sh.idx[cs][k];
       const bool blocked =
-          bvh16::trace<true, false, false, false, kCap>(
+          bvh16::trace<true, false>(
               p.nodes, p.leafs, nullptr, p.stack_size, p.err, sh.px[i],
               sh.py[i], sh.pz[i], sh.lx[i], sh.ly[i], sh.lz[i], kRayEps,
               sh.sm[i])
@@ -1055,22 +1010,10 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
       } else {
         sh.flags[i] &= (uint8_t)~kShadow;
       }
-      if (kProfile) busy_s += (unsigned long long)(clock64() - t0);
     });
     __syncthreads();
-    lap(kCycTraceS);
   }
-  // this block's busy thread-cycles and totals, to the wrapper
-  if (kProfile) {
-    for (int o = 16; o > 0; o >>= 1) {
-      busy_c += __shfl_down_sync(0xffffffffu, busy_c, o);
-      busy_s += __shfl_down_sync(0xffffffffu, busy_s, o);
-    }
-    if (lane_id == 0) {
-      atomicAdd(&sh.stat[kBusyC], busy_c);
-      atomicAdd(&sh.stat[kBusyS], busy_s);
-    }
-  }
+  // this block's totals, to the wrapper
   if (tid == 0) sh.stat[kBlocks] = 1ull;
   __syncthreads();
   for (int k = 1 + tid; k < kNumStats; k += kPoolThreads) {
@@ -1078,24 +1021,21 @@ __global__ void __launch_bounds__(kPoolThreads, 1)
   }
 }
 
-template <int kCap, bool kProfile>
 cudaError_t pool_blocks_per_sm(int* per_sm) {
   const cudaError_t e = cudaFuncSetAttribute(
-      pt_bvh_pool_kernel<kCap, kProfile>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Pool));
+      pt_bvh_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Pool));
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, pt_bvh_pool_kernel<kCap, kProfile>, kPoolThreads,
-      sizeof(Pool));
+      per_sm, pt_bvh_pool_kernel, kPoolThreads, sizeof(Pool));
 }
 
 // One block an SM, at most one per 32 items; a block claims at most its
 // share of the items at once, so that a small render still spreads over
 // every SM (a large one claims a whole pool).
-template <int kCap, bool kProfile>
 cudaError_t launch_pool(PoolParams q, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = pool_blocks_per_sm<kCap, kProfile>(&per_sm);
+  cudaError_t e = pool_blocks_per_sm(&per_sm);
   if (e != cudaSuccess) return e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -1104,24 +1044,15 @@ cudaError_t launch_pool(PoolParams q, cudaStream_t stream) {
   }
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const unsigned long long items =
-      (unsigned long long)q.bp.n * (unsigned long long)q.bp.lp.spp_iters;
+      (unsigned long long)q.bp.n * (unsigned long long)q.iters;
   unsigned long long grid =
       (unsigned long long)per_sm * (unsigned long long)sms;
   if ((items + 31) / 32 < grid) grid = (items + 31) / 32;
   const unsigned long long share = (items + grid - 1) / grid;
   q.chunk = share < 32 ? 32 : (share > kPoolSlots ? kPoolSlots : (int)share);
-  pt_bvh_pool_kernel<kCap, kProfile>
-      <<<(unsigned)grid, kPoolThreads, sizeof(Pool), stream>>>(q);
+  pt_bvh_pool_kernel<<<(unsigned)grid, kPoolThreads, sizeof(Pool), stream>>>(
+      q);
   return cudaGetLastError();
-}
-
-template <bool kProfile>
-cudaError_t launch_pool_cap(const PoolParams& q, cudaStream_t stream) {
-  const int ss = q.bp.stack_size;
-  if (ss <= 64) return launch_pool<64, kProfile>(q, stream);
-  if (ss <= 128) return launch_pool<128, kProfile>(q, stream);
-  if (ss <= 256) return launch_pool<256, kProfile>(q, stream);
-  return launch_pool<512, kProfile>(q, stream);
 }
 
 bool loop_ok(const Loop& lp) {
@@ -1170,43 +1101,39 @@ extern "C" int nrt_pt_fused_bvh_lane(
   return (int)cudaGetLastError();
 }
 
-// ``out`` (spp_iters, n, 3): every path's radiance; ``stats``
-// (kNumStats,) int64 zeros (see Stat); ``box`` (6,): the root box's lo
-// and max(hi - lo, 1e-30) for the sort key; ``flags``: kSortClosest |
-// kSortShadow | kDynamic; ``profile``: count the phases' cycles too. The
-// per-thread stack holds the least of 64, 128, 256, 512 entries that fits
-// ``stack_size``.
+// Runs the paths of sample iterations [s0, s0 + iters) of spp_iters.
+// ``out`` (iters, n, 3): their radiance; ``stats`` (kNumStats,) int64
+// zeros (see Stat); ``box`` (6,): the root box's lo and max(hi - lo,
+// 1e-30) for the sort key.
 extern "C" int nrt_pt_fused_bvh_pool(
     const float* mat, int n_mats, const float* light, int n_lights,
     float inv_lights, const float* nodes, const float* leafs, const float* aux,
     const float* org, const float* dir, float* out, int* err, long long n,
     int stack_size, int seed, int spp_iters, int max_bounces, int rr_start,
-    int trig, int az_strata, int spp_lanes, unsigned long long* stats,
-    const float* box, int flags, int profile, void* stream) {
+    int trig, int az_strata, int spp_lanes, int s0, int iters,
+    unsigned long long* stats, const float* box, void* stream) {
   const Loop lp{(uint32_t)seed, spp_iters, max_bounces, rr_start,
                 trig,           az_strata, spp_lanes};
   if (stack_size < 1 || stack_size > bvh16::kStackCap || n_mats < 0 ||
-      n_lights < 0 || !loop_ok(lp) || n > 0x7fffffffLL || flags < 0 ||
-      flags > 7) {
+      n_lights < 0 || !loop_ok(lp) || n > 0x7fffffffLL || s0 < 0 ||
+      iters < 0 || iters > spp_iters - s0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (n <= 0 || spp_iters == 0) return 0;
+  if (n <= 0 || iters == 0) return 0;
   const PoolParams q{
       BvhParams{mat, n_mats, Lights{light, n_lights, inv_lights}, nodes,
                 leafs, aux, org, dir, out, err, n, stack_size, lp},
-      stats, box, flags, kPoolSlots};
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return profile ? (int)launch_pool_cap<true>(q, st)
-                 : (int)launch_pool_cap<false>(q, st);
+      stats, box, s0, iters, kPoolSlots};
+  return (int)launch_pool(q, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Resident blocks per SM of the lane kernel (128 threads) and of the
-// pooled kernel (512 threads and its pool) with a 128-entry stack, and
-// the pool's shared bytes: out[0] lane, out[1] pool, out[2] bytes.
+// pooled kernel (512 threads and its pool), and the pool's shared bytes:
+// out[0] lane, out[1] pool, out[2] bytes.
 extern "C" int nrt_pt_fused_bvh_occupancy(int* out) {
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       out, pt_bvh_lane_kernel, kBlock, 0);
-  if (e == cudaSuccess) e = pool_blocks_per_sm<128, false>(out + 1);
+  if (e == cudaSuccess) e = pool_blocks_per_sm(out + 1);
   if (e != cudaSuccess) return (int)e;
   out[2] = (int)sizeof(Pool);
   return 0;

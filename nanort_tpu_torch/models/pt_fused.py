@@ -56,19 +56,16 @@ PT_FUSED_MAX_TRIS = 256  # csrc/pt_fused.cu kMaxTris (shared-memory table)
 # counts in traverse.fused_trace.LAUNCHES["bvh16_trace"].
 LAUNCHES = {"pt_fused_brute": 0, "pt_fused_bvh": 0, "pt_fused_bvh[lane]": 0}
 
-# The pooled kernel's options: 1 sorts the closest-hit rays by key, 2 the
-# shadow rays (without either they are only compacted), 4 lets warps take
-# a wave's 32-ray chunks from a counter (else a fixed stride). With
-# POOL_PROFILE the kernel also counts each phase's cycles.
-POOL_FLAGS = 7
-POOL_PROFILE = False
+# The pooled kernel's per-sample radiance buffer holds at most this many
+# bytes (at least one sample iteration, RL x 12 bytes): a render with more
+# sample iterations runs one launch a slice of them.
+POOL_SLICE_BYTES = 512 << 20
 
-# The last pooled launch's counters, a device tensor (not synchronised),
-# summed over the blocks (csrc/pt_fused.cu ``Stat``).
-POOL_STATS = ("items", "waves", "paths", "closest", "shadows", "blocks",
-              "cyc_refill", "cyc_sort_closest", "cyc_trace_closest",
-              "cyc_sort_shadow", "cyc_trace_shadow", "busy_closest",
-              "busy_shadow")
+# The last pooled render's counters, a device tensor (not synchronised),
+# summed over its launches and their blocks (csrc/pt_fused.cu ``Stat``):
+# items claimed, waves, paths started, closest-hit and shadow traces,
+# blocks.
+POOL_STATS = ("items", "waves", "paths", "closest", "shadows", "blocks")
 LAST_POOL_STATS = None
 
 _M32 = 0xFFFFFFFF
@@ -511,15 +508,29 @@ def _render_fused_bvh_reference(mat, lights, nodes, leafs, aux, slots, org,
                                    lights, closest, shadow, lane_ids)
 
 
-def sample_sums(per_sample: torch.Tensor) -> torch.Tensor:
+def sample_sums(per_sample: torch.Tensor,
+                acc: torch.Tensor | None = None) -> torch.Tensor:
     """(spp_iters, RL, 3) per-path radiance -> (RL, 3) lane sums, added
-    in sample order ``((0 + r0) + r1) + ...``: the lane kernel's register
-    sum and ``_render_lanes_reference``'s, bit for bit."""
-    acc = torch.zeros(per_sample.shape[1:], dtype=per_sample.dtype,
-                      device=per_sample.device)
+    in sample order ``((acc + r0) + r1) + ...`` (``acc`` defaults to
+    zeros): the lane kernel's register sum and
+    ``_render_lanes_reference``'s, bit for bit, also when the samples come
+    in consecutive slices, each added to the sums of the ones before."""
+    if acc is None:
+        acc = torch.zeros(per_sample.shape[1:], dtype=per_sample.dtype,
+                          device=per_sample.device)
     for r in per_sample:
         acc = acc + r
     return acc
+
+
+def pool_slices(n: int, spp_iters: int, cap_bytes: int) -> list:
+    """The pooled kernel's launches for ``n`` lanes: consecutive (s0,
+    iters) slices of the ``spp_iters`` sample iterations whose (iters, n,
+    3) float32 buffer holds at most ``cap_bytes`` (one iteration when a
+    single one is larger)."""
+    step = max(1, int(cap_bytes) // max(12 * int(n), 1))
+    return [(s0, min(step, spp_iters - s0))
+            for s0 in range(0, spp_iters, step)]
 
 
 def pool_box(nodes: torch.Tensor):
@@ -696,8 +707,10 @@ def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
 
     The kernel runs the (lane, sample) paths from a pool in shared
     memory, sorted by origin and direction before each trace, and writes
-    each path's radiance to a (spp // spp_lanes, RL, 3) buffer, which is
-    summed in sample order (``sample_sums``). ``_schedule="lane"`` runs
+    each path's radiance to a per-sample buffer, which is summed in
+    sample order (``sample_sums``); a render whose buffer would pass
+    ``POOL_SLICE_BYTES`` runs one launch a slice of its sample
+    iterations, each added to the sums in order. ``_schedule="lane"`` runs
     the one-lane-a-thread kernel instead, the yardstick it replaced; both
     give the same bits."""
     if _schedule not in ("pool", "lane"):
@@ -754,31 +767,39 @@ def _launch_fused_bvh(schedule, mat, light, lights, nodes, leafs, aux, slots,
             out = torch.empty_like(org)
             rc = lib.nrt_pt_fused_bvh_lane(*common, _ptr(out), _ptr(err), n,
                                            slots, *loop, _stream(dev))
+            _count_k4(rc, "pt_fused_bvh[lane]")
         else:
-            out = torch.empty((spp_iters, n, 3), dtype=torch.float32,
-                              device=dev)
-            stats = torch.zeros(len(POOL_STATS), dtype=torch.int64,
-                                device=dev)
+            parts = pool_slices(n, spp_iters, POOL_SLICE_BYTES)
+            buf = torch.empty((max((k for _, k in parts), default=0), n, 3),
+                              dtype=torch.float32, device=dev)
+            stats = torch.zeros((max(len(parts), 1), len(POOL_STATS)),
+                                dtype=torch.int64, device=dev)
             box = torch.cat(pool_box(nodes)).contiguous()
-            rc = lib.nrt_pt_fused_bvh_pool(
-                *common, _ptr(out), _ptr(err), n, slots, *loop, _ptr(stats),
-                _ptr(box), int(POOL_FLAGS), int(bool(POOL_PROFILE)),
-                _stream(dev))
-            LAST_POOL_STATS = stats
+            out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+            for j, (s0, k) in enumerate(parts):
+                rc = lib.nrt_pt_fused_bvh_pool(
+                    *common, _ptr(buf), _ptr(err), n, slots, *loop, s0, k,
+                    _ptr(stats[j]), _ptr(box), _stream(dev))
+                _count_k4(rc, "pt_fused_bvh")
+                out = sample_sums(buf[:k], out)
+            LAST_POOL_STATS = stats.sum(0)
+    fused_trace.check_overflow(err, slots)
+    return out
+
+
+def _count_k4(rc: int, key: str) -> None:
+    """Raise on a failed K4 launch, else count it (K2 runs inside)."""
     if rc != 0:
         raise RuntimeError(f"pt_fused_bvh kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES["pt_fused_bvh[lane]" if schedule == "lane"
-             else "pt_fused_bvh"] += 1
-    fused_trace.LAUNCHES["bvh16_trace"] += 1  # K2 runs inside
-    fused_trace.check_overflow(err, slots)
-    return out if schedule == "lane" else sample_sums(out)
+    LAUNCHES[key] += 1
+    fused_trace.LAUNCHES["bvh16_trace"] += 1
 
 
 def pool_occupancy() -> dict:
     """Resident blocks per SM of K4's two kernels on the current card
-    (the pooled one with a 128-entry stack) and the pool's shared
-    bytes: ``{"lane": n, "pool": n, "pool_smem_bytes": b}``."""
+    and the pool's shared bytes: ``{"lane": n, "pool": n,
+    "pool_smem_bytes": b}``."""
     out = (ctypes.c_int * 3)()
     rc = _ext.load("pt_fused").nrt_pt_fused_bvh_occupancy(out)
     if rc != 0:

@@ -52,8 +52,8 @@ KERNELS = {
         "nrt_pt_fused_bvh_lane": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,
                                    _P, _P, _L] + [_I] * 8 + [_P]),
         "nrt_pt_fused_bvh_pool": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,
-                                   _P, _P, _L] + [_I] * 8
-                                  + [_P, _P, _I, _I, _P]),
+                                   _P, _P, _L] + [_I] * 10
+                                  + [_P, _P, _P]),
         "nrt_pt_fused_bvh_occupancy": [_P],
     }),
     "ao_fused": ("ao_fused.cu", ("bvh16_trace.cuh",), {

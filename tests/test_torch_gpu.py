@@ -397,24 +397,31 @@ def test_pt_fused_bvh_schedule_keyword(dev, dense_pt):
     assert 0 < occ["pool_smem_bytes"] <= 227 * 1024
 
 
-@pytest.mark.parametrize("flags,profile", [(0, False), (4, False), (7, True)])
-def test_pt_fused_bvh_pool_options_change_no_bit(dev, dense_pt, flags,
-                                                 profile, monkeypatch):
-    # unsorted, compacted-only, fixed-stride and counting runs give the
-    # default's bits
+@pytest.mark.parametrize("iters_a_slice", [1, 3])
+def test_pt_fused_bvh_pool_slices_match_lane(dev, dense_pt, iters_a_slice,
+                                            monkeypatch):
+    # a render whose per-sample buffer passes the cap runs one launch a
+    # slice of sample iterations and keeps the lane kernel's bits
     org, d = _cam(32, 24, 2.6)
     scene = dense_pt.to(dev)
     kw = dict(max_bounces=5, trig="poly", azimuth_strata=2, spp_lanes=2)
-    want = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 4,
-                                     **kw)
-    monkeypatch.setattr(pt_fused, "POOL_FLAGS", flags)
-    monkeypatch.setattr(pt_fused, "POOL_PROFILE", profile)
-    got = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 4,
+    rl, spp_iters = 32 * 24 * 2, 8 // 2
+    want = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 8,
+                                     _schedule="lane", **kw)
+    monkeypatch.setattr(pt_fused, "POOL_SLICE_BYTES",
+                        iters_a_slice * rl * 12)
+    slices = -(-spp_iters // iters_a_slice)
+    before = dict(pt_fused.LAUNCHES)
+    k2 = fused_trace.LAUNCHES["bvh16_trace"]
+    got = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 8,
                                     **kw)
+    assert pt_fused.LAUNCHES == {
+        **before, "pt_fused_bvh": before["pt_fused_bvh"] + slices}
+    assert fused_trace.LAUNCHES["bvh16_trace"] == k2 + slices
     assert torch.equal(got, want)
     stats = dict(zip(pt_fused.POOL_STATS, pt_fused.LAST_POOL_STATS.tolist()))
-    assert stats["paths"] == 32 * 24 * 4
-    assert (stats["cyc_trace_closest"] > 0) == profile
+    assert stats["paths"] == rl * spp_iters
+    assert stats["blocks"] >= slices
 
 
 def _same_image(got, want, trig):

@@ -5,9 +5,11 @@ on.
 - Running the (lane, sample) paths in a shuffled order of chunks, each
   writing its radiance into the (spp_iters, RL, 3) per-sample buffer,
   then summing that buffer in sample order (``pt_fused.sample_sums``,
-  what the wrapper does after the kernel) gives
-  ``_render_fused_bvh_reference``'s lane sums bit for bit: every random
-  number depends on (lane, sample, bounce) alone.
+  what the wrapper does after the kernel), whole or in the consecutive
+  slices of sample iterations that the wrapper launches one by one
+  (``pt_fused.pool_slices``), gives ``_render_fused_bvh_reference``'s
+  lane sums bit for bit: every random number depends on (lane, sample,
+  bounce) alone.
 - ``lane_ids=`` runs any subset of lanes under their true ray ids.
 - The in-kernel sort key's plain counterpart (``pool_sort_keys``) equals
   ``ray_sort.ray_sort_keys`` on the same rays.
@@ -76,6 +78,11 @@ def test_shuffled_paths_sum_to_the_lane_sums(dense, spp_lanes, strata):
     got = pt_fused.sample_sums(buf)
     assert bool(torch.isfinite(got).all()) and float(got.sum()) > 0
     assert torch.equal(got, want)
+    # one sample iteration a launch, each added to the sums before it
+    acc = None
+    for s0, k in pt_fused.pool_slices(RL, spp_iters, 12 * RL):
+        acc = pt_fused.sample_sums(buf[s0:s0 + k], acc)
+    assert torch.equal(acc, want)
 
 
 @pytest.mark.parametrize("spp_lanes", [1, 4])
@@ -107,6 +114,25 @@ def test_sample_sums_add_in_sample_order():
         want = want + r
     assert torch.equal(pt_fused.sample_sums(x), want)
     assert torch.equal(pt_fused.sample_sums(x[:0]), torch.zeros(33, 3))
+
+
+@pytest.mark.parametrize("cap", [1, 12 * 33, 12 * 33 * 2 + 11, 1 << 20])
+def test_sample_sums_over_slices_equal_the_whole(cap):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(7, 33, 3)).astype(np.float32))
+    parts = pt_fused.pool_slices(33, 7, cap)
+    # consecutive, covering every iteration once, each within the cap
+    # unless one iteration alone passes it
+    assert [s0 for s0, _ in parts] == list(
+        np.cumsum([0] + [k for _, k in parts[:-1]]))
+    assert sum(k for _, k in parts) == 7
+    assert all(k * 33 * 12 <= cap or k == 1 for _, k in parts)
+    assert len(parts) == -(-7 // max(1, cap // (33 * 12)))
+    acc = None
+    for s0, k in parts:
+        acc = pt_fused.sample_sums(x[s0:s0 + k], acc)
+    assert torch.equal(acc, pt_fused.sample_sums(x))
+    assert pt_fused.pool_slices(33, 0, cap) == []
 
 
 def _key_rays(n, seed):

@@ -20,8 +20,9 @@ warm-up:
   checkout has it, the same render on the lane kernel
   (``_schedule="lane"``).
 
-Prints one JSON line a turn and, last, the medians of each side with the
-card's name and power limit. Needs one NVIDIA GPU; imports no JAX.
+Prints one JSON line a turn (each number the median of its repetitions)
+and, last, the least of each side's two turns with the card's name and
+power limit. Needs one NVIDIA GPU; imports no JAX.
 """
 
 from __future__ import annotations
