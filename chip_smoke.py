@@ -102,7 +102,17 @@ nothing of JAX. Phases, one line or more each:
     phase 5's rays (== plain, sound) and on an axis-aligned case, and
     ``traverse_bvh8_exact`` / ``_exact_fused`` against single-pass
     exact; ``interleave`` 2 and 4 on the frame, on phase 16's rays and
-    (== plain) on phase 5's rays; K1's ``ptxas -v`` report.
+    (== plain) on phase 5's rays; each K1 instantiation's registers,
+    spills and stack frame (``ptxas -v``) and its shared bytes and
+    resident warps an SM (the occupancy API); the persistent schedule's
+    edge shapes (ray counts of 1, 31, 32, 33 and a claim count the grid
+    does not divide, every mode on grids of 1 and 3 blocks, dead rays,
+    roots across claims, walks past the shared stack top, a stack too
+    small, which must set the overflow word) == plain; then one line per
+    K1 shape (phases 5, 6, 11, 13, 16-18) with its time, its bound and,
+    where ``tools/ab_port_kernels.py ... --out
+    chiprun_out/ab_port_kernels.json`` ran before it in the same
+    command, the parent's and this tree's times from its turns.
 
 It then prints one JSON line with every kernel (its launches on the main
 path, its error against its plain version, its time, its plain
@@ -126,6 +136,8 @@ import time
 import numpy as np
 
 FAILURES: list[str] = []
+# K1's shapes for the summary lines: (what, card ms, bound, A/B key)
+K1_SHAPES: list[tuple] = []
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
@@ -189,6 +201,37 @@ def max_abs(a, b, mask=None) -> float:
 
 def median(xs):
     return sorted(xs)[len(xs) // 2]
+
+
+def k1_shape(what: str, ms: float, b: tuple, ab_key: str | None = None):
+    """Record one K1 shape for the summary lines: its card ms, its bound
+    and, where ``tools/ab_port_kernels.py`` times the same shape, that
+    tool's key."""
+    K1_SHAPES.append((what, ms, b, ab_key))
+
+
+def report_k1_shapes():
+    """One line per K1 shape: card ms beside its bound, and the parent's
+    and this tree's ms in an A/B call's turns where a call of
+    ``tools/ab_port_kernels.py ... --out chiprun_out/ab_port_kernels.json``
+    in the same command left them."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", "ab_port_kernels.json")
+    ab = None
+    if os.path.exists(path):
+        with open(path) as fh:
+            ab = json.load(fh)
+    for what, ms, b, key in K1_SHAPES:
+        line = (f"K1 shape {what}: {ms:.3f} ms on the card, bound "
+                f"{b[0]:.4f} ms ({b[1]}), {ms / b[0]:.1f}x the bound")
+        if key and ab and all(key in r for r in ab["turns_ms"]["A"]):
+            line += (f"; A/B {key} ({ab['card']}): parent "
+                     f"{[round(r[key], 3) for r in ab['turns_ms']['A']]} ms, "
+                     f"this tree "
+                     f"{[round(r[key], 3) for r in ab['turns_ms']['B']]} ms")
+        elif key:
+            line += "; parent: not measured in this call"
+        say(line)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -915,6 +958,14 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
             check(h["rays"] == 6_553_600 and h["dead"] > 0 and h["dead_tail"]
                   and h["dead_hits"] == 0,
                   f"megabatch {name} {kind} trace: {h}")
+            woop = name == "turbo"
+            k1_shape(f"phase 11 {'K1-woop' if woop else 'K1'}, {name} "
+                     f"bounce-2 {kind} trace ({h['rays']} sorted rays, "
+                     f"{h['dead']} dead)", h["ms"],
+                     bound(h["rays"] * (32 + 20) + row_bytes(h["stats"]),
+                           trace_ops(h["stats"], 16,
+                                     WOOP_OPS if woop else WT_OPS)),
+                     f"{'k1woop' if woop else 'k1'}_bounce2_{kind}_ms")
 
     # for each engine, one more render split into its layers with CUDA
     # events, and one more counting the work of every trace on every
@@ -1199,6 +1250,11 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
             f"{h['plain_ms']:.1f} ms; work {h['stats']}")
         check(h["same"], f"config A K1 {kind} trace disagrees with the "
               "plain version")
+        k1_shape(f"phase 13 config A {kind} trace ({h['rays']} rays)",
+                 h["ms"], bound(h["rays"] * (32 + 20) + row_bytes(h["stats"])
+                                + (4 * h["rays"] if h["skip"] else 0),
+                                trace_ops(h["stats"], 16, WT_OPS)),
+                 f"k1_config_a_{kind}_ms")
     check(held["primary"]["rays"] == n_px
           and held["occlusion"]["rays"] == S * n_px
           and held["occlusion"]["skip"] and held["occlusion"]["occlusion"]
@@ -1581,6 +1637,22 @@ def incoherent_phases(dev, n_tris: int = 1_000_000, R: int = 4_194_304,
         f"{held['plain_ms']:.1f} ms; work {held['stats']}; bound "
         f"{roots_bound[0]:.4f} ms ({roots_bound[1]})")
     check(held["same"], "K1 with roots disagrees with its plain version")
+    k1_shape(f"phase 16 K1 with roots, the first {hold_packets} packets of "
+             f"a round-1 launch ({held['rays']} slots)", held["ms"],
+             roots_bound)
+    # the whole round-1 launch, its work the slice's scaled by slots
+    r1_ms = median(cuda_ms(lambda: packet.traverse_bvh8(s8, r1, *a1, **k1kw),
+                           5))
+    scale1 = r1.org.shape[0] / held["rays"]
+    k1_shape(f"phase 16 K1 with roots, the whole round-1 launch "
+             f"({r1.org.shape[0]} slots; the slice's work x {scale1:.2f})",
+             r1_ms, bound(r1.org.shape[0] * (32 + 20)
+                          + 4 * k1kw["packet_roots"].numel()
+                          + min(row_bytes(held["stats"]) * scale1,
+                                nbytes(s8.nodes, s8.leafs)),
+                          trace_ops({k: v * scale1 for k, v in
+                                     held["stats"].items()}, 8, WT_OPS)),
+             "k1_roots_round1_ms")
     # the run's 3 launches: the slice's work scaled by their slots (the
     # slice is 131,072 of them), the rows read at most the whole tables
     slots = sum(r.org.shape[0] for r, _, _, _ in kept)
@@ -1647,6 +1719,19 @@ def incoherent_phases(dev, n_tris: int = 1_000_000, R: int = 4_194_304,
         f"err {held_b['err']}; kernel {held_b['ms']:.3f} ms, plain "
         f"{held_b['plain_ms']:.1f} ms; work {held_b['stats']}")
     check(held_b["same"], "the phase-17 trace disagrees with the plain version")
+    st17 = {}
+    smp = type(sr)(*(x[::32].contiguous() for x in sr))
+    packet._traverse_reference(
+        s8.nodes, s8.leafs, 8, smp.org, smp.dir, smp.min_t, smp.max_t, None,
+        None, False, True, True, packet.stack_slots(s8), stats=st17)
+    k1_shape(f"phase 17 AO bounce run, sort + K1 any-hit + unsort ({RB} "
+             f"rays; K1's work on every 32nd sorted ray x32, its rows as a "
+             f"floor)", min(ms),
+             bound(RB * (32 + 20) + row_bytes(st17),
+                   trace_ops({k: st17.get(k, 0) * 32 for k in ("nodes",
+                                                              "tris")},
+                             8, WT_OPS)), "k1_ao_bounce_ms")
+    del smp
     launches_17 = counts["packet_traverse"]
     del brays, hb, sr, sout, rays_p, hp, mesh
     torch.cuda.empty_cache()
@@ -1683,6 +1768,184 @@ def edge_rays(dev, n: int):
     return (collapse_bvh8(bvh, v, f).to(dev),
             nt.make_rays(torch.from_numpy(org).to(dev),
                          torch.from_numpy(d).to(dev)))
+
+
+def k1_edge_shapes(dev) -> int:
+    """Phase 18's edge shapes of K1's persistent schedule, each held to
+    the plain version (the wrapper on CPU copies) bit for bit: ray counts
+    of 1, 31, 32 and 33 and a claim count that the resident grid's warps
+    do not divide; every mode on a grid of 1 and 3 blocks (so each warp
+    claims several times); all rays dead and a sorted dead tail; packet
+    roots whose packets span several claims; walks past the
+    shared-memory top of the stack (an overlapping triangle soup); and a
+    stack too small for the walks, which must set the overflow word.
+    Returns the number of shapes held."""
+    import dataclasses
+
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.io.procedural import (
+        make_cornell_box, make_uv_sphere, merge_meshes)
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import overlap_soup
+    from nanort_tpu_torch.traverse import packet, treelet
+
+    def build(v, f, leaf, width, woop=False):
+        bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+            min_leaf_primitives=leaf, max_leaf_primitives=leaf))
+        return collapse_bvh8(bvh, v, f, width=width, woop=woop)
+
+    def rays_of(n, seed):
+        rng = np.random.default_rng(seed)
+        org = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+        d = rng.uniform(-0.8, 0.8, (n, 3)) - org
+        d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+        return nt.make_rays(torch.from_numpy(org), torch.from_numpy(d))
+
+    vb, fb = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
+    box = {(w, woop): build(vb, fb, 9, w, woop) for w in (8, 16)
+           for woop in (False, True)}
+    vs, fs, so, sd = overlap_soup(600, 1500)
+    soup = {(w, woop): build(vs, fs, 1, w, woop) for w in (8, 16)
+            for woop in (False, True)}
+    soup_rays = nt.make_rays(torch.from_numpy(so), torch.from_numpy(sd))
+    fast = nt.BVHTraceOptions(exact_edge_fallback=False)
+    modes = {"closest": {}, "any_hit": dict(occlusion=True),
+             "cull": dict(options=nt.BVHTraceOptions(cull_back_face=True)),
+             "range": dict(options=nt.BVHTraceOptions(
+                 prim_ids_range=(100, 900))),
+             "woop": dict(intersector="woop"),
+             "woop_any_hit": dict(intersector="woop", occlusion=True),
+             "counts": dict(debug_counts=True),
+             "flags": dict(options=fast, _flag_zero_edges=True)}
+    real_plan = packet.launch_plan
+
+    def held(scene, rays, grid=None, **kw):
+        def on(dev_):
+            return {k: (x.to(dev_) if isinstance(x, torch.Tensor) else x)
+                    for k, x in kw.items()}
+
+        plan = real_plan if grid is None else (
+            lambda *a: dataclasses.replace(real_plan(*a), grid=grid))
+        with patched(packet, "launch_plan", plan):
+            got = packet.traverse_bvh8(scene.to(dev), nt.Rays(
+                *(x.to(dev) for x in rays)), **on(dev))
+        want = packet.traverse_bvh8(scene, rays, **kw)
+        if not isinstance(want, nt.Hits):
+            got = list(got[0]) + [got[1]]
+            want = list(want[0]) + [want[1]]
+        return all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+    results = {}
+    for w in (8, 16):
+        for n in (1, 31, 32, 33):
+            results[f"w{w} n={n}"] = held(box[w, False], rays_of(n, 12))
+    s16 = box[16, False]
+    slots = packet.stack_slots(s16)
+    occ = packet.k1_occupancy(16, shared_entries=packet.stack_split(slots)[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps = occ["blocks_per_sm"] * sms * packet.K1_THREADS // 32
+    n_odd = packet.K1_CLAIM * (warps + 3) + 5
+    results[f"w16 n={n_odd} (claims do not divide {warps} warps)"] = held(
+        s16, rays_of(n_odd, 13))
+    for grid in (1, 3):
+        for w in (8, 16):
+            for name, kw in modes.items():
+                results[f"grid {grid} w{w} {name}"] = held(
+                    box[w, "intersector" in kw], rays_of(935, 14), grid, **kw)
+    r = rays_of(935, 15)
+    results["grid 2 w16 skip"] = held(
+        s16, r, 2, skip_prim_id=packet.traverse_bvh8(s16, r).prim_id)
+    for case in ("all dead", "dead tail"):
+        r = rays_of(3001, 16)
+        dead = torch.ones(3001, dtype=torch.bool)
+        if case == "dead tail":
+            dead[:1800] = False
+        r = r._replace(max_t=torch.where(dead, -1.0, r.max_t))
+        for occ_ in (False, True):
+            results[f"grid 2 {case} any-hit={occ_}"] = held(s16, r, 2,
+                                                           occlusion=occ_)
+    tl, s8t = treelet.make_treelets(box[8, False], 24)
+    for sub_ in (1, 3):
+        n_pk = -(-3001 // (sub_ * packet.LANES))
+        roots = torch.from_numpy(tl.roots[np.random.default_rng(2).integers(
+            0, tl.count, n_pk)])
+        for grid in (None, 2):
+            results[f"roots sub={sub_} grid {grid}"] = held(
+                s8t, rays_of(3001, 17), grid, sub=sub_, packet_roots=roots)
+    for w in (8, 16):
+        st = {}
+        sc = soup[w, False]
+        packet._traverse_reference(
+            torch.as_tensor(sc.nodes), torch.as_tensor(sc.leafs), w,
+            soup_rays.org, soup_rays.dir, soup_rays.min_t, soup_rays.max_t,
+            None, None, False, True, False, packet.stack_slots(sc), stats=st)
+        top = packet.stack_split(packet.stack_slots(sc))[0]
+        check(st["max_sp"] > top, f"the soup's walks stay within the "
+              f"shared top ({st['max_sp']} <= {top})")
+        for name in ("closest", "any_hit", "woop", "counts", "flags"):
+            kw = modes[name]
+            results[f"deep stack w{w} {name} (peak {st['max_sp']}, shared "
+                    f"{top})"] = held(soup[w, "intersector" in kw], soup_rays,
+                                      **kw)
+        results[f"deep stack w{w} interleave=2"] = held(sc, soup_rays,
+                                                        interleave=2)
+    # a stack too small for the walks: the overflow word, not a wrong record
+    words = []
+    with patched(packet, "stack_slots", lambda s: 3), \
+            patched(packet, "_check_overflow",
+                    lambda err, slots: words.append(int(err.item()))):
+        packet.traverse_bvh8(soup[16, False].to(dev), nt.Rays(
+            *(x[:64].to(dev) for x in soup_rays)))
+    results["stack of 3 slots sets the overflow word"] = words == [1]
+    bad = [k for k, ok in results.items() if not ok]
+    say(f"phase 18 K1 edge shapes against the plain version ({len(results)} "
+        f"held, {len(bad)} differ): " + "; ".join(
+            f"{k} {'ok' if ok else 'DIFFERS'}" for k, ok in results.items()))
+    check(not bad, f"K1 edge shapes differ from the plain version: {bad}")
+    return len(results)
+
+
+def k1_resources(text: str) -> list[str]:
+    """One line per K1 instantiation: ``ptxas -v``'s registers, spills and
+    stack frame (from ``text``) and the occupancy API's resident warps an
+    SM at the launch plan's shared bytes."""
+    import re
+
+    from nanort_tpu_torch.traverse import packet
+
+    out = []
+    cur = None
+    usage = {}
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            usage[cur] = []
+        elif cur and ("Used" in ln or "spill" in ln):
+            usage[cur].append(" ".join(ln.split()))
+    for fn, lines in usage.items():
+        out.append(f"{fn}: " + "; ".join(lines))
+    shared = packet.stack_split(packet.STACK_CAP)[0]
+    for w in (8, 16):
+        for name, kw in (("watertight", {}), ("woop", dict(woop=True)),
+                         ("roots", dict(roots=True)),
+                         ("woop roots", dict(woop=True, roots=True)),
+                         ("counts", dict(counts=True)),
+                         ("woop counts", dict(woop=True, counts=True)),
+                         ("flags", dict(flags=True))):
+            o = packet.k1_occupancy(w, shared_entries=shared, **kw)
+            out.append(
+                f"K1 w{w} {name}: {o['registers']} registers, "
+                f"{o['local_bytes']} local bytes a thread, "
+                f"{shared * o['threads'] * 4} shared bytes a block "
+                f"({shared} entries a thread) + {o['static_shared_bytes']} "
+                f"static, {o['blocks_per_sm']} blocks of {o['threads']} "
+                f"threads = {o['blocks_per_sm'] * o['threads'] // 32} "
+                f"resident warps an SM")
+    return out
 
 
 def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
@@ -1742,6 +2005,8 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
         f"(plain stats {st}); counts kernel {c_ms:.3f} ms vs plain K1 "
         f"{base_ms:.3f} ms (medians of 10); plain {c_plain_ms:.1f} ms; bound "
         f"{c_bound[0]:.4f} ms ({c_bound[1]})")
+    k1_shape(f"phase 18 counts on phase 5's {m2} rays", c_ms, c_bound,
+             "k1_phase5_counts_ms")
     del got, want
     cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=res, height=res,
                   fov=60.0, device=dev)
@@ -1841,6 +2106,8 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     check(f_same and sound, "the flags kernel is wrong on phase 5's rays")
     f_bound = bound(m2 * (32 + 24) + row_bytes(st_f),
                     trace_ops(st_f, 16, WT_OPS))
+    k1_shape(f"phase 18 flags on phase 5's {m2} rays", fl_ms, f_bound,
+             "k1_phase5_flags_ms")
     del fh, fl, want, exact
     box, erays = edge_rays(dev, n_edge)
     hb, fb = packet.traverse_bvh8(box, erays, fast, _flag_zero_edges=True)
@@ -1880,15 +2147,20 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
             ms = median(cuda_ms(fn, 5))
             lines.append(f"{what} {name} {ms:.3f} ms, == single-pass exact "
                          f"{same} (overflow {ovf})")
+            if what == "phase 5" and name == "exact":
+                k1_shape(f"phase 18 traverse_bvh8_exact (two passes) on "
+                         f"phase 5's rays (the flags pass's bound)", ms,
+                         f_bound, "k1_phase5_exact_two_pass_ms")
             check(same or ovf, f"{name} on {what} differs from single pass")
         lines.append(f"{what} single-pass exact {median(cuda_ms(lambda: packet.traverse_bvh8(s, r), 5)):.3f} ms")
     flags_launches = launch_counts()["packet_traverse[flags]"]
     say("phase 18 two-pass exact (medians of 5): " + "; ".join(lines)
         + f"; flags launches {flags_launches}")
-    text = usage_k1.result()
-    say("ptxas -v (K1, all instantiations): " + " | ".join(
-        " ".join(ln.split()) for ln in text.splitlines()
-        if "Compiling" in ln or "Used" in ln or "spill" in ln))
+    say("K1 resources (ptxas -v; the occupancy API at the launch plan's "
+        "shared bytes for a stack deeper than its shared top):")
+    for ln in k1_resources(usage_k1.result()):
+        say("  " + ln)
+    k1_edge_shapes(dev)
 
     def entry(name, replaces, launches, err, ms, plain_ms, b):
         return {"name": name, "route": "cuda",
@@ -2166,7 +2438,11 @@ def main() -> int:
     k1_bound = bound(2 * m * (32 + 20) + row_bytes(k1_stats),
                      trace_ops(k1_stats, 16, WT_OPS))
     say(f"phase 5 work (plain version's count): {k1_stats}; bound "
-        f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+        f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); peak stack "
+        f"{k1_stats['max_sp']} of {slots} slots ({packet.stack_split(slots)[0]}"
+        f" in shared memory)")
+    k1_shape(f"phase 5: {2 * m} rays ({m} tiled camera + {m} incoherent)",
+             kernel_ms, k1_bound, "k1_phase5_ms")
     # the frame's work, counted on every 1,024th ray of the tiled frame
     frame_stats = {}
     plain(nt.Rays(*(x[::1024].contiguous() for x in rays_t)), frame_stats)
@@ -2200,6 +2476,7 @@ def main() -> int:
         holder["h"] = packet.traverse_bvh8(scene, rays_t, specialize=spec)
 
     ms = cuda_ms(frame, 3)
+    frame_ms = median(ms)
     hits = stage("untile", lambda: untile(holder["h"]))
     counts = launch_counts()
     launches = counts["packet_traverse"]
@@ -2246,6 +2523,9 @@ def main() -> int:
     entries_18, frame_bound_18 = k1_mode_phases(dev, scene, sub, s8i, rays_i,
                                                 usage_k1)
     pool.shutdown()
+    k1_shape(f"phase 6: the {res}^2 frame (median of 3; bound from phase "
+             f"18's counters)", frame_ms, frame_bound_18, "k1_frame_8192_ms")
+    report_k1_shapes()
     say(f"packet_traverse launches on the main paths: {launches} (phase 6) "
         f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13) + "
         f"{launches_17} (phase 17); the 8192^2 frame's bound from its "

@@ -9,20 +9,32 @@
 // build/bvh8.py::collapse_bvh8 emits, but not the way it computes it:
 // the TPU kernel walks a (sub, 128) packet through one scalar stack held
 // in SMEM, OR-reducing every ray's slab vote into one mask per node. Here
-// each thread owns one ray and a short private stack (local memory), so
-// no ray ever visits a node that it does not hit itself.
+// each thread walks one ray at a time with its own stack, so no ray ever
+// visits a node that it does not hit itself.
 //
 // What bounds it on this card: dependent global-memory fetches — a node
 // row (512 bytes) must arrive before the next node index is known, and a
 // leaf row before its triangles are tested. The 1M-triangle BVH16 tables
 // are 97.6 MB (27 MB of node rows, 70 MB of leaf rows), about twice the
-// H100's 50 MB L2, so deep fetches pay L2 or HBM latency. The second bound is warp divergence: the 32 rays of a
-// warp follow different stack paths and the warp runs their union. The
-// design's answer for now is coherence: rays arrive in tile_image_rays
-// order, so a warp's 32 rays are neighbouring pixels of one 128x64
-// tile, take nearly the same path and share every row fetch. Faster
-// schemes (warp-cooperative node tests, treelet scheduling, a persistent
-// ray queue) are later work.
+// H100's 50 MB L2, so deep fetches pay L2 or HBM latency. The second
+// bound is warp divergence: the 32 rays of a warp follow different stack
+// paths and the warp runs their union. The design:
+//   - persistent warps: the grid is the resident blocks (occupancy API x
+//     SMs, sized by the wrapper, traverse/packet.py::launch_plan); each
+//     warp claims 32 consecutive rays at a time from a global counter
+//     (one atomicAdd by lane 0), so a warp's rays keep the coherence of
+//     tile_image_rays / ray_sort order and no block waits on its slowest
+//     warp before the SM takes new rays;
+//   - the nearest hit child of a node is the next entry directly, in a
+//     register; only the farther hit children are stored, far-first;
+//   - a node's child metadata (meta and leaf counts) is read with 16-byte
+//     loads and the stack bound is checked once a node; leaf rows are
+//     read with 16-byte loads (three a triangle);
+//   - the top of each thread's stack lives in shared memory, laid out
+//     [entry][thread] (free of bank conflicts), deeper entries in local
+//     memory.
+// None of these changes which entries a ray pops or in what order, so
+// every record, counter and flag is that of the plain version.
 //
 // Numerics: this file must be compiled with --fmad=false. The leaf test
 // evaluates a*b - c*d with every product rounded on its own, as the plain
@@ -57,10 +69,12 @@
 //              wait on. Each ray's pop sequence is that of kK == 1, so
 //              its records are bit-identical. The TPU reason for K1b
 //              (amortising the vector-to-scalar drain) has no Hopper
-//              counterpart; this is the nearest one, latency hiding.
+//              counterpart; this is the nearest one, latency hiding. It
+//              keeps a fixed grid and a local stack.
 //
-// Interface: a plain C function (ctypes, no PyTorch headers) that
-// launches on the caller's stream, allocates nothing, and returns
+// Interface: plain C functions (ctypes, no PyTorch headers). The launch
+// runs on the caller's stream, allocates nothing (the claim counter and
+// the overflow word are the caller's zeroed scratch), and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -68,14 +82,37 @@
 #include <math.h>
 #include <stdint.h>
 
+// Switches of the design's parts, for their measurement.
+#ifndef K1_DYN
+#define K1_DYN 0  // refill idle lanes once this many are done (0: off)
+#endif
+#ifndef K1_NEAR
+#define K1_NEAR 1  // the nearest hit child in a register
+#endif
+#ifndef K1_VMETA
+#define K1_VMETA 1  // child metadata in 16-byte loads
+#endif
+#ifndef K1_VLEAF
+#define K1_VLEAF 1  // leaf rows in 16-byte loads
+#endif
+#ifndef K1_MINB
+#define K1_MINB 0  // __launch_bounds__ minimum blocks (0: none)
+#endif
+#ifndef K1_WW
+#define K1_WW 0  // while-while: a lane runs nodes until a leaf, then leaves
+#endif
+
 namespace {
 
 constexpr int kStackCap = 512;     // per-thread stack ceiling (entries)
-constexpr int kBlock = 128;        // threads per block, one ray each
+constexpr int kThreads = 128;      // K1: threads per block
+constexpr int kClaim = 32;         // K1: consecutive rays a warp claims
+constexpr int kBlockIl = 128;      // K1b: threads per block
 constexpr float kBig = 3.0e38f;    // degenerate-ray threshold (TPU kernel)
 constexpr float kMaxMult = 1.00000024f;  // 4-ulp exit-plane inflation
 constexpr float kSplit = 4097.0f;  // Veltkamp split constant for f32
 constexpr long long kInvalidPrim = 0xFFFFFFFFLL;
+constexpr int kNone = 0x7fffffff;  // no entry to run (no node row has it)
 
 struct Params {
   const float* nodes;   // (N+1, 128) node rows
@@ -91,10 +128,12 @@ struct Params {
   float* v_out;         // (R,) leaf pops with kCounts
   long long* pid_out;   // (R,) 0xFFFFFFFF on a miss
   int* flags;           // (R,) zero-edge flags with kFlags, else null
-  int* err;             // (1,) set to 1 when a stack overflows
+  unsigned long long* counter;  // rays claimed so far (zero at launch)
+  unsigned long long* err;      // set to 1 when a stack overflows
   long long n_rays;
   long long packet;     // rays per packet of ``roots``
   int stack_size;       // <= kStackCap
+  int top;              // stack entries a thread keeps in shared memory
   int occlusion;        // any-hit: stop at the first accepted hit
   int cull_back_face;
   int exact_edge;       // Dekker recompute where an edge function is 0
@@ -109,6 +148,10 @@ struct Params {
 
 __device__ __forceinline__ float sel3(int k, float x, float y, float z) {
   return k == 0 ? x : (k == 1 ? y : z);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 // copysign(inf, d) for |d| < eps, taking the sign from the sign bit so
@@ -152,8 +195,11 @@ struct RayState {
 };
 
 // Robust slab test of one child box (pallas_packet.py:593-643): planes by
-// the ray's sign, 4-ulp inflated exits, NaN-skipping where-folds, so an
-// empty slot's inverted EMPTY_BIG box never passes.
+// the ray's sign, 4-ulp inflated exits, NaN-skipping folds, so an empty
+// slot's inverted EMPTY_BIG box never passes. fmaxf/fminf return the
+// other operand for a NaN, as the where-folds keep the running bound;
+// the folds start from a non-NaN bound (a ray with a NaN interval never
+// reaches a node), and only tmin <= tmax is kept, where +0 and -0 agree.
 __device__ __forceinline__ bool slab(const RayState& r, float t_best,
                                      float b0x, float b0y, float b0z,
                                      float b1x, float b1y, float b1z) {
@@ -169,32 +215,23 @@ __device__ __forceinline__ bool slab(const RayState& r, float t_best,
   const float t1x = (hix - r.ox) * r.ix * kMaxMult;
   const float t1y = (hiy - r.oy) * r.iy * kMaxMult;
   const float t1z = (hiz - r.oz) * r.iz * kMaxMult;
-  float tmin = r.min_t;
-  tmin = t0x > tmin ? t0x : tmin;
-  tmin = t0y > tmin ? t0y : tmin;
-  tmin = t0z > tmin ? t0z : tmin;
-  float tmax = t_best;
-  tmax = t1x < tmax ? t1x : tmax;
-  tmax = t1y < tmax ? t1y : tmax;
-  tmax = t1z < tmax ? t1z : tmax;
+  const float tmin = fmaxf(fmaxf(fmaxf(r.min_t, t0x), t0y), t0z);
+  const float tmax = fminf(fminf(fminf(t_best, t1x), t1y), t1z);
   return tmin <= tmax;
 }
 
 // Watertight test of one triangle (ops/triangle.py::intersect_triangles,
-// same operations in the same order). Returns true on acceptance. With
-// kFlag, ORs into ``zero`` whether U, V or W was 0 before the recompute.
+// same operations in the same order), given its vertices a, b, c.
+// Returns true on acceptance. With kFlag, ORs into ``zero`` whether U, V
+// or W was 0 before the recompute.
 template <bool kFlag>
-__device__ __forceinline__ bool hit_triangle(const RayState& r,
-                                             const float* v, float t_cur,
-                                             int cull, int exact, float& tt,
-                                             float& uu, float& vv,
-                                             int& zero) {
-  const float ax3 = __ldg(v + 0) - r.ox, ay3 = __ldg(v + 1) - r.oy,
-              az3 = __ldg(v + 2) - r.oz;
-  const float bx3 = __ldg(v + 3) - r.ox, by3 = __ldg(v + 4) - r.oy,
-              bz3 = __ldg(v + 5) - r.oz;
-  const float cx3 = __ldg(v + 6) - r.ox, cy3 = __ldg(v + 7) - r.oy,
-              cz3 = __ldg(v + 8) - r.oz;
+__device__ __forceinline__ bool hit_triangle(
+    const RayState& r, float ax, float ay, float az, float bx, float by,
+    float bz, float cx, float cy, float cz, float t_cur, int cull, int exact,
+    float& tt, float& uu, float& vv, int& zero) {
+  const float ax3 = ax - r.ox, ay3 = ay - r.oy, az3 = az - r.oz;
+  const float bx3 = bx - r.ox, by3 = by - r.oy, bz3 = bz - r.oz;
+  const float cx3 = cx - r.ox, cy3 = cy - r.oy, cz3 = cz - r.oz;
   const float Az = sel3(r.kz, ax3, ay3, az3);
   const float Bz = sel3(r.kz, bx3, by3, bz3);
   const float Cz = sel3(r.kz, cx3, cy3, cz3);
@@ -230,18 +267,19 @@ __device__ __forceinline__ bool hit_triangle(const RayState& r,
 // Woop unit-triangle test of one triangle of a leafs_woop row
 // (traverse/packet.py::_woop_test, pallas_packet.py:287-330): o' = M (o -
 // p0), d' = M d, t = -o'z / d'z, u = o'x + t d'x, v = o'y + t d'y, sums in
-// that order. Returns true on acceptance.
+// that order. ``m0..m2`` are the triangle's 12 lanes. Returns true on
+// acceptance.
 __device__ __forceinline__ bool hit_triangle_woop(const RayState& r,
-                                                  const float* m,
-                                                  float t_cur, int cull,
-                                                  float& tt, float& uu,
-                                                  float& vv) {
-  const float rx = r.ox - __ldg(m + 9);
-  const float ry = r.oy - __ldg(m + 10);
-  const float rz = r.oz - __ldg(m + 11);
-  const float m00 = __ldg(m + 0), m01 = __ldg(m + 1), m02 = __ldg(m + 2);
-  const float m10 = __ldg(m + 3), m11 = __ldg(m + 4), m12 = __ldg(m + 5);
-  const float m20 = __ldg(m + 6), m21 = __ldg(m + 7), m22 = __ldg(m + 8);
+                                                  float4 m0, float4 m1,
+                                                  float4 m2, float t_cur,
+                                                  int cull, float& tt,
+                                                  float& uu, float& vv) {
+  const float rx = r.ox - m2.y;
+  const float ry = r.oy - m2.z;
+  const float rz = r.oz - m2.w;
+  const float m00 = m0.x, m01 = m0.y, m02 = m0.z;
+  const float m10 = m0.w, m11 = m1.x, m12 = m1.y;
+  const float m20 = m1.z, m21 = m1.w, m22 = m2.x;
   const float opz = m20 * rx + m21 * ry + m22 * rz;
   const float dpz = m20 * r.dx + m21 * r.dy + m22 * r.dz;
   const float rcp = 1.0f / dpz;
@@ -254,22 +292,47 @@ __device__ __forceinline__ bool hit_triangle_woop(const RayState& r,
          tt >= r.min_t && (!cull || dpz < 0.0f);
 }
 
-// One ray's walk: its set-up, its best record and its stack pointer (the
-// stack itself is the caller's), plus the counters and the flag of the
-// debug modes (dead code, and no registers, when those are off).
+// One ray's walk: its set-up, its best record, the entry it runs next
+// and its stack pointer (the stack itself is the caller's), plus the
+// counters and the flag of the debug modes (dead code, and no registers,
+// when those are off).
 struct Walk {
   RayState r;
   float t_best, max_t_in, u_best, v_best;
-  int pid_best, skip, sp;
+  int pid_best, skip, sp, e;
   bool found;
   int n_nodes, n_leaves, zero;
 };
 
-// Set up ray i and push its start node: row 0, or (kRoots, when the
-// launch has roots) its packet's root.
+// A thread's stack: entries [0, top) in shared memory, one column of a
+// [entry][thread] array, and the rest in a local array.
+struct SplitStack {
+  int* sh;   // this thread's column (stride kThreads)
+  int top;
+  int* loc;
+  __device__ __forceinline__ void put(int k, int v) {
+    if (k < top) {
+      sh[k * kThreads] = v;
+    } else {
+      loc[k - top] = v;
+    }
+  }
+  __device__ __forceinline__ int get(int k) const {
+    return k < top ? sh[k * kThreads] : loc[k - top];
+  }
+};
+
+// K1b's stacks: all local.
+struct LocalStack {
+  int* loc;
+  __device__ __forceinline__ void put(int k, int v) { loc[k] = v; }
+  __device__ __forceinline__ int get(int k) const { return loc[k]; }
+};
+
+// Set up ray i; its first entry is row 0, or (kRoots, when the launch
+// has roots) its packet's root.
 template <bool kRoots>
-__device__ __forceinline__ void begin(const Params& p, long long i, Walk& w,
-                                      int* stack) {
+__device__ __forceinline__ void begin(const Params& p, long long i, Walk& w) {
   float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
   float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
   const float max_t_in = p.max_t[i];
@@ -328,10 +391,25 @@ __device__ __forceinline__ void begin(const Params& p, long long i, Walk& w,
   // a ray whose interval is empty or NaN fails every slab test: retire it
   // before its first node (ray_sort.py sorts such rays last, and the
   // treelet engine's padding slots are such rays, so whole warps of them
-  // exit here)
-  if (min_t <= t_best) {
-    stack[w.sp++] = kRoots && p.roots ? p.roots[i / p.packet] : 0;
-  }
+  // end here)
+  w.e = min_t <= t_best ? (kRoots && p.roots ? p.roots[i / p.packet] : 0)
+                        : kNone;
+}
+
+template <class Stack>
+__device__ __forceinline__ void pop(Walk& w, const Stack& st) {
+  w.e = w.sp > 0 ? st.get(--w.sp) : kNone;
+}
+
+// The stack entry of child slot value ``meta`` with leaf count lane
+// ``cnt``: the node row, or -1 - (leaf_row << 4 | count) for a leaf.
+__device__ __forceinline__ int child_entry(float meta, float cnt) {
+  const int m = (int)meta;
+  return m >= 0 ? m : -1 - (((-m - 1) << 4) | ((int)cnt & 15));
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
 }
 
 // Node row layouts (build/bvh8.py):
@@ -344,37 +422,68 @@ __device__ __forceinline__ void begin(const Params& p, long long i, Walk& w,
 // meta >= 0: internal node row; meta < 0: leaf row -(meta + 1).
 // Stack entries: node row >= 0, or -1 - (leaf_row << 4 | count) for a leaf.
 //
-// Pops one entry of a live ray's stack and runs it: a node's slab tests
-// and pushes, or a leaf row's triangle tests.
-template <int W, bool kWoop, bool kCounts, bool kFlags>
-__device__ __forceinline__ void step(const Params& p, Walk& w, int* stack) {
+// Runs the entry ``w.e`` of a live ray and sets the next one: a node's
+// slab tests, then its nearest hit child (the rest stored far-first), or
+// a leaf row's triangle tests, then the top of the stack.
+template <int W, bool kCounts, class Stack>
+__device__ __forceinline__ void node_step(const Params& p, Walk& w,
+                                          Stack& st) {
   const RayState& r = w.r;
-  const int e = stack[--w.sp];
-  if (e >= 0) {
+  const int e = w.e;
+  {
     if (kCounts) ++w.n_nodes;
     const float* row = p.nodes + (size_t)e * 128;
     unsigned mask = 0u;
     if (W == 16) {
 #pragma unroll
       for (int q = 0; q < 8; ++q) {  // two children per 3 float4 loads
-        const float4 a = __ldg(reinterpret_cast<const float4*>(row + 12 * q));
-        const float4 b = __ldg(reinterpret_cast<const float4*>(row + 12 * q + 4));
-        const float4 c = __ldg(reinterpret_cast<const float4*>(row + 12 * q + 8));
+        const float4 a = ld4(row + 12 * q);
+        const float4 b = ld4(row + 12 * q + 4);
+        const float4 c = ld4(row + 12 * q + 8);
         mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << (2 * q);
         mask |= (unsigned)slab(r, w.t_best, b.z, b.w, c.x, c.y, c.z, c.w) << (2 * q + 1);
       }
     } else {
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(row + 8 * c));
+        const float4 a = ld4(row + 8 * c);
         const float2 b = __ldg(reinterpret_cast<const float2*>(row + 8 * c + 4));
         mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << c;
       }
     }
-    if (mask == 0u) return;
+    if (mask == 0u) {
+      pop(w, st);
+      return;
+    }
+    // the whole check once a node: the plain version raises, and the
+    // kernel sets the error word, when the pushes would pass stack_size
+    if (w.sp + __popc(mask) > p.stack_size) {
+      atomicOr(p.err, 1ull);
+      w.sp = 0;
+      w.e = kNone;
+      return;
+    }
     constexpr int kMeta = W == 16 ? 96 : 64;
     constexpr int kCount = W == 16 ? 112 : 72;
+    // children are stored near-to-far along the order axis, and the
+    // nearest hit child runs next: for ``neg`` the highest hit slot, else
+    // the lowest; the others are stored far-first so the nearer pop first
     int axis;
+#if K1_VMETA
+    float4 mv[W / 4], cv[W / 4];
+#pragma unroll
+    for (int k = 0; k < W / 4; ++k) {
+      mv[k] = ld4(row + kMeta + 4 * k);
+      cv[k] = ld4(row + kCount + 4 * k);
+    }
+    if (W == 16) {
+      const float v112 = cv[0].x;
+      axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
+    } else {
+      const float a80 = __ldg(row + 80);
+      axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
+    }
+#else
     if (W == 16) {
       const float v112 = __ldg(row + 112);
       axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
@@ -382,51 +491,156 @@ __device__ __forceinline__ void step(const Params& p, Walk& w, int* stack) {
       const float a80 = __ldg(row + 80);
       axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
     }
-    // children are stored near-to-far along the order axis; the LIFO
-    // stack takes them far-first so the nearest pops first
+#endif
     const bool neg = axis == 0 ? r.nx : (axis == 1 ? r.ny : r.nz);
+#if K1_NEAR
+    const int near = neg ? 31 - __clz(mask) : __ffs(mask) - 1;
+    const unsigned push = mask & ~(1u << near);
+#else
+    const unsigned push = mask;
+#endif
+    const int sp = w.sp;
+#if K1_VMETA
+    int next = kNone;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (!((mask >> j) & 1u)) continue;
+      const int entry = child_entry(lane4(mv[j >> 2], j & 3),
+                                    lane4(cv[j >> 2], j & 3));
+#if K1_NEAR
+      if (j == near) {
+        next = entry;
+        continue;
+      }
+#endif
+      // far-first: for ``neg`` ascending slots, else descending
+      const int pos = neg ? __popc(push & ((1u << j) - 1u))
+                          : __popc(push >> (j + 1));
+      st.put(sp + pos, entry);
+    }
+#else
+    int next = kNone;
     for (int j = 0; j < W; ++j) {
       const int cc = neg ? j : W - 1 - j;
       if (!((mask >> cc) & 1u)) continue;
-      const int meta = (int)__ldg(row + kMeta + cc);
-      int entry = meta;
-      if (meta < 0) {
-        const int cnt = ((int)__ldg(row + kCount + cc)) & 15;
-        entry = -1 - (((-meta - 1) << 4) | cnt);
+      const int entry = child_entry(__ldg(row + kMeta + cc),
+                                    __ldg(row + kCount + cc));
+#if K1_NEAR
+      if (cc == near) {
+        next = entry;
+        continue;
       }
-      if (w.sp >= p.stack_size) {  // never truncate silently
-        atomicOr(p.err, 1);
-        w.sp = 0;
-        return;
-      }
-      stack[w.sp++] = entry;
+#endif
+      st.put(w.sp++, entry);
     }
-  } else {
+    w.sp = sp;
+#endif
+    w.sp = sp + __popc(push);
+#if K1_NEAR
+    w.e = next;
+#else
+    (void)next;
+    pop(w, st);
+#endif
+  }
+}
+
+template <bool kWoop, bool kCounts, bool kFlags, class Stack>
+__device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
+                                          Stack& st) {
+  const RayState& r = w.r;
+  const int e = w.e;
+  {
     if (kCounts) ++w.n_leaves;
     const int packed = -1 - e;
     const float* row = p.leafs + (size_t)(packed >> 4) * 128;
     const int cnt = packed & 15;
-    for (int ti = 0; ti < cnt; ++ti) {
-      float tt, uu, vv;
-      const bool ok =
-          kWoop ? hit_triangle_woop(r, row + 12 * ti, w.t_best,
-                                    p.cull_back_face, tt, uu, vv)
-                : hit_triangle<kFlags>(r, row + 9 * ti, w.t_best,
-                                       p.cull_back_face, p.exact_edge, tt,
-                                       uu, vv, w.zero);
-      if (!ok) continue;
-      const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
-      if (pid == w.skip) continue;
-      if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
-      w.t_best = tt;
-      w.u_best = uu;
-      w.v_best = vv;
-      w.pid_best = pid;
-      w.found = true;
-      if (p.occlusion) break;
+    // triangle ti's lanes: [12 ti, 12 ti + 12) (Woop), else [9 ti, 9 ti +
+    // 9), which sit at offset ti % 4 of the three float4s from lane
+    // 36 (ti / 4) + 8 ((ti % 4) * 9 / 8): groups of four, slot k static
+    bool stop = false;
+    for (int g = 0; g * 4 < cnt && !stop; ++g) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ti = 4 * g + k;
+        if (ti >= cnt) break;
+        float tt, uu, vv;
+        bool ok;
+        if (kWoop) {
+          const float* m = row + 12 * ti;
+#if K1_VLEAF
+          ok = hit_triangle_woop(r, ld4(m), ld4(m + 4), ld4(m + 8), w.t_best,
+                                 p.cull_back_face, tt, uu, vv);
+#else
+          ok = hit_triangle_woop(
+              r, make_float4(__ldg(m), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3)),
+              make_float4(__ldg(m + 4), __ldg(m + 5), __ldg(m + 6), __ldg(m + 7)),
+              make_float4(__ldg(m + 8), __ldg(m + 9), __ldg(m + 10), __ldg(m + 11)),
+              w.t_best, p.cull_back_face, tt, uu, vv);
+#endif
+        } else {
+#if K1_VLEAF
+          const float* q = row + 36 * g + (k * 9 / 4) * 4;
+          const float4 a = ld4(q), b = ld4(q + 4), c = ld4(q + 8);
+          const float f[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                               b.z, b.w, c.x, c.y, c.z, c.w};
+          ok = hit_triangle<kFlags>(
+              r, f[k], f[k + 1], f[k + 2], f[k + 3], f[k + 4], f[k + 5],
+              f[k + 6], f[k + 7], f[k + 8], w.t_best, p.cull_back_face,
+              p.exact_edge, tt, uu, vv, w.zero);
+#else
+          const float* v = row + 9 * ti;
+          ok = hit_triangle<kFlags>(
+              r, __ldg(v), __ldg(v + 1), __ldg(v + 2), __ldg(v + 3),
+              __ldg(v + 4), __ldg(v + 5), __ldg(v + 6), __ldg(v + 7),
+              __ldg(v + 8), w.t_best, p.cull_back_face, p.exact_edge, tt, uu,
+              vv, w.zero);
+#endif
+        }
+        if (!ok) continue;
+        const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
+        if (pid == w.skip) continue;
+        if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
+        w.t_best = tt;
+        w.u_best = uu;
+        w.v_best = vv;
+        w.pid_best = pid;
+        w.found = true;
+        if (p.occlusion) {
+          stop = true;
+          break;
+        }
+      }
     }
-    if (p.occlusion && w.found) w.sp = 0;  // any-hit: retire
+    if (p.occlusion && w.found) {  // any-hit: retire
+      w.sp = 0;
+      w.e = kNone;
+    } else {
+      pop(w, st);
+    }
   }
+}
+
+template <int W, bool kWoop, bool kCounts, bool kFlags, class Stack>
+__device__ __forceinline__ void step(const Params& p, Walk& w, Stack& st) {
+  if (w.e >= 0) {
+    node_step<W, kCounts>(p, w, st);
+  } else {
+    leaf_step<kWoop, kCounts, kFlags>(p, w, st);
+  }
+}
+
+// A ray's whole walk from its first entry.
+template <int W, bool kWoop, bool kCounts, bool kFlags, class Stack>
+__device__ __forceinline__ void walk(const Params& p, Walk& w, Stack& st) {
+#if K1_WW
+  while (w.e != kNone) {
+    while (w.e >= 0 && w.e != kNone) node_step<W, kCounts>(p, w, st);
+    while (w.e < 0) leaf_step<kWoop, kCounts, kFlags>(p, w, st);
+  }
+#else
+  while (w.e != kNone) step<W, kWoop, kCounts, kFlags>(p, w, st);
+#endif
 }
 
 // Decode as traverse_bvh8 does (pallas_packet.py:2289-2304) and store.
@@ -446,70 +660,137 @@ __device__ __forceinline__ void finish(const Params& p, long long i,
   if (kFlags) p.flags[i] = w.zero;
 }
 
-// One thread, one ray. kRoots is a template parameter so that the
-// instantiations without modes keep the code they had before roots.
+#if K1_MINB > 0
+#define K1_BOUNDS __launch_bounds__(kThreads, K1_MINB)
+#else
+#define K1_BOUNDS __launch_bounds__(kThreads)
+#endif
+
+// Persistent warps: each warp claims kClaim consecutive rays at a time
+// (lane 0's atomicAdd on the claim counter) and walks them one a lane
+// until the counter passes n_rays. The grid is what stays resident.
+// kRoots is a template parameter so that the instantiations without
+// modes keep the code they had before roots.
 template <int W, bool kWoop, bool kCounts, bool kFlags, bool kRoots>
-__global__ void __launch_bounds__(kBlock) traverse_kernel(Params p) {
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= p.n_rays) return;
-  int stack[kStackCap];
+__global__ void K1_BOUNDS traverse_kernel(Params p) {
+  extern __shared__ int sh_stack[];  // [p.top][kThreads]
+  int loc[kStackCap];
+  SplitStack st{sh_stack + threadIdx.x, p.top, loc};
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned long long n = (unsigned long long)p.n_rays;
+#if K1_DYN == 0
+  for (;;) {
+    unsigned long long base = 0;
+    if (lane == 0) base = atomicAdd(p.counter, (unsigned long long)kClaim);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= n) return;
+    const unsigned long long i = base + lane;
+    if (i < n) {
+      Walk w;
+      begin<kRoots>(p, (long long)i, w);
+      walk<W, kWoop, kCounts, kFlags>(p, w, st);
+      finish<kCounts, kFlags>(p, (long long)i, w);
+    }
+  }
+#else
+  // dynamic fetch: once K1_DYN lanes are done, they claim new rays
   Walk w;
-  begin<kRoots>(p, i, w, stack);
-  while (w.sp > 0) step<W, kWoop, kCounts, kFlags>(p, w, stack);
-  finish<kCounts, kFlags>(p, i, w);
+  long long i = -1;
+  bool drained = false;  // warp-uniform: the counter passed n_rays
+  for (;;) {
+    const unsigned idle = __ballot_sync(0xffffffffu, i < 0);
+    if (drained && idle == 0xffffffffu) return;
+    const int n_idle = __popc(idle);
+    if (!drained && (n_idle >= K1_DYN || idle == 0xffffffffu)) {
+      unsigned long long base = 0;
+      if (lane == 0) base = atomicAdd(p.counter, (unsigned long long)n_idle);
+      base = __shfl_sync(0xffffffffu, base, 0);
+      drained = base + n_idle >= n;
+      if (i < 0) {
+        const unsigned long long c =
+            base + __popc(idle & ((1u << lane) - 1u));
+        if (c < n) {
+          i = (long long)c;
+          begin<kRoots>(p, i, w);
+        }
+      }
+    }
+    if (i >= 0) {
+      if (w.e != kNone) step<W, kWoop, kCounts, kFlags>(p, w, st);
+      if (w.e == kNone) {
+        finish<kCounts, kFlags>(p, i, w);
+        i = -1;
+      }
+    }
+  }
+#endif
 }
 
-// One thread, kK rays (K1b): block b holds rays [b*kBlock*kK,
-// (b+1)*kBlock*kK), ray k of a thread at threadIdx.x + k*kBlock, so the
-// 32 lanes of a warp walk 32 neighbouring rays at every k.
+// One thread, kK rays (K1b): block b holds rays [b*kBlockIl*kK,
+// (b+1)*kBlockIl*kK), ray k of a thread at threadIdx.x + k*kBlockIl, so
+// the 32 lanes of a warp walk 32 neighbouring rays at every k.
 template <int W, bool kWoop, int kK>
-__global__ void __launch_bounds__(kBlock) traverse_kernel_il(Params p) {
-  const long long first = (long long)blockIdx.x * (kBlock * kK) + threadIdx.x;
+__global__ void __launch_bounds__(kBlockIl) traverse_kernel_il(Params p) {
+  const long long first =
+      (long long)blockIdx.x * (kBlockIl * kK) + threadIdx.x;
   int stack[kK][kStackCap];
   Walk w[kK];
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    const long long i = first + (long long)k * kBlock;
-    w[k].sp = 0;
-    if (i < p.n_rays) begin<true>(p, i, w[k], stack[k]);
+    const long long i = first + (long long)k * kBlockIl;
+    w[k].e = kNone;
+    if (i < p.n_rays) begin<true>(p, i, w[k]);
   }
   for (;;) {
     bool live = false;
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
-      if (w[k].sp > 0) step<W, kWoop, false, false>(p, w[k], stack[k]);
-      live |= w[k].sp > 0;
+      LocalStack st{stack[k]};
+      if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], st);
+      live |= w[k].e != kNone;
     }
     if (!live) break;
   }
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    const long long i = first + (long long)k * kBlock;
+    const long long i = first + (long long)k * kBlockIl;
     if (i < p.n_rays) finish<false, false>(p, i, w[k]);
   }
 }
 
+// The K1 instantiation of a mode: counts, flags (watertight only), roots
+// or none. Null for a combination the launcher refuses.
 template <int W, bool kWoop>
-void launch(const Params& p, int counts, int flags, int interleave,
-            cudaStream_t s) {
-  const long long n = p.n_rays;
-  const unsigned g1 = (unsigned)((n + kBlock - 1) / kBlock);
-  if (interleave == 2) {
-    const unsigned g = (unsigned)((n + 2 * kBlock - 1) / (2 * kBlock));
-    traverse_kernel_il<W, kWoop, 2><<<g, kBlock, 0, s>>>(p);
-  } else if (interleave == 4) {
-    const unsigned g = (unsigned)((n + 4 * kBlock - 1) / (4 * kBlock));
-    traverse_kernel_il<W, kWoop, 4><<<g, kBlock, 0, s>>>(p);
-  } else if (counts) {
-    traverse_kernel<W, kWoop, true, false, true><<<g1, kBlock, 0, s>>>(p);
-  } else if (flags) {
+const void* k1_kernel(int counts, int flags, int roots) {
+  if (counts) return (const void*)traverse_kernel<W, kWoop, true, false, true>;
+  if (flags) {
     if constexpr (!kWoop) {
-      traverse_kernel<W, false, false, true, true><<<g1, kBlock, 0, s>>>(p);
+      return (const void*)traverse_kernel<W, false, false, true, true>;
     }
-  } else if (p.roots) {
-    traverse_kernel<W, kWoop, false, false, true><<<g1, kBlock, 0, s>>>(p);
+    return nullptr;
+  }
+  if (roots) return (const void*)traverse_kernel<W, kWoop, false, false, true>;
+  return (const void*)traverse_kernel<W, kWoop, false, false, false>;
+}
+
+const void* k1_pick(int width, int woop, int counts, int flags, int roots) {
+  if (width == 16) {
+    return woop ? k1_kernel<16, true>(counts, flags, roots)
+                : k1_kernel<16, false>(counts, flags, roots);
+  }
+  return woop ? k1_kernel<8, true>(counts, flags, roots)
+              : k1_kernel<8, false>(counts, flags, roots);
+}
+
+template <int W, bool kWoop>
+void launch_il(const Params& p, int interleave, cudaStream_t s) {
+  const long long n = p.n_rays;
+  if (interleave == 2) {
+    const unsigned g = (unsigned)((n + 2 * kBlockIl - 1) / (2 * kBlockIl));
+    traverse_kernel_il<W, kWoop, 2><<<g, kBlockIl, 0, s>>>(p);
   } else {
-    traverse_kernel<W, kWoop, false, false, false><<<g1, kBlock, 0, s>>>(p);
+    const unsigned g = (unsigned)((n + 4 * kBlockIl - 1) / (4 * kBlockIl));
+    traverse_kernel_il<W, kWoop, 4><<<g, kBlockIl, 0, s>>>(p);
   }
 }
 
@@ -517,14 +798,18 @@ void launch(const Params& p, int counts, int flags, int interleave,
 
 // counts, flags and interleave > 1 are exclusive modes; flags need the
 // watertight test; roots (with packet > 0) combine with any mode.
+// ``scratch``: two zeroed uint64, the claim counter and the overflow
+// word. ``grid`` and ``top`` (shared-memory stack entries a thread) are
+// traverse/packet.py::launch_plan's; K1b takes neither.
 extern "C" int nrt_packet_traverse(
     const float* nodes, const float* leafs, const float* org, const float* dir,
     const float* min_t, const float* max_t, const int* skip, const int* roots,
     float* t_out, float* u_out, float* v_out, long long* pid_out, int* flags,
-    int* err, long long n_rays, long long packet, int width, int stack_size,
-    int occlusion, int cull_back_face, int exact_edge, int use_range,
-    int range_lo, int range_hi, int woop, int counts, int zero_flags,
-    int interleave, void* stream) {
+    unsigned long long* scratch, long long n_rays, long long packet,
+    int width, int stack_size, int occlusion, int cull_back_face,
+    int exact_edge, int use_range, int range_lo, int range_hi, int woop,
+    int counts, int zero_flags, int interleave, int grid, int top,
+    void* stream) {
   if (stack_size < 1 || stack_size > kStackCap) return (int)cudaErrorInvalidValue;
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
   if (interleave != 1 && interleave != 2 && interleave != 4)
@@ -533,22 +818,58 @@ extern "C" int nrt_packet_traverse(
     return (int)cudaErrorInvalidValue;
   if (zero_flags && (woop || flags == nullptr)) return (int)cudaErrorInvalidValue;
   if (roots && packet < 1) return (int)cudaErrorInvalidValue;
+  if (grid < 1 || top < 0 || top > stack_size) return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  Params p{nodes, leafs, org, dir, min_t, max_t, skip, roots, t_out,
-           u_out, v_out, pid_out, flags, err, n_rays, packet, stack_size,
-           occlusion, cull_back_face, exact_edge, use_range, range_lo,
-           range_hi};
+  Params p{nodes,   leafs,   org,         dir,    min_t,      max_t,
+           skip,    roots,   t_out,       u_out,  v_out,      pid_out,
+           flags,   scratch, scratch + 1, n_rays, packet,     stack_size,
+           top,     occlusion, cull_back_face,    exact_edge, use_range,
+           range_lo, range_hi};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (width == 16) {
-    if (woop) {
-      launch<16, true>(p, counts, zero_flags, interleave, s);
+  if (interleave > 1) {
+    if (width == 16) {
+      woop ? launch_il<16, true>(p, interleave, s)
+           : launch_il<16, false>(p, interleave, s);
     } else {
-      launch<16, false>(p, counts, zero_flags, interleave, s);
+      woop ? launch_il<8, true>(p, interleave, s)
+           : launch_il<8, false>(p, interleave, s);
     }
-  } else if (woop) {
-    launch<8, true>(p, counts, zero_flags, interleave, s);
-  } else {
-    launch<8, false>(p, counts, zero_flags, interleave, s);
+    return (int)cudaGetLastError();
   }
+  const void* fn = k1_pick(width, woop, counts, zero_flags, roots != nullptr);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchKernel(
+      fn, dim3((unsigned)grid), dim3(kThreads), args,
+      (size_t)top * kThreads * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// What the launch plan needs of one K1 instantiation, with ``top``
+// shared-memory stack entries a thread: out[0] resident blocks per SM
+// (occupancy API), out[1] registers a thread, out[2] local bytes a thread
+// (the stack frame), out[3] static shared bytes, out[4] threads a block,
+// out[5] rays a claim.
+extern "C" int nrt_packet_traverse_occupancy(int width, int woop, int counts,
+                                             int flags, int roots, int top,
+                                             int* out) {
+  if ((width != 8 && width != 16) || top < 0 || top > kStackCap)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = k1_pick(width, woop, counts, flags, roots);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, kThreads, (size_t)top * kThreads * sizeof(int));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)a.sharedSizeBytes;
+  out[4] = kThreads;
+  out[5] = kClaim;
+  return 0;
 }

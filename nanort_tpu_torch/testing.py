@@ -109,6 +109,24 @@ def zero_edge_rays(n: int, seed: int = 4):
     return v, f, org, d
 
 
+def overlap_soup(n_tris: int, n_rays: int, seed: int = 3):
+    """A scene whose traversal stacks run deep: ``n_tris`` large
+    triangles scattered over [-1.9, 1.9]^3, overlapping so much that a
+    ray hits most child boxes of every node and leaves nearly ``width -
+    1`` entries behind a level; and ``n_rays`` rays with origins in
+    [-2, 2]^3 and normal directions. Returns NumPy ``(vertices, faces,
+    org, dir)``."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.0, 1.0, (n_tris, 1, 3))
+    v = (c + rng.uniform(-0.9, 0.9, (n_tris, 3, 3))).reshape(-1, 3)
+    f = np.arange(3 * n_tris, dtype=np.int32).reshape(-1, 3)
+    org = rng.uniform(-2.0, 2.0, (n_rays, 3))
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (v.astype(np.float32), f, org.astype(np.float32),
+            d.astype(np.float32))
+
+
 def run_without_fma(script: str, inputs: dict, timeout: float = 600.0) -> dict:
     """Run ``python script IN OUT`` and return the arrays it saved.
 

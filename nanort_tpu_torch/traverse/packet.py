@@ -6,10 +6,13 @@ of ``nanort_tpu.traverse.pallas_packet``).
 the watertight intersector with the Dekker exact-edge fallback or the
 Woop unit-triangle test (``intersector="woop"``, over ``leafs_woop``),
 and the skip / prim-range / back-face filters. On CUDA tensors it
-launches the hand-written kernel ``csrc/packet_traverse.cu`` (one thread
-per ray, a private stack); on CPU tensors it runs ``_traverse_reference``,
-the plain torch version of the same per-ray traversal — the same child
-order and the same arithmetic, so the two agree bit for bit.
+launches the hand-written kernel ``csrc/packet_traverse.cu``: persistent
+warps that claim 32 consecutive rays at a time from a counter, one ray a
+lane, each with its own stack (its top in shared memory, the rest in
+local memory; ``launch_plan`` sizes the grid and the split). On CPU
+tensors it runs ``_traverse_reference``, the plain torch version of the
+same per-ray traversal — the same pops in the same order and the same
+arithmetic, so the two agree bit for bit.
 
 Equal-t ties: the last equal-t hit in this per-ray near-first order
 wins. The TPU kernel's order is packet-granular, so ``prim_id`` may
@@ -55,6 +58,14 @@ LAUNCHES = {"packet_traverse": 0, "packet_traverse_woop": 0,
             "packet_traverse[flags]": 0, "packet_traverse[interleave=2]": 0,
             "packet_traverse[interleave=4]": 0}
 INTERSECTORS = ("watertight", "woop")
+# K1's launch (csrc/packet_traverse.cu: kThreads, kClaim): blocks of
+# K1_THREADS threads, each warp claiming K1_CLAIM consecutive rays at a
+# time; each thread keeps its first K1_SHARED_TOP stack entries in shared
+# memory, laid out [entry][thread], and the rest in local memory.
+K1_THREADS = 128
+K1_CLAIM = 32
+K1_SHARED_TOP = 16
+SHARED_BYTES_MAX = 227 * 1024  # shared memory a block may use on Hopper
 INTERLEAVES = (1, 2, 4)
 WOOP_MAX_LEAF = 9  # 12 lanes a triangle + the prim-id block at lane 108
 
@@ -69,6 +80,86 @@ def stack_slots(scene: BVH8Scene) -> int:
     at most ``width - 1`` entries behind, plus one for the deepest
     level's last child."""
     return scene.depth * (scene.width - 1) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One K1 launch: ``grid`` persistent blocks of ``threads`` threads,
+    warps claiming ``claim`` rays at a time; each thread's stack holds
+    ``shared_entries`` in shared memory (``shared_bytes`` a block) and
+    ``local_entries`` in local memory."""
+    grid: int
+    threads: int
+    claim: int
+    shared_entries: int
+    local_entries: int
+    shared_bytes: int
+
+
+def stack_split(slots: int) -> tuple[int, int]:
+    """(shared, local) entries of a ``slots``-entry K1 stack."""
+    shared = min(K1_SHARED_TOP, slots)
+    return shared, slots - shared
+
+
+def launch_plan(n_rays: int, slots: int, blocks_per_sm: int,
+                sms: int) -> LaunchPlan:
+    """K1's grid for ``n_rays``: the blocks that stay resident
+    (``blocks_per_sm`` from the occupancy API at this plan's shared
+    bytes, times ``sms``), or fewer when the batch has fewer claims than
+    the grid has warps."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"K1 does not fit an SM: {blocks_per_sm} blocks")
+    shared, local = stack_split(slots)
+    claims = -(-n_rays // K1_CLAIM)
+    blocks = -(-claims // (K1_THREADS // 32))
+    return LaunchPlan(max(1, min(blocks_per_sm * sms, blocks)), K1_THREADS,
+                      K1_CLAIM, shared, local, shared * K1_THREADS * 4)
+
+
+_OCCUPANCY: dict = {}
+
+
+def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
+                 flags: bool = False, roots: bool = False,
+                 shared_entries: int = K1_SHARED_TOP,
+                 device=None) -> dict:
+    """What the card's occupancy API and the compiled kernel say of one K1
+    instantiation with ``shared_entries`` stack entries a thread in
+    shared memory: resident ``blocks_per_sm``, ``registers`` and
+    ``local_bytes`` (the stack frame) a thread, ``static_shared_bytes``,
+    ``threads`` a block and rays a ``claim``. Cached per device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev.index, width, bool(woop), bool(counts), bool(flags),
+           bool(roots), shared_entries)
+    if key not in _OCCUPANCY:
+        out = (ctypes.c_int * 6)()
+        with torch.cuda.device(dev):
+            rc = _ext.load("packet_traverse").nrt_packet_traverse_occupancy(
+                width, int(woop), int(counts), int(flags), int(roots),
+                shared_entries, out)
+        if rc != 0:
+            raise RuntimeError(f"K1 occupancy query failed: CUDA error {rc}")
+        _OCCUPANCY[key] = dict(zip(
+            ("blocks_per_sm", "registers", "local_bytes",
+             "static_shared_bytes", "threads", "claim"), out))
+    return _OCCUPANCY[key]
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check_overflow(err: torch.Tensor, slots: int) -> None:
+    """Fail the stream when the kernel set its overflow word (checked on
+    the stream, without a host sync: an overflow can only come from a
+    scene.depth that BVH8Scene.to did not check, or a root deeper than
+    it, and it fails the next synchronising call)."""
+    torch._assert_async(
+        err == 0, f"traversal stack overflow ({slots} slots): "
+        "scene.depth does not describe the tables")
 
 
 def _well_formed(org: torch.Tensor, dir: torch.Tensor) -> torch.Tensor:
@@ -268,7 +359,16 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
         pid = torch.empty(n, dtype=PRIM_ID_DTYPE, device=dev)
         if _flag_zero_edges:
             flags = torch.empty(n, dtype=torch.int32, device=dev)
-        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        # the claim counter and the overflow word, zeroed on the stream
+        scratch = torch.zeros(2, dtype=torch.int64, device=dev)
+        if interleave > 1:  # K1b: a fixed grid, all-local stacks
+            grid, top = 1, 0
+        else:
+            top = stack_split(slots)[0]
+            occ = k1_occupancy(scene.width, woop, debug_counts,
+                               _flag_zero_edges, roots is not None, top, dev)
+            grid = launch_plan(n, slots, occ["blocks_per_sm"],
+                               _sm_count(dev)).grid
         lib = _ext.load("packet_traverse")
         ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
         with torch.cuda.device(dev):
@@ -276,24 +376,19 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             rc = lib.nrt_packet_traverse(
                 ptr(nodes), ptr(leafs), ptr(org), ptr(dir), ptr(min_t),
                 ptr(max_t), ptr(skip32), ptr(roots), ptr(t), ptr(u),
-                ptr(v), ptr(pid), ptr(flags), ptr(err), n, packet,
+                ptr(v), ptr(pid), ptr(flags), ptr(scratch), n, packet,
                 scene.width, slots, int(occlusion),
                 int(options.cull_back_face), int(exact_edge),
                 int(prim_range is not None),
                 prim_range[0] if prim_range else 0,
                 prim_range[1] if prim_range else 0, int(woop),
                 int(debug_counts), int(_flag_zero_edges), int(interleave),
-                ctypes.c_void_p(stream))
+                grid, top, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
         LAUNCHES[_launch_key(woop, roots is not None, debug_counts,
                              _flag_zero_edges, interleave)] += 1
-        # checked on the stream, without a host sync: an overflow can only
-        # come from a scene.depth that BVH8Scene.to did not check (or a
-        # root deeper than it), and it fails the next synchronising call
-        torch._assert_async(
-            err == 0, f"traversal stack overflow ({slots} slots): "
-            "scene.depth does not describe the tables")
+        _check_overflow(scratch[1], slots)
     else:
         raise ValueError(f"unsupported device {dev}")
     hits = Hits(t.view(bs), u.view(bs), v.view(bs), pid.view(bs))
@@ -366,8 +461,10 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
     kernel tests (in any-hit mode, those up to the first accepted one).
     ``stats``, a dict, gains the work this batch needed: ``"nodes"`` and
     ``"leaves"`` popped and triangles tested (``"tris"``), added to what
-    it holds, and the distinct node and leaf rows this call read
-    (``"node_rows"``, ``"leaf_rows"``)."""
+    it holds, the distinct node and leaf rows this call read
+    (``"node_rows"``, ``"leaf_rows"``), and the deepest stack any ray
+    reached (``"max_sp"``: entries after a node's pushes, the most it
+    held, kept as the largest over the calls it saw)."""
     dev = org.device
     n = org.shape[0]
     inf = float("inf")
@@ -398,6 +495,8 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
     # the start row at slot 0; a ray whose interval is empty or NaN
     # (!(min_t <= max_t)) fails every slab test and retires at once
     sp = (mint <= t_best).long()
+    if stats is not None and n:
+        stats["max_sp"] = max(stats.get("max_sp", 0), int(sp.max()))
     ar_w = torch.arange(width, device=dev)
     n_slots = 9 if woop else 10
     ar_l = torch.arange(n_slots, device=dev)
@@ -468,6 +567,9 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
             pos = torch.where(push, pos, slots)
             stack[ni[:, None].expand(m, width), pos] = entry
             sp[ni] = new_sp
+            if stats is not None:
+                stats["max_sp"] = max(stats.get("max_sp", 0),
+                                      int(new_sp.max()))
 
         # ---- leaf entries: test the row's triangles in slot order
         li = idx[e < 0]

@@ -29,6 +29,8 @@ file imports no JAX, so it also runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +44,7 @@ from nanort_tpu_torch.io.procedural import (
 from nanort_tpu_torch.models import ao_fused, objrender, path_tracer, pt_fused
 from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
-from nanort_tpu_torch.testing import zero_edge_rays
+from nanort_tpu_torch.testing import overlap_soup, zero_edge_rays
 from nanort_tpu_torch.traverse import fused_trace, packet
 
 pytestmark = pytest.mark.gpu
@@ -718,3 +720,199 @@ def test_two_pass_exact_on_card_matches_cpu(dev):
     got, overflow = packet.traverse_bvh8_exact_fused(sd, rd)
     assert overflow.is_cuda and not bool(overflow)
     _same_records(got, single)
+
+
+# ------------------------------ K1's schedule: persistent warps, claims
+
+def _grid(monkeypatch, grid):
+    """K1 launches on ``grid`` blocks, so that every warp claims many
+    times even on a small batch."""
+    real = packet.launch_plan
+    monkeypatch.setattr(packet, "launch_plan", lambda *a: dataclasses.replace(
+        real(*a), grid=grid))
+
+
+def _soup(width, n_rays=1500):
+    """``testing.overlap_soup``: walks that pass the shared-memory part of
+    the stack."""
+    v, f, org, d = overlap_soup(600, n_rays)
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=1, max_leaf_primitives=1))
+    return (collapse_bvh8(bvh, v, f, width=width),
+            nt.make_rays(torch.from_numpy(org), torch.from_numpy(d)))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000])
+@pytest.mark.parametrize("width", [8, 16])
+def test_k1_ray_counts_match_plain(dev, width, n):
+    _same_on_both(_modes_scene(width), _rays(n, 12), dev)
+
+
+def test_k1_claims_that_do_not_divide_the_grid(dev):
+    scene = _modes_scene(16)
+    slots = packet.stack_slots(scene)
+    occ = packet.k1_occupancy(16, shared_entries=packet.stack_split(slots)[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps = occ["blocks_per_sm"] * sms * packet.K1_THREADS // 32
+    n = packet.K1_CLAIM * (warps + 3) + 5
+    plan = packet.launch_plan(n, slots, occ["blocks_per_sm"], sms)
+    assert plan.grid == occ["blocks_per_sm"] * sms
+    assert -(-n // packet.K1_CLAIM) % warps != 0
+    _same_on_both(scene, _rays(n, 13), dev)
+
+
+SCHEDULE_MODES = {
+    "closest": ("packet_traverse", dict()),
+    "any_hit": ("packet_traverse", dict(occlusion=True)),
+    "cull": ("packet_traverse", dict(options=OPTIONS["cull"])),
+    "range": ("packet_traverse", dict(options=OPTIONS["range"])),
+    "no_exact": ("packet_traverse", dict(options=OPTIONS["no_exact_edges"])),
+    "woop": ("packet_traverse_woop", dict(intersector="woop")),
+    "woop_any_hit": ("packet_traverse_woop", dict(intersector="woop",
+                                                  occlusion=True)),
+    "counts": ("packet_traverse[counts]", dict(debug_counts=True)),
+    "flags": ("packet_traverse[flags]", dict(
+        options=OPTIONS["no_exact_edges"], _flag_zero_edges=True)),
+}
+
+
+@pytest.mark.parametrize("mode", list(SCHEDULE_MODES))
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("grid", [1, 3])
+def test_k1_small_grid_matches_plain(dev, monkeypatch, grid, width, mode):
+    # 12 warps at grid 3: 935 rays are 30 claims, 2.5 a warp
+    _grid(monkeypatch, grid)
+    key, kw = SCHEDULE_MODES[mode]
+    _mode_on_both(_modes_scene(width, woop="intersector" in kw),
+                  _rays(935, 14), dev, key, **kw)
+
+
+@pytest.mark.parametrize("grid", [None, 2])
+def test_k1_skip_small_grid_matches_plain(dev, monkeypatch, grid):
+    if grid:
+        _grid(monkeypatch, grid)
+    scene = _modes_scene(16)
+    rays = _rays(935, 15)
+    _same_on_both(scene, rays, dev,
+                  skip_prim_id=packet.traverse_bvh8(scene, rays).prim_id)
+
+
+@pytest.mark.parametrize("case", ["all_dead", "dead_tail"])
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_k1_dead_rays_match_plain(dev, monkeypatch, case, occlusion):
+    _grid(monkeypatch, 2)
+    rays = _rays(3001, 16, broken=False)
+    dead = torch.ones(3001, dtype=torch.bool)
+    if case == "dead_tail":  # ray_sort's order: the dead ones last
+        dead[:1800] = False
+    rays = rays._replace(max_t=torch.where(dead, -1.0, rays.max_t))
+    _same_on_both(_modes_scene(16), rays, dev, occlusion=occlusion)
+
+
+@pytest.mark.parametrize("sub", [1, 3])
+@pytest.mark.parametrize("grid", [None, 2])
+def test_k1_roots_across_claims_match_plain(dev, monkeypatch, sub, grid):
+    # packets of 128 or 384 rays span 4 or 12 claims; the last is partial
+    from nanort_tpu_torch.traverse import treelet
+
+    if grid:
+        _grid(monkeypatch, grid)
+    tl, scene = treelet.make_treelets(_modes_scene(8), 24)
+    n = 3001
+    n_pk = -(-n // (sub * packet.LANES))
+    roots = tl.roots[np.random.default_rng(2).integers(0, tl.count, n_pk)]
+    _mode_on_both(scene, _rays(n, 17), dev, "packet_traverse[roots]",
+                  sub=sub, packet_roots=torch.from_numpy(roots))
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "woop", "counts",
+                                  "flags"])
+@pytest.mark.parametrize("width", [8, 16])
+def test_k1_deep_stack_matches_plain(dev, width, mode):
+    """Walks that reach past the shared-memory top of the stack."""
+    scene, rays = _soup(width)
+    if mode == "woop":
+        v, f, _, _ = overlap_soup(600, 1)
+        bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+            min_leaf_primitives=1, max_leaf_primitives=1))
+        scene = collapse_bvh8(bvh, v, f, width=width, woop=True)
+    stats = {}
+    packet._traverse_reference(
+        scene.nodes, scene.leafs, width, rays.org, rays.dir, rays.min_t,
+        rays.max_t, None, None, False, True, False,
+        packet.stack_slots(scene), stats=stats)
+    assert stats["max_sp"] > packet.stack_split(packet.stack_slots(scene))[0]
+    key, kw = SCHEDULE_MODES[mode]
+    _mode_on_both(scene, rays, dev, key, **kw)
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_interleave_deep_stack_matches_plain(dev, K):
+    scene, rays = _soup(16)
+    _mode_on_both(scene, rays, dev, f"packet_traverse[interleave={K}]",
+                  interleave=K)
+
+
+@pytest.mark.parametrize("mode", ["closest", "interleave"])
+def test_k1_small_stack_sets_error_word(dev, monkeypatch, mode):
+    scene, rays = _soup(16, 64)
+    words = []
+    monkeypatch.setattr(packet, "stack_slots", lambda s: 3)
+    monkeypatch.setattr(packet, "_check_overflow",
+                        lambda err, slots: words.append((err, slots)))
+    packet.traverse_bvh8(scene.to(dev), nt.Rays(*(x.to(dev) for x in rays)),
+                         interleave=2 if mode == "interleave" else 1)
+    (err, slots), = words
+    assert slots == 3 and err.is_cuda and int(err.item()) != 0
+
+
+def test_k1_small_stack_raises(dev):
+    # the real check fails the stream, which poisons the process's CUDA
+    # context: run it in a child
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+import nanort_tpu_torch as nt
+from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+from nanort_tpu_torch.ops.triangle import TriangleMesh
+from nanort_tpu_torch.testing import overlap_soup
+from nanort_tpu_torch.traverse import packet
+v, f, org, d = overlap_soup(600, 64)
+bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+    min_leaf_primitives=1, max_leaf_primitives=1))
+scene = collapse_bvh8(bvh, v, f, width=16).to("cuda")
+packet.stack_slots = lambda s: 3
+rays = nt.make_rays(torch.from_numpy(org).cuda(), torch.from_numpy(d).cuda())
+try:
+    packet.traverse_bvh8(scene, rays)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("RAISED", "overflow" in str(e) or "assert" in str(e).lower())
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=root, timeout=300)
+    assert "RAISED True" in r.stdout, (r.stdout, r.stderr[-2000:])
+
+
+@pytest.mark.parametrize("mode", ["plain", "woop", "counts", "flags",
+                                  "roots"])
+@pytest.mark.parametrize("width", [8, 16])
+def test_k1_occupancy_and_plan(dev, width, mode):
+    kw = {mode: True} if mode != "plain" else {}
+    if mode == "flags" or mode == "plain":
+        kw.setdefault("woop", False)
+    shared = packet.stack_split(packet.stack_slots(_modes_scene(width)))[0]
+    occ = packet.k1_occupancy(width, shared_entries=shared, **kw)
+    assert occ["threads"] == packet.K1_THREADS
+    assert occ["claim"] == packet.K1_CLAIM
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = packet.launch_plan(1 << 26, packet.STACK_CAP,
+                              occ["blocks_per_sm"], sms)
+    assert plan.grid == occ["blocks_per_sm"] * sms
+    assert plan.shared_bytes + occ["static_shared_bytes"] <= \
+        packet.SHARED_BYTES_MAX

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the PyTorch port's BVH16 kernels between two checkouts, on one
-card, in turns.
+"""A/B of the PyTorch port's kernels between two checkouts, on one card,
+in turns.
 
-    python3 tools/ab_port_kernels.py OTHER_CHECKOUT
+    python3 tools/ab_port_kernels.py OTHER_CHECKOUT [--out FILE]
 
 Runs one child process a turn, in the order A, B, B, A, where A imports
 ``nanort_tpu_torch`` from OTHER_CHECKOUT and B from the checkout that
@@ -10,9 +10,19 @@ holds this script; each builds its kernels into its own
 ``nanort_tpu_torch/_build``. A turn measures with CUDA events, after a
 warm-up:
 
+- K1 (``packet.traverse_bvh8``; ``k1_cases``): the 8192^2 frame over the
+  ~1M-triangle BVH16 (``chip_smoke.py`` phase 6), phase 5's 131,072
+  rays plain, with counters, with zero-edge flags and through the
+  two-pass ``traverse_bvh8_exact``; the bounce-2 closest-hit and shadow
+  traces of the midscale megabatch render on K1-woop (turbo) and K1
+  (pallas), 6,553,600 sorted rays each (phase 11), and both whole
+  renders; config A's K1 route (``render_ao``, phase 13) and its two
+  traces; the round-1 launch of the treelet engine with its roots
+  (phase 16); the AO bounce run (``traverse_bvh8_sorted(occlusion=True)``,
+  4,194,304 rays, phase 17);
 - K2 alone (``fused_trace.trace_bvh16``): closest hit with aux rows and
   occlusion on 65,536 seeded incoherent rays over the 99,236-triangle
-  dense Cornell scene (``chip_smoke.py`` phase 7's rays), median of 20;
+  dense Cornell scene (phase 7's rays), median of 20;
 - K5 (``ao_fused.render_ao_fused``): config A, 512^2 x 8 AO samples on
   the 16,138-triangle Cornell box + UV sphere (phase 14), median of 10;
 - K4's route (``path_tracer.render_path_traced``) on the dense scene at
@@ -21,8 +31,10 @@ warm-up:
   (``_schedule="lane"``).
 
 Prints one JSON line a turn (each number the median of its repetitions)
-and, last, the least of each side's two turns with the card's name and
-power limit. Needs one NVIDIA GPU; imports no JAX.
+and, last, the card's name and power limit with each side's two turns
+and their least; ``--out`` also writes that last line to FILE (which
+``chip_smoke.py`` reads from ``chiprun_out/ab_port_kernels.json`` to
+print the parent's K1 times). Needs one NVIDIA GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +62,159 @@ def _ms(fn, reps):
     return sorted(out)[len(out) // 2]
 
 
+def capture_k1(render, calls) -> list:
+    """``render()`` once, keeping the K1 launches numbered ``calls``
+    (0-based): ``(scene8, rays, positional, keyword arguments)`` each."""
+    from nanort_tpu_torch.traverse import packet
+
+    kept, n = [], [0]
+    real = packet.traverse_bvh8
+
+    def keep(scene8, rays, *a, **k):
+        if n[0] in calls:
+            kept.append((scene8, rays, a, dict(k)))
+        n[0] += 1
+        return real(scene8, rays, *a, **k)
+
+    packet.traverse_bvh8 = keep
+    try:
+        render()
+    finally:
+        packet.traverse_bvh8 = real
+    return kept
+
+
+def k1_cases(dev) -> dict:
+    """K1's shapes: ``{name: (fn, repetitions)}``, each ``fn`` one call
+    through the port's entry points that returns what it computed (hits
+    or an image). Uses only entry points that PR 5's port has."""
+    import numpy as np
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.io.procedural import (
+        make_cornell_box, make_cornell_dense_pt_scene,
+        make_subdivided_sphere_scene, make_uv_sphere, merge_meshes)
+    from nanort_tpu_torch.models import objrender, path_tracer
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.traverse import packet, ray_sort, treelet
+
+    cases = {}
+    call = packet.traverse_bvh8  # looked up now: capture_k1 patches it
+
+    def k1(scene, rays, *a, **k):
+        return lambda: call(scene, rays, *a, **k)
+
+    # phases 4-6 and 18: the ~1M-triangle sphere, leaf 9, BVH16
+    v, f = make_subdivided_sphere_scene(1_000_000)
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=9, max_leaf_primitives=9))
+    s16 = collapse_bvh8(bvh, v, f, width=16).to(dev)
+    cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=8192, height=8192,
+                  fov=60.0, device=dev)
+    frame, _ = packet.tile_image_rays(pinhole_rays(cam), 128, 64)
+    spec = packet.detect_specialization(frame, sub=packet.DEF_SUB)
+    cases["k1_frame_8192"] = (k1(s16, frame, specialize=spec), 3)
+    m = 65_536
+    g = np.random.default_rng(7)
+    iorg = g.uniform(-1.5, 1.5, (m, 3)).astype(np.float32)
+    idir = g.normal(size=(m, 3))
+    idir = (idir / np.linalg.norm(idir, axis=1, keepdims=True)).astype(
+        np.float32)
+    sub = nt.Rays(
+        torch.cat([frame.org[:m], torch.from_numpy(iorg).to(dev)]),
+        torch.cat([frame.dir[:m], torch.from_numpy(idir).to(dev)]),
+        torch.cat([frame.min_t[:m], torch.zeros(m, device=dev)]),
+        torch.cat([frame.max_t[:m], torch.full((m,), 3.4e38, device=dev)]))
+    fast = nt.BVHTraceOptions(exact_edge_fallback=False)
+    cases["k1_phase5"] = (k1(s16, sub), 10)
+    cases["k1_phase5_counts"] = (k1(s16, sub, debug_counts=True), 10)
+    cases["k1_phase5_flags"] = (k1(s16, sub, fast, _flag_zero_edges=True), 10)
+    cases["k1_phase5_exact_two_pass"] = (
+        lambda: packet.traverse_bvh8_exact(s16, sub), 5)
+
+    # phase 11: bounce 2 of the first megabatch, closest hit and shadow
+    dense = make_cornell_dense_pt_scene(100_000)
+    cam512 = pinhole_rays(look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0),
+                                  width=512, height=512, fov=45.0,
+                                  device=dev))
+    for engine, name in (("turbo", "k1woop"), ("pallas", "k1")):
+        scene = path_tracer.make_pt_scene(*dense, engine=engine, device=dev)
+
+        def render(scene=scene):
+            return path_tracer.render_path_traced(
+                scene, cam512, 3, spp=100, max_bounces=10, fused=False)
+
+        for kind, (s8, r, a, k) in zip(("closest", "shadow"),
+                                       capture_k1(render, (4, 5))):
+            cases[f"{name}_bounce2_{kind}"] = (k1(s8, r, *a, **k), 5)
+        cases[f"megabatch_{engine}"] = (render, 3)
+
+    # phase 13: config A on the K1 route and its two traces
+    va, fa = merge_meshes(make_cornell_box(2.0), make_uv_sphere(64, 128, 0.6))
+    bvh_a, _ = nt.build_triangle_bvh(TriangleMesh(va, fa), nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    s16a = collapse_bvh8(bvh_a, va, fa, width=16).to(dev)
+    mesh_a = TriangleMesh(torch.from_numpy(va).to(dev),
+                          torch.from_numpy(fa).to(dev))
+    rays_a = pinhole_rays(look_at(eye=(0, 0.0, 5.0), center=(0, 0, 0),
+                                  width=512, height=512, fov=45.0,
+                                  device=dev))
+    spec_a = packet.detect_specialization(rays_a)
+
+    def route_a():
+        return objrender.render_ao(bvh_a, mesh_a, rays_a, seed=7,
+                                   n_samples=8, max_leaf=8, scene8=s16a,
+                                   specialize=spec_a)[0]["ao"]
+
+    cases["config_a_k1_route"] = (route_a, 5)
+    for kind, (s8, r, a, k) in zip(("primary", "occlusion"),
+                                   capture_k1(route_a, (0, 1))):
+        cases[f"k1_config_a_{kind}"] = (k1(s8, r, *a, **k), 5)
+
+    # phases 16-17: the ~1M-triangle sphere, leaf 8, BVH8 with treelets
+    bvh8, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    tl, s8h = treelet.make_treelets(collapse_bvh8(bvh8, v, f), 1024)
+    s8 = s8h.to(dev)
+    rng = np.random.default_rng(11)
+    R = 4_194_304
+    org = rng.uniform(np.asarray(bvh8.bmin[0]), np.asarray(bvh8.bmax[0]),
+                      (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_i = nt.make_rays(torch.from_numpy(org).to(dev),
+                          torch.from_numpy(d.astype(np.float32)).to(dev))
+    (s8r, r1, a1, k1kw), = capture_k1(lambda: treelet.traverse_bvh8_binned(
+        s8, rays_i, treelets=tl, K=8, octant_major=True, sub=16), (0,))
+    cases["k1_roots_round1"] = (k1(s8r, r1, *a1, **k1kw), 5)
+    cam_b = look_at(eye=(0, 0, 2.2), center=(0, 0, 0), width=1024,
+                    height=1024, fov=60.0, device=dev)
+    rays_p, _ = packet.tile_image_rays(pinhole_rays(cam_b), 128, 32)
+    hp = packet.traverse_bvh8(s8, rays_p,
+                              specialize=packet.detect_specialization(rays_p))
+    mesh = TriangleMesh(torch.from_numpy(v).to(dev),
+                        torch.from_numpy(f).to(dev).long())
+    n = objrender.face_normals(mesh, hp.prim_id)
+    x = rays_p.org + rays_p.dir * hp.t[:, None]
+    n = torch.where((n * rays_p.dir).sum(-1, keepdim=True) > 0, -n, n)
+    t_o, b_o = objrender.build_onb(n)
+    local = objrender._cosine_hemisphere(
+        torch.Generator(device=dev).manual_seed(3), (4, n.shape[0]),
+        torch.float32, dev)
+    wdir = (local[..., 0:1] * t_o + local[..., 1:2] * b_o
+            + local[..., 2:3] * n)
+    brays = nt.make_rays((x + n * 1e-3).expand(4, -1, -1).reshape(-1, 3),
+                         wdir.reshape(-1, 3),
+                         max_t=torch.where(hp.hit.expand(4, -1).reshape(-1),
+                                           0.5, -1.0))
+    cases["k1_ao_bounce"] = (lambda: ray_sort.traverse_bvh8_sorted(
+        s8, brays, occlusion=True), 5)
+    return cases
+
+
 def child() -> dict:
     """One turn, in the checkout given as the working directory."""
     import functools
@@ -72,6 +237,9 @@ def child() -> dict:
     dev = torch.device("cuda", 0)
     _ext.load_all()
     res = {}
+    for name, (fn, reps) in k1_cases(dev).items():
+        res[f"{name}_ms"] = _ms(fn, reps)
+    torch.cuda.empty_cache()
     dense = path_tracer.make_pt_scene(*make_cornell_dense_pt_scene(100_000),
                                       engine="pallas", device=dev)
     # phase 7's rays: every 7th axis-parallel, every 13th zero, every 11th
@@ -130,11 +298,16 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--child":
         print(json.dumps(child()), flush=True)
         return 0
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    out = None
+    if len(args) == 3 and args[1] == "--out":
+        out = args.pop()
+        args.pop()
+    if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    trees = {"A": os.path.abspath(sys.argv[1]), "B": here}
+    trees = {"A": os.path.abspath(args[0]), "B": here}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -143,7 +316,7 @@ def main() -> int:
     for side in "ABBA":
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--child"], cwd=trees[side], capture_output=True,
-                           text=True, timeout=900)
+                           text=True, timeout=1500)
         if r.returncode != 0:
             print(r.stderr[-3000:], file=sys.stderr)
             return 1
@@ -155,7 +328,13 @@ def main() -> int:
     for side, runs in turns.items():
         keys = sorted(set().union(*runs))
         summary[side] = {k: min(r[k] for r in runs if k in r) for k in keys}
-    print(json.dumps({"card": smi, "best_of_turns_ms": summary}), flush=True)
+    line = json.dumps({"card": smi, "turns_ms": turns,
+                       "best_of_turns_ms": summary})
+    print(line, flush=True)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as fh:
+            fh.write(line + "\n")
     return 0
 
 
