@@ -1927,6 +1927,11 @@ def k1_resources(text: str) -> list[str]:
         elif cur and ("Used" in ln or "spill" in ln):
             usage[cur].append(" ".join(ln.split()))
     for fn, lines in usage.items():
+        # _ZN..traverse_kernelILi16ELb0E...EEv.. -> traverse_kernel<16,0,...>
+        m = re.search(r"(traverse_kernel(?:_il)?)I(.*?)EEv", fn)
+        if m:
+            args = re.findall(r"L[bi](\d+)E", m.group(2) + "E")
+            fn = f"{m.group(1)}<{','.join(args)}>"
         out.append(f"{fn}: " + "; ".join(lines))
     shared = packet.stack_split(packet.STACK_CAP)[0]
     for w in (8, 16):

@@ -90,7 +90,7 @@
 #define K1_NEAR 1  // the nearest hit child in a register
 #endif
 #ifndef K1_VMETA
-#define K1_VMETA 1  // child metadata in 16-byte loads
+#define K1_VMETA 2  // child metadata in 16-byte loads (2: a quad at a time)
 #endif
 #ifndef K1_VLEAF
 #define K1_VLEAF 1  // leaf rows in 16-byte loads
@@ -469,7 +469,17 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
     // nearest hit child runs next: for ``neg`` the highest hit slot, else
     // the lowest; the others are stored far-first so the nearer pop first
     int axis;
-#if K1_VMETA
+#if K1_VMETA == 2
+    // lane 112 (child 0's count) carries a W == 16 row's order axis
+    const float4 c0 = ld4(row + kCount);
+    if (W == 16) {
+      const float v112 = c0.x;
+      axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
+    } else {
+      const float a80 = __ldg(row + 80);
+      axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
+    }
+#elif K1_VMETA
     float4 mv[W / 4], cv[W / 4];
 #pragma unroll
     for (int k = 0; k < W / 4; ++k) {
@@ -500,7 +510,31 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
     const unsigned push = mask;
 #endif
     const int sp = w.sp;
-#if K1_VMETA
+#if K1_VMETA == 2
+    int next = kNone;
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      if (!((mask >> (4 * q)) & 15u)) continue;
+      const float4 mq = ld4(row + kMeta + 4 * q);
+      const float4 cq = q == 0 ? c0 : ld4(row + kCount + 4 * q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = 4 * q + k;
+        if (!((mask >> j) & 1u)) continue;
+        const int entry = child_entry(lane4(mq, k), lane4(cq, k));
+#if K1_NEAR
+        if (j == near) {
+          next = entry;
+          continue;
+        }
+#endif
+        // far-first: for ``neg`` ascending slots, else descending
+        const int pos = neg ? __popc(push & ((1u << j) - 1u))
+                            : __popc(push >> (j + 1));
+        st.put(sp + pos, entry);
+      }
+    }
+#elif K1_VMETA
     int next = kNone;
 #pragma unroll
     for (int j = 0; j < W; ++j) {

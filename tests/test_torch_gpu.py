@@ -838,9 +838,9 @@ def test_k1_deep_stack_matches_plain(dev, width, mode):
         scene = collapse_bvh8(bvh, v, f, width=width, woop=True)
     stats = {}
     packet._traverse_reference(
-        scene.nodes, scene.leafs, width, rays.org, rays.dir, rays.min_t,
-        rays.max_t, None, None, False, True, False,
-        packet.stack_slots(scene), stats=stats)
+        torch.as_tensor(scene.nodes), torch.as_tensor(scene.leafs), width,
+        rays.org, rays.dir, rays.min_t, rays.max_t, None, None, False, True,
+        False, packet.stack_slots(scene), stats=stats)
     assert stats["max_sp"] > packet.stack_split(packet.stack_slots(scene))[0]
     key, kw = SCHEDULE_MODES[mode]
     _mode_on_both(scene, rays, dev, key, **kw)

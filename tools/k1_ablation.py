@@ -4,8 +4,8 @@
     python3 tools/k1_ablation.py [--check-only] [--out FILE]
 
 Builds one variant of the K1 library for each switch of the source
-(``K1_DYN``, ``K1_NEAR``, ``K1_VMETA``, ``K1_VLEAF``, ``K1_MINB``,
-``K1_WW``; nvcc
+(``K1_DYN``, ``K1_NEAR``, ``K1_VMETA``, ``K1_VLEAF``, ``K1_MINB``;
+nvcc
 with the port's flags, in parallel) and, on the default build, plan
 variants (the shared-memory stack top at 0, 8 and 32 entries, and one
 claim a warp on a grid of every claim in place of persistent warps).
@@ -34,14 +34,13 @@ sys.path.insert(0, os.path.join(HERE, "tools"))
 
 BUILDS = {
     "all": {},
-    "dyn8": {"K1_DYN": 8},
-    "dyn16": {"K1_DYN": 16},
+    "vmeta_all": {"K1_VMETA": 1},
+    "dyn24": {"K1_DYN": 24},
+    "dyn28": {"K1_DYN": 28},
     "no_near": {"K1_NEAR": 0},
     "no_vmeta": {"K1_VMETA": 0},
     "no_vleaf": {"K1_VLEAF": 0},
     "minb8": {"K1_MINB": 8},
-    "minb12": {"K1_MINB": 12},
-    "ww": {"K1_WW": 1},
 }
 PLANS = {"top0": {"top": 0}, "top8": {"top": 8}, "top32": {"top": 32},
          "one_claim": {"persistent": False}}
