@@ -87,7 +87,7 @@
 #define K1_DYN 0  // refill idle lanes once this many are done (0: off)
 #endif
 #ifndef K1_NEAR
-#define K1_NEAR 1  // the nearest hit child in a register
+#define K1_NEAR 2  // the nearest hit child in a register (2: its slot)
 #endif
 #ifndef K1_VMETA
 #define K1_VMETA 2  // child metadata in 16-byte loads (2: a quad at a time)
@@ -503,12 +503,14 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
     }
 #endif
     const bool neg = axis == 0 ? r.nx : (axis == 1 ? r.ny : r.nz);
-#if K1_NEAR
+#if K1_NEAR == 1
     const int near = neg ? 31 - __clz(mask) : __ffs(mask) - 1;
     const unsigned push = mask & ~(1u << near);
 #else
     const unsigned push = mask;
 #endif
+    // far-first, the nearest hit child takes the last slot
+    const int last = __popc(mask) - 1;
     const int sp = w.sp;
 #if K1_VMETA == 2
     int next = kNone;
@@ -522,7 +524,7 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
         const int j = 4 * q + k;
         if (!((mask >> j) & 1u)) continue;
         const int entry = child_entry(lane4(mq, k), lane4(cq, k));
-#if K1_NEAR
+#if K1_NEAR == 1
         if (j == near) {
           next = entry;
           continue;
@@ -531,6 +533,12 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
         // far-first: for ``neg`` ascending slots, else descending
         const int pos = neg ? __popc(push & ((1u << j) - 1u))
                             : __popc(push >> (j + 1));
+#if K1_NEAR == 2
+        if (pos == last) {
+          next = entry;
+          continue;
+        }
+#endif
         st.put(sp + pos, entry);
       }
     }
@@ -541,7 +549,7 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
       if (!((mask >> j) & 1u)) continue;
       const int entry = child_entry(lane4(mv[j >> 2], j & 3),
                                     lane4(cv[j >> 2], j & 3));
-#if K1_NEAR
+#if K1_NEAR == 1
       if (j == near) {
         next = entry;
         continue;
@@ -550,6 +558,12 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
       // far-first: for ``neg`` ascending slots, else descending
       const int pos = neg ? __popc(push & ((1u << j) - 1u))
                           : __popc(push >> (j + 1));
+#if K1_NEAR == 2
+      if (pos == last) {
+        next = entry;
+        continue;
+      }
+#endif
       st.put(sp + pos, entry);
     }
 #else
@@ -559,8 +573,13 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
       if (!((mask >> cc) & 1u)) continue;
       const int entry = child_entry(__ldg(row + kMeta + cc),
                                     __ldg(row + kCount + cc));
-#if K1_NEAR
+#if K1_NEAR == 1
       if (cc == near) {
+        next = entry;
+        continue;
+      }
+#elif K1_NEAR == 2
+      if (w.sp - sp == last) {
         next = entry;
         continue;
       }
@@ -569,11 +588,16 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
     }
     w.sp = sp;
 #endif
+#if K1_NEAR == 2
+    w.sp = sp + last;
+    w.e = next;
+#elif K1_NEAR == 1
     w.sp = sp + __popc(push);
-#if K1_NEAR
     w.e = next;
 #else
+    (void)last;
     (void)next;
+    w.sp = sp + __popc(push);
     pop(w, st);
 #endif
   }

@@ -34,16 +34,15 @@ sys.path.insert(0, os.path.join(HERE, "tools"))
 
 BUILDS = {
     "all": {},
-    "vmeta_all": {"K1_VMETA": 1},
-    "dyn24": {"K1_DYN": 24},
-    "dyn28": {"K1_DYN": 28},
+    "near_clz": {"K1_NEAR": 1},
     "no_near": {"K1_NEAR": 0},
     "no_vmeta": {"K1_VMETA": 0},
     "no_vleaf": {"K1_VLEAF": 0},
-    "minb8": {"K1_MINB": 8},
+    "no_near_no_vmeta": {"K1_NEAR": 0, "K1_VMETA": 0},
 }
 PLANS = {"top0": {"top": 0}, "top8": {"top": 8}, "top32": {"top": 32},
-         "one_claim": {"persistent": False}}
+         "one_claim": {"persistent": False},
+         "no_near_top0": {"top": 0, "build": "no_near"}}
 
 
 def main() -> int:
@@ -96,7 +95,8 @@ def main() -> int:
 
     def use(name):
         """Load variant ``name`` (a build or a plan on the default)."""
-        build_name = name if name in BUILDS else "all"
+        build_name = name if name in BUILDS else PLANS[name].get("build",
+                                                                 "all")
         _ext._libs["packet_traverse"] = _ext._bind("packet_traverse",
                                                    libs[build_name])
         packet._OCCUPANCY.clear()
