@@ -107,8 +107,8 @@ nothing of JAX. Phases, one line or more each:
     resident warps an SM (the occupancy API); the persistent schedule's
     edge shapes (ray counts of 1, 31, 32, 33 and a claim count the grid
     does not divide, every mode on grids of 1 and 3 blocks, dead rays,
-    roots across claims, walks past the shared stack top, a stack too
-    small, which must set the overflow word) == plain; then one line per
+    roots across claims, deep walks, a stack too small, which must set
+    the overflow word) == plain; then one line per
     K1 shape (phases 5, 6, 11, 13, 16-18) with its time, its bound and,
     where ``tools/ab_port_kernels.py ... --out
     chiprun_out/ab_port_kernels.json`` ran before it in the same
@@ -1776,9 +1776,9 @@ def k1_edge_shapes(dev) -> int:
     of 1, 31, 32 and 33 and a claim count that the resident grid's warps
     do not divide; every mode on a grid of 1 and 3 blocks (so each warp
     claims several times); all rays dead and a sorted dead tail; packet
-    roots whose packets span several claims; walks past the
-    shared-memory top of the stack (an overlapping triangle soup); and a
-    stack too small for the walks, which must set the overflow word.
+    roots whose packets span several claims; deep walks (an
+    overlapping triangle soup); and a stack too small for the walks,
+    which must set the overflow word.
     Returns the number of shapes held."""
     import dataclasses
 
@@ -1843,8 +1843,7 @@ def k1_edge_shapes(dev) -> int:
         for n in (1, 31, 32, 33):
             results[f"w{w} n={n}"] = held(box[w, False], rays_of(n, 12))
     s16 = box[16, False]
-    slots = packet.stack_slots(s16)
-    occ = packet.k1_occupancy(16, shared_entries=packet.stack_split(slots)[0])
+    occ = packet.k1_occupancy(16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     warps = occ["blocks_per_sm"] * sms * packet.K1_THREADS // 32
     n_odd = packet.K1_CLAIM * (warps + 3) + 5
@@ -1882,14 +1881,14 @@ def k1_edge_shapes(dev) -> int:
             torch.as_tensor(sc.nodes), torch.as_tensor(sc.leafs), w,
             soup_rays.org, soup_rays.dir, soup_rays.min_t, soup_rays.max_t,
             None, None, False, True, False, packet.stack_slots(sc), stats=st)
-        top = packet.stack_split(packet.stack_slots(sc))[0]
-        check(st["max_sp"] > top, f"the soup's walks stay within the "
-              f"shared top ({st['max_sp']} <= {top})")
+        deep = 2 * (w - 1)
+        check(st["max_sp"] > deep, f"the soup's walks stay shallow "
+              f"({st['max_sp']} <= {deep} entries)")
         for name in ("closest", "any_hit", "woop", "counts", "flags"):
             kw = modes[name]
-            results[f"deep stack w{w} {name} (peak {st['max_sp']}, shared "
-                    f"{top})"] = held(soup[w, "intersector" in kw], soup_rays,
-                                      **kw)
+            results[f"deep stack w{w} {name} (peak {st['max_sp']} of "
+                    f"{packet.stack_slots(sc)})"] = held(
+                        soup[w, "intersector" in kw], soup_rays, **kw)
         results[f"deep stack w{w} interleave=2"] = held(sc, soup_rays,
                                                         interleave=2)
     # a stack too small for the walks: the overflow word, not a wrong record
@@ -1910,8 +1909,8 @@ def k1_edge_shapes(dev) -> int:
 
 def k1_resources(text: str) -> list[str]:
     """One line per K1 instantiation: ``ptxas -v``'s registers, spills and
-    stack frame (from ``text``) and the occupancy API's resident warps an
-    SM at the launch plan's shared bytes."""
+    stack frame (from ``text``), then the occupancy API's registers, local
+    and shared bytes and resident warps an SM for each mode."""
     import re
 
     from nanort_tpu_torch.traverse import packet
@@ -1933,7 +1932,6 @@ def k1_resources(text: str) -> list[str]:
             args = re.findall(r"L[bi](\d+)E", m.group(2) + "E")
             fn = f"{m.group(1)}<{','.join(args)}>"
         out.append(f"{fn}: " + "; ".join(lines))
-    shared = packet.stack_split(packet.STACK_CAP)[0]
     for w in (8, 16):
         for name, kw in (("watertight", {}), ("woop", dict(woop=True)),
                          ("roots", dict(roots=True)),
@@ -1941,15 +1939,14 @@ def k1_resources(text: str) -> list[str]:
                          ("counts", dict(counts=True)),
                          ("woop counts", dict(woop=True, counts=True)),
                          ("flags", dict(flags=True))):
-            o = packet.k1_occupancy(w, shared_entries=shared, **kw)
+            o = packet.k1_occupancy(w, **kw)
             out.append(
                 f"K1 w{w} {name}: {o['registers']} registers, "
                 f"{o['local_bytes']} local bytes a thread, "
-                f"{shared * o['threads'] * 4} shared bytes a block "
-                f"({shared} entries a thread) + {o['static_shared_bytes']} "
-                f"static, {o['blocks_per_sm']} blocks of {o['threads']} "
-                f"threads = {o['blocks_per_sm'] * o['threads'] // 32} "
-                f"resident warps an SM")
+                f"{o['shared_bytes']} shared bytes a block, "
+                f"{o['blocks_per_sm']} blocks of {o['threads']} threads = "
+                f"{o['blocks_per_sm'] * o['threads'] // 32} resident warps "
+                f"an SM")
     return out
 
 
@@ -2161,8 +2158,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     flags_launches = launch_counts()["packet_traverse[flags]"]
     say("phase 18 two-pass exact (medians of 5): " + "; ".join(lines)
         + f"; flags launches {flags_launches}")
-    say("K1 resources (ptxas -v; the occupancy API at the launch plan's "
-        "shared bytes for a stack deeper than its shared top):")
+    say("K1 resources (ptxas -v; the occupancy API):")
     for ln in k1_resources(usage_k1.result()):
         say("  " + ln)
     k1_edge_shapes(dev)
@@ -2444,8 +2440,7 @@ def main() -> int:
                      trace_ops(k1_stats, 16, WT_OPS))
     say(f"phase 5 work (plain version's count): {k1_stats}; bound "
         f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); peak stack "
-        f"{k1_stats['max_sp']} of {slots} slots ({packet.stack_split(slots)[0]}"
-        f" in shared memory)")
+        f"{k1_stats['max_sp']} of {slots} slots")
     k1_shape(f"phase 5: {2 * m} rays ({m} tiled camera + {m} incoherent)",
              kernel_ms, k1_bound, "k1_phase5_ms")
     # the frame's work, counted on every 1,024th ray of the tiled frame

@@ -25,16 +25,18 @@
 //     (one atomicAdd by lane 0), so a warp's rays keep the coherence of
 //     tile_image_rays / ray_sort order and no block waits on its slowest
 //     warp before the SM takes new rays;
-//   - the nearest hit child of a node is the next entry directly, in a
-//     register; only the farther hit children are stored, far-first;
 //   - a node's child metadata (meta and leaf counts) is read with 16-byte
-//     loads and the stack bound is checked once a node; leaf rows are
-//     read with 16-byte loads (three a triangle);
-//   - the top of each thread's stack lives in shared memory, laid out
-//     [entry][thread] (free of bank conflicts), deeper entries in local
-//     memory.
-// None of these changes which entries a ray pops or in what order, so
-// every record, counter and flag is that of the plain version.
+//     loads, a quad of children at a time and only for quads with a hit,
+//     and the hit children are stored far-first by their rank in the
+//     mask, with the stack bound checked once a node;
+//   - leaf rows are read with 16-byte loads (three a triangle);
+//   - the stack is a local array, which the L1 caches per thread.
+// Measured on an H100 and left out (PERF.md): the nearest hit child
+// kept in a register, the top of the stack in shared memory, refilling
+// idle lanes mid-walk, while-while node and leaf loops and
+// __launch_bounds__ minimum blocks. None of the parts changes which
+// entries a ray pops or in what order, so every record, counter and flag
+// is the plain version's.
 //
 // Numerics: this file must be compiled with --fmad=false. The leaf test
 // evaluates a*b - c*d with every product rounded on its own, as the plain
@@ -82,32 +84,11 @@
 #include <math.h>
 #include <stdint.h>
 
-// Switches of the design's parts, for their measurement.
-#ifndef K1_DYN
-#define K1_DYN 0  // refill idle lanes once this many are done (0: off)
-#endif
-#ifndef K1_NEAR
-#define K1_NEAR 2  // the nearest hit child in a register (2: its slot)
-#endif
-#ifndef K1_VMETA
-#define K1_VMETA 2  // child metadata in 16-byte loads (2: a quad at a time)
-#endif
-#ifndef K1_VLEAF
-#define K1_VLEAF 1  // leaf rows in 16-byte loads
-#endif
-#ifndef K1_MINB
-#define K1_MINB 0  // __launch_bounds__ minimum blocks (0: none)
-#endif
-#ifndef K1_WW
-#define K1_WW 0  // while-while: a lane runs nodes until a leaf, then leaves
-#endif
-
 namespace {
 
 constexpr int kStackCap = 512;     // per-thread stack ceiling (entries)
-constexpr int kThreads = 128;      // K1: threads per block
+constexpr int kThreads = 128;      // threads per block
 constexpr int kClaim = 32;         // K1: consecutive rays a warp claims
-constexpr int kBlockIl = 128;      // K1b: threads per block
 constexpr float kBig = 3.0e38f;    // degenerate-ray threshold (TPU kernel)
 constexpr float kMaxMult = 1.00000024f;  // 4-ulp exit-plane inflation
 constexpr float kSplit = 4097.0f;  // Veltkamp split constant for f32
@@ -133,7 +114,6 @@ struct Params {
   long long n_rays;
   long long packet;     // rays per packet of ``roots``
   int stack_size;       // <= kStackCap
-  int top;              // stack entries a thread keeps in shared memory
   int occlusion;        // any-hit: stop at the first accepted hit
   int cull_back_face;
   int exact_edge;       // Dekker recompute where an edge function is 0
@@ -304,31 +284,6 @@ struct Walk {
   int n_nodes, n_leaves, zero;
 };
 
-// A thread's stack: entries [0, top) in shared memory, one column of a
-// [entry][thread] array, and the rest in a local array.
-struct SplitStack {
-  int* sh;   // this thread's column (stride kThreads)
-  int top;
-  int* loc;
-  __device__ __forceinline__ void put(int k, int v) {
-    if (k < top) {
-      sh[k * kThreads] = v;
-    } else {
-      loc[k - top] = v;
-    }
-  }
-  __device__ __forceinline__ int get(int k) const {
-    return k < top ? sh[k * kThreads] : loc[k - top];
-  }
-};
-
-// K1b's stacks: all local.
-struct LocalStack {
-  int* loc;
-  __device__ __forceinline__ void put(int k, int v) { loc[k] = v; }
-  __device__ __forceinline__ int get(int k) const { return loc[k]; }
-};
-
 // Set up ray i; its first entry is row 0, or (kRoots, when the launch
 // has roots) its packet's root.
 template <bool kRoots>
@@ -396,9 +351,8 @@ __device__ __forceinline__ void begin(const Params& p, long long i, Walk& w) {
                         : kNone;
 }
 
-template <class Stack>
-__device__ __forceinline__ void pop(Walk& w, const Stack& st) {
-  w.e = w.sp > 0 ? st.get(--w.sp) : kNone;
+__device__ __forceinline__ void pop(Walk& w, const int* stack) {
+  w.e = w.sp > 0 ? stack[--w.sp] : kNone;
 }
 
 // The stack entry of child slot value ``meta`` with leaf count lane
@@ -422,283 +376,147 @@ __device__ __forceinline__ float lane4(const float4& v, int k) {
 // meta >= 0: internal node row; meta < 0: leaf row -(meta + 1).
 // Stack entries: node row >= 0, or -1 - (leaf_row << 4 | count) for a leaf.
 //
-// Runs the entry ``w.e`` of a live ray and sets the next one: a node's
-// slab tests, then its nearest hit child (the rest stored far-first), or
-// a leaf row's triangle tests, then the top of the stack.
-template <int W, bool kCounts, class Stack>
+// Runs the node ``w.e`` of a live ray: its slab tests, its hit children
+// stored far-first, then the top of the stack (the nearest hit child).
+template <int W, bool kCounts>
 __device__ __forceinline__ void node_step(const Params& p, Walk& w,
-                                          Stack& st) {
+                                          int* stack) {
   const RayState& r = w.r;
-  const int e = w.e;
-  {
-    if (kCounts) ++w.n_nodes;
-    const float* row = p.nodes + (size_t)e * 128;
-    unsigned mask = 0u;
-    if (W == 16) {
+  if (kCounts) ++w.n_nodes;
+  const float* row = p.nodes + (size_t)w.e * 128;
+  unsigned mask = 0u;
+  if (W == 16) {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {  // two children per 3 float4 loads
-        const float4 a = ld4(row + 12 * q);
-        const float4 b = ld4(row + 12 * q + 4);
-        const float4 c = ld4(row + 12 * q + 8);
-        mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << (2 * q);
-        mask |= (unsigned)slab(r, w.t_best, b.z, b.w, c.x, c.y, c.z, c.w) << (2 * q + 1);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float4 a = ld4(row + 8 * c);
-        const float2 b = __ldg(reinterpret_cast<const float2*>(row + 8 * c + 4));
-        mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << c;
-      }
+    for (int q = 0; q < 8; ++q) {  // two children per 3 float4 loads
+      const float4 a = ld4(row + 12 * q);
+      const float4 b = ld4(row + 12 * q + 4);
+      const float4 c = ld4(row + 12 * q + 8);
+      mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << (2 * q);
+      mask |= (unsigned)slab(r, w.t_best, b.z, b.w, c.x, c.y, c.z, c.w) << (2 * q + 1);
     }
-    if (mask == 0u) {
-      pop(w, st);
-      return;
-    }
-    // the whole check once a node: the plain version raises, and the
-    // kernel sets the error word, when the pushes would pass stack_size
-    if (w.sp + __popc(mask) > p.stack_size) {
-      atomicOr(p.err, 1ull);
-      w.sp = 0;
-      w.e = kNone;
-      return;
-    }
-    constexpr int kMeta = W == 16 ? 96 : 64;
-    constexpr int kCount = W == 16 ? 112 : 72;
-    // children are stored near-to-far along the order axis, and the
-    // nearest hit child runs next: for ``neg`` the highest hit slot, else
-    // the lowest; the others are stored far-first so the nearer pop first
-    int axis;
-#if K1_VMETA == 2
-    // lane 112 (child 0's count) carries a W == 16 row's order axis
-    const float4 c0 = ld4(row + kCount);
-    if (W == 16) {
-      const float v112 = c0.x;
-      axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
-    } else {
-      const float a80 = __ldg(row + 80);
-      axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
-    }
-#elif K1_VMETA
-    float4 mv[W / 4], cv[W / 4];
-#pragma unroll
-    for (int k = 0; k < W / 4; ++k) {
-      mv[k] = ld4(row + kMeta + 4 * k);
-      cv[k] = ld4(row + kCount + 4 * k);
-    }
-    if (W == 16) {
-      const float v112 = cv[0].x;
-      axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
-    } else {
-      const float a80 = __ldg(row + 80);
-      axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
-    }
-#else
-    if (W == 16) {
-      const float v112 = __ldg(row + 112);
-      axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
-    } else {
-      const float a80 = __ldg(row + 80);
-      axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
-    }
-#endif
-    const bool neg = axis == 0 ? r.nx : (axis == 1 ? r.ny : r.nz);
-#if K1_NEAR == 1
-    const int near = neg ? 31 - __clz(mask) : __ffs(mask) - 1;
-    const unsigned push = mask & ~(1u << near);
-#else
-    const unsigned push = mask;
-#endif
-    // far-first, the nearest hit child takes the last slot
-    const int last = __popc(mask) - 1;
-    const int sp = w.sp;
-#if K1_VMETA == 2
-    int next = kNone;
-#pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      if (!((mask >> (4 * q)) & 15u)) continue;
-      const float4 mq = ld4(row + kMeta + 4 * q);
-      const float4 cq = q == 0 ? c0 : ld4(row + kCount + 4 * q);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int j = 4 * q + k;
-        if (!((mask >> j) & 1u)) continue;
-        const int entry = child_entry(lane4(mq, k), lane4(cq, k));
-#if K1_NEAR == 1
-        if (j == near) {
-          next = entry;
-          continue;
-        }
-#endif
-        // far-first: for ``neg`` ascending slots, else descending
-        const int pos = neg ? __popc(push & ((1u << j) - 1u))
-                            : __popc(push >> (j + 1));
-#if K1_NEAR == 2
-        if (pos == last) {
-          next = entry;
-          continue;
-        }
-#endif
-        st.put(sp + pos, entry);
-      }
-    }
-#elif K1_VMETA
-    int next = kNone;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      if (!((mask >> j) & 1u)) continue;
-      const int entry = child_entry(lane4(mv[j >> 2], j & 3),
-                                    lane4(cv[j >> 2], j & 3));
-#if K1_NEAR == 1
-      if (j == near) {
-        next = entry;
-        continue;
-      }
-#endif
-      // far-first: for ``neg`` ascending slots, else descending
-      const int pos = neg ? __popc(push & ((1u << j) - 1u))
-                          : __popc(push >> (j + 1));
-#if K1_NEAR == 2
-      if (pos == last) {
-        next = entry;
-        continue;
-      }
-#endif
-      st.put(sp + pos, entry);
-    }
-#else
-    int next = kNone;
-    for (int j = 0; j < W; ++j) {
-      const int cc = neg ? j : W - 1 - j;
-      if (!((mask >> cc) & 1u)) continue;
-      const int entry = child_entry(__ldg(row + kMeta + cc),
-                                    __ldg(row + kCount + cc));
-#if K1_NEAR == 1
-      if (cc == near) {
-        next = entry;
-        continue;
-      }
-#elif K1_NEAR == 2
-      if (w.sp - sp == last) {
-        next = entry;
-        continue;
-      }
-#endif
-      st.put(w.sp++, entry);
-    }
-    w.sp = sp;
-#endif
-#if K1_NEAR == 2
-    w.sp = sp + last;
-    w.e = next;
-#elif K1_NEAR == 1
-    w.sp = sp + __popc(push);
-    w.e = next;
-#else
-    (void)last;
-    (void)next;
-    w.sp = sp + __popc(push);
-    pop(w, st);
-#endif
-  }
-}
-
-template <bool kWoop, bool kCounts, bool kFlags, class Stack>
-__device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
-                                          Stack& st) {
-  const RayState& r = w.r;
-  const int e = w.e;
-  {
-    if (kCounts) ++w.n_leaves;
-    const int packed = -1 - e;
-    const float* row = p.leafs + (size_t)(packed >> 4) * 128;
-    const int cnt = packed & 15;
-    // triangle ti's lanes: [12 ti, 12 ti + 12) (Woop), else [9 ti, 9 ti +
-    // 9), which sit at offset ti % 4 of the three float4s from lane
-    // 36 (ti / 4) + 8 ((ti % 4) * 9 / 8): groups of four, slot k static
-    bool stop = false;
-    for (int g = 0; g * 4 < cnt && !stop; ++g) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int ti = 4 * g + k;
-        if (ti >= cnt) break;
-        float tt, uu, vv;
-        bool ok;
-        if (kWoop) {
-          const float* m = row + 12 * ti;
-#if K1_VLEAF
-          ok = hit_triangle_woop(r, ld4(m), ld4(m + 4), ld4(m + 8), w.t_best,
-                                 p.cull_back_face, tt, uu, vv);
-#else
-          ok = hit_triangle_woop(
-              r, make_float4(__ldg(m), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3)),
-              make_float4(__ldg(m + 4), __ldg(m + 5), __ldg(m + 6), __ldg(m + 7)),
-              make_float4(__ldg(m + 8), __ldg(m + 9), __ldg(m + 10), __ldg(m + 11)),
-              w.t_best, p.cull_back_face, tt, uu, vv);
-#endif
-        } else {
-#if K1_VLEAF
-          const float* q = row + 36 * g + (k * 9 / 4) * 4;
-          const float4 a = ld4(q), b = ld4(q + 4), c = ld4(q + 8);
-          const float f[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
-                               b.z, b.w, c.x, c.y, c.z, c.w};
-          ok = hit_triangle<kFlags>(
-              r, f[k], f[k + 1], f[k + 2], f[k + 3], f[k + 4], f[k + 5],
-              f[k + 6], f[k + 7], f[k + 8], w.t_best, p.cull_back_face,
-              p.exact_edge, tt, uu, vv, w.zero);
-#else
-          const float* v = row + 9 * ti;
-          ok = hit_triangle<kFlags>(
-              r, __ldg(v), __ldg(v + 1), __ldg(v + 2), __ldg(v + 3),
-              __ldg(v + 4), __ldg(v + 5), __ldg(v + 6), __ldg(v + 7),
-              __ldg(v + 8), w.t_best, p.cull_back_face, p.exact_edge, tt, uu,
-              vv, w.zero);
-#endif
-        }
-        if (!ok) continue;
-        const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
-        if (pid == w.skip) continue;
-        if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
-        w.t_best = tt;
-        w.u_best = uu;
-        w.v_best = vv;
-        w.pid_best = pid;
-        w.found = true;
-        if (p.occlusion) {
-          stop = true;
-          break;
-        }
-      }
-    }
-    if (p.occlusion && w.found) {  // any-hit: retire
-      w.sp = 0;
-      w.e = kNone;
-    } else {
-      pop(w, st);
-    }
-  }
-}
-
-template <int W, bool kWoop, bool kCounts, bool kFlags, class Stack>
-__device__ __forceinline__ void step(const Params& p, Walk& w, Stack& st) {
-  if (w.e >= 0) {
-    node_step<W, kCounts>(p, w, st);
   } else {
-    leaf_step<kWoop, kCounts, kFlags>(p, w, st);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float4 a = ld4(row + 8 * c);
+      const float2 b = __ldg(reinterpret_cast<const float2*>(row + 8 * c + 4));
+      mask |= (unsigned)slab(r, w.t_best, a.x, a.y, a.z, a.w, b.x, b.y) << c;
+    }
+  }
+  if (mask == 0u) {
+    pop(w, stack);
+    return;
+  }
+  // the whole check once a node: the plain version raises, and the
+  // kernel sets the error word, when the pushes would pass stack_size
+  const int n_hit = __popc(mask);
+  if (w.sp + n_hit > p.stack_size) {
+    atomicOr(p.err, 1ull);
+    w.sp = 0;
+    w.e = kNone;
+    return;
+  }
+  constexpr int kMeta = W == 16 ? 96 : 64;
+  constexpr int kCount = W == 16 ? 112 : 72;
+  // lane 112 (child 0's count) carries a W == 16 row's order axis
+  const float4 c0 = ld4(row + kCount);
+  int axis;
+  if (W == 16) {
+    const float v112 = c0.x;
+    axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
+  } else {
+    const float a80 = __ldg(row + 80);
+    axis = a80 == 0.0f ? 0 : (a80 == 1.0f ? 1 : 2);
+  }
+  // children are stored near-to-far along the order axis; the LIFO
+  // stack takes them far-first (for ``neg`` ascending slots, else
+  // descending), so a hit child's place is its rank among the hit slots
+  // and the nearest is stored last, to pop first
+  const bool neg = axis == 0 ? r.nx : (axis == 1 ? r.ny : r.nz);
+  const int sp = w.sp;
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    if (!((mask >> (4 * q)) & 15u)) continue;
+    const float4 mq = ld4(row + kMeta + 4 * q);
+    const float4 cq = q == 0 ? c0 : ld4(row + kCount + 4 * q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * q + k;
+      if (!((mask >> j) & 1u)) continue;
+      const int pos = neg ? __popc(mask & ((1u << j) - 1u))
+                          : __popc(mask >> (j + 1));
+      stack[sp + pos] = child_entry(lane4(mq, k), lane4(cq, k));
+    }
+  }
+  w.sp = sp + n_hit;
+  pop(w, stack);
+}
+
+// Runs the leaf entry ``w.e`` of a live ray: its row's triangle tests in
+// slot order, then the top of the stack (any-hit: retire on a hit).
+template <bool kWoop, bool kCounts, bool kFlags>
+__device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
+                                          int* stack) {
+  const RayState& r = w.r;
+  if (kCounts) ++w.n_leaves;
+  const int packed = -1 - w.e;
+  const float* row = p.leafs + (size_t)(packed >> 4) * 128;
+  const int cnt = packed & 15;
+  // triangle ti's lanes: [12 ti, 12 ti + 12) (Woop), else [9 ti, 9 ti +
+  // 9), which sit at offset ti % 4 of the three float4s from lane
+  // 36 (ti / 4) + 8 ((ti % 4) * 9 / 8): groups of four, slot k static
+  bool stop = false;
+  for (int g = 0; g * 4 < cnt && !stop; ++g) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int ti = 4 * g + k;
+      if (ti >= cnt) break;
+      float tt, uu, vv;
+      bool ok;
+      if (kWoop) {
+        const float* m = row + 12 * ti;
+        ok = hit_triangle_woop(r, ld4(m), ld4(m + 4), ld4(m + 8), w.t_best,
+                               p.cull_back_face, tt, uu, vv);
+      } else {
+        const float* q = row + 36 * g + (k * 9 / 4) * 4;
+        const float4 a = ld4(q), b = ld4(q + 4), c = ld4(q + 8);
+        const float f[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                             b.z, b.w, c.x, c.y, c.z, c.w};
+        ok = hit_triangle<kFlags>(
+            r, f[k], f[k + 1], f[k + 2], f[k + 3], f[k + 4], f[k + 5],
+            f[k + 6], f[k + 7], f[k + 8], w.t_best, p.cull_back_face,
+            p.exact_edge, tt, uu, vv, w.zero);
+      }
+      if (!ok) continue;
+      const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
+      if (pid == w.skip) continue;
+      if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
+      w.t_best = tt;
+      w.u_best = uu;
+      w.v_best = vv;
+      w.pid_best = pid;
+      w.found = true;
+      if (p.occlusion) {
+        stop = true;
+        break;
+      }
+    }
+  }
+  if (p.occlusion && w.found) {  // any-hit: retire
+    w.sp = 0;
+    w.e = kNone;
+  } else {
+    pop(w, stack);
   }
 }
 
-// A ray's whole walk from its first entry.
-template <int W, bool kWoop, bool kCounts, bool kFlags, class Stack>
-__device__ __forceinline__ void walk(const Params& p, Walk& w, Stack& st) {
-#if K1_WW
-  while (w.e != kNone) {
-    while (w.e >= 0 && w.e != kNone) node_step<W, kCounts>(p, w, st);
-    while (w.e < 0) leaf_step<kWoop, kCounts, kFlags>(p, w, st);
+// Runs the entry ``w.e`` of a live ray and sets the next one.
+template <int W, bool kWoop, bool kCounts, bool kFlags>
+__device__ __forceinline__ void step(const Params& p, Walk& w, int* stack) {
+  if (w.e >= 0) {
+    node_step<W, kCounts>(p, w, stack);
+  } else {
+    leaf_step<kWoop, kCounts, kFlags>(p, w, stack);
   }
-#else
-  while (w.e != kNone) step<W, kWoop, kCounts, kFlags>(p, w, st);
-#endif
 }
 
 // Decode as traverse_bvh8 does (pallas_packet.py:2289-2304) and store.
@@ -718,25 +536,16 @@ __device__ __forceinline__ void finish(const Params& p, long long i,
   if (kFlags) p.flags[i] = w.zero;
 }
 
-#if K1_MINB > 0
-#define K1_BOUNDS __launch_bounds__(kThreads, K1_MINB)
-#else
-#define K1_BOUNDS __launch_bounds__(kThreads)
-#endif
-
 // Persistent warps: each warp claims kClaim consecutive rays at a time
 // (lane 0's atomicAdd on the claim counter) and walks them one a lane
 // until the counter passes n_rays. The grid is what stays resident.
 // kRoots is a template parameter so that the instantiations without
 // modes keep the code they had before roots.
 template <int W, bool kWoop, bool kCounts, bool kFlags, bool kRoots>
-__global__ void K1_BOUNDS traverse_kernel(Params p) {
-  extern __shared__ int sh_stack[];  // [p.top][kThreads]
-  int loc[kStackCap];
-  SplitStack st{sh_stack + threadIdx.x, p.top, loc};
+__global__ void __launch_bounds__(kThreads) traverse_kernel(Params p) {
+  int stack[kStackCap];
   const unsigned lane = threadIdx.x & 31u;
   const unsigned long long n = (unsigned long long)p.n_rays;
-#if K1_DYN == 0
   for (;;) {
     unsigned long long base = 0;
     if (lane == 0) base = atomicAdd(p.counter, (unsigned long long)kClaim);
@@ -746,56 +555,24 @@ __global__ void K1_BOUNDS traverse_kernel(Params p) {
     if (i < n) {
       Walk w;
       begin<kRoots>(p, (long long)i, w);
-      walk<W, kWoop, kCounts, kFlags>(p, w, st);
+      while (w.e != kNone) step<W, kWoop, kCounts, kFlags>(p, w, stack);
       finish<kCounts, kFlags>(p, (long long)i, w);
     }
   }
-#else
-  // dynamic fetch: once K1_DYN lanes are done, they claim new rays
-  Walk w;
-  long long i = -1;
-  bool drained = false;  // warp-uniform: the counter passed n_rays
-  for (;;) {
-    const unsigned idle = __ballot_sync(0xffffffffu, i < 0);
-    if (drained && idle == 0xffffffffu) return;
-    const int n_idle = __popc(idle);
-    if (!drained && (n_idle >= K1_DYN || idle == 0xffffffffu)) {
-      unsigned long long base = 0;
-      if (lane == 0) base = atomicAdd(p.counter, (unsigned long long)n_idle);
-      base = __shfl_sync(0xffffffffu, base, 0);
-      drained = base + n_idle >= n;
-      if (i < 0) {
-        const unsigned long long c =
-            base + __popc(idle & ((1u << lane) - 1u));
-        if (c < n) {
-          i = (long long)c;
-          begin<kRoots>(p, i, w);
-        }
-      }
-    }
-    if (i >= 0) {
-      if (w.e != kNone) step<W, kWoop, kCounts, kFlags>(p, w, st);
-      if (w.e == kNone) {
-        finish<kCounts, kFlags>(p, i, w);
-        i = -1;
-      }
-    }
-  }
-#endif
 }
 
-// One thread, kK rays (K1b): block b holds rays [b*kBlockIl*kK,
-// (b+1)*kBlockIl*kK), ray k of a thread at threadIdx.x + k*kBlockIl, so
+// One thread, kK rays (K1b): block b holds rays [b*kThreads*kK,
+// (b+1)*kThreads*kK), ray k of a thread at threadIdx.x + k*kThreads, so
 // the 32 lanes of a warp walk 32 neighbouring rays at every k.
 template <int W, bool kWoop, int kK>
-__global__ void __launch_bounds__(kBlockIl) traverse_kernel_il(Params p) {
+__global__ void __launch_bounds__(kThreads) traverse_kernel_il(Params p) {
   const long long first =
-      (long long)blockIdx.x * (kBlockIl * kK) + threadIdx.x;
+      (long long)blockIdx.x * (kThreads * kK) + threadIdx.x;
   int stack[kK][kStackCap];
   Walk w[kK];
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    const long long i = first + (long long)k * kBlockIl;
+    const long long i = first + (long long)k * kThreads;
     w[k].e = kNone;
     if (i < p.n_rays) begin<true>(p, i, w[k]);
   }
@@ -803,15 +580,14 @@ __global__ void __launch_bounds__(kBlockIl) traverse_kernel_il(Params p) {
     bool live = false;
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
-      LocalStack st{stack[k]};
-      if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], st);
+      if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], stack[k]);
       live |= w[k].e != kNone;
     }
     if (!live) break;
   }
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    const long long i = first + (long long)k * kBlockIl;
+    const long long i = first + (long long)k * kThreads;
     if (i < p.n_rays) finish<false, false>(p, i, w[k]);
   }
 }
@@ -844,11 +620,11 @@ template <int W, bool kWoop>
 void launch_il(const Params& p, int interleave, cudaStream_t s) {
   const long long n = p.n_rays;
   if (interleave == 2) {
-    const unsigned g = (unsigned)((n + 2 * kBlockIl - 1) / (2 * kBlockIl));
-    traverse_kernel_il<W, kWoop, 2><<<g, kBlockIl, 0, s>>>(p);
+    const unsigned g = (unsigned)((n + 2 * kThreads - 1) / (2 * kThreads));
+    traverse_kernel_il<W, kWoop, 2><<<g, kThreads, 0, s>>>(p);
   } else {
-    const unsigned g = (unsigned)((n + 4 * kBlockIl - 1) / (4 * kBlockIl));
-    traverse_kernel_il<W, kWoop, 4><<<g, kBlockIl, 0, s>>>(p);
+    const unsigned g = (unsigned)((n + 4 * kThreads - 1) / (4 * kThreads));
+    traverse_kernel_il<W, kWoop, 4><<<g, kThreads, 0, s>>>(p);
   }
 }
 
@@ -857,8 +633,7 @@ void launch_il(const Params& p, int interleave, cudaStream_t s) {
 // counts, flags and interleave > 1 are exclusive modes; flags need the
 // watertight test; roots (with packet > 0) combine with any mode.
 // ``scratch``: two zeroed uint64, the claim counter and the overflow
-// word. ``grid`` and ``top`` (shared-memory stack entries a thread) are
-// traverse/packet.py::launch_plan's; K1b takes neither.
+// word. ``grid`` is traverse/packet.py::launch_plan's; K1b takes its own.
 extern "C" int nrt_packet_traverse(
     const float* nodes, const float* leafs, const float* org, const float* dir,
     const float* min_t, const float* max_t, const int* skip, const int* roots,
@@ -866,8 +641,7 @@ extern "C" int nrt_packet_traverse(
     unsigned long long* scratch, long long n_rays, long long packet,
     int width, int stack_size, int occlusion, int cull_back_face,
     int exact_edge, int use_range, int range_lo, int range_hi, int woop,
-    int counts, int zero_flags, int interleave, int grid, int top,
-    void* stream) {
+    int counts, int zero_flags, int interleave, int grid, void* stream) {
   if (stack_size < 1 || stack_size > kStackCap) return (int)cudaErrorInvalidValue;
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
   if (interleave != 1 && interleave != 2 && interleave != 4)
@@ -876,13 +650,13 @@ extern "C" int nrt_packet_traverse(
     return (int)cudaErrorInvalidValue;
   if (zero_flags && (woop || flags == nullptr)) return (int)cudaErrorInvalidValue;
   if (roots && packet < 1) return (int)cudaErrorInvalidValue;
-  if (grid < 1 || top < 0 || top > stack_size) return (int)cudaErrorInvalidValue;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
-  Params p{nodes,   leafs,   org,         dir,    min_t,      max_t,
-           skip,    roots,   t_out,       u_out,  v_out,      pid_out,
-           flags,   scratch, scratch + 1, n_rays, packet,     stack_size,
-           top,     occlusion, cull_back_face,    exact_edge, use_range,
-           range_lo, range_hi};
+  Params p{nodes,   leafs,          org,        dir,       min_t,
+           max_t,   skip,           roots,      t_out,     u_out,
+           v_out,   pid_out,        flags,      scratch,   scratch + 1,
+           n_rays,  packet,         stack_size, occlusion, cull_back_face,
+           exact_edge, use_range,   range_lo,   range_hi};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (interleave > 1) {
     if (width == 16) {
@@ -897,31 +671,26 @@ extern "C" int nrt_packet_traverse(
   const void* fn = k1_pick(width, woop, counts, zero_flags, roots != nullptr);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   void* args[] = {&p};
-  const cudaError_t e = cudaLaunchKernel(
-      fn, dim3((unsigned)grid), dim3(kThreads), args,
-      (size_t)top * kThreads * sizeof(int), s);
+  const cudaError_t e =
+      cudaLaunchKernel(fn, dim3((unsigned)grid), dim3(kThreads), args, 0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// What the launch plan needs of one K1 instantiation, with ``top``
-// shared-memory stack entries a thread: out[0] resident blocks per SM
-// (occupancy API), out[1] registers a thread, out[2] local bytes a thread
-// (the stack frame), out[3] static shared bytes, out[4] threads a block,
-// out[5] rays a claim.
+// What the launch plan needs of one K1 instantiation: out[0] resident
+// blocks per SM (occupancy API), out[1] registers a thread, out[2] local
+// bytes a thread (the stack frame), out[3] shared bytes a block, out[4]
+// threads a block, out[5] rays a claim.
 extern "C" int nrt_packet_traverse_occupancy(int width, int woop, int counts,
-                                             int flags, int roots, int top,
-                                             int* out) {
-  if ((width != 8 && width != 16) || top < 0 || top > kStackCap)
-    return (int)cudaErrorInvalidValue;
+                                             int flags, int roots, int* out) {
+  if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
   const void* fn = k1_pick(width, woop, counts, flags, roots);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, kThreads, (size_t)top * kThreads * sizeof(int));
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
   if (e != cudaSuccess) return (int)e;
   out[0] = blocks;
   out[1] = a.numRegs;

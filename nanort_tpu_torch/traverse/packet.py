@@ -8,11 +8,11 @@ Woop unit-triangle test (``intersector="woop"``, over ``leafs_woop``),
 and the skip / prim-range / back-face filters. On CUDA tensors it
 launches the hand-written kernel ``csrc/packet_traverse.cu``: persistent
 warps that claim 32 consecutive rays at a time from a counter, one ray a
-lane, each with its own stack (its top in shared memory, the rest in
-local memory; ``launch_plan`` sizes the grid and the split). On CPU
-tensors it runs ``_traverse_reference``, the plain torch version of the
-same per-ray traversal — the same pops in the same order and the same
-arithmetic, so the two agree bit for bit.
+lane, each with its own stack in local memory (``launch_plan`` sizes the
+grid from the card's occupancy). On CPU tensors it runs
+``_traverse_reference``, the plain torch version of the same per-ray
+traversal — the same pops in the same order and the same arithmetic, so
+the two agree bit for bit.
 
 Equal-t ties: the last equal-t hit in this per-ray near-first order
 wins. The TPU kernel's order is packet-granular, so ``prim_id`` may
@@ -60,12 +60,9 @@ LAUNCHES = {"packet_traverse": 0, "packet_traverse_woop": 0,
 INTERSECTORS = ("watertight", "woop")
 # K1's launch (csrc/packet_traverse.cu: kThreads, kClaim): blocks of
 # K1_THREADS threads, each warp claiming K1_CLAIM consecutive rays at a
-# time; each thread keeps its first K1_SHARED_TOP stack entries in shared
-# memory, laid out [entry][thread], and the rest in local memory.
+# time
 K1_THREADS = 128
 K1_CLAIM = 32
-K1_SHARED_TOP = 16
-SHARED_BYTES_MAX = 227 * 1024  # shared memory a block may use on Hopper
 INTERLEAVES = (1, 2, 4)
 WOOP_MAX_LEAF = 9  # 12 lanes a triangle + the prim-id block at lane 108
 
@@ -85,36 +82,29 @@ def stack_slots(scene: BVH8Scene) -> int:
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One K1 launch: ``grid`` persistent blocks of ``threads`` threads,
-    warps claiming ``claim`` rays at a time; each thread's stack holds
-    ``shared_entries`` in shared memory (``shared_bytes`` a block) and
-    ``local_entries`` in local memory."""
+    warps claiming ``claim`` consecutive rays at a time, each thread with
+    a local-memory stack of ``stack_entries``."""
     grid: int
     threads: int
     claim: int
-    shared_entries: int
-    local_entries: int
-    shared_bytes: int
-
-
-def stack_split(slots: int) -> tuple[int, int]:
-    """(shared, local) entries of a ``slots``-entry K1 stack."""
-    shared = min(K1_SHARED_TOP, slots)
-    return shared, slots - shared
+    stack_entries: int
 
 
 def launch_plan(n_rays: int, slots: int, blocks_per_sm: int,
                 sms: int) -> LaunchPlan:
-    """K1's grid for ``n_rays``: the blocks that stay resident
-    (``blocks_per_sm`` from the occupancy API at this plan's shared
-    bytes, times ``sms``), or fewer when the batch has fewer claims than
-    the grid has warps."""
+    """K1's launch for ``n_rays`` rays and ``slots``-entry stacks: the
+    blocks that stay resident (``blocks_per_sm`` from the occupancy API,
+    times ``sms``), or fewer when the batch has fewer claims than that
+    grid has warps."""
     if blocks_per_sm < 1:
         raise ValueError(f"K1 does not fit an SM: {blocks_per_sm} blocks")
-    shared, local = stack_split(slots)
+    if not 1 <= slots <= STACK_CAP:
+        raise ValueError(f"{slots} stack slots; the kernel holds 1 to "
+                         f"{STACK_CAP}")
     claims = -(-n_rays // K1_CLAIM)
     blocks = -(-claims // (K1_THREADS // 32))
     return LaunchPlan(max(1, min(blocks_per_sm * sms, blocks)), K1_THREADS,
-                      K1_CLAIM, shared, local, shared * K1_THREADS * 4)
+                      K1_CLAIM, slots)
 
 
 _OCCUPANCY: dict = {}
@@ -122,29 +112,26 @@ _OCCUPANCY: dict = {}
 
 def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
                  flags: bool = False, roots: bool = False,
-                 shared_entries: int = K1_SHARED_TOP,
                  device=None) -> dict:
     """What the card's occupancy API and the compiled kernel say of one K1
-    instantiation with ``shared_entries`` stack entries a thread in
-    shared memory: resident ``blocks_per_sm``, ``registers`` and
-    ``local_bytes`` (the stack frame) a thread, ``static_shared_bytes``,
+    instantiation: resident ``blocks_per_sm``, ``registers`` and
+    ``local_bytes`` (the stack frame) a thread, ``shared_bytes`` a block,
     ``threads`` a block and rays a ``claim``. Cached per device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (dev.index, width, bool(woop), bool(counts), bool(flags),
-           bool(roots), shared_entries)
+           bool(roots))
     if key not in _OCCUPANCY:
         out = (ctypes.c_int * 6)()
         with torch.cuda.device(dev):
             rc = _ext.load("packet_traverse").nrt_packet_traverse_occupancy(
-                width, int(woop), int(counts), int(flags), int(roots),
-                shared_entries, out)
+                width, int(woop), int(counts), int(flags), int(roots), out)
         if rc != 0:
             raise RuntimeError(f"K1 occupancy query failed: CUDA error {rc}")
         _OCCUPANCY[key] = dict(zip(
-            ("blocks_per_sm", "registers", "local_bytes",
-             "static_shared_bytes", "threads", "claim"), out))
+            ("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
+             "threads", "claim"), out))
     return _OCCUPANCY[key]
 
 
@@ -361,12 +348,10 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             flags = torch.empty(n, dtype=torch.int32, device=dev)
         # the claim counter and the overflow word, zeroed on the stream
         scratch = torch.zeros(2, dtype=torch.int64, device=dev)
-        if interleave > 1:  # K1b: a fixed grid, all-local stacks
-            grid, top = 1, 0
-        else:
-            top = stack_split(slots)[0]
+        grid = 1  # K1b sizes its own grid
+        if interleave == 1:
             occ = k1_occupancy(scene.width, woop, debug_counts,
-                               _flag_zero_edges, roots is not None, top, dev)
+                               _flag_zero_edges, roots is not None, dev)
             grid = launch_plan(n, slots, occ["blocks_per_sm"],
                                _sm_count(dev)).grid
         lib = _ext.load("packet_traverse")
@@ -383,7 +368,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                 prim_range[0] if prim_range else 0,
                 prim_range[1] if prim_range else 0, int(woop),
                 int(debug_counts), int(_flag_zero_edges), int(interleave),
-                grid, top, ctypes.c_void_p(stream))
+                grid, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
         LAUNCHES[_launch_key(woop, roots is not None, debug_counts,

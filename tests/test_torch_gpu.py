@@ -733,8 +733,7 @@ def _grid(monkeypatch, grid):
 
 
 def _soup(width, n_rays=1500):
-    """``testing.overlap_soup``: walks that pass the shared-memory part of
-    the stack."""
+    """``testing.overlap_soup``: deep walks."""
     v, f, org, d = overlap_soup(600, n_rays)
     bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
         min_leaf_primitives=1, max_leaf_primitives=1))
@@ -751,7 +750,7 @@ def test_k1_ray_counts_match_plain(dev, width, n):
 def test_k1_claims_that_do_not_divide_the_grid(dev):
     scene = _modes_scene(16)
     slots = packet.stack_slots(scene)
-    occ = packet.k1_occupancy(16, shared_entries=packet.stack_split(slots)[0])
+    occ = packet.k1_occupancy(16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     warps = occ["blocks_per_sm"] * sms * packet.K1_THREADS // 32
     n = packet.K1_CLAIM * (warps + 3) + 5
@@ -829,7 +828,7 @@ def test_k1_roots_across_claims_match_plain(dev, monkeypatch, sub, grid):
                                   "flags"])
 @pytest.mark.parametrize("width", [8, 16])
 def test_k1_deep_stack_matches_plain(dev, width, mode):
-    """Walks that reach past the shared-memory top of the stack."""
+    """Walks that leave entries behind on more than two levels."""
     scene, rays = _soup(width)
     if mode == "woop":
         v, f, _, _ = overlap_soup(600, 1)
@@ -841,7 +840,7 @@ def test_k1_deep_stack_matches_plain(dev, width, mode):
         torch.as_tensor(scene.nodes), torch.as_tensor(scene.leafs), width,
         rays.org, rays.dir, rays.min_t, rays.max_t, None, None, False, True,
         False, packet.stack_slots(scene), stats=stats)
-    assert stats["max_sp"] > packet.stack_split(packet.stack_slots(scene))[0]
+    assert stats["max_sp"] > 2 * (width - 1)
     key, kw = SCHEDULE_MODES[mode]
     _mode_on_both(scene, rays, dev, key, **kw)
 
@@ -905,8 +904,7 @@ def test_k1_occupancy_and_plan(dev, width, mode):
     kw = {mode: True} if mode != "plain" else {}
     if mode == "flags" or mode == "plain":
         kw.setdefault("woop", False)
-    shared = packet.stack_split(packet.stack_slots(_modes_scene(width)))[0]
-    occ = packet.k1_occupancy(width, shared_entries=shared, **kw)
+    occ = packet.k1_occupancy(width, **kw)
     assert occ["threads"] == packet.K1_THREADS
     assert occ["claim"] == packet.K1_CLAIM
     assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
@@ -914,5 +912,7 @@ def test_k1_occupancy_and_plan(dev, width, mode):
     plan = packet.launch_plan(1 << 26, packet.STACK_CAP,
                               occ["blocks_per_sm"], sms)
     assert plan.grid == occ["blocks_per_sm"] * sms
-    assert plan.shared_bytes + occ["static_shared_bytes"] <= \
-        packet.SHARED_BYTES_MAX
+    # the whole stack is a local array: no shared memory, a frame of
+    # STACK_CAP entries
+    assert occ["shared_bytes"] == 0
+    assert occ["local_bytes"] >= packet.STACK_CAP * 4

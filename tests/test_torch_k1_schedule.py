@@ -1,18 +1,19 @@
 """PyTorch port, the host side of K1's schedule (traverse/packet.py):
-the launch plan of the persistent kernel (grid, claim size, the split of
-each thread's stack between shared and local memory) and the plain
-version's peak stack depth, which sizes that split.
+the launch plan of the persistent kernel (grid, claim size, the stack
+each thread holds) and the plain version's peak stack depth.
 
 The kernel's grid is the blocks that stay resident (the occupancy API's
 count times the SMs), or fewer when a batch has fewer 32-ray claims than
-the grid has warps; a block's shared stack stays under Hopper's 227 KB;
-the two parts of the stack together hold ``stack_slots(scene)``
-entries. The plain version's peak stack (``stats["max_sp"]``) on seeded
-camera-like and incoherent rays over small BVH16 and BVH8 scenes stays
-within ``stack_slots``; a stack smaller than a walk needs raises, as the
-kernel sets its error word. Its records equal the JAX package's brute
-force under ``testing.compare_hits`` (``jax.disable_jit``). The kernel
-itself is held to the plain version on the card by test_torch_gpu.py.
+the grid has warps. Each thread's stack is a local array of
+``stack_slots(scene)`` entries within the kernel's 512-entry frame and
+takes no shared memory: a shared-memory top of 8 to 32 entries measured
+no faster on an H100 (PERF.md), so the stack has one part. The plain
+version's peak stack (``stats["max_sp"]``) on seeded camera-like and
+incoherent rays over small BVH16 and BVH8 scenes stays within
+``stack_slots``; a stack smaller than a walk needs raises, as the kernel
+sets its error word. Its records equal the JAX package's brute force
+under ``testing.compare_hits`` (``jax.disable_jit``). The kernel itself
+is held to the plain version on the card by test_torch_gpu.py.
 """
 
 import jax
@@ -58,15 +59,24 @@ def test_launch_plan_refuses_a_kernel_that_does_not_fit():
 
 
 @pytest.mark.parametrize("slots", [1, 8, 15, 16, 17, 46, 106, 512])
-def test_stack_split_covers_the_slots_within_shared_memory(slots):
+def test_launch_plan_stack_covers_the_slots(slots):
     plan = packet.launch_plan(1 << 20, slots, 7, SMS)
-    shared, local = packet.stack_split(slots)
-    assert (plan.shared_entries, plan.local_entries) == (shared, local)
-    assert shared + local == slots and shared >= 0 and local >= 0
-    assert shared == min(packet.K1_SHARED_TOP, slots)
-    assert plan.shared_bytes == shared * plan.threads * 4
-    assert plan.shared_bytes <= packet.SHARED_BYTES_MAX
-    assert local <= packet.STACK_CAP
+    assert plan.stack_entries == slots <= packet.STACK_CAP
+
+
+@pytest.mark.parametrize("slots", [0, 513])
+def test_launch_plan_refuses_a_stack_the_kernel_cannot_hold(slots):
+    with pytest.raises(ValueError, match="stack slots"):
+        packet.launch_plan(1024, slots, 7, SMS)
+
+
+@pytest.mark.parametrize("width,kind", [(8, "box"), (16, "box"),
+                                        (8, "soup"), (16, "soup")])
+def test_launch_plan_stack_covers_a_scene(width, kind):
+    _, _, scene = _scene(width, kind)
+    slots = packet.stack_slots(scene)
+    plan = packet.launch_plan(4096, slots, 7, SMS)
+    assert plan.stack_entries == slots == scene.depth * (width - 1) + 1
 
 
 def _scene(width, kind):
@@ -112,8 +122,8 @@ def test_plain_peak_stack_within_slots(width, rays_kind, scene_kind):
         rays.org, rays.dir, rays.min_t, rays.max_t, None, None, False, True,
         False, slots, stats=stats)
     assert 1 <= stats["max_sp"] <= slots
-    shared, local = packet.stack_split(slots)
-    assert stats["max_sp"] <= shared + local
+    assert stats["max_sp"] <= packet.launch_plan(
+        400, slots, 7, SMS).stack_entries
     # the records are those of the JAX package's brute force
     jmesh = jrt.TriangleMesh(vertices=jax.numpy.asarray(v),
                              faces=jax.numpy.asarray(f))
