@@ -82,29 +82,22 @@ def stack_slots(scene: BVH8Scene) -> int:
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One K1 launch: ``grid`` persistent blocks of ``threads`` threads,
-    warps claiming ``claim`` consecutive rays at a time, each thread with
-    a local-memory stack of ``stack_entries``."""
+    warps claiming ``claim`` consecutive rays at a time."""
     grid: int
     threads: int
     claim: int
-    stack_entries: int
 
 
-def launch_plan(n_rays: int, slots: int, blocks_per_sm: int,
-                sms: int) -> LaunchPlan:
-    """K1's launch for ``n_rays`` rays and ``slots``-entry stacks: the
-    blocks that stay resident (``blocks_per_sm`` from the occupancy API,
-    times ``sms``), or fewer when the batch has fewer claims than that
-    grid has warps."""
+def launch_plan(n_rays: int, blocks_per_sm: int, sms: int) -> LaunchPlan:
+    """K1's launch for ``n_rays`` rays: the blocks that stay resident
+    (``blocks_per_sm`` from the occupancy API, times ``sms``), or fewer
+    when the batch has fewer claims than that grid has warps."""
     if blocks_per_sm < 1:
         raise ValueError(f"K1 does not fit an SM: {blocks_per_sm} blocks")
-    if not 1 <= slots <= STACK_CAP:
-        raise ValueError(f"{slots} stack slots; the kernel holds 1 to "
-                         f"{STACK_CAP}")
     claims = -(-n_rays // K1_CLAIM)
     blocks = -(-claims // (K1_THREADS // 32))
     return LaunchPlan(max(1, min(blocks_per_sm * sms, blocks)), K1_THREADS,
-                      K1_CLAIM, slots)
+                      K1_CLAIM)
 
 
 _OCCUPANCY: dict = {}
@@ -133,10 +126,6 @@ def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
             ("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
              "threads", "claim"), out))
     return _OCCUPANCY[key]
-
-
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check_overflow(err: torch.Tensor, slots: int) -> None:
@@ -352,8 +341,8 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
         if interleave == 1:
             occ = k1_occupancy(scene.width, woop, debug_counts,
                                _flag_zero_edges, roots is not None, dev)
-            grid = launch_plan(n, slots, occ["blocks_per_sm"],
-                               _sm_count(dev)).grid
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            grid = launch_plan(n, occ["blocks_per_sm"], sms).grid
         lib = _ext.load("packet_traverse")
         ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
         with torch.cuda.device(dev):

@@ -749,12 +749,11 @@ def test_k1_ray_counts_match_plain(dev, width, n):
 
 def test_k1_claims_that_do_not_divide_the_grid(dev):
     scene = _modes_scene(16)
-    slots = packet.stack_slots(scene)
     occ = packet.k1_occupancy(16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     warps = occ["blocks_per_sm"] * sms * packet.K1_THREADS // 32
     n = packet.K1_CLAIM * (warps + 3) + 5
-    plan = packet.launch_plan(n, slots, occ["blocks_per_sm"], sms)
+    plan = packet.launch_plan(n, occ["blocks_per_sm"], sms)
     assert plan.grid == occ["blocks_per_sm"] * sms
     assert -(-n // packet.K1_CLAIM) % warps != 0
     _same_on_both(scene, _rays(n, 13), dev)
@@ -909,8 +908,7 @@ def test_k1_occupancy_and_plan(dev, width, mode):
     assert occ["claim"] == packet.K1_CLAIM
     assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = packet.launch_plan(1 << 26, packet.STACK_CAP,
-                              occ["blocks_per_sm"], sms)
+    plan = packet.launch_plan(1 << 26, occ["blocks_per_sm"], sms)
     assert plan.grid == occ["blocks_per_sm"] * sms
     # the whole stack is a local array: no shared memory, a frame of
     # STACK_CAP entries

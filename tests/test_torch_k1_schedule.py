@@ -1,13 +1,13 @@
 """PyTorch port, the host side of K1's schedule (traverse/packet.py):
-the launch plan of the persistent kernel (grid, claim size, the stack
-each thread holds) and the plain version's peak stack depth.
+the launch plan of the persistent kernel (grid, claim size), the stack
+each thread holds and the plain version's peak stack depth.
 
 The kernel's grid is the blocks that stay resident (the occupancy API's
 count times the SMs), or fewer when a batch has fewer 32-ray claims than
-the grid has warps. Each thread's stack is a local array of
-``stack_slots(scene)`` entries within the kernel's 512-entry frame and
-takes no shared memory: a shared-memory top of 8 to 32 entries measured
-no faster on an H100 (PERF.md), so the stack has one part. The plain
+the grid has warps. Each thread's stack is one local array of
+``STACK_CAP`` entries, which must cover ``stack_slots(scene)``, and takes
+no shared memory: a shared-memory top of 8 to 32 entries measured no
+faster on an H100 (PERF.md), so the stack has one part. The plain
 version's peak stack (``stats["max_sp"]``) on seeded camera-like and
 incoherent rays over small BVH16 and BVH8 scenes stays within
 ``stack_slots``; a stack smaller than a walk needs raises, as the kernel
@@ -15,6 +15,8 @@ sets its error word. Its records equal the JAX package's brute force
 under ``testing.compare_hits`` (``jax.disable_jit``). The kernel itself
 is held to the plain version on the card by test_torch_gpu.py.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -38,7 +40,7 @@ SMS = 132  # an H100 SXM's SMs
                                     6_553_600, 67_108_864])
 @pytest.mark.parametrize("blocks_per_sm", [1, 7, 16])
 def test_launch_plan_grid_and_claims(n_rays, blocks_per_sm):
-    plan = packet.launch_plan(n_rays, 106, blocks_per_sm, SMS)
+    plan = packet.launch_plan(n_rays, blocks_per_sm, SMS)
     warps_a_block = plan.threads // 32
     claims = -(-n_rays // plan.claim)
     assert plan.threads == packet.K1_THREADS == 128
@@ -55,28 +57,35 @@ def test_launch_plan_grid_and_claims(n_rays, blocks_per_sm):
 
 def test_launch_plan_refuses_a_kernel_that_does_not_fit():
     with pytest.raises(ValueError, match="does not fit"):
-        packet.launch_plan(1024, 106, 0, SMS)
+        packet.launch_plan(1024, 0, SMS)
 
 
-@pytest.mark.parametrize("slots", [1, 8, 15, 16, 17, 46, 106, 512])
-def test_launch_plan_stack_covers_the_slots(slots):
-    plan = packet.launch_plan(1 << 20, slots, 7, SMS)
-    assert plan.stack_entries == slots <= packet.STACK_CAP
-
-
-@pytest.mark.parametrize("slots", [0, 513])
-def test_launch_plan_refuses_a_stack_the_kernel_cannot_hold(slots):
-    with pytest.raises(ValueError, match="stack slots"):
-        packet.launch_plan(1024, slots, 7, SMS)
+@pytest.mark.parametrize("width,depth", [(16, 1), (16, 7), (16, 34), (16, 35),
+                                         (8, 9), (8, 73), (8, 74), (8, 90)])
+def test_traverse_takes_the_stacks_the_kernel_holds(width, depth):
+    # the kernel's stack is one local array of STACK_CAP entries: a scene
+    # whose stack_slots exceed it is refused before any launch
+    _, _, scene = _scene(width, "box")
+    deep = dataclasses.replace(scene, depth=depth)
+    slots = packet.stack_slots(deep)
+    assert slots == depth * (width - 1) + 1
+    rays = nt.make_rays(*(torch.from_numpy(x) for x in _ray_batch(
+        "incoherent", 64, 3)))
+    if slots <= packet.STACK_CAP:
+        got = packet.traverse_bvh8(deep, rays)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, packet.traverse_bvh8(scene, rays)))
+    else:
+        with pytest.raises(ValueError, match="stack slots"):
+            packet.traverse_bvh8(deep, rays)
 
 
 @pytest.mark.parametrize("width,kind", [(8, "box"), (16, "box"),
                                         (8, "soup"), (16, "soup")])
-def test_launch_plan_stack_covers_a_scene(width, kind):
+def test_stack_slots_of_a_scene_fit_the_kernel(width, kind):
     _, _, scene = _scene(width, kind)
-    slots = packet.stack_slots(scene)
-    plan = packet.launch_plan(4096, slots, 7, SMS)
-    assert plan.stack_entries == slots == scene.depth * (width - 1) + 1
+    assert (packet.stack_slots(scene) == scene.depth * (width - 1) + 1
+            <= packet.STACK_CAP)
 
 
 def _scene(width, kind):
@@ -121,9 +130,7 @@ def test_plain_peak_stack_within_slots(width, rays_kind, scene_kind):
         torch.as_tensor(scene.nodes), torch.as_tensor(scene.leafs), width,
         rays.org, rays.dir, rays.min_t, rays.max_t, None, None, False, True,
         False, slots, stats=stats)
-    assert 1 <= stats["max_sp"] <= slots
-    assert stats["max_sp"] <= packet.launch_plan(
-        400, slots, 7, SMS).stack_entries
+    assert 1 <= stats["max_sp"] <= slots <= packet.STACK_CAP
     # the records are those of the JAX package's brute force
     jmesh = jrt.TriangleMesh(vertices=jax.numpy.asarray(v),
                              faces=jax.numpy.asarray(f))
