@@ -34,11 +34,14 @@ nothing of JAX. Phases, one line or more each:
    lane kernel, ``_schedule="lane"``) on the dense scene, each at 4,096
    rays x 4 spp x 10 bounces; K4 against K3 on the Cornell box with
    BVH16 tables attached. ``trig="poly"`` must agree bit for bit,
-   ``"native"`` to 99% of pixels; ``ptxas -v`` of K3 and K4's two
-   kernels, and their resident blocks per SM; K4's two kernels in turns
+   ``"native"`` to 99% of pixels; K3's sweeps against the plain
+   version's live bounces (equal), its live-bounce fraction and bounces a
+   sample; ``ptxas -v`` of K3 and K4's two kernels, and their resident
+   blocks per SM; K4's two kernels in turns
    at 16,384 to 1,048,576 paths (4,096 rays x 4 to 256 spp);
 8. config B: ``render_path_traced`` on the Cornell box at 512^2 x 100
-   spp x 10 bounces (K3), one warm-up and 3 timed repetitions;
+   spp x 10 bounces (K3), one warm-up and 3 timed repetitions, and the
+   kernel's bounces and shadow rays a sample;
 9. midscale: the same on the dense scene (K4's pooled kernel on K2, 25
    sample-major lanes, 4 azimuth strata, 32 x 128 pixel tiles), with the
    pool's waves and regenerations; then the lane and pooled kernels in
@@ -467,6 +470,7 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
 
     SPP, MB, AZ, SEED = 4, 10, 4, 11
     k3_res = {}
+    k3_sweeps = {}
     k3_count = {"tris": 0, "shade": 0}
 
     def counting_mt(tri, *c):
@@ -494,6 +498,7 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
                 AZ) / float(SPP)
 
         got = k3()
+        k3_sweeps[trig] = pt_fused.LAST_BRUTE_STATS.tolist()
         with (patched(pt_fused, "_brute_mt", counting_mt) if trig == "poly"
               else contextlib.nullcontext()):
             want = k3_plain()
@@ -514,6 +519,30 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
                      k3_count["tris"] * MT_OPS + k3_count["shade"] * SHADE_OPS)
     say(f"K3 work (plain version's count, poly): {k3_count}; bound "
         f"{k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    # the live bounces: the plain version's closest sweeps of live rays
+    # against the nest's R x spp x max_bounces, and the kernel's own count
+    closest, shadows = k3_sweeps["poly"]
+    say(f"K3 live bounces (plain version's count): {k3_count['shade']} of "
+        f"{R3 * SPP * MB} = {k3_count['shade'] / (R3 * SPP * MB):.4f}; the "
+        f"kernel's sweeps: {closest} closest-hit ({closest / (R3 * SPP):.3f} "
+        f"bounces a sample), {shadows} shadow ({shadows / (R3 * SPP):.3f} a "
+        f"sample); trig='native': {k3_sweeps['native']}")
+    check(closest == k3_count["shade"],
+          "K3 swept other bounces than the plain version's live ones")
+    occ3 = pt_fused.brute_occupancy(dev)
+    say(f"K3 resources: {occ3['registers']} registers, {occ3['local_bytes']} "
+        f"local bytes a thread, {occ3['blocks_per_sm']} resident blocks of "
+        f"{occ3['threads']} threads an SM x {occ3['sms']} SMs "
+        f"(occupancy API); grid at phase 7's shape "
+        f"{pt_fused.brute_grid(R3, occ3['blocks_per_sm'], occ3['sms'])}, at "
+        f"config B's "
+        f"{pt_fused.brute_grid(512 * 512, occ3['blocks_per_sm'], occ3['sms'])}"
+        "; ptxas -v: " + " | ".join(
+            x for x in ptxas_lines(usage_pt.result())
+            if x.startswith("pt_brute_kernel")))
+    check(occ3["blocks_per_sm"] >= 1, "K3 does not fit an SM")
+
+    k3_edge_shapes(dev, cornell, cv, cf, cm, cmats, cam_rays)
 
     d_org, d_dir = cam_rays(64, 64, 2.6)
     mat4, light4, _, _, _ = pt_fused.build_fused_bvh_tables(dense)
@@ -628,6 +657,10 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
                   ms_b, busy, counts, {"pt_fused_brute": 4})
     launches_b = counts["pt_fused_brute"]
     mean_b = float(img.mean())
+    closest, shadows = pt_fused.LAST_BRUTE_STATS.tolist()
+    say(f"phase 8 K3 sweeps (last render): {closest} closest-hit = "
+        f"{closest / (512 * 512 * 100):.4f} bounces a sample of 10, "
+        f"{shadows} shadow = {shadows / (512 * 512 * 100):.4f} a sample")
     # the render's work, scaled from phase 7's 4,096-ray x 4-spp sample
     # of the same view (per-sample work does not depend on resolution)
     scale = 512 * 512 * 100 / (R3 * SPP)
@@ -721,6 +754,70 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
         "library_ms": None,
     }, woop_entry], launches_pallas, pallas_err, (s8, dense.fused_aux, rays,
                                                   dense.mesh)
+
+
+def k3_edge_shapes(dev, cornell, cv, cf, cm, cmats, cam_rays):
+    """Phase 7: K3 against its plain version on the card (``trig="poly"``,
+    bit for bit) at the persistent schedule's edge shapes: fewer pixels
+    than a warp, a count no warp divides, one sample and one bounce, no
+    bounce, 256 triangles, no lights, face-varying normals, a grid of one
+    block (every lane claims many pixels), more pixels than the resident
+    lanes, and two launches in a row giving one image."""
+    import torch
+
+    from nanort_tpu_torch.models import path_tracer, pt_fused
+
+    k = pt_fused.PT_FUSED_MAX_TRIS - len(cf)
+    rng = np.random.default_rng(8)
+    c = rng.uniform(-0.8, 0.8, (k, 1, 3))
+    tv = (c + rng.uniform(-0.2, 0.2, (k, 3, 3))).reshape(-1, 3)
+    big = path_tracer.make_pt_scene(
+        np.concatenate([cv, tv]).astype(np.float32),
+        np.concatenate([cf, len(cv) + np.arange(3 * k).reshape(-1, 3)]
+                       ).astype(np.int32),
+        np.concatenate([cm, np.zeros(k, np.int32)]), cmats, device=dev)
+    dark = cornell._replace(light_table=cornell.light_table[:0],
+                            light_faces=cornell.light_faces[:0])
+    f = cornell.face_table
+    fvn = f[:, None, 0:3] + torch.from_numpy(rng.normal(
+        0, 0.2, (f.shape[0], 3, 3)).astype(np.float32)).to(dev)
+    fv = cornell._replace(face_table=torch.cat([f, fvn.reshape(-1, 9)],
+                                               1).contiguous())
+    occ = pt_fused.brute_occupancy(dev)
+    lanes = occ["blocks_per_sm"] * occ["sms"] * occ["threads"]
+    cases = {  # name: (scene, (w, h), spp, max_bounces, grid)
+        "n7": (cornell, (7, 1), 3, 5, None),
+        "n45": (cornell, (9, 5), 3, 5, None),
+        "spp1_mb1": (cornell, (24, 20), 1, 1, None),
+        "mb0": (cornell, (24, 20), 3, 0, None),
+        "f256": (big, (24, 20), 3, 6, None),
+        "no_lights": (dark, (24, 20), 4, 6, None),
+        "facevarying": (fv, (24, 20), 3, 5, None),
+        "grid1": (cornell, (24, 20), 5, 6, 1),
+        "more_than_resident": (cornell, (512, -(-(lanes + 1000) // 512)), 1,
+                               2, None),
+    }
+    real_grid = pt_fused.brute_grid
+    bad = []
+    for name, (scene, (w, h), spp, mb, grid) in cases.items():
+        org, d = cam_rays(w, h, 5.0)
+        tri, face, light = pt_fused.build_fused_tables(scene)
+        with (patched(pt_fused, "brute_grid", lambda *a: grid) if grid
+              else contextlib.nullcontext()):
+            got = [pt_fused.render_fused(scene, org, d, 4, spp,
+                                         max_bounces=mb, trig="poly",
+                                         azimuth_strata=2)
+                   for _ in range(2 if name == "grid1" else 1)]
+        want = pt_fused._render_fused_reference(
+            tri, face, pt_fused._lights(scene, dev), org, d, 4, spp, mb, 3,
+            "poly", 2) / float(spp)
+        if not all(torch.equal(g, want) for g in got):
+            bad.append(name)
+    check(pt_fused.brute_grid is real_grid, "brute_grid left patched")
+    say(f"K3 edge shapes against the plain version (poly, bit for bit; "
+        f"{lanes} resident lanes): {len(cases) - len(bad)} of {len(cases)} "
+        f"equal {sorted(cases)}; the grid-1 case twice in a row")
+    check(not bad, f"K3 disagrees with its plain version at {bad}")
 
 
 def ptxas_lines(text: str) -> list[str]:

@@ -3,7 +3,8 @@
 //
 // Replaces two TPU kernels of nanort_tpu/models/pt_fused.py:
 //   * K3, _pt_kernel (brute-force Moller-Trumbore sweep over <= 256
-//     triangles): pt_brute_kernel below;
+//     triangles): pt_brute_kernel below (persistent lanes, one flat
+//     (sample, bounce) loop a lane);
 //   * K4, _pt_kernel_bvh (the same loop, tracing a BVH16 with
 //     traverse/fused_trace.py::make_tracer, K2): pt_bvh_pool_kernel below
 //     (the default) or its yardstick pt_bvh_lane_kernel, both calling
@@ -17,20 +18,22 @@
 // wraps mod 2^32 as the TPU's int32 does). bounce_step adds the shadow
 // ray's answer for the kernels that trace it in the same thread.
 //
-// Layout: K3 and the lane kernel give each thread one lane (one camera
-// ray, or one sample-major copy of one in K4) and run its spp x bounce
-// loop in registers, as the TPU kernel runs it per (sub, 128) block, and
-// write its radiance SUMS (R, 3) once at the end. The pooled kernel runs
-// each (lane, sample) path from a pool in shared memory and writes its
-// radiance to (spp_iters, R, 3) (see "pool" below). The wrapper
-// (models/pt_fused.py) sums the samples in order and divides by spp.
+// Layout: K3 runs persistent lanes, one a thread, that claim pixels and
+// run each pixel's spp paths in registers, bounce by bounce, and write the
+// pixel's radiance SUM (R, 3) once (see "K3" below). The lane kernel gives
+// each thread one lane (one sample-major copy of a pixel ray) and runs its
+// spp x bounce loop in registers, as the TPU kernel runs it per (sub, 128)
+// block. The pooled kernel runs each (lane, sample) path from a pool in
+// shared memory and writes its radiance to (spp_iters, R, 3) (see "pool"
+// below). The wrapper (models/pt_fused.py) sums the samples in order and
+// divides by spp.
 //
 // What bounds them on this card:
-//   * K3: the per-lane triangle loop. Every bounce sweeps all F triangles
-//     twice (closest hit, then the shadow ray), ~40 flops each; the
-//     triangle table sits in shared memory and every lane of a warp reads
-//     the same row at once (a broadcast), so the sweep runs at the FP32
-//     issue rate; the shadow sweep exits at its first blocker.
+//   * K3: the triangle sweeps (closest hit, then the shadow ray, ~50 flops
+//     a triangle over all F of them); the table sits in shared memory and
+//     every lane of a warp reads the same row at once (a broadcast), so
+//     the sweeps run at the FP32 issue rate. The design runs them for live
+//     bounces only (see "K3" below).
 //   * K4: divergent bounce rays and dependent row fetches inside K2 (see
 //     bvh16_trace.cuh). In the lane kernel a warp's lanes are neighbouring
 //     pixels and sample copies: after the first diffuse bounce the warp
@@ -55,6 +58,19 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kMaxTris = 256;  // PT_FUSED_MAX_TRIS
+
+// K3's parts, switched for measuring them (tools/k3_ablation.py):
+// persistent lanes claiming pixels (else one pixel a thread), float4
+// triangle rows (else 9 scalar loads), __launch_bounds__ minimum blocks.
+#ifndef K3_PERSIST
+#define K3_PERSIST 1
+#endif
+#ifndef K3_VROWS
+#define K3_VROWS 1
+#endif
+#ifndef K3_MINB
+#define K3_MINB 1
+#endif
 // the JAX package's multipliers: its second one is the int32
 // -2073352565 = 0x846B268B (lowbias32 publishes 0x846CA68B); ported as is
 constexpr uint32_t kH1 = 0x7FEB352Du;
@@ -390,115 +406,6 @@ __device__ __forceinline__ bool roulette(uint32_t ray_id, uint32_t base,
   return alive;
 }
 
-// Brute Moller-Trumbore over tri rows [v0 | e1 | e2] (pt_fused.py:
-// 351-383): accept tt in [tmin, t], replace on <= in prim order. With
-// kAny it stops at the first accepted triangle (the shadow ray only
-// needs whether there is one).
-template <bool kAny>
-__device__ __forceinline__ bool brute_trace(const float* tri, int F,
-                                            float px, float py, float pz,
-                                            float dx, float dy, float dz,
-                                            float tmin, float& t, float& u,
-                                            float& v, int& fid) {
-  bool hit = false;
-  for (int i = 0; i < F; ++i) {
-    const float* r = tri + 9 * i;
-    const float v0x = r[0], v0y = r[1], v0z = r[2];
-    const float e1x = r[3], e1y = r[4], e1z = r[5];
-    const float e2x = r[6], e2y = r[7], e2z = r[8];
-    const float pvx = dy * e2z - dz * e2y;
-    const float pvy = dz * e2x - dx * e2z;
-    const float pvz = dx * e2y - dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const float inv = 1.0f / (det == 0.0f ? 1.0f : det);
-    const float tx = px - v0x, ty = py - v0y, tz = pz - v0z;
-    const float uu = dot3(tx, ty, tz, pvx, pvy, pvz) * inv;
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float vv = dot3(dx, dy, dz, qx, qy, qz) * inv;
-    const float tt = dot3(e2x, e2y, e2z, qx, qy, qz) * inv;
-    const bool ok = det != 0.0f && uu >= 0.0f && vv >= 0.0f &&
-                    uu + vv <= 1.0f && tt >= tmin && tt <= t;
-    if (!ok) continue;
-    hit = true;
-    if (kAny) return true;
-    t = tt;
-    u = uu;
-    v = vv;
-    fid = i;
-  }
-  return hit;
-}
-
-struct BruteParams {
-  const float* tri;    // (F, 9)
-  int F;
-  const float* face;   // (F, C), C = 17 or 26
-  int C;
-  Lights lights;
-  const float* org;    // (R, 3)
-  const float* dir;    // (R, 3)
-  float* out;          // (R, 3) radiance sums over spp
-  long long n;
-  Loop lp;
-};
-
-__global__ void __launch_bounds__(kBlock) pt_brute_kernel(BruteParams p) {
-  __shared__ float s_tri[kMaxTris * 9];
-  for (int k = threadIdx.x; k < p.F * 9; k += kBlock) s_tri[k] = p.tri[k];
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= p.n) return;
-  const uint32_t ray_id = (uint32_t)i;
-  const Loop lp = p.lp;
-  const float ox0 = p.org[3 * i], oy0 = p.org[3 * i + 1], oz0 = p.org[3 * i + 2];
-  const float dx0 = p.dir[3 * i], dy0 = p.dir[3 * i + 1], dz0 = p.dir[3 * i + 2];
-
-  float ar = 0.0f, ag = 0.0f, ab = 0.0f;
-  for (int s = 0; s < lp.spp_iters; ++s) {
-    PathState st{ox0, oy0, oz0, dx0, dy0, dz0, 0.0f, 0.0f, 0.0f,
-                 1.0f, 1.0f, 1.0f, true, true};
-    for (int b = 0; b < lp.max_bounces; ++b) {
-      const uint32_t base =
-          lp.seed +
-          ((uint32_t)s * (uint32_t)(lp.max_bounces + 1) + (uint32_t)b) * 16u;
-      const bool alive = roulette(ray_id, base, b, lp, st);
-      float t = alive ? kFar : 0.0f, hu = 0.0f, hv = 0.0f;
-      int fid = 0;  // a miss reads face row 0 (gated off below)
-      const bool hitf = brute_trace<false>(s_tri, p.F, st.px, st.py, st.pz,
-                                           st.dx, st.dy, st.dz, kEpsT, t, hu,
-                                           hv, fid);
-      const float* fr = p.face + (size_t)fid * p.C;
-      float nx = __ldg(fr), ny = __ldg(fr + 1), nz = __ldg(fr + 2);
-      if (p.C >= 26) {
-        const float w0 = 1.0f - hu - hv;
-        nx = w0 * __ldg(fr + 17) + hu * __ldg(fr + 20) + hv * __ldg(fr + 23);
-        ny = w0 * __ldg(fr + 18) + hu * __ldg(fr + 21) + hv * __ldg(fr + 24);
-        nz = w0 * __ldg(fr + 19) + hu * __ldg(fr + 22) + hv * __ldg(fr + 25);
-        normalize3(nx, ny, nz);
-      }
-      const Material m = load_material(fr + 3);
-      const int wedge = (s + b * 3) % lp.az_strata;
-      auto shadow = [&](float hx, float hy, float hz, float ldx, float ldy,
-                        float ldz, float smax) {
-        float ts = smax, us, vs;
-        int fs;
-        return brute_trace<true>(s_tri, p.F, hx, hy, hz, ldx, ldy, ldz,
-                                 kRayEps, ts, us, vs, fs);
-      };
-      bounce_step(ray_id, base, st, t, hitf, alive, nx, ny, nz, m, p.lights,
-                  lp.trig, lp.az_strata, wedge, shadow);
-    }
-    ar = ar + st.cr;
-    ag = ag + st.cg;
-    ab = ab + st.cb;
-  }
-  p.out[3 * i] = ar;
-  p.out[3 * i + 1] = ag;
-  p.out[3 * i + 2] = ab;
-}
-
 struct BvhParams {
   const float* mat;    // (M, 14)
   int n_mats;
@@ -531,6 +438,257 @@ __device__ __forceinline__ uint32_t counter_base(const Loop& lp,
                                                  uint32_t s_eff, int b) {
   return lp.seed +
          (s_eff * (uint32_t)(lp.max_bounces + 1) + (uint32_t)b) * 16u;
+}
+
+// ------------------------------------------------------------- K3
+//
+// One lane a thread, persistent: a lane claims a pixel, runs its spp
+// paths one after another and writes the pixel's sum once, then claims
+// the next pixel. Its loop is flat over (sample, bounce): each iteration
+// is one live bounce of the lane's current path (the closest-hit sweep,
+// bounce_shade, the shadow sweep where NEE is active), and brute_advance
+// then moves the lane to its next live bounce: it rolls the next bounce's
+// roulette, ends a path that roulette killed, that bounce_shade left dead
+// (a miss, an emitter pick, absorption) or that ran max_bounces bounces,
+// adds the ended path's radiance to the pixel's sum, starts the next
+// sample, and writes the pixel and claims another once all spp are in.
+//
+// Why every bit stays: the random stream is a counter hash of (pixel,
+// sample, bounce) alone, and a dead bounce of the TPU's fixed spp x
+// max_bounces nest adds exactly +0 to a radiance that is +0 or more
+// (hit = hitf && alive is false, so the NEE and emission terms are 0);
+// only the weights move, and nothing reads them after. So ending a path
+// when it dies leaves each sample's radiance as it was, and one thread
+// still adds a pixel's samples in order.
+//
+// What bounds it on this card: the triangle sweeps, ~50 FP32 operations
+// a triangle (the operations bound). The design spends them on live
+// bounces only (on config B's view about one in five of the nest's
+// bounces is live), keeps a warp's 32 lanes in the same bounce body (each
+// on its own (sample, bounce)), lets no lane wait for a slower pixel (the
+// claims), and reads a triangle as three 16-byte shared-memory
+// broadcasts, [v0 | e1 | e2] each padded to a float4.
+
+struct BruteParams {
+  const float* tri;    // (F, 9) [v0 | e1 | e2]
+  int F;
+  const float* face;   // (F, C), C = 17 or 26
+  int C;
+  Lights lights;
+  const float* org;    // (R, 3)
+  const float* dir;    // (R, 3)
+  float* out;          // (R, 3) radiance sums over spp
+  unsigned long long* scratch;  // (3,) zeros: pixels claimed, closest-hit
+                                // sweeps, shadow sweeps
+  long long n;
+  Loop lp;
+};
+
+// Brute Moller-Trumbore over float4 rows [v0 | e1 | e2] (pt_fused.py:
+// 351-383): accept tt in [tmin, t], replace on <= in prim order. With
+// kAny it stops at the first accepted triangle (the shadow ray only
+// needs whether there is one).
+template <bool kAny>
+__device__ __forceinline__ bool brute_trace(const float4* tri, int F,
+                                            float px, float py, float pz,
+                                            float dx, float dy, float dz,
+                                            float tmin, float& t, float& u,
+                                            float& v, int& fid) {
+  bool hit = false;
+  for (int i = 0; i < F; ++i) {
+#if K3_VROWS
+    const float4 v0 = tri[3 * i], e1 = tri[3 * i + 1], e2 = tri[3 * i + 2];
+#else
+    const float* r = reinterpret_cast<const float*>(tri) + 9 * i;
+    const float4 v0 = make_float4(r[0], r[1], r[2], 0.0f);
+    const float4 e1 = make_float4(r[3], r[4], r[5], 0.0f);
+    const float4 e2 = make_float4(r[6], r[7], r[8], 0.0f);
+#endif
+    const float pvx = dy * e2.z - dz * e2.y;
+    const float pvy = dz * e2.x - dx * e2.z;
+    const float pvz = dx * e2.y - dy * e2.x;
+    const float det = e1.x * pvx + e1.y * pvy + e1.z * pvz;
+    const float inv = 1.0f / (det == 0.0f ? 1.0f : det);
+    const float tx = px - v0.x, ty = py - v0.y, tz = pz - v0.z;
+    const float uu = dot3(tx, ty, tz, pvx, pvy, pvz) * inv;
+    const float qx = ty * e1.z - tz * e1.y;
+    const float qy = tz * e1.x - tx * e1.z;
+    const float qz = tx * e1.y - ty * e1.x;
+    const float vv = dot3(dx, dy, dz, qx, qy, qz) * inv;
+    const float tt = dot3(e2.x, e2.y, e2.z, qx, qy, qz) * inv;
+    const bool ok = det != 0.0f && uu >= 0.0f && vv >= 0.0f &&
+                    uu + vv <= 1.0f && tt >= tmin && tt <= t;
+    if (!ok) continue;
+    hit = true;
+    if (kAny) return true;
+    t = tt;
+    u = uu;
+    v = vv;
+    fid = i;
+  }
+  return hit;
+}
+
+// The (F, 9) table as 3F float4 rows, [v0 | e1 | e2] each with a zero pad
+// (this thread's share; the caller synchronises).
+__device__ __forceinline__ void brute_load_rows(const BruteParams& p,
+                                                float4* rows) {
+#if K3_VROWS
+  for (int k = threadIdx.x; k < 3 * p.F; k += kBlock) {
+    rows[k] = make_float4(__ldg(p.tri + 3 * k), __ldg(p.tri + 3 * k + 1),
+                          __ldg(p.tri + 3 * k + 2), 0.0f);
+  }
+#else
+  float* f = reinterpret_cast<float*>(rows);
+  for (int k = threadIdx.x; k < 9 * p.F; k += kBlock) f[k] = __ldg(p.tri + k);
+#endif
+}
+
+// One lane: its pixel, the sample and bounce of its current path, the
+// path, the pixel's running sum, and its sweeps so far.
+struct BruteLane {
+  long long pix;
+  int s, b;
+  PathState st;
+  float ar, ag, ab;
+  unsigned closest, shadows;
+};
+
+__device__ __forceinline__ void brute_start_path(const BruteParams& p,
+                                                 BruteLane& l) {
+  const float* o = p.org + 3 * l.pix;
+  const float* d = p.dir + 3 * l.pix;
+  l.st = PathState{__ldg(o),    __ldg(o + 1), __ldg(o + 2), __ldg(d),
+                   __ldg(d + 1), __ldg(d + 2), 0.0f,         0.0f,
+                   0.0f,         1.0f,         1.0f,         1.0f,
+                   true,         true};
+  l.b = 0;
+}
+
+// Moves lane l to its next live bounce (see the note above); ``claim()``
+// gives the next pixel, n or more when none is left, and then l.pix is
+// that value and the lane is done.
+template <class Claim>
+__device__ __forceinline__ void brute_advance(const BruteParams& p,
+                                              BruteLane& l, Claim claim) {
+  const Loop& lp = p.lp;
+  for (;;) {
+    if (l.s < lp.spp_iters) {
+      // roulette returns false for a path that is already dead
+      if (l.b < lp.max_bounces &&
+          roulette((uint32_t)l.pix, counter_base(lp, (uint32_t)l.s, l.b),
+                   l.b, lp, l.st)) {
+        return;
+      }
+      l.ar = l.ar + l.st.cr;
+      l.ag = l.ag + l.st.cg;
+      l.ab = l.ab + l.st.cb;
+      ++l.s;
+      brute_start_path(p, l);
+      continue;
+    }
+    if (l.pix >= 0) {
+      float* o = p.out + 3 * l.pix;
+      o[0] = l.ar;
+      o[1] = l.ag;
+      o[2] = l.ab;
+    }
+    l.pix = claim();
+    if (l.pix >= p.n) return;
+    l.s = 0;
+    l.ar = l.ag = l.ab = 0.0f;
+    brute_start_path(p, l);
+  }
+}
+
+// One live bounce of lane l (roulette already rolled): the closest-hit
+// sweep, its shading normal and material, bounce_shade and the shadow
+// sweep where NEE is active (pt_fused.py:409-461 for one (s, b)).
+__device__ __forceinline__ void brute_bounce(const BruteParams& p,
+                                             const float4* rows,
+                                             BruteLane& l) {
+  const Loop& lp = p.lp;
+  const uint32_t ray_id = (uint32_t)l.pix;
+  const uint32_t base = counter_base(lp, (uint32_t)l.s, l.b);
+  PathState& st = l.st;
+  float t = kFar, hu = 0.0f, hv = 0.0f;
+  int fid = 0;  // a miss reads face row 0 (gated off by bounce_shade)
+  const bool hitf = brute_trace<false>(rows, p.F, st.px, st.py, st.pz, st.dx,
+                                       st.dy, st.dz, kEpsT, t, hu, hv, fid);
+  ++l.closest;
+  const float* fr = p.face + (size_t)fid * p.C;
+  float nx = __ldg(fr), ny = __ldg(fr + 1), nz = __ldg(fr + 2);
+  if (p.C >= 26) {
+    const float w0 = 1.0f - hu - hv;
+    nx = w0 * __ldg(fr + 17) + hu * __ldg(fr + 20) + hv * __ldg(fr + 23);
+    ny = w0 * __ldg(fr + 18) + hu * __ldg(fr + 21) + hv * __ldg(fr + 24);
+    nz = w0 * __ldg(fr + 19) + hu * __ldg(fr + 22) + hv * __ldg(fr + 25);
+    normalize3(nx, ny, nz);
+  }
+  const Material m = load_material(fr + 3);
+  const int wedge = (l.s + l.b * 3) % lp.az_strata;
+  auto shadow = [&](float hx, float hy, float hz, float ldx, float ldy,
+                    float ldz, float smax) {
+    float ts = smax, us, vs;
+    int fs;
+    ++l.shadows;
+    return brute_trace<true>(rows, p.F, hx, hy, hz, ldx, ldy, ldz, kRayEps,
+                             ts, us, vs, fs);
+  };
+  bounce_step(ray_id, base, st, t, hitf, true, nx, ny, nz, m, p.lights,
+              lp.trig, lp.az_strata, wedge, shadow);
+  ++l.b;
+}
+
+// The next pixel for the lanes of a warp that ask at once: one atomicAdd,
+// ranks by lane order.
+__device__ __forceinline__ long long claim_pixel(unsigned long long* counter) {
+  const unsigned mask = __activemask();
+  const int lane = (int)(threadIdx.x & 31u);
+  const int leader = __ffs(mask) - 1;
+  unsigned long long base = 0;
+  if (lane == leader) {
+    base = atomicAdd(counter, (unsigned long long)__popc(mask));
+  }
+  base = __shfl_sync(mask, base, leader);
+  return (long long)(base + (unsigned)__popc(mask & ((1u << lane) - 1u)));
+}
+
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__global__ void __launch_bounds__(kBlock, K3_MINB) pt_brute_kernel(
+    BruteParams p) {
+  __shared__ float4 rows[kMaxTris * 3];
+  brute_load_rows(p, rows);
+  __syncthreads();
+#if K3_PERSIST
+  auto claim = [&]() { return claim_pixel(p.scratch); };
+#else
+  long long first = (long long)blockIdx.x * kBlock + threadIdx.x;
+  auto claim = [&]() {
+    const long long i = first;
+    first = p.n;
+    return i;
+  };
+#endif
+  BruteLane l;
+  l.pix = -1;
+  l.s = p.lp.spp_iters;
+  l.closest = l.shadows = 0u;
+  brute_advance(p, l, claim);
+  while (l.pix < p.n) {
+    brute_bounce(p, rows, l);
+    brute_advance(p, l, claim);
+  }
+  const unsigned long long c = warp_sum(l.closest), s = warp_sum(l.shadows);
+  if ((threadIdx.x & 31u) == 0) {
+    atomicAdd(p.scratch + 1, c);
+    atomicAdd(p.scratch + 2, s);
+  }
 }
 
 // The yardstick schedule, the pooled kernel's predecessor: one thread a
@@ -1062,22 +1220,46 @@ bool loop_ok(const Loop& lp) {
 
 }  // namespace
 
+// ``scratch``: three zeroed uint64, the pixel counter and the closest-hit
+// and shadow sweeps the launch ran; ``grid``: models/pt_fused.py::
+// brute_grid's (the resident blocks, or fewer for a small batch).
 extern "C" int nrt_pt_fused_brute(
     const float* tri, int F, const float* face, int C, const float* light,
     int n_lights, float inv_lights, const float* org, const float* dir,
-    float* out, long long n, int seed, int spp, int max_bounces, int rr_start,
-    int trig, int az_strata, void* stream) {
+    float* out, unsigned long long* scratch, long long n, int seed, int spp,
+    int max_bounces, int rr_start, int trig, int az_strata, int grid,
+    void* stream) {
   const Loop lp{(uint32_t)seed, spp, max_bounces, rr_start, trig, az_strata, 1};
   if (F < 0 || F > kMaxTris || (C != 17 && C != 26) || n_lights < 0 ||
-      !loop_ok(lp)) {
+      !loop_ok(lp) || grid < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (n <= 0) return 0;
   BruteParams p{tri, F, face, C, Lights{light, n_lights, inv_lights},
-                org, dir, out, n, lp};
-  const unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
-  pt_brute_kernel<<<grid, kBlock, 0, reinterpret_cast<cudaStream_t>(stream)>>>(p);
+                org, dir, out, scratch, n, lp};
+#if !K3_PERSIST
+  grid = (int)((n + kBlock - 1) / kBlock);
+#endif
+  pt_brute_kernel<<<(unsigned)grid, kBlock, 0,
+                    reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// What the launch needs of K3: out[0] resident blocks per SM (occupancy
+// API), out[1] registers a thread, out[2] local (spill) bytes a thread,
+// out[3] threads a block.
+extern "C" int nrt_pt_fused_brute_occupancy(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, pt_brute_kernel);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, pt_brute_kernel,
+                                                      kBlock, 0);
+  }
+  if (e != cudaSuccess) return (int)e;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = kBlock;
+  return 0;
 }
 
 extern "C" int nrt_pt_fused_bvh_lane(

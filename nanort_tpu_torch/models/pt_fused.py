@@ -5,7 +5,9 @@ rays, light sampling, shading and the RNG — runs in ONE kernel launch:
 
 * ``render_fused`` (K3, ``csrc/pt_fused.cu::pt_brute_kernel``) sweeps all
   triangles of scenes of at most ``PT_FUSED_MAX_TRIS`` triangles, each
-  path's state in registers;
+  path's state in registers: persistent lanes claim pixels
+  (``brute_grid``, ``brute_occupancy``) and run each pixel's paths one
+  live bounce at a time, ending a path when it dies;
 * ``render_fused_bvh`` (K4) walks the scene's BVH16 with the in-kernel
   trace K2 (``traverse/fused_trace.py``): ``pt_bvh_pool_kernel`` keeps
   2,048 paths a block in shared memory, refills ended ones and sorts
@@ -49,6 +51,7 @@ from ..traverse import fused_trace
 from ..traverse.packet import stack_slots
 
 PT_FUSED_MAX_TRIS = 256  # csrc/pt_fused.cu kMaxTris (shared-memory table)
+BRUTE_THREADS = 128      # K3's threads a block (csrc/pt_fused.cu kBlock)
 
 # Kernel launches by the wrappers below (never by the plain versions).
 # "pt_fused_bvh" is K4's pooled schedule (the default), "pt_fused_bvh[lane]"
@@ -67,6 +70,10 @@ POOL_SLICE_BYTES = 512 << 20
 # blocks.
 POOL_STATS = ("items", "waves", "paths", "closest", "shadows", "blocks")
 LAST_POOL_STATS = None
+
+# The last K3 launch's closest-hit and shadow sweeps (a device tensor, not
+# synchronised): the live bounces it traced and the NEE rays it asked.
+LAST_BRUTE_STATS = None
 
 _M32 = 0xFFFFFFFF
 # The JAX package's multipliers: 0x7FEB352D and the int32 -2073352565,
@@ -675,20 +682,70 @@ def render_fused(scene, org, dirs, seed: int, spp: int, max_bounces: int = 8,
             tri, face, lights, org, dirs, seed, int(spp), int(max_bounces),
             int(rr_start), trig, int(azimuth_strata))
     else:
-        sums = torch.empty_like(org)
-        lib = _ext.load("pt_fused")
-        with torch.cuda.device(dev):
-            rc = lib.nrt_pt_fused_brute(
-                _ptr(tri), tri.shape[0], _ptr(face), face.shape[1],
-                _ptr(light), lights[1], lights[2], _ptr(org), _ptr(dirs),
-                _ptr(sums), org.shape[0], seed, int(spp), int(max_bounces),
-                int(rr_start), int(trig == "poly"), int(azimuth_strata),
-                _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"pt_fused_brute kernel launch failed: CUDA "
-                               f"error {rc}")
-        LAUNCHES["pt_fused_brute"] += 1
+        sums = _launch_fused(tri, face, light, lights, org, dirs, seed,
+                             int(spp), int(max_bounces), int(rr_start), trig,
+                             int(azimuth_strata))
     return _div(sums, float(spp))
+
+
+def _launch_fused(tri, face, light, lights, org, dirs, seed, spp,
+                  max_bounces, rr_start, trig, az_strata):
+    """Launch K3 on CUDA tensors; its radiance sums (R, 3)."""
+    global LAST_BRUTE_STATS
+    dev = org.device
+    n = org.shape[0]
+    sums = torch.empty_like(org)
+    # the pixel counter, then the closest-hit and shadow sweeps
+    scratch = torch.zeros(3, dtype=torch.int64, device=dev)
+    occ = brute_occupancy(dev)
+    grid = brute_grid(n, occ["blocks_per_sm"], occ["sms"])
+    lib = _ext.load("pt_fused")
+    with torch.cuda.device(dev):
+        rc = lib.nrt_pt_fused_brute(
+            _ptr(tri), tri.shape[0], _ptr(face), face.shape[1], _ptr(light),
+            lights[1], lights[2], _ptr(org), _ptr(dirs), _ptr(sums),
+            _ptr(scratch), n, seed, spp, max_bounces, rr_start,
+            int(trig == "poly"), az_strata, grid, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"pt_fused_brute kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["pt_fused_brute"] += 1
+    LAST_BRUTE_STATS = scratch[1:]
+    return sums
+
+
+def brute_grid(n: int, blocks_per_sm: int, sms: int) -> int:
+    """K3's grid for ``n`` pixels: the blocks that stay resident
+    (``blocks_per_sm`` from the occupancy API, times ``sms``), or fewer
+    when the pixels would not give every lane of that grid one."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"K3 does not fit an SM: {blocks_per_sm} blocks")
+    return max(1, min(blocks_per_sm * sms, -(-n // BRUTE_THREADS)))
+
+
+_BRUTE_OCCUPANCY: dict = {}
+
+
+def brute_occupancy(device=None) -> dict:
+    """What the card's occupancy API and the compiled kernel say of K3:
+    resident ``blocks_per_sm``, ``registers`` and ``local_bytes`` (spill)
+    a thread, ``threads`` a block, and the card's ``sms``. Cached per
+    device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.index not in _BRUTE_OCCUPANCY:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            rc = _ext.load("pt_fused").nrt_pt_fused_brute_occupancy(out)
+        if rc != 0:
+            raise RuntimeError(f"K3 occupancy query failed: CUDA error {rc}")
+        occ = dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                        "threads"), out))
+        occ["sms"] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        _BRUTE_OCCUPANCY[dev.index] = occ
+    return _BRUTE_OCCUPANCY[dev.index]
 
 
 def render_fused_bvh(scene, org, dirs, seed: int, spp: int,

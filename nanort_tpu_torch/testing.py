@@ -15,11 +15,19 @@ and the two-pass exact traversals are tested on.
 CPU backend emits no FMA instructions, so the JAX package's kernels in
 interpret mode round every product separately, as the port's kernels
 (built with ``--fmad=false``) and their plain versions do.
+
+``build_with_cuda_mock`` compiles a CUDA source of ``csrc/`` with g++
+against ``CUDA_MOCK``, a small host stand-in for what the sources use of
+the CUDA API, so that a test can run a kernel's per-thread functions one
+thread at a time on a machine without a card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -151,3 +159,100 @@ def run_without_fma(script: str, inputs: dict, timeout: float = 600.0) -> dict:
                                f"{r.stderr[-6000:]}")
         with np.load(out) as z:
             return {k: z[k] for k in z.files}
+
+
+# What the kernel sources use of the CUDA API, for one thread at a time:
+# warp operations see a warp of one active lane, atomics run in order.
+CUDA_MOCK = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#define __global__
+#define __device__
+#define __shared__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+using std::max;
+using std::min;
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+struct uint3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+extern uint3 threadIdx, blockIdx;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum {
+  cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9
+};
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes, sharedSizeBytes; };
+template <class T> T __ldg(const T* p) { return *p; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline unsigned __activemask() { return 1u; }
+inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+template <class T> unsigned __match_any_sync(unsigned, T) { return 1u; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline void __syncthreads() {}
+template <class T> T atomicOr(T* p, T v) { const T o = *p; *p |= v; return o; }
+template <class T> T atomicAdd(T* p, T v) { const T o = *p; *p += v; return o; }
+template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned) { return v; }
+template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
+inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
+                                    cudaStream_t) { return 0; }
+template <class T>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, T) { return 0; }
+template <class T>
+cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
+template <class T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, T, int, size_t) {
+  return 0;
+}
+"""
+
+
+def build_with_cuda_mock(source: str, harness: str, directory) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` followed by ``harness`` (C++ that calls
+    the kernel's functions and exports a C interface) with g++ against
+    ``CUDA_MOCK`` in ``directory``, and load it. Launches (``<<<...>>>``)
+    become plain calls, which a harness never makes. g++ builds with
+    -ffp-contract=off and no -ffast-math, as nvcc builds with
+    --fmad=false: every product rounded on its own, IEEE division and
+    square root."""
+    from .traverse._ext import CSRC
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found")
+    directory = str(directory)
+    with open(os.path.join(CSRC, source)) as fh:
+        src = re.sub(r"<<<.*?>>>", "", fh.read(), flags=re.S)
+    with open(os.path.join(directory, "cuda_runtime.h"), "w") as fh:
+        fh.write(CUDA_MOCK)
+    cpp = os.path.join(directory, os.path.splitext(source)[0] + ".cpp")
+    with open(cpp, "w") as fh:
+        fh.write(src + harness)
+    so = os.path.splitext(cpp)[0] + ".so"
+    r = subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off",
+                        "-fno-fast-math", "-shared", "-fPIC", "-w",
+                        f"-I{directory}", f"-I{CSRC}", "-o", so, cpp],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"g++ build of {source} failed:\n{r.stderr[-6000:]}")
+    return ctypes.CDLL(so)

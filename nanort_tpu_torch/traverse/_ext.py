@@ -48,8 +48,9 @@ KERNELS = {
         "nrt_bvh16_trace": [_P] * 16 + [_L] + [_I] * 4 + [_P],
     }),
     "pt_fused": ("pt_fused.cu", ("bvh16_trace.cuh",), {
-        "nrt_pt_fused_brute": ([_P, _I, _P, _I, _P, _I, _F, _P, _P, _P, _L]
-                               + [_I] * 6 + [_P]),
+        "nrt_pt_fused_brute": ([_P, _I, _P, _I, _P, _I, _F, _P, _P, _P, _P,
+                                _L] + [_I] * 7 + [_P]),
+        "nrt_pt_fused_brute_occupancy": [_P],
         "nrt_pt_fused_bvh_lane": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,
                                    _P, _P, _L] + [_I] * 8 + [_P]),
         "nrt_pt_fused_bvh_pool": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,

@@ -5,7 +5,10 @@ watertight and Woop leaf tests), K2 (csrc/bvh16_trace.cu vs
 traverse/fused_trace.py::trace_bvh16_reference, Moller-Trumbore and
 watertight, with and without a per-ray skip), K3 and K4
 (csrc/pt_fused.cu vs models/pt_fused.py::_render_fused_reference and
-_render_fused_bvh_reference; K4's pooled kernel also at edge shapes,
+_render_fused_bvh_reference; K3 also at edge shapes, with lanes that
+claim many pixels, with more pixels than resident lanes, and with its
+sweep counters against the plain version's live sweeps; K4's pooled
+kernel also at edge shapes,
 against its lane kernel, with each schedule option, and with a stack too
 small for the tree), K5 (csrc/ao_fused.cu vs
 models/ao_fused.py::_ao_fused_reference). Config A's render_ao must
@@ -246,6 +249,136 @@ def test_pt_fused_brute_facevarying_normals(dev, cornell_pt):
     want = pt_fused.render_fused(scene, org, d, 5, 2, max_bounces=4,
                                  trig="poly")
     _same_image(got, want, "poly")
+
+
+@pytest.fixture(scope="module")
+def cornell_256():
+    """The Cornell box and 224 seeded small white triangles inside it:
+    256, K3's most."""
+    v, f, mids, mats = make_cornell_pt_scene(2.0)
+    k = pt_fused.PT_FUSED_MAX_TRIS - len(f)
+    rng = np.random.default_rng(8)
+    c = rng.uniform(-0.8, 0.8, (k, 1, 3))
+    tv = (c + rng.uniform(-0.2, 0.2, (k, 3, 3))).reshape(-1, 3)
+    tf = len(v) + np.arange(3 * k).reshape(-1, 3)
+    return path_tracer.make_pt_scene(
+        np.concatenate([v, tv]).astype(np.float32),
+        np.concatenate([f, tf]).astype(np.int32),
+        np.concatenate([mids, np.zeros(k, np.int32)]), mats, device="cpu")
+
+
+def _brute_live_sweeps(monkeypatch):
+    """Count the plain K3's sweeps of live rays: closest hits with tmax >
+    tmin, and the shadow rays it is asked (the kernel's counters)."""
+    count = {"closest": 0, "shadows": 0}
+    real = pt_fused._brute_mt
+
+    def counting(t, *c):
+        tmin, tmax = c[-2], c[-1]
+        if tmin.numel() and float(tmin[0]) == pt_fused._EPS_T:
+            count["closest"] += int((tmax > tmin).sum())
+        else:
+            count["shadows"] += tmin.numel()
+        return real(t, *c)
+
+    monkeypatch.setattr(pt_fused, "_brute_mt", counting)
+    return count
+
+
+BRUTE_CASES = {
+    # name: (camera (w, h), spp, kwargs): fewer pixels than a warp, a
+    # count no warp divides, one sample and one bounce, 256 triangles, no
+    # lights, roulette past max_bounces
+    "n7": ((7, 1), 3, dict(max_bounces=5)),
+    "n45": ((9, 5), 3, dict(max_bounces=5, azimuth_strata=4)),
+    "spp1_mb1": ((24, 20), 1, dict(max_bounces=1)),
+    "spp1": ((24, 20), 1, dict(max_bounces=10)),
+    "mb1": ((24, 20), 6, dict(max_bounces=1, azimuth_strata=2)),
+    "mb0": ((24, 20), 3, dict(max_bounces=0)),
+    "f256": ((24, 20), 3, dict(max_bounces=6)),
+    "dark": ((24, 20), 4, dict(max_bounces=6)),
+    "rr_past_max": ((24, 20), 4, dict(max_bounces=3, rr_start=5)),
+}
+
+
+@pytest.mark.parametrize("case", list(BRUTE_CASES))
+def test_pt_fused_brute_edge_shapes(dev, cornell_pt, cornell_256, case,
+                                    monkeypatch):
+    (w, h), spp, kw = BRUTE_CASES[case]
+    scene = cornell_256 if case == "f256" else cornell_pt
+    if case == "dark":
+        scene = scene._replace(light_table=scene.light_table[:0],
+                               light_faces=scene.light_faces[:0])
+    org, d = _cam(w, h, 5.0)
+    kw = dict(trig="poly", **kw)
+    before = dict(pt_fused.LAUNCHES)
+    got = pt_fused.render_fused(scene.to(dev), org.to(dev), d.to(dev), 4,
+                                spp, **kw)
+    assert pt_fused.LAUNCHES == {**before,
+                                 "pt_fused_brute": before["pt_fused_brute"]
+                                 + 1}
+    sweeps = pt_fused.LAST_BRUTE_STATS.cpu().tolist()
+    count = _brute_live_sweeps(monkeypatch)
+    want = pt_fused.render_fused(scene, org, d, 4, spp, **kw)
+    _same_image(got, want, "poly")
+    # the kernel traced the live bounces and NEE rays, no more
+    assert sweeps == [count["closest"], count["shadows"]]
+    if case == "mb0":
+        assert not bool(got.any())
+    elif case != "dark":
+        assert float(got.mean()) > 0 and sweeps[1] > 0
+
+
+@pytest.mark.parametrize("grid", [1, 3])
+def test_pt_fused_brute_lanes_claim_many_pixels(dev, cornell_pt, monkeypatch,
+                                                grid):
+    # 480 pixels on 128 or 384 lanes: every lane claims several
+    monkeypatch.setattr(pt_fused, "brute_grid", lambda *a: grid)
+    org, d = _cam(24, 20, 5.0)
+    kw = dict(max_bounces=6, trig="poly", azimuth_strata=2)
+    got = pt_fused.render_fused(cornell_pt.to(dev), org.to(dev), d.to(dev),
+                                6, 5, **kw)
+    want = pt_fused.render_fused(cornell_pt, org, d, 6, 5, **kw)
+    _same_image(got, want, "poly")
+
+
+def test_pt_fused_brute_more_pixels_than_resident_lanes(dev, cornell_pt):
+    occ = pt_fused.brute_occupancy(dev)
+    lanes = occ["blocks_per_sm"] * occ["sms"] * occ["threads"]
+    w = 512
+    h = -(-(lanes + 1000) // w)
+    assert pt_fused.brute_grid(w * h, occ["blocks_per_sm"], occ["sms"]) \
+        == occ["blocks_per_sm"] * occ["sms"]
+    org, d = _cam(w, h, 5.0)
+    kw = dict(max_bounces=2, trig="poly")
+    got = pt_fused.render_fused(cornell_pt.to(dev), org.to(dev), d.to(dev),
+                                3, 1, **kw)
+    want = pt_fused.render_fused(cornell_pt, org, d, 3, 1, **kw)
+    _same_image(got, want, "poly")
+
+
+def test_pt_fused_brute_two_launches_give_one_image(dev, cornell_pt):
+    # the second launch's pixel counter starts at 0 again
+    scene = cornell_pt.to(dev)
+    org, d = (x.to(dev) for x in _cam(40, 30, 5.0))
+    kw = dict(max_bounces=5, trig="poly")
+    a = pt_fused.render_fused(scene, org, d, 2, 3, **kw)
+    b = pt_fused.render_fused(scene, org, d, 2, 3, **kw)
+    assert torch.equal(a, b)
+    _same_image(a, pt_fused.render_fused(cornell_pt, org.cpu(), d.cpu(), 2,
+                                         3, **kw), "poly")
+
+
+def test_pt_fused_brute_occupancy_and_grid(dev):
+    occ = pt_fused.brute_occupancy(dev)
+    assert occ["threads"] == pt_fused.BRUTE_THREADS
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+    assert occ["sms"] == torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    resident = occ["blocks_per_sm"] * occ["sms"]
+    assert pt_fused.brute_grid(1 << 30, occ["blocks_per_sm"],
+                               occ["sms"]) == resident
+    assert pt_fused.brute_grid(5, occ["blocks_per_sm"], occ["sms"]) == 1
 
 
 @pytest.mark.parametrize("spp_lanes,strata", [(1, 1), (4, 2)])

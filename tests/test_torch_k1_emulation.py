@@ -1,7 +1,8 @@
 """PyTorch port, K1's walk logic on the CPU: the source of the CUDA kernel
 (nanort_tpu_torch/csrc/packet_traverse.cu) compiled with g++ against a
-small mock of the CUDA API, its per-ray functions (``begin``, ``step``,
-``finish``) run one ray after another, and held to the plain version
+small mock of the CUDA API (``testing.build_with_cuda_mock``), its
+per-ray functions (``begin``, ``step``, ``finish``) run one ray after
+another, and held to the plain version
 (traverse/packet.py::_traverse_reference) bit for bit.
 
 This reaches the kernel's node step (slab tests, the child metadata read
@@ -16,10 +17,6 @@ builds with -ffp-contract=off and no -ffast-math, as nvcc builds with
 """
 
 import ctypes
-import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -30,51 +27,11 @@ from nanort_tpu_torch.build.bvh8 import collapse_bvh8
 from nanort_tpu_torch.io.procedural import (make_cornell_box, make_uv_sphere,
                                             merge_meshes)
 from nanort_tpu_torch.ops.triangle import TriangleMesh
-from nanort_tpu_torch.testing import overlap_soup, zero_edge_rays
-from nanort_tpu_torch.traverse import _ext, packet, treelet
+from nanort_tpu_torch.testing import (build_with_cuda_mock, overlap_soup,
+                                      zero_edge_rays)
+from nanort_tpu_torch.traverse import packet, treelet
 
 torch.set_num_threads(1)
-
-# what the kernel source uses of the CUDA API, for one thread at a time
-MOCK = r"""
-#pragma once
-#include <cstddef>
-#include <cstring>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-struct float4 { float x, y, z, w; };
-struct float2 { float x, y; };
-struct uint3 { unsigned x, y, z; };
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-extern uint3 threadIdx, blockIdx;
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-struct cudaFuncAttributes { int numRegs; size_t localSizeBytes, sharedSizeBytes; };
-template <class T> T __ldg(const T* p) { return *p; }
-inline int __popc(unsigned x) { return __builtin_popcount(x); }
-inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
-inline unsigned long long atomicOr(unsigned long long* p, unsigned long long v) {
-  const unsigned long long o = *p; *p |= v; return o;
-}
-inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
-  const unsigned long long o = *p; *p += v; return o;
-}
-template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
-inline cudaError_t cudaGetLastError() { return 0; }
-inline cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t,
-                                    cudaStream_t) { return 0; }
-inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, const void*) { return 0; }
-template <class T>
-cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, T, int, size_t) {
-  return 0;
-}
-"""
 
 # appended to the kernel source: each ray walked alone (K1), or K rays
 # stepped in turns (K1b), with the kernel's own functions
@@ -148,21 +105,8 @@ extern "C" void emulate_k1(
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    assert gxx, "g++ builds the native SAH builder too"
-    d = tmp_path_factory.mktemp("k1_emulation")
-    with open(os.path.join(_ext.CSRC, "packet_traverse.cu")) as fh:
-        src = fh.read()
-    # the launch syntax has no C++ counterpart; the harness does not launch
-    src = re.sub(r"<<<[^>]*>>>", "", src)
-    (d / "cuda_runtime.h").write_text(MOCK)
-    (d / "k1.cpp").write_text(src + HARNESS)
-    so = d / "libk1.so"
-    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-fno-fast-math", "-shared", "-fPIC", "-w", f"-I{d}",
-                    "-o", str(so), str(d / "k1.cpp")], check=True,
-                   capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
+    lib = build_with_cuda_mock("packet_traverse.cu", HARNESS,
+                               tmp_path_factory.mktemp("k1_emulation"))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.emulate_k1.argtypes = [P] * 14 + [L] * 2 + [I] * 12
     lib.emulate_k1.restype = None

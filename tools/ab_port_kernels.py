@@ -25,6 +25,12 @@ warm-up:
   dense Cornell scene (phase 7's rays), median of 20;
 - K5 (``ao_fused.render_ao_fused``): config A, 512^2 x 8 AO samples on
   the 16,138-triangle Cornell box + UV sphere (phase 14), median of 10;
+- K3 (``pt_fused.render_fused``; ``k3_cases``): phase 7's 4,096 rays x
+  4 spp x 10 bounces with ``trig="poly"`` and ``"native"``, median of 20,
+  and config B (512^2 x 100 spp x 10 bounces on the 32-triangle Cornell
+  box) through ``render_path_traced`` and with ``"poly"``, median of 5;
+  the images' hashes (``*_hash``) show whether both sides give the same
+  bits;
 - K4's route (``path_tracer.render_path_traced``) on the dense scene at
   512^2 x 100 spp x 10 bounces (phase 9), median of 3, and, where the
   checkout has it, the same render on the lane kernel
@@ -32,7 +38,7 @@ warm-up:
 
 Prints one JSON line a turn (each number the median of its repetitions)
 and, last, the card's name and power limit with each side's two turns
-and their least; ``--out`` also writes that last line to FILE (which
+and their least (for a hash: the one value, or the two that differ); ``--out`` also writes that last line to FILE (which
 ``chip_smoke.py`` reads from ``chiprun_out/ab_port_kernels.json`` to
 print the parent's K1 times). Needs one NVIDIA GPU; imports no JAX.
 """
@@ -215,6 +221,59 @@ def k1_cases(dev) -> dict:
     return cases
 
 
+def k3_cases(dev) -> tuple[dict, dict]:
+    """K3's shapes: ``({name: (fn, repetitions)}, {name: fn})``, the
+    first timed, the second hashed (``image_hash``): phase 7's 64x64 rays
+    from the config-B eye x 4 spp x 10 bounces, 4 azimuth strata, with
+    ``trig="poly"`` and ``"native"`` (``render_fused``), and config B,
+    512^2 x 100 spp x 10 bounces on the 32-triangle Cornell box, through
+    ``render_path_traced`` (``"native"``) and through ``render_fused``
+    with ``"poly"``. Uses only entry points that PR 2's port has."""
+    from nanort_tpu_torch.io.procedural import make_cornell_pt_scene
+    from nanort_tpu_torch.models import path_tracer, pt_fused
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+
+    cornell = path_tracer.make_pt_scene(*make_cornell_pt_scene(2.0),
+                                        device=dev)
+
+    def cam(w):
+        return pinhole_rays(look_at(eye=(0, 0.0, 5.0), center=(0, 0, 0),
+                                    width=w, height=w, fov=45.0, device=dev))
+
+    c64, c512 = cam(64), cam(512)
+    org, d = c512.org.reshape(-1, 3), c512.dir.reshape(-1, 3)
+    az = path_tracer.default_azimuth_strata(100)
+
+    def phase7(trig):
+        return lambda: pt_fused.render_fused(
+            cornell, c64.org.reshape(-1, 3), c64.dir.reshape(-1, 3), 11, 4,
+            max_bounces=10, trig=trig, azimuth_strata=4)
+
+    def route():
+        return path_tracer.render_path_traced(cornell, c512, 3, spp=100,
+                                              max_bounces=10)
+
+    def route_poly():
+        return pt_fused.render_fused(cornell, org, d, 3, 100, max_bounces=10,
+                                     trig="poly", azimuth_strata=az)
+
+    timed = {"k3_poly": (phase7("poly"), 20),
+             "k3_native": (phase7("native"), 20),
+             "k3_route": (route, 5), "k3_route_poly": (route_poly, 5)}
+    hashed = {"k3_poly": phase7("poly"), "k3_route": route,
+              "k3_route_poly": route_poly}
+    return timed, hashed
+
+
+def image_hash(img) -> str:
+    """sha256 of an image's float32 bytes (the first 16 hex digits)."""
+    import hashlib
+
+    return hashlib.sha256(
+        img.detach().float().contiguous().cpu().numpy().tobytes()
+    ).hexdigest()[:16]
+
+
 def child() -> dict:
     """One turn, in the checkout given as the working directory."""
     import functools
@@ -240,6 +299,12 @@ def child() -> dict:
     for name, (fn, reps) in k1_cases(dev).items():
         res[f"{name}_ms"] = _ms(fn, reps)
     torch.cuda.empty_cache()
+    timed, hashed = k3_cases(dev)
+    for name, (fn, reps) in timed.items():
+        res[f"{name}_ms"] = _ms(fn, reps)
+    for name, fn in hashed.items():
+        res[f"{name}_hash"] = image_hash(fn())
+    del timed, hashed
     dense = path_tracer.make_pt_scene(*make_cornell_dense_pt_scene(100_000),
                                       engine="pallas", device=dev)
     # phase 7's rays: every 7th axis-parallel, every 13th zero, every 11th
@@ -327,9 +392,14 @@ def main() -> int:
     summary = {}
     for side, runs in turns.items():
         keys = sorted(set().union(*runs))
-        summary[side] = {k: min(r[k] for r in runs if k in r) for k in keys}
+        summary[side] = {
+            k: (min(r[k] for r in runs if k in r) if k.endswith("_ms")
+                else sorted({r[k] for r in runs if k in r}))
+            for k in keys}
+    same = {k: summary["A"][k] == summary["B"][k] for k in summary["B"]
+            if k.endswith("_hash") and k in summary["A"]}
     line = json.dumps({"card": smi, "turns_ms": turns,
-                       "best_of_turns_ms": summary})
+                       "best_of_turns_ms": summary, "same_bits": same})
     print(line, flush=True)
     if out:
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
