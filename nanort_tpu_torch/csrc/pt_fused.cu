@@ -60,8 +60,10 @@ constexpr int kBlock = 128;
 constexpr int kMaxTris = 256;  // PT_FUSED_MAX_TRIS
 
 // K3's parts, switched for measuring them (tools/k3_ablation.py):
-// persistent lanes claiming pixels (else one pixel a thread), float4
-// triangle rows (else 9 scalar loads), __launch_bounds__ minimum blocks.
+// persistent lanes claiming pixels (else one pixel a thread), the claims
+// taken where all 32 lanes of a warp meet each iteration (else where a
+// lane's pixel ends), float4 triangle rows (else 9 scalar loads),
+// __launch_bounds__ minimum blocks.
 #ifndef K3_PERSIST
 #define K3_PERSIST 1
 #endif
@@ -70,6 +72,9 @@ constexpr int kMaxTris = 256;  // PT_FUSED_MAX_TRIS
 #endif
 #ifndef K3_MINB
 #define K3_MINB 1
+#endif
+#ifndef K3_CLAIM
+#define K3_CLAIM 1
 #endif
 // the JAX package's multipliers: its second one is the int32
 // -2073352565 = 0x846B268B (lowbias32 publishes 0x846CA68B); ported as is
@@ -565,38 +570,39 @@ __device__ __forceinline__ void brute_start_path(const BruteParams& p,
   l.b = 0;
 }
 
-// Moves lane l to its next live bounce (see the note above); ``claim()``
-// gives the next pixel, n or more when none is left, and then l.pix is
-// that value and the lane is done.
-template <class Claim>
-__device__ __forceinline__ void brute_advance(const BruteParams& p,
-                                              BruteLane& l, Claim claim) {
+// Lane l takes pixel ``pix``: its sum starts at 0, its first path at
+// the pixel's camera ray.
+__device__ __forceinline__ void brute_take(const BruteParams& p, BruteLane& l,
+                                           long long pix) {
+  l.pix = pix;
+  l.s = 0;
+  l.ar = l.ag = l.ab = 0.0f;
+  brute_start_path(p, l);
+}
+
+// Moves lane l to its next live bounce (see the note above): true when it
+// holds one, false when its pixel has all spp samples and is written.
+__device__ __forceinline__ bool brute_advance(const BruteParams& p,
+                                              BruteLane& l) {
   const Loop& lp = p.lp;
   for (;;) {
-    if (l.s < lp.spp_iters) {
-      // roulette returns false for a path that is already dead
-      if (l.b < lp.max_bounces &&
-          roulette((uint32_t)l.pix, counter_base(lp, (uint32_t)l.s, l.b),
-                   l.b, lp, l.st)) {
-        return;
-      }
-      l.ar = l.ar + l.st.cr;
-      l.ag = l.ag + l.st.cg;
-      l.ab = l.ab + l.st.cb;
-      ++l.s;
-      brute_start_path(p, l);
-      continue;
-    }
-    if (l.pix >= 0) {
+    if (l.s >= lp.spp_iters) {
       float* o = p.out + 3 * l.pix;
       o[0] = l.ar;
       o[1] = l.ag;
       o[2] = l.ab;
+      return false;
     }
-    l.pix = claim();
-    if (l.pix >= p.n) return;
-    l.s = 0;
-    l.ar = l.ag = l.ab = 0.0f;
+    // roulette returns false for a path that is already dead
+    if (l.b < lp.max_bounces &&
+        roulette((uint32_t)l.pix, counter_base(lp, (uint32_t)l.s, l.b), l.b,
+                 lp, l.st)) {
+      return true;
+    }
+    l.ar = l.ar + l.st.cr;
+    l.ag = l.ag + l.st.cg;
+    l.ab = l.ab + l.st.cb;
+    ++l.s;
     brute_start_path(p, l);
   }
 }
@@ -640,8 +646,19 @@ __device__ __forceinline__ void brute_bounce(const BruteParams& p,
   ++l.b;
 }
 
-// The next pixel for the lanes of a warp that ask at once: one atomicAdd,
-// ranks by lane order.
+// The next pixel for each lane of ``need`` (a warp's ballot, taken by
+// all 32 lanes): one atomicAdd by lane 0, ranks in lane order.
+__device__ __forceinline__ long long claim_pixels(unsigned long long* counter,
+                                                  unsigned need) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned long long base = 0;
+  if (lane == 0) base = atomicAdd(counter, (unsigned long long)__popc(need));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  return (long long)(base + (unsigned)__popc(need & ((1u << lane) - 1u)));
+}
+
+// The next pixel for the lanes of a warp that ask at once (whichever are
+// converged): one atomicAdd, ranks by lane order.
 __device__ __forceinline__ long long claim_pixel(unsigned long long* counter) {
   const unsigned mask = __activemask();
   const int lane = (int)(threadIdx.x & 31u);
@@ -665,25 +682,60 @@ __global__ void __launch_bounds__(kBlock, K3_MINB) pt_brute_kernel(
   __shared__ float4 rows[kMaxTris * 3];
   brute_load_rows(p, rows);
   __syncthreads();
-#if K3_PERSIST
-  auto claim = [&]() { return claim_pixel(p.scratch); };
-#else
-  long long first = (long long)blockIdx.x * kBlock + threadIdx.x;
-  auto claim = [&]() {
-    const long long i = first;
-    first = p.n;
-    return i;
-  };
-#endif
   BruteLane l;
-  l.pix = -1;
-  l.s = p.lp.spp_iters;
   l.closest = l.shadows = 0u;
-  brute_advance(p, l, claim);
-  while (l.pix < p.n) {
-    brute_bounce(p, rows, l);
-    brute_advance(p, l, claim);
+#if !K3_PERSIST
+  long long first = (long long)blockIdx.x * kBlock + threadIdx.x;
+#endif
+#if K3_CLAIM
+  // claims at a point all 32 lanes reach together each iteration
+  bool live = false, done = false;
+  for (;;) {
+    for (;;) {
+      const unsigned need = __ballot_sync(0xffffffffu, !live && !done);
+      if (need == 0u) break;
+#if K3_PERSIST
+      const long long pix = claim_pixels(p.scratch, need);
+#else
+      const long long pix = first;
+      first = p.n;
+#endif
+      if (!live && !done) {
+        if (pix >= p.n) {
+          done = true;
+        } else {
+          brute_take(p, l, pix);
+          live = brute_advance(p, l);
+        }
+      }
+    }
+    if (__all_sync(0xffffffffu, done)) break;
+    if (live) {
+      brute_bounce(p, rows, l);
+      live = brute_advance(p, l);
+    }
   }
+#else
+  // claims where a lane's pixel ends
+  auto next = [&]() {
+    for (;;) {
+#if K3_PERSIST
+      const long long pix = claim_pixel(p.scratch);
+#else
+      const long long pix = first;
+      first = p.n;
+#endif
+      if (pix >= p.n) return false;
+      brute_take(p, l, pix);
+      if (brute_advance(p, l)) return true;
+    }
+  };
+  bool live = next();
+  while (live) {
+    brute_bounce(p, rows, l);
+    live = brute_advance(p, l) || next();
+  }
+#endif
   const unsigned long long c = warp_sum(l.closest), s = warp_sum(l.shadows);
   if ((threadIdx.x & 31u) == 0) {
     atomicAdd(p.scratch + 1, c);

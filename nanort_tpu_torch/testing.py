@@ -202,6 +202,7 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline unsigned __activemask() { return 1u; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
+inline int __all_sync(unsigned, int p) { return p; }
 template <class T> unsigned __match_any_sync(unsigned, T) { return 1u; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }

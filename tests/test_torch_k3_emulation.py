@@ -1,9 +1,10 @@
 """PyTorch port, K3's per-lane loop on the CPU: the source of the CUDA
 kernel (nanort_tpu_torch/csrc/pt_fused.cu) compiled with g++ against a
 small mock of the CUDA API (``testing.build_with_cuda_mock``), its
-per-lane functions (``brute_load_rows``, ``brute_advance``,
-``brute_bounce``) run for a set of lanes in turns, each lane claiming
-pixels from a shuffled order, and held to the plain version
+per-lane functions (``brute_load_rows``, ``brute_take``,
+``brute_advance``, ``brute_bounce``) run for a set of lanes in turns, as
+the kernel's loop runs a warp's lanes, with pixels claimed in a shuffled
+order, and held to the plain version
 (models/pt_fused.py::_render_fused_reference) bit for bit with
 ``trig="poly"``.
 
@@ -32,8 +33,9 @@ from nanort_tpu_torch.testing import build_with_cuda_mock
 
 torch.set_num_threads(1)
 
-# appended to the kernel source: ``lanes`` lanes stepped in turns, one
-# live bounce each a turn, claiming pixels in the order ``order`` gives;
+# appended to the kernel source: ``lanes`` lanes stepped in turns as the
+# kernel steps a warp's lanes (the lanes without a live bounce claim
+# pixels in the order ``order`` gives, then every lane with one runs it);
 # stats: closest-hit sweeps, shadow sweeps, and the paths that ended
 # after roulette killed them, at their first bounce's shading, and after
 # max_bounces bounces
@@ -59,25 +61,36 @@ extern "C" void emulate_k3(
     brute_load_rows(p, rows);
   }
   long long next = 0;
-  auto claim = [&]() { return next < n ? order[next++] : n; };
   std::vector<BruteLane> ls(lanes);
-  for (BruteLane& l : ls) {
-    l.pix = -1;
-    l.s = spp;
-    l.closest = l.shadows = 0u;
-    brute_advance(p, l, claim);
-  }
-  for (bool any = true; any;) {
-    any = false;
-    for (BruteLane& l : ls) {
-      if (l.pix >= n) continue;
+  std::vector<char> live(lanes, 0), done(lanes, 0);
+  for (BruteLane& l : ls) l.closest = l.shadows = 0u;
+  for (;;) {
+    // the lanes without a live bounce take pixels, in lane order, until
+    // they hold one or none is left
+    for (bool asked = true; asked;) {
+      asked = false;
+      for (int k = 0; k < lanes; ++k) {
+        if (live[k] || done[k]) continue;
+        asked = true;
+        const long long pix = next < n ? order[next++] : n;
+        if (pix >= n) {
+          done[k] = 1;
+        } else {
+          brute_take(p, ls[k], pix);
+          live[k] = brute_advance(p, ls[k]);
+        }
+      }
+    }
+    bool any = false;
+    for (int k = 0; k < lanes; ++k) {
+      if (!live[k]) continue;
       any = true;
-      const long long pix = l.pix;
+      BruteLane& l = ls[k];
       const int s = l.s, b = l.b;
       brute_bounce(p, rows, l);
       const bool alive = l.st.alive;
-      brute_advance(p, l, claim);
-      if (l.pix == pix && l.s == s) continue;
+      live[k] = brute_advance(p, l);
+      if (live[k] && l.s == s) continue;
       if (!alive) {
         stats[3] += b == 0;
       } else if (b + 1 == max_bounces) {
@@ -86,6 +99,7 @@ extern "C" void emulate_k3(
         stats[2] += 1;
       }
     }
+    if (!any) break;
   }
   for (const BruteLane& l : ls) {
     stats[0] += l.closest;

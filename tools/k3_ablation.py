@@ -5,7 +5,8 @@ on one card, in turns.
     python3 tools/k3_ablation.py PARENT_CHECKOUT [--out FILE]
 
 Each variant is a build of ``pt_fused.cu`` with the source's switches
-(``K3_PERSIST``, ``K3_VROWS``, ``K3_MINB``) set by ``-D``, or the parent
+(``K3_PERSIST``, ``K3_CLAIM``, ``K3_VROWS``, ``K3_MINB``) set by
+``-D``, or the parent
 checkout's own kernel. Runs one child process a variant a turn, the
 variants in order and then in reverse; each child imports
 ``nanort_tpu_torch`` from its checkout, builds its kernel (nvcc, the
@@ -31,11 +32,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {
     "parent": (None, {}),
     "all": (HERE, {}),
+    "claim_at_pixel_end": (HERE, {"K3_CLAIM": 0}),
     "no_persist": (HERE, {"K3_PERSIST": 0}),
+    "no_persist_claim_at_pixel_end": (HERE, {"K3_PERSIST": 0,
+                                             "K3_CLAIM": 0}),
     "scalar_rows": (HERE, {"K3_VROWS": 0}),
-    "flat_only": (HERE, {"K3_PERSIST": 0, "K3_VROWS": 0}),
-    "minb7": (HERE, {"K3_MINB": 7}),
-    "minb8": (HERE, {"K3_MINB": 8}),
 }
 
 
