@@ -32,11 +32,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = {
     "parent": (None, {}),
     "all": (HERE, {}),
-    "claim_at_pixel_end": (HERE, {"K3_CLAIM": 0}),
-    "no_persist": (HERE, {"K3_PERSIST": 0}),
-    "no_persist_claim_at_pixel_end": (HERE, {"K3_PERSIST": 0,
-                                             "K3_CLAIM": 0}),
-    "scalar_rows": (HERE, {"K3_VROWS": 0}),
+    "minb6": (HERE, {"K3_MINB": 6}),
+    "minb7": (HERE, {"K3_MINB": 7}),
 }
 
 
