@@ -36,8 +36,12 @@ nothing of JAX. Phases, one line or more each:
    BVH16 tables attached. ``trig="poly"`` must agree bit for bit,
    ``"native"`` to 99% of pixels; K3's sweeps against the plain
    version's live bounces (equal), its live-bounce fraction and bounces a
-   sample; ``ptxas -v`` of K3 and K4's two kernels, and their resident
-   blocks per SM; K4's two kernels in turns
+   sample, its registers and resident blocks, and K3 == plain (poly, bit
+   for bit) at its persistent schedule's edge shapes (7 and 45 pixels,
+   one sample and one bounce, no bounce, 256 triangles, no lights,
+   face-varying normals, a one-block grid launched twice, more pixels
+   than resident lanes); ``ptxas -v`` of K3 and K4's two kernels, and
+   their resident blocks per SM; K4's two kernels in turns
    at 16,384 to 1,048,576 paths (4,096 rays x 4 to 256 spp);
 8. config B: ``render_path_traced`` on the Cornell box at 512^2 x 100
    spp x 10 bounces (K3), one warm-up and 3 timed repetitions, and the

@@ -58,24 +58,6 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kMaxTris = 256;  // PT_FUSED_MAX_TRIS
-
-// K3's parts, switched for measuring them (tools/k3_ablation.py):
-// persistent lanes claiming pixels (else one pixel a thread), the claims
-// taken where all 32 lanes of a warp meet each iteration (else where a
-// lane's pixel ends), float4 triangle rows (else 9 scalar loads),
-// __launch_bounds__ minimum blocks.
-#ifndef K3_PERSIST
-#define K3_PERSIST 1
-#endif
-#ifndef K3_VROWS
-#define K3_VROWS 1
-#endif
-#ifndef K3_MINB
-#define K3_MINB 1
-#endif
-#ifndef K3_CLAIM
-#define K3_CLAIM 1
-#endif
 // the JAX package's multipliers: its second one is the int32
 // -2073352565 = 0x846B268B (lowbias32 publishes 0x846CA68B); ported as is
 constexpr uint32_t kH1 = 0x7FEB352Du;
@@ -456,7 +438,8 @@ __device__ __forceinline__ uint32_t counter_base(const Loop& lp,
 // roulette, ends a path that roulette killed, that bounce_shade left dead
 // (a miss, an emitter pick, absorption) or that ran max_bounces bounces,
 // adds the ended path's radiance to the pixel's sum, starts the next
-// sample, and writes the pixel and claims another once all spp are in.
+// sample, and writes the pixel once all spp are in; the lane then claims
+// another.
 //
 // Why every bit stays: the random stream is a counter hash of (pixel,
 // sample, bounce) alone, and a dead bounce of the TPU's fixed spp x
@@ -470,9 +453,10 @@ __device__ __forceinline__ uint32_t counter_base(const Loop& lp,
 // a triangle (the operations bound). The design spends them on live
 // bounces only (on config B's view about one in five of the nest's
 // bounces is live), keeps a warp's 32 lanes in the same bounce body (each
-// on its own (sample, bounce)), lets no lane wait for a slower pixel (the
-// claims), and reads a triangle as three 16-byte shared-memory
-// broadcasts, [v0 | e1 | e2] each padded to a float4.
+// on its own (sample, bounce)) and converged (the claims are taken where
+// all 32 lanes meet), lets no lane wait for a slower pixel, and reads a
+// triangle as three 16-byte shared-memory broadcasts, [v0 | e1 | e2] each
+// padded to a float4.
 
 struct BruteParams {
   const float* tri;    // (F, 9) [v0 | e1 | e2]
@@ -501,14 +485,7 @@ __device__ __forceinline__ bool brute_trace(const float4* tri, int F,
                                             float& v, int& fid) {
   bool hit = false;
   for (int i = 0; i < F; ++i) {
-#if K3_VROWS
     const float4 v0 = tri[3 * i], e1 = tri[3 * i + 1], e2 = tri[3 * i + 2];
-#else
-    const float* r = reinterpret_cast<const float*>(tri) + 9 * i;
-    const float4 v0 = make_float4(r[0], r[1], r[2], 0.0f);
-    const float4 e1 = make_float4(r[3], r[4], r[5], 0.0f);
-    const float4 e2 = make_float4(r[6], r[7], r[8], 0.0f);
-#endif
     const float pvx = dy * e2.z - dz * e2.y;
     const float pvy = dz * e2.x - dx * e2.z;
     const float pvz = dx * e2.y - dy * e2.x;
@@ -538,15 +515,10 @@ __device__ __forceinline__ bool brute_trace(const float4* tri, int F,
 // (this thread's share; the caller synchronises).
 __device__ __forceinline__ void brute_load_rows(const BruteParams& p,
                                                 float4* rows) {
-#if K3_VROWS
   for (int k = threadIdx.x; k < 3 * p.F; k += kBlock) {
     rows[k] = make_float4(__ldg(p.tri + 3 * k), __ldg(p.tri + 3 * k + 1),
                           __ldg(p.tri + 3 * k + 2), 0.0f);
   }
-#else
-  float* f = reinterpret_cast<float*>(rows);
-  for (int k = threadIdx.x; k < 9 * p.F; k += kBlock) f[k] = __ldg(p.tri + k);
-#endif
 }
 
 // One lane: its pixel, the sample and bounce of its current path, the
@@ -646,8 +618,8 @@ __device__ __forceinline__ void brute_bounce(const BruteParams& p,
   ++l.b;
 }
 
-// The next pixel for each lane of ``need`` (a warp's ballot, taken by
-// all 32 lanes): one atomicAdd by lane 0, ranks in lane order.
+// The next pixel for each lane in ``need`` (a ballot that all 32 lanes of
+// the warp take): one atomicAdd by lane 0, ranks in lane order.
 __device__ __forceinline__ long long claim_pixels(unsigned long long* counter,
                                                   unsigned need) {
   const unsigned lane = threadIdx.x & 31u;
@@ -657,49 +629,30 @@ __device__ __forceinline__ long long claim_pixels(unsigned long long* counter,
   return (long long)(base + (unsigned)__popc(need & ((1u << lane) - 1u)));
 }
 
-// The next pixel for the lanes of a warp that ask at once (whichever are
-// converged): one atomicAdd, ranks by lane order.
-__device__ __forceinline__ long long claim_pixel(unsigned long long* counter) {
-  const unsigned mask = __activemask();
-  const int lane = (int)(threadIdx.x & 31u);
-  const int leader = __ffs(mask) - 1;
-  unsigned long long base = 0;
-  if (lane == leader) {
-    base = atomicAdd(counter, (unsigned long long)__popc(mask));
-  }
-  base = __shfl_sync(mask, base, leader);
-  return (long long)(base + (unsigned)__popc(mask & ((1u << lane) - 1u)));
-}
-
 __device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-__global__ void __launch_bounds__(kBlock, K3_MINB) pt_brute_kernel(
-    BruteParams p) {
+// At most 80 registers a thread: 6 blocks an SM (82 unbounded fit 5; no
+// spill either way), 2-3% faster on config B.
+__global__ void __launch_bounds__(kBlock, 6) pt_brute_kernel(BruteParams p) {
   __shared__ float4 rows[kMaxTris * 3];
   brute_load_rows(p, rows);
   __syncthreads();
   BruteLane l;
   l.closest = l.shadows = 0u;
-#if !K3_PERSIST
-  long long first = (long long)blockIdx.x * kBlock + threadIdx.x;
-#endif
-#if K3_CLAIM
-  // claims at a point all 32 lanes reach together each iteration
+  // Every iteration the warp's 32 lanes meet: those without a live bounce
+  // claim pixels (one atomicAdd a warp) until each holds one or none is
+  // left, then every lane that holds one runs it. (Claiming in the
+  // divergent branch where a lane's pixel ends ran 1.4x slower.)
   bool live = false, done = false;
   for (;;) {
     for (;;) {
       const unsigned need = __ballot_sync(0xffffffffu, !live && !done);
       if (need == 0u) break;
-#if K3_PERSIST
       const long long pix = claim_pixels(p.scratch, need);
-#else
-      const long long pix = first;
-      first = p.n;
-#endif
       if (!live && !done) {
         if (pix >= p.n) {
           done = true;
@@ -715,27 +668,6 @@ __global__ void __launch_bounds__(kBlock, K3_MINB) pt_brute_kernel(
       live = brute_advance(p, l);
     }
   }
-#else
-  // claims where a lane's pixel ends
-  auto next = [&]() {
-    for (;;) {
-#if K3_PERSIST
-      const long long pix = claim_pixel(p.scratch);
-#else
-      const long long pix = first;
-      first = p.n;
-#endif
-      if (pix >= p.n) return false;
-      brute_take(p, l, pix);
-      if (brute_advance(p, l)) return true;
-    }
-  };
-  bool live = next();
-  while (live) {
-    brute_bounce(p, rows, l);
-    live = brute_advance(p, l) || next();
-  }
-#endif
   const unsigned long long c = warp_sum(l.closest), s = warp_sum(l.shadows);
   if ((threadIdx.x & 31u) == 0) {
     atomicAdd(p.scratch + 1, c);
@@ -1289,9 +1221,6 @@ extern "C" int nrt_pt_fused_brute(
   if (n <= 0) return 0;
   BruteParams p{tri, F, face, C, Lights{light, n_lights, inv_lights},
                 org, dir, out, scratch, n, lp};
-#if !K3_PERSIST
-  grid = (int)((n + kBlock - 1) / kBlock);
-#endif
   pt_brute_kernel<<<(unsigned)grid, kBlock, 0,
                     reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
