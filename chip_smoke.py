@@ -812,9 +812,11 @@ def k3_edge_shapes(dev, cornell, cv, cf, cm, cmats, cam_rays):
                                          max_bounces=mb, trig="poly",
                                          azimuth_strata=2)
                    for _ in range(2 if name == "grid1" else 1)]
-        want = pt_fused._render_fused_reference(
+        # the wrapper's mean is a true division (on the card torch turns
+        # a division by a Python number into a product with its inverse)
+        want = pt_fused._div(pt_fused._render_fused_reference(
             tri, face, pt_fused._lights(scene, dev), org, d, 4, spp, mb, 3,
-            "poly", 2) / float(spp)
+            "poly", 2), float(spp))
         if not all(torch.equal(g, want) for g in got):
             bad.append(name)
     check(pt_fused.brute_grid is real_grid, "brute_grid left patched")

@@ -199,8 +199,6 @@ enum { cudaDevAttrMultiProcessorCount = 16 };
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes, sharedSizeBytes; };
 template <class T> T __ldg(const T* p) { return *p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
-inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
-inline unsigned __activemask() { return 1u; }
 inline unsigned __ballot_sync(unsigned, int p) { return p ? 1u : 0u; }
 inline int __all_sync(unsigned, int p) { return p; }
 template <class T> unsigned __match_any_sync(unsigned, T) { return 1u; }

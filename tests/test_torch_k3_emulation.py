@@ -42,9 +42,6 @@ torch.set_num_threads(1)
 HARNESS = r"""
 #include <vector>
 uint3 threadIdx, blockIdx;
-namespace {
-alignas(16) unsigned char smem[16];
-}
 extern "C" void emulate_k3(
     const float* tri, int F, const float* face, int C, const float* light,
     int n_lights, float inv_lights, const float* org, const float* dir,
