@@ -228,7 +228,8 @@ def k3_cases(dev) -> tuple[dict, dict]:
     ``trig="poly"`` and ``"native"`` (``render_fused``), and config B,
     512^2 x 100 spp x 10 bounces on the 32-triangle Cornell box, through
     ``render_path_traced`` (``"native"``) and through ``render_fused``
-    with ``"poly"``. Uses only entry points that PR 2's port has."""
+    with ``"poly"``. Uses only ``render_fused`` and
+    ``render_path_traced``, which every checkout of the port has."""
     from nanort_tpu_torch.io.procedural import make_cornell_pt_scene
     from nanort_tpu_torch.models import path_tracer, pt_fused
     from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
