@@ -85,8 +85,14 @@ nothing of JAX. Phases, one line or more each:
     rays against its plain version and 1,024 of them against brute
     force, then K5: ``render_ao_fused`` on phase 13's scene, rays and
     draws (1 launch a render, a warm-up and 3 timed), the kernel against
-    its plain version on the full 512^2 x 8-sample input bit for bit,
-    and against phase 13's render under the tie contract;
+    its plain version on the full 512^2 x 8-sample input bit for bit
+    (its live items, hit pixels x 8, against the plain version's
+    samples), its time beside the sum of phase 13's two K1 traces, and
+    against phase 13's render under the tie contract; K5 == plain at its
+    persistent schedule's edge shapes (7 and 45 pixels, no hit, hits
+    only, 1 and 32 samples, a one-block grid launched twice, more tiles
+    than resident warps); K5's registers, spills, shared bytes and
+    resident blocks (``ptxas -v``, the occupancy API);
 15. the stack engine (plain torch, no kernel): ``render_aovs`` at 512^2
     on config A's scene against phase 13's primary records, ``render_ao``
     at 128^2 against the K1 route, and the graft entry's shape (16^2
@@ -1482,6 +1488,18 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
                      + k5_stats.get("samples", 0) * AO_OPS)
     say(f"K5 bound {k5_bound[0]:.4f} ms ({k5_bound[1]}) against "
         f"{k5_ms:.3f} ms measured")
+    items5 = int(ao_fused.LAST_ITEMS)
+    say(f"K5 live items (hit pixels x {S}): {items5}, the plain version's "
+        f"samples {k5_stats.get('samples')}; hit fraction "
+        f"{float(want5[5].float().mean()):.5f}")
+    check(items5 == k5_stats.get("samples"),
+          "K5 traced other items than the plain version's samples")
+    k1_pair = held["primary"]["ms"] + held["occlusion"]["ms"]
+    say(f"K5 yardstick: K5 {k5_ms:.3f} ms against phase 13's two K1 traces "
+        f"on the same scene and rays, {held['primary']['ms']:.3f} + "
+        f"{held['occlusion']['ms']:.3f} = {k1_pair:.3f} ms (K5 / K1 pair "
+        f"{k5_ms / k1_pair:.3f})")
+    k5_edge_shapes(dev, s16, aux_a, n5, l5, a5, slots5)
     # K5 against phase 13's render under the tie contract
     c = compare_hits(hits_k5, hits_k1)
     same_ao = float((aovs_k5["ao"] == aovs_k1["ao"]).float().mean())
@@ -1492,6 +1510,12 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
     say("ptxas -v (K5, then K2 alone): " + " | ".join(
         " ".join(ln.split()) for ln in text.splitlines()
         if "Used" in ln or "spill" in ln))
+    occ5 = ao_fused.ao_occupancy(dev)
+    say(f"K5 resources (occupancy API): {occ5['registers']} registers, "
+        f"{occ5['local_bytes']} local bytes (stack and spill) a thread, "
+        f"{occ5['shared_bytes']} shared bytes a block of {occ5['threads']}, "
+        f"{occ5['blocks_per_sm']} resident blocks an SM x {occ5['sms']} SMs; "
+        f"grid at config A {ao_fused.ao_grid(n_px, occ5['blocks_per_sm'], occ5['sms'])}")
     del got5, want5, args5, draws, flat, aovs_k5, hits_k5
     torch.cuda.empty_cache()
 
@@ -1573,6 +1597,63 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
         "bound_by": k5_bound[1],
         "library_ms": None,
     }], launches_k1, k1_err
+
+
+def k5_edge_shapes(dev, s16, aux, nodes, leafs, aux_t, slots):
+    """Phase 14: K5 against its plain version on the card, bit for bit,
+    and its items against the plain version's samples, at its persistent
+    schedule's edge shapes on config A's scene: fewer pixels than a tile,
+    a count no tile divides, no hit (looking away from the box), hits only
+    (a camera inside the box), one and 32 samples, a grid of one block
+    (every warp claims many tiles) launched twice, and more tiles than
+    the resident warps."""
+    import torch
+
+    from nanort_tpu_torch.models import ao_fused, objrender
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+
+    occ = ao_fused.ao_occupancy(dev)
+    warps = occ["blocks_per_sm"] * occ["sms"] * occ["threads"] // 32
+    eye = (0.31, 0.17, 5.0)
+    cases = {  # name: (eye, center, (w, h), S, grid)
+        "n7": (eye, (0, 0, 0), (7, 1), 8, None),
+        "n45": (eye, (0, 0, 0), (9, 5), 8, None),
+        "all_miss": ((0, 0, -5.0), (0, 0, -10.0), (64, 48), 8, None),
+        "all_hit": ((0, 0, 0.9), (0, 0, 0), (64, 48), 8, None),
+        "s1": (eye, (0, 0, 0), (64, 48), 1, None),
+        "s32": (eye, (0, 0, 0), (64, 48), 32, None),
+        "grid1": (eye, (0, 0, 0), (64, 48), 8, 1),
+        "more_than_resident": (eye, (0, 0, 0),
+                               (512, -(-(32 * warps + 1000) // 512)), 2,
+                               None),
+    }
+    real_grid = ao_fused.ao_grid
+    bad, hits = [], {}
+    for name, (e, c, (w, h), S, grid) in cases.items():
+        rays = pinhole_rays(look_at(eye=e, center=c, width=w, height=h,
+                                    fov=45.0, device=dev))
+        flat = [x.reshape(-1, *x.shape[2:]).contiguous() for x in rays]
+        draws = objrender.resolve_draws(rays, 3, S, True).reshape(
+            S, w * h, 3).contiguous()
+        args = (nodes, leafs, aux_t, *flat, draws, 1e30, slots)
+        stats = {}
+        want = ao_fused._ao_fused_reference(*args, stats=stats)
+        with (patched(ao_fused, "ao_grid", lambda *a: grid) if grid
+              else contextlib.nullcontext()):
+            for _ in range(2 if name == "grid1" else 1):
+                got = ao_fused.ao_fused_outputs(*args)
+                if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                        and int(ao_fused.LAST_ITEMS) == stats["samples"]):
+                    bad.append(name)
+        hits[name] = float(want[5].float().mean())
+    check(ao_fused.ao_grid is real_grid, "ao_grid left patched")
+    say(f"K5 edge shapes against the plain version (bit for bit, items == "
+        f"samples; {warps} resident warps): {len(cases) - len(bad)} of "
+        f"{len(cases)} equal {sorted(cases)}; hit fractions {hits}; the "
+        f"grid-1 case twice in a row")
+    check(hits["all_miss"] == 0.0 and hits["all_hit"] == 1.0,
+          f"K5 edge shapes: all_miss / all_hit are not: {hits}")
+    check(not bad, f"K5 disagrees with its plain version at {bad}")
 
 
 def span_timer():

@@ -48,10 +48,10 @@ def make_rays(org, dir, min_t=None, max_t=None, dtype=None,
     """Build a ``Rays`` batch with reference defaults (min_t=0,
     max_t=+max). ``org``/``dir`` may be tensors, arrays or lists; new
     tensors are created on ``device`` (default: ``org``'s device, or the
-    CPU for non-tensors). Every field comes back contiguous, as the
-    traversal kernel requires."""
-    if device is None and isinstance(org, torch.Tensor):
-        device = org.device
+    card for non-tensors, as the other entry points default to it). Every
+    field comes back contiguous, as the traversal kernel requires."""
+    if device is None:
+        device = org.device if isinstance(org, torch.Tensor) else "cuda"
     org = torch.as_tensor(org, dtype=dtype, device=device)
     dir = torch.as_tensor(dir, dtype=org.dtype, device=org.device)
     bs = org.shape[:-1]
@@ -87,9 +87,9 @@ def no_hits(batch_shape, dtype=torch.float32, init_t=None,
             device=None) -> Hits:
     """All-miss hit record; ``t`` initialized to ``max_t`` like the
     reference's ``intersector.Update(ray.max_t, -1)`` (nanort.h:2501).
-    New tensors go on ``device`` (default: ``init_t``'s, or the CPU)."""
-    if device is None and isinstance(init_t, torch.Tensor):
-        device = init_t.device
+    New tensors go on ``device`` (default: ``init_t``'s, or the card)."""
+    if device is None:
+        device = init_t.device if isinstance(init_t, torch.Tensor) else "cuda"
     bs = tuple(batch_shape)
     if init_t is None:
         init_t = torch.full(bs, torch.finfo(dtype).max, dtype=dtype,

@@ -69,6 +69,17 @@
 #include <math.h>
 #include <stdint.h>
 
+// Ablation switches (off unless a build sets them): BVH16_VEC_META loads
+// a node's child metadata a quad at a time and places each hit child at
+// its rank on the stack; BVH16_VEC_LEAF loads a leaf's triangles with
+// three 16-byte loads each.
+#ifndef BVH16_VEC_META
+#define BVH16_VEC_META 0
+#endif
+#ifndef BVH16_VEC_LEAF
+#define BVH16_VEC_LEAF 0
+#endif
+
 namespace bvh16 {
 
 constexpr int kStackCap = 512;           // per-thread stack ceiling
@@ -222,6 +233,35 @@ __device__ Record trace(const float* __restrict__ nodes,
         // children are stored near-to-far along the order axis; the LIFO
         // stack takes them far-first so the nearest pops first
         const bool neg = axis == 0 ? snx : (axis == 1 ? sny : snz);
+#if BVH16_VEC_META
+        const int n_hit = __popc(mask);
+        if (sp + n_hit > stack_size) {  // never truncate silently
+          atomicOr(err, 1);
+          sp = 0;
+          continue;
+        }
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {
+          if (!((mask >> (4 * qd)) & 15u)) continue;
+          const float4 mq = __ldg(row4 + 24 + qd);
+          const float4 cq = __ldg(row4 + 28 + qd);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int cc = 4 * qd + k;
+            if (!((mask >> cc) & 1u)) continue;
+            const float mf = k == 0 ? mq.x : (k == 1 ? mq.y : (k == 2 ? mq.z : mq.w));
+            const float cf = k == 0 ? cq.x : (k == 1 ? cq.y : (k == 2 ? cq.z : cq.w));
+            const int meta = (int)mf;
+            int entry = meta;
+            if (meta < 0) entry = -1 - (((-meta - 1) << 4) | (((int)cf) & 15));
+            const int pos = neg ? __popc(mask & ((1u << cc) - 1u))
+                                : __popc(mask >> (cc + 1));
+            stack[sp + pos] = entry;
+          }
+        }
+        sp += n_hit;
+        if (false)
+#endif
         for (int j = 0; j < 16; ++j) {
           const int cc = neg ? j : 15 - j;
           if (!((mask >> cc) & 1u)) continue;
@@ -242,17 +282,33 @@ __device__ Record trace(const float* __restrict__ nodes,
         const int packed = -1 - e;
         const float* lrow = leafs + (size_t)(packed >> 4) * 128;
         const int cnt = packed & 15;
+#if BVH16_VEC_LEAF
+        for (int g = 0; 4 * g < cnt; ++g) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int ti = 4 * g + kk;
+          if (ti >= cnt) break;
+          const float4* q4 = reinterpret_cast<const float4*>(
+              lrow + 36 * g + (kk * 9 / 4) * 4);
+          const float4 A4 = __ldg(q4), B4 = __ldg(q4 + 1), C4 = __ldg(q4 + 2);
+          const float fv[12] = {A4.x, A4.y, A4.z, A4.w, B4.x, B4.y,
+                                B4.z, B4.w, C4.x, C4.y, C4.z, C4.w};
+          const float* q = fv + kk;
+#define BVH16_LD(x) (*(x))
+#else
         for (int ti = 0; ti < cnt; ++ti) {
           const float* q = lrow + 9 * ti;
+#define BVH16_LD(x) __ldg(x)
+#endif
           float tt, uu, vv;
           bool ok;
           if (kWatertight) {
-            const float ax = __ldg(q) - sox, ay = __ldg(q + 1) - soy,
-                        az = __ldg(q + 2) - soz;
-            const float bx = __ldg(q + 3) - sox, by = __ldg(q + 4) - soy,
-                        bz = __ldg(q + 5) - soz;
-            const float cx = __ldg(q + 6) - sox, cy = __ldg(q + 7) - soy,
-                        cz = __ldg(q + 8) - soz;
+            const float ax = BVH16_LD(q) - sox, ay = BVH16_LD(q + 1) - soy,
+                        az = BVH16_LD(q + 2) - soz;
+            const float bx = BVH16_LD(q + 3) - sox, by = BVH16_LD(q + 4) - soy,
+                        bz = BVH16_LD(q + 5) - soz;
+            const float cx = BVH16_LD(q + 6) - sox, cy = BVH16_LD(q + 7) - soy,
+                        cz = BVH16_LD(q + 8) - soz;
             const float Az = comp(ax, ay, az, kz), Bz = comp(bx, by, bz, kz),
                         Cz = comp(cx, cy, cz, kz);
             const float Ax = comp(ax, ay, az, kx) - shx * Az;
@@ -278,11 +334,14 @@ __device__ Record trace(const float* __restrict__ nodes,
             vv = W * rcp;
             ok = edge_ok && tt >= s_min && tt <= t_b;
           } else {
-            const float p0x = __ldg(q), p0y = __ldg(q + 1), p0z = __ldg(q + 2);
-            const float e1x = __ldg(q + 3) - p0x, e1y = __ldg(q + 4) - p0y,
-                        e1z = __ldg(q + 5) - p0z;
-            const float e2x = __ldg(q + 6) - p0x, e2y = __ldg(q + 7) - p0y,
-                        e2z = __ldg(q + 8) - p0z;
+            const float p0x = BVH16_LD(q), p0y = BVH16_LD(q + 1),
+                        p0z = BVH16_LD(q + 2);
+            const float e1x = BVH16_LD(q + 3) - p0x,
+                        e1y = BVH16_LD(q + 4) - p0y,
+                        e1z = BVH16_LD(q + 5) - p0z;
+            const float e2x = BVH16_LD(q + 6) - p0x,
+                        e2y = BVH16_LD(q + 7) - p0y,
+                        e2z = BVH16_LD(q + 8) - p0z;
             const float pvx = sdy * e2z - sdz * e2y;
             const float pvy = sdz * e2x - sdx * e2z;
             const float pvz = sdx * e2y - sdy * e2x;
@@ -317,6 +376,11 @@ __device__ Record trace(const float* __restrict__ nodes,
             gz = __ldg(arow + 3 * ti + 2);
           }
         }
+#if BVH16_VEC_LEAF
+        if (kOcclusion && found) break;
+        }
+#endif
+#undef BVH16_LD
         if (kOcclusion && found) break;
       }
     }

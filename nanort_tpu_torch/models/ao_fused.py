@@ -7,10 +7,13 @@ sample of a pixel in ONE kernel launch (port of
 facing the ray -> Frisvad basis -> ``n_samples`` occlusion traces along
 the caller's cosine-hemisphere draws -> unoccluded fraction), and returns
 the same ``(aovs, hits)`` contract. On CUDA tensors it launches
-``csrc/ao_fused.cu`` (one thread per pixel, its traces through the
-in-kernel BVH16 trace K2 with the watertight test and a per-ray skip of
-the hit prim); on CPU tensors it runs the plain torch version
-``_ao_fused_reference``, which agrees with the kernel bit for bit.
+``csrc/ao_fused.cu``: persistent warps on ``ao_grid``'s grid claim
+32-pixel tiles, each lane traces its pixel's primary, and the tile's hit
+pixels' occlusion samples are shared across the 32 lanes, sample-major;
+every trace goes through the in-kernel BVH16 trace K2 with the watertight
+test and a per-ray skip of the hit prim. On CPU tensors it runs the plain
+torch version ``_ao_fused_reference``, which agrees with the kernel bit
+for bit.
 
 Against ``render_ao`` the records follow the repository's tie contract:
 K2's rules are not K1's (NaN-propagating slab folds, a closest hit at
@@ -42,6 +45,10 @@ from .objrender import (AO_EPS, _mesh_on, aovs_from_hits, face_normals,
 # Kernel launches by ao_fused_outputs (never by the plain version); each
 # also runs K2 and counts in traverse.fused_trace.LAUNCHES.
 LAUNCHES = 0
+# The last launch's occlusion items, hit pixels x S (a 0-d int64 tensor on
+# the card, read without a synchronisation); None before the first.
+LAST_ITEMS = None
+THREADS = 128  # a block of K5: four warps, each claiming 32-pixel tiles
 
 
 def build_ao_aux(mesh, s8) -> torch.Tensor:
@@ -119,7 +126,7 @@ def ao_fused_outputs(nodes, leafs, aux, org, dir, tmin, tmax, draws,
     the kernel writes them (prim id int32, -1 on a miss; hit bool). On
     CUDA tensors it launches ``csrc/ao_fused.cu``, on CPU tensors it runs
     ``_ao_fused_reference``."""
-    global LAUNCHES
+    global LAUNCHES, LAST_ITEMS
     dev = org.device
     if dev.type == "cpu":
         return _ao_fused_reference(nodes, leafs, aux, org, dir, tmin, tmax,
@@ -132,21 +139,60 @@ def ao_fused_outputs(nodes, leafs, aux, org, dir, tmin, tmax, draws,
     pid = torch.empty(R, dtype=torch.int32, device=dev)
     hit = torch.empty(R, dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(2, dtype=torch.int64, device=dev)
+    occ = ao_occupancy(dev)
+    grid = ao_grid(R, occ["blocks_per_sm"], occ["sms"])
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     lib = _ext.load("ao_fused")
     with torch.cuda.device(dev):
         rc = lib.nrt_ao_fused(
             ptr(nodes), ptr(leafs), ptr(aux), ptr(org), ptr(dir), ptr(tmin),
             ptr(tmax), ptr(draws), ptr(ao), ptr(t), ptr(u), ptr(v), ptr(pid),
-            ptr(hit), ptr(err), R, S, float(np.float32(ao_radius)),
-            float(np.float32(1.0) / np.float32(S)), slots,
+            ptr(hit), ptr(err), ptr(scratch), R, S,
+            float(np.float32(ao_radius)),
+            float(np.float32(1.0) / np.float32(S)), slots, grid,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"ao_fused kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAST_ITEMS = scratch[1]
     fused_trace.LAUNCHES["bvh16_trace_watertight"] += 1  # K2 runs inside
     fused_trace.check_overflow(err, slots)
     return ao, t, u, v, pid, hit != 0
+
+
+def ao_grid(n: int, blocks_per_sm: int, sms: int) -> int:
+    """K5's grid for ``n`` pixels: the blocks that stay resident
+    (``blocks_per_sm`` from the occupancy API, times ``sms``), or fewer
+    when the pixels would not give every warp of that grid a tile."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"K5 does not fit an SM: {blocks_per_sm} blocks")
+    return max(1, min(blocks_per_sm * sms, -(-n // THREADS)))
+
+
+_OCCUPANCY: dict = {}
+
+
+def ao_occupancy(device=None) -> dict:
+    """What the card's occupancy API and the compiled kernel say of K5:
+    resident ``blocks_per_sm``, ``registers`` and ``local_bytes`` (stack
+    and spill) a thread, ``threads`` and static ``shared_bytes`` a block,
+    and the card's ``sms``. Cached per device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev.index not in _OCCUPANCY:
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            rc = _ext.load("ao_fused").nrt_ao_fused_occupancy(out)
+        if rc != 0:
+            raise RuntimeError(f"K5 occupancy query failed: CUDA error {rc}")
+        occ = dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                        "threads", "shared_bytes"), out))
+        occ["sms"] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        _OCCUPANCY[dev.index] = occ
+    return _OCCUPANCY[dev.index]
 
 
 def render_ao_fused(mesh, rays, seed: int | None, s8, aux,

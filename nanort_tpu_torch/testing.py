@@ -205,6 +205,7 @@ template <class T> unsigned __match_any_sync(unsigned, T) { return 1u; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline void __syncthreads() {}
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 template <class T> T atomicOr(T* p, T v) { const T o = *p; *p |= v; return o; }
 template <class T> T atomicAdd(T* p, T v) { const T o = *p; *p += v; return o; }
 template <class T> T __shfl_sync(unsigned, T v, int) { return v; }

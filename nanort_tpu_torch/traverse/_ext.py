@@ -59,7 +59,8 @@ KERNELS = {
         "nrt_pt_fused_bvh_occupancy": [_P],
     }),
     "ao_fused": ("ao_fused.cu", ("bvh16_trace.cuh",), {
-        "nrt_ao_fused": [_P] * 15 + [_L, _I, _F, _F, _I, _P],
+        "nrt_ao_fused": [_P] * 16 + [_L, _I, _F, _F, _I, _I, _P],
+        "nrt_ao_fused_occupancy": [_P],
     }),
 }
 

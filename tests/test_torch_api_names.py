@@ -46,7 +46,8 @@ def test_no_hits_matches(dtype, init):
               if init else None)
     want = jrt.no_hits(shape, jnp.dtype(dtype), init_t)
     got = nt.no_hits(shape, getattr(torch, dtype),
-                     None if init_t is None else torch.from_numpy(init_t))
+                     None if init_t is None else torch.from_numpy(init_t),
+                     device="cpu")
     for a, b in zip(got, want):
         b = np.asarray(b)
         assert tuple(a.shape) == b.shape

@@ -95,12 +95,64 @@ def test_normalize_matches_jax():
     assert np.abs(got - want).max() <= 2 * np.finfo(np.float32).eps
 
 
+def _record_devices(monkeypatch):
+    """Patch the torch constructors that ``core/ray.py`` calls: each call
+    records the device it asked for (None when it named none) and is
+    served on the CPU."""
+    asked = []
+
+    def on_cpu(fn):
+        def call(*a, device=None, **k):
+            asked.append(None if device is None else torch.device(device).type)
+            return fn(*a, device="cpu", **k)
+        return call
+
+    for name in ("as_tensor", "zeros", "full"):
+        monkeypatch.setattr(torch, name, on_cpu(getattr(torch, name)))
+    return asked
+
+
+def test_make_rays_defaults_to_the_card(monkeypatch):
+    asked = _record_devices(monkeypatch)
+    org = np.zeros((2, 3), np.float32)
+    d = np.ones((2, 3), np.float32)
+    # ``org`` goes to the card; the other fields follow ``org`` (here
+    # served on the CPU)
+    for kw in ({}, {"min_t": 0.5, "max_t": 9.0}):
+        r = nt.make_rays(org, d, **kw)
+        assert r.batch_shape == (2,)
+        assert asked[0] == "cuda" and set(asked[1:]) == {"cpu"}
+        asked.clear()
+    nt.make_rays([[0.0, 0.0, 0.0]], [[0.0, 0.0, 1.0]])
+    assert asked[0] == "cuda"
+    asked.clear()
+    # a tensor keeps its device; ``device`` wins
+    nt.make_rays(torch.from_numpy(org), torch.from_numpy(d))
+    assert asked and set(asked) == {"cpu"}
+    asked.clear()
+    nt.make_rays(org, d, device="cpu")
+    assert asked and set(asked) == {"cpu"}
+
+
+def test_no_hits_defaults_to_the_card(monkeypatch):
+    asked = _record_devices(monkeypatch)
+    h = nt.no_hits((3, 2))
+    assert tuple(h.t.shape) == (3, 2)
+    assert asked and set(asked) == {"cuda"}
+    asked.clear()
+    nt.no_hits((2,), init_t=torch.ones(2))
+    assert asked and set(asked) == {"cpu"}
+    asked.clear()
+    nt.no_hits((2,), device="cpu")
+    assert asked and set(asked) == {"cpu"}
+
+
 def test_make_rays_defaults_match():
     rng = np.random.default_rng(1)
     org = rng.normal(size=(7, 5, 3)).astype(np.float32)
     d = rng.normal(size=(7, 5, 3)).astype(np.float32)
     for kw in ({}, {"min_t": 0.5, "max_t": 9.0}):
-        t = nt.make_rays(org, d, **kw)
+        t = nt.make_rays(org, d, device="cpu", **kw)
         j = jrt.make_rays(org, d, **kw)
         assert t.batch_shape == (7, 5)
         for a, b in zip(t, j):

@@ -688,6 +688,117 @@ def test_ao_fused_matches_plain(dev, config_a_small, n_samples):
         assert torch.equal(a.cpu(), b)
 
 
+def _ao_inputs(config_a_small, eye, w, h, S, center=(0.0, 0.0, 0.0)):
+    """CPU tables, flat camera rays and (S, R, 3) draws for K5."""
+    _, _, s16, aux = config_a_small
+    rays = pinhole_rays(look_at(eye=eye, center=center, width=w, height=h,
+                                fov=45.0, device="cpu"))
+    flat = [x.reshape(-1, *x.shape[2:]).contiguous() for x in rays]
+    draws = objrender.ao_hemisphere_draws(
+        torch.Generator().manual_seed(5), S, (h, w))
+    tabs = fused_trace._check_tables(s16, aux, torch.device("cpu"))
+    return tabs, flat, draws.reshape(S, w * h, 3).contiguous()
+
+
+def _ao_on_both(dev, tabs, flat, draws, radius=1e30, launches=1):
+    """K5 on the card (``launches`` times) == its plain version on the
+    CPU, bit for bit; one launch of K5 and K2 a call; the items the
+    kernel traced == the plain version's samples of hit pixels."""
+    nodes, leafs, aux, slots = tabs
+    stats = {}
+    want = ao_fused._ao_fused_reference(nodes, leafs, aux, *flat, draws,
+                                        radius, slots, stats=stats)
+    on = [x.to(dev) for x in (nodes, leafs, aux, *flat, draws)]
+    for _ in range(launches):
+        before = (ao_fused.LAUNCHES,
+                  fused_trace.LAUNCHES["bvh16_trace_watertight"])
+        got = ao_fused.ao_fused_outputs(*on, radius, slots)
+        assert (ao_fused.LAUNCHES, fused_trace.LAUNCHES[
+            "bvh16_trace_watertight"]) == (before[0] + 1, before[1] + 1)
+        for a, b in zip(got, want):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+        assert int(ao_fused.LAST_ITEMS) == stats["samples"]
+    return want
+
+
+AO_CASES = {
+    # name: (eye, (w, h), S, ao_radius): fewer pixels than a warp, a
+    # count no tile divides, no hit (looking away from the box), hits
+    # only (inside the box), one and 32 samples, a short radius
+    "n7": ((0.31, 0.17, 5.0), (7, 1), 8, 1e30),
+    "n45": ((0.31, 0.17, 5.0), (9, 5), 8, 1e30),
+    "all_miss": ((0.0, 0.0, -5.0), (40, 24), 8, 1e30),
+    "all_hit": ((0.0, 0.0, 0.9), (40, 24), 8, 1e30),
+    "s1": ((0.31, 0.17, 5.0), (40, 24), 1, 1e30),
+    "s32": ((0.31, 0.17, 5.0), (40, 24), 32, 1e30),
+    "short_radius": ((0.31, 0.17, 5.0), (40, 24), 8, 0.05),
+}
+
+
+@pytest.mark.parametrize("case", list(AO_CASES))
+def test_ao_fused_edge_shapes(dev, config_a_small, case):
+    eye, (w, h), S, radius = AO_CASES[case]
+    center = (0.0, 0.0, -10.0) if case == "all_miss" else (0.0, 0.0, 0.0)
+    tabs, flat, draws = _ao_inputs(config_a_small, eye, w, h, S, center)
+    want = _ao_on_both(dev, tabs, flat, draws, radius)
+    if case == "all_miss":
+        assert not bool(want[5].any()) and int(ao_fused.LAST_ITEMS) == 0
+    if case == "all_hit":
+        assert bool(want[5].all())
+
+
+@pytest.mark.parametrize("grid", [1, 3])
+def test_ao_fused_warps_claim_many_tiles(dev, config_a_small, monkeypatch,
+                                         grid):
+    # 960 pixels (30 tiles) on 4 or 12 warps, launched twice: the second
+    # launch's tile counter starts at 0 again
+    monkeypatch.setattr(ao_fused, "ao_grid", lambda *a: grid)
+    tabs, flat, draws = _ao_inputs(config_a_small, (0.31, 0.17, 5.0), 40, 24,
+                                   8)
+    _ao_on_both(dev, tabs, flat, draws, launches=2)
+
+
+def test_ao_fused_more_tiles_than_resident_warps(dev, config_a_small):
+    occ = ao_fused.ao_occupancy(dev)
+    warps = occ["blocks_per_sm"] * occ["sms"] * occ["threads"] // 32
+    w = 512
+    h = -(-(32 * warps + 1000) // w)
+    assert ao_fused.ao_grid(w * h, occ["blocks_per_sm"], occ["sms"]) \
+        == occ["blocks_per_sm"] * occ["sms"]
+    tabs, flat, draws = _ao_inputs(config_a_small, (0.31, 0.17, 5.0), w, h,
+                                   2)
+    _ao_on_both(dev, tabs, flat, draws)
+
+
+def test_ao_fused_occupancy_and_grid(dev):
+    occ = ao_fused.ao_occupancy(dev)
+    assert occ["threads"] == ao_fused.THREADS
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+    assert occ["shared_bytes"] > 0
+    assert occ["sms"] == torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    resident = occ["blocks_per_sm"] * occ["sms"]
+    assert ao_fused.ao_grid(1 << 30, occ["blocks_per_sm"],
+                            occ["sms"]) == resident
+    assert ao_fused.ao_grid(5, occ["blocks_per_sm"], occ["sms"]) == 1
+
+
+def test_ao_fused_small_stack_sets_error_word(dev, config_a_small,
+                                             monkeypatch):
+    # one stack slot cannot hold a node's children: the kernel must say so
+    # (the real check fails the stream, which would poison the process)
+    words = []
+    monkeypatch.setattr(fused_trace, "check_overflow",
+                        lambda err, slots: words.append((err, slots)))
+    tabs, flat, draws = _ao_inputs(config_a_small, (0.31, 0.17, 5.0), 40, 24,
+                                   2)
+    nodes, leafs, aux, _ = tabs
+    on = [x.to(dev) for x in (nodes, leafs, aux, *flat, draws)]
+    ao_fused.ao_fused_outputs(*on, 1e30, 1)
+    (err, slots), = words
+    assert slots == 1 and err.is_cuda and int(err.item()) != 0
+
+
 def test_render_ao_launches_k1_only(dev, config_a_small, monkeypatch):
     mesh, bvh, s16, _ = config_a_small
 

@@ -23,8 +23,11 @@ warm-up:
 - K2 alone (``fused_trace.trace_bvh16``): closest hit with aux rows and
   occlusion on 65,536 seeded incoherent rays over the 99,236-triangle
   dense Cornell scene (phase 7's rays), median of 20;
-- K5 (``ao_fused.render_ao_fused``): config A, 512^2 x 8 AO samples on
-  the 16,138-triangle Cornell box + UV sphere (phase 14), median of 10;
+- K5: config A, 512^2 x 8 AO samples on the 16,138-triangle Cornell
+  box + UV sphere (phase 14), the whole render
+  (``ao_fused.render_ao_fused``, median of 10) and the kernel alone
+  (``ao_fused.ao_fused_outputs`` on fixed arguments, median of 20), and
+  a hash of the AO image (``k5_hash``);
 - K3 (``pt_fused.render_fused``; ``k3_cases``): phase 7's 4,096 rays x
   4 spp x 10 bounces with ``trig="poly"`` and ``"native"``, median of 20,
   and config B (512^2 x 100 spp x 10 bounces on the 32-triangle Cornell
@@ -289,7 +292,8 @@ def child() -> dict:
     from nanort_tpu_torch.io.procedural import (
         make_cornell_box, make_cornell_dense_pt_scene, make_uv_sphere,
         merge_meshes)
-    from nanort_tpu_torch.models import ao_fused, path_tracer, pt_fused
+    from nanort_tpu_torch.models import (ao_fused, objrender, path_tracer,
+                                         pt_fused)
     from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
     from nanort_tpu_torch.ops.triangle import TriangleMesh
     from nanort_tpu_torch.traverse import _ext, fused_trace
@@ -340,6 +344,14 @@ def child() -> dict:
     aux = ao_fused.build_ao_aux(mesh, s16)
     res["k5_ms"] = _ms(lambda: ao_fused.render_ao_fused(
         mesh, cam_a, 7, s16, aux, n_samples=8), 10)
+    res["k5_hash"] = image_hash(ao_fused.render_ao_fused(
+        mesh, cam_a, 7, s16, aux, n_samples=8)[0]["ao"])
+    flat = [x.reshape(-1, *x.shape[2:]).contiguous() for x in cam_a]
+    draws = objrender.resolve_draws(cam_a, 7, 8, True).reshape(
+        8, -1, 3).contiguous()
+    nodes, leafs, aux_t, slots = fused_trace._check_tables(s16, aux, dev)
+    res["k5_kernel_ms"] = _ms(lambda: ao_fused.ao_fused_outputs(
+        nodes, leafs, aux_t, *flat, draws, 1e30, slots), 20)
 
     cam = pinhole_rays(look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0),
                                width=512, height=512, fov=45.0, device=dev))
