@@ -79,6 +79,10 @@
 #ifndef BVH16_VEC_LEAF
 #define BVH16_VEC_LEAF 0
 #endif
+// BVH16_NAN_ASM: the NaN-propagating folds as one PTX max.NaN / min.NaN
+#ifndef BVH16_NAN_ASM
+#define BVH16_NAN_ASM 0
+#endif
 
 namespace bvh16 {
 
@@ -97,10 +101,22 @@ struct Record {
 
 // jnp.maximum / jnp.minimum: NaN in either operand gives NaN
 __device__ __forceinline__ float max_nan(float a, float b) {
+#if BVH16_NAN_ASM && defined(__CUDA_ARCH__)
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+#endif
 }
 __device__ __forceinline__ float min_nan(float a, float b) {
+#if BVH16_NAN_ASM && defined(__CUDA_ARCH__)
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+#endif
 }
 
 __device__ __forceinline__ float safe_inv(float d) {

@@ -31,20 +31,21 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+VM = {"BVH16_VEC_META": 1}
 VARIANTS = {
-    "all": {},
-    "frame_recomputed": {"K5_FRAME": 0},
-    "vec_meta": {"BVH16_VEC_META": 1},
-    "vec_leaf": {"BVH16_VEC_LEAF": 1},
-    "vec_both": {"BVH16_VEC_META": 1, "BVH16_VEC_LEAF": 1},
-    "vec_both_frame_recomputed": {"BVH16_VEC_META": 1, "BVH16_VEC_LEAF": 1,
-                                  "K5_FRAME": 0},
-    "block64": {"K5_BLOCK": 64},
-    "block256": {"K5_BLOCK": 256},
+    "vec_meta": VM,
+    "vec_meta_frame_recomputed": {**VM, "K5_FRAME": 0},
+    "vec_meta_nan": {**VM, "BVH16_NAN_ASM": 1},
+    "vec_meta_nan_frame_recomputed": {**VM, "BVH16_NAN_ASM": 1,
+                                      "K5_FRAME": 0},
+    "vec_meta_minb7": {**VM, "K5_MINB": 7},
+    "vec_meta_minb8": {**VM, "K5_MINB": 8},
+    "vec_meta_no_claims": {**VM, "K5_CLAIMS": 0},
+    "vec_meta_no_share": {**VM, "K5_SHARE": 0},
 }
 # diagnostics, not designs: their outputs are not held to the parent's
 DIAGNOSTICS = {
-    "diag_primary_only": {"K5_DIAG_NO_OCC": 1},
+    "diag_vec_meta_primary_only": {**VM, "K5_DIAG_NO_OCC": 1},
 }
 
 
