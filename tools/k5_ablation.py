@@ -2,16 +2,19 @@
 """Ablation of K5's schedule (``nanort_tpu_torch/csrc/ao_fused.cu``) on
 one card, in turns.
 
-    python3 tools/k5_ablation.py PARENT_CHECKOUT [--out FILE]
+    python3 tools/k5_ablation.py PARENT_CHECKOUT --round N [--out FILE]
 
 Builds ``ao_fused.cu`` once per variant of its switches (``K5_CLAIMS``,
-``K5_SHARE``, ``K5_FRAME``, ``K5_MINB``; nvcc with the port's flags and
+``K5_SHARE``, ``K5_FRAME``, ``K5_MINB``, ``K5_BLOCK`` and K2's
+``BVH16_VEC_META``, ``BVH16_VEC_LEAF``, ``BVH16_NAN_ASM``; the round's
+list in ``ROUNDS``; nvcc with the port's flags and
 ``-Xptxas -v``) and the parent checkout's ``ao_fused.cu``, all in
 parallel, then runs each on config A's full input (the 16,138-triangle
 Cornell box + UV sphere, 512^2 pixels x 8 AO samples, seed 7; the
 ``chip_smoke.py`` phase 14 input). Every variant's six outputs must
 equal the plain version's (``_ao_fused_reference``) and the parent's bit
-for bit, and its item count the plain version's samples. Times: CUDA
+for bit, and its item count the plain version's samples (a ``diag_*``
+variant is a diagnostic, not a design, and is not held). Times: CUDA
 events, median of 20 launches a turn, turns forward then reversed over
 the variants. Prints one JSON line a variant (registers, spills,
 resident blocks, the two turns) and the card's name and power limit;
@@ -32,22 +35,43 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 VM = {"BVH16_VEC_META": 1}
-VARIANTS = {
-    "vec_meta": VM,
-    "vec_meta_frame_recomputed": {**VM, "K5_FRAME": 0},
-    "vec_meta_nan": {**VM, "BVH16_NAN_ASM": 1},
-    "vec_meta_nan_frame_recomputed": {**VM, "BVH16_NAN_ASM": 1,
+# the variants of each round (the ones measured in that round's call);
+# diagnostics (``diag_*``) are not designs: their outputs are not held
+ROUNDS = {
+    1: {
+        "all": {},
+        "no_claims": {"K5_CLAIMS": 0},
+        "no_share": {"K5_SHARE": 0},
+        "frame_recomputed": {"K5_FRAME": 0},
+        "minb6": {"K5_MINB": 6},
+        "minb7": {"K5_MINB": 7},
+        "minb8": {"K5_MINB": 8},
+    },
+    2: {
+        "all": {},
+        "frame_recomputed": {"K5_FRAME": 0},
+        "vec_meta": VM,
+        "vec_leaf": {"BVH16_VEC_LEAF": 1},
+        "vec_both": {**VM, "BVH16_VEC_LEAF": 1},
+        "vec_both_frame_recomputed": {**VM, "BVH16_VEC_LEAF": 1,
                                       "K5_FRAME": 0},
-    "vec_meta_minb7": {**VM, "K5_MINB": 7},
-    "vec_meta_minb8": {**VM, "K5_MINB": 8},
-    "vec_meta_no_claims": {**VM, "K5_CLAIMS": 0},
-    "vec_meta_no_share": {**VM, "K5_SHARE": 0},
+        "block64": {"K5_BLOCK": 64},
+        "block256": {"K5_BLOCK": 256},
+        "diag_primary_only": {"K5_DIAG_NO_OCC": 1},
+    },
+    3: {
+        "vec_meta": VM,
+        "vec_meta_frame_recomputed": {**VM, "K5_FRAME": 0},
+        "vec_meta_nan": {**VM, "BVH16_NAN_ASM": 1},
+        "vec_meta_nan_frame_recomputed": {**VM, "BVH16_NAN_ASM": 1,
+                                          "K5_FRAME": 0},
+        "vec_meta_minb7": {**VM, "K5_MINB": 7},
+        "vec_meta_minb8": {**VM, "K5_MINB": 8},
+        "vec_meta_no_claims": {**VM, "K5_CLAIMS": 0},
+        "vec_meta_no_share": {**VM, "K5_SHARE": 0},
+        "diag_vec_meta_primary_only": {**VM, "K5_DIAG_NO_OCC": 1},
+    },
 }
-# diagnostics, not designs: their outputs are not held to the parent's
-DIAGNOSTICS = {
-    "diag_vec_meta_primary_only": {**VM, "K5_DIAG_NO_OCC": 1},
-}
-
 
 def build(name, csrc, defines, out_dir):
     from nanort_tpu_torch.traverse import _ext
@@ -67,12 +91,13 @@ def build(name, csrc, defines, out_dir):
 def main() -> int:
     args = sys.argv[1:]
     out = None
-    if len(args) == 3 and args[1] == "--out":
+    if len(args) == 5 and args[3] == "--out":
         out = args.pop()
         args.pop()
-    if len(args) != 1:
+    if len(args) != 3 or args[1] != "--round" or int(args[2]) not in ROUNDS:
         print(__doc__, file=sys.stderr)
         return 2
+    variants = ROUNDS[int(args[2])]
     import numpy as np
     import torch
 
@@ -97,7 +122,7 @@ def main() -> int:
     out_dir = os.path.join(BUILD_DIR, "k5_ablation")
     os.makedirs(out_dir, exist_ok=True)
     jobs = {n: (os.path.join(HERE, "nanort_tpu_torch", "csrc"), d)
-            for n, d in {**VARIANTS, **DIAGNOSTICS}.items()}
+            for n, d in variants.items()}
     jobs["parent"] = (os.path.join(os.path.abspath(args[0]),
                                    "nanort_tpu_torch", "csrc"), {})
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
@@ -169,7 +194,7 @@ def main() -> int:
                                     inv_s, slots, grid, stream)
         return go
 
-    names = ["parent"] + list(VARIANTS) + list(DIAGNOSTICS)
+    names = ["parent"] + list(variants)
     report = {}
     parent_out = None
     for name in names:
@@ -220,7 +245,7 @@ def main() -> int:
         with open(out, "w") as fh:
             fh.write("\n".join(lines) + "\n")
     bad = [r["variant"] for r in report.values()
-           if r["variant"] not in DIAGNOSTICS and not (r["same_as_plain"] and r["same_as_parent"] and r["items_ok"]
+           if not r["variant"].startswith("diag") and not (r["same_as_plain"] and r["same_as_parent"] and r["items_ok"]
                    and r["err"] == 0)]
     if bad:
         print(f"k5_ablation: outputs differ for {bad}", file=sys.stderr)
