@@ -38,8 +38,8 @@
 //     ao_fused.py::ao_grid) claim 32 consecutive pixels, a tile, with one
 //     atomicAdd by lane 0 at a point all 32 lanes reach;
 //   * each lane traces its pixel's primary and writes the pixel's state
-//     (hit point, facing normal, basis, the prim to skip) to the warp's
-//     slot in shared memory;
+//     (hit point, facing normal, the prim to skip) to the warp's slot in
+//     shared memory;
 //   * a ballot and a popc prefix list the tile's L hit pixels; their
 //     L x S occlusion samples are items, ordered sample-major (k outer,
 //     pixel inner), and the 32 lanes take them in steps of 32: the lanes
@@ -50,6 +50,10 @@
 //     samples in series. An unoccluded item adds 1 to its pixel's integer
 //     count in shared memory;
 //   * the tile's 32 outputs are written once and the warp claims again.
+// Most of the time is the occlusion walks (on config A the primaries
+// alone take under a fifth of the launch), so K2's node step matters most:
+// its child metadata arrives a quad at a time and its NaN-propagating
+// folds are single PTX instructions (bvh16_trace.cuh).
 //
 // Numerics: compile with --fmad=false, IEEE division, no -ftz, as the
 // plain torch version (models/ao_fused.py::_ao_fused_reference) computes
@@ -61,36 +65,9 @@
 
 #include "bvh16_trace.cuh"
 
-// Ablation switches (measured, then hard-wired): K5_CLAIMS persistent
-// warps claiming tiles (0: one tile a warp, a grid that covers every
-// tile); K5_SHARE the tile's items shared across the lanes (0: each hit
-// lane traces its own S samples in series); K5_FRAME the basis stored in
-// the slot (0: recomputed from the normal for every item); K5_MINB the
-// minimum resident blocks of __launch_bounds__ (0: none).
-#ifndef K5_CLAIMS
-#define K5_CLAIMS 1
-#endif
-#ifndef K5_SHARE
-#define K5_SHARE 1
-#endif
-#ifndef K5_FRAME
-#define K5_FRAME 1
-#endif
-#ifndef K5_MINB
-#define K5_MINB 0
-#endif
-// K5_BLOCK threads a block; K5_DIAG_NO_OCC (a diagnostic, not a design:
-// its ao differs) traces the primaries and no occlusion sample.
-#ifndef K5_BLOCK
-#define K5_BLOCK 128
-#endif
-#ifndef K5_DIAG_NO_OCC
-#define K5_DIAG_NO_OCC 0
-#endif
-
 namespace {
 
-constexpr int kBlock = K5_BLOCK;
+constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kAoEps = 1e-4f;  // hit-point offset along the normal
@@ -123,9 +100,6 @@ struct Params {
 struct Slot {
   float px[32], py[32], pz[32];  // hit point, offset along the normal
   float nx[32], ny[32], nz[32];  // geometric normal facing the ray
-#if K5_FRAME
-  float tx[32], ty[32], tz[32], bx[32], by[32], bz[32];  // Frisvad basis
-#endif
   int skip[32];                  // the primary's prim id
   int unocc[32];                 // unoccluded samples so far
   int live[32];                  // live[r]: the lane of the r-th hit pixel
@@ -164,17 +138,6 @@ __device__ bool tile_primary(const Params& p, Slot& s, long long base,
   s.nx[lane] = nx;
   s.ny[lane] = ny;
   s.nz[lane] = nz;
-#if K5_FRAME
-  const float sg = nz >= 0.0f ? 1.0f : -1.0f;
-  const float a = -1.0f / (sg + nz);
-  const float b = nx * ny * a;
-  s.tx[lane] = 1.0f + sg * nx * nx * a;
-  s.ty[lane] = sg * b;
-  s.tz[lane] = -sg * nx;
-  s.bx[lane] = b;
-  s.by[lane] = sg + ny * ny * a;
-  s.bz[lane] = -ny;
-#endif
   s.skip[lane] = rec.pid;
   return true;
 }
@@ -199,16 +162,13 @@ __device__ void occlusion_sample(const Params& p, Slot& s, long long base,
   const float* l = p.draws + ((size_t)k * p.n + base + q) * 3;
   const float l0 = l[0], l1 = l[1], l2 = l[2];
   const float nx = s.nx[q], ny = s.ny[q], nz = s.nz[q];
-#if K5_FRAME
-  const float tx = s.tx[q], ty = s.ty[q], tz = s.tz[q];
-  const float bx = s.bx[q], by = s.by[q], bz = s.bz[q];
-#else
+  // the basis from the normal, for every item (storing it in the slot ran
+  // no faster)
   const float sg = nz >= 0.0f ? 1.0f : -1.0f;
   const float a = -1.0f / (sg + nz);
   const float b = nx * ny * a;
   const float tx = 1.0f + sg * nx * nx * a, ty = sg * b, tz = -sg * nx;
   const float bx = b, by = sg + ny * ny * a, bz = -ny;
-#endif
   const float wx = l0 * tx + l1 * bx + l2 * nx;
   const float wy = l0 * ty + l1 * by + l2 * ny;
   const float wz = l0 * tz + l1 * bz + l2 * nz;
@@ -242,46 +202,28 @@ __device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
   return x;
 }
 
-#if K5_MINB
-#define K5_BOUNDS __launch_bounds__(kBlock, K5_MINB)
-#else
-#define K5_BOUNDS __launch_bounds__(kBlock)
-#endif
-
-__global__ void K5_BOUNDS ao_kernel(Params p) {
+// No minimum of resident blocks: 71 registers give 7 blocks of 128 an SM
+// unbounded, and bounds of 7 or 8 blocks ran slower.
+__global__ void __launch_bounds__(kBlock) ao_kernel(Params p) {
   __shared__ Slot slots[kWarps];
   const int lane = threadIdx.x & 31;
   Slot& s = slots[threadIdx.x >> 5];
   unsigned long long items = 0;
-  for (int round = 0;; ++round) {
-    // every lane of the warp reaches the claim
-#if K5_CLAIMS
+  for (;;) {
+    // every lane of the warp reaches the claim (one taken in a divergent
+    // branch cost K3 1.4x)
     unsigned long long claim = 0;
     if (lane == 0) claim = atomicAdd(p.scratch, 32ull);
     const long long base = (long long)__shfl_sync(kFull, claim, 0);
-#else
-    if (round > 0) break;
-    const long long base =
-        ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
-#endif
     if (base >= p.n) break;
     const bool hit = tile_primary(p, s, base, lane);
     const int L = tile_compact(s, __ballot_sync(kFull, hit), lane);
     __syncwarp();
-#if K5_SHARE
-    const int m = K5_DIAG_NO_OCC ? 0 : tile_items(L, p.n_samples);
+    const int m = tile_items(L, p.n_samples);
     for (int j = lane; j < m; j += 32) {
       tile_item(p, s, base, L, j);
       ++items;
     }
-#else
-    if (hit) {
-      for (int k = 0; k < p.n_samples; ++k) {
-        occlusion_sample(p, s, base, lane, k);
-        ++items;
-      }
-    }
-#endif
     __syncwarp();
     tile_finish(p, s, base, lane, hit);
     __syncwarp();  // the next tile writes the slot again
@@ -310,9 +252,6 @@ extern "C" int nrt_ao_fused(
   Params p{nodes, leafs,  aux,     org,     dir,       tmin,  tmax,
            draws, ao_out, t_out,   u_out,   v_out,     pid_out, hit_out,
            err,   scratch, n,      n_samples, ao_radius, inv_s, stack_size};
-#if !K5_CLAIMS
-  grid = (int)((n + kBlock - 1) / kBlock);
-#endif
   ao_kernel<<<(unsigned)grid, kBlock, 0,
               reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();

@@ -47,7 +47,10 @@
 // takes the child order from its own ray's octant: that changes the prim
 // only between hits at exactly equal t, the repository's tie contract. A
 // node's 16 child boxes (its row's first 384 bytes) arrive in 24 16-byte
-// loads.
+// loads, its child metadata and counts in 16-byte quads, and each hit
+// child is written straight to its rank on the stack; the NaN-propagating
+// folds are single PTX max.NaN / min.NaN instructions. (Both cut K5 from
+// 1.27 to 0.79 ms on config A; 16-byte leaf loads ran slower.)
 //
 // What bounds it on this card: dependent row fetches (a 512-byte node row
 // must arrive before the next node index is known) and divergence: bounce
@@ -69,21 +72,6 @@
 #include <math.h>
 #include <stdint.h>
 
-// Ablation switches (off unless a build sets them): BVH16_VEC_META loads
-// a node's child metadata a quad at a time and places each hit child at
-// its rank on the stack; BVH16_VEC_LEAF loads a leaf's triangles with
-// three 16-byte loads each.
-#ifndef BVH16_VEC_META
-#define BVH16_VEC_META 0
-#endif
-#ifndef BVH16_VEC_LEAF
-#define BVH16_VEC_LEAF 0
-#endif
-// BVH16_NAN_ASM: the NaN-propagating folds as one PTX max.NaN / min.NaN
-#ifndef BVH16_NAN_ASM
-#define BVH16_NAN_ASM 0
-#endif
-
 namespace bvh16 {
 
 constexpr int kStackCap = 512;           // per-thread stack ceiling
@@ -99,9 +87,11 @@ struct Record {
   float gx, gy, gz;
 };
 
-// jnp.maximum / jnp.minimum: NaN in either operand gives NaN
+// jnp.maximum / jnp.minimum: NaN in either operand gives NaN. On the card
+// one PTX max.NaN / min.NaN (sm_80+; the canonical NaN, as the host form);
+// the host form serves the CPU builds of the tests.
 __device__ __forceinline__ float max_nan(float a, float b) {
-#if BVH16_NAN_ASM && defined(__CUDA_ARCH__)
+#ifdef __CUDA_ARCH__
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
@@ -110,7 +100,7 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 #endif
 }
 __device__ __forceinline__ float min_nan(float a, float b) {
-#if BVH16_NAN_ASM && defined(__CUDA_ARCH__)
+#ifdef __CUDA_ARCH__
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
@@ -247,9 +237,11 @@ __device__ Record trace(const float* __restrict__ nodes,
         const float v112 = __ldg(row + 112);
         const int axis = v112 >= 32.0f ? 2 : (v112 >= 16.0f ? 1 : 0);
         // children are stored near-to-far along the order axis; the LIFO
-        // stack takes them far-first so the nearest pops first
+        // stack takes them far-first: each hit child goes to its rank
+        // among the hit children, so the nearest is stored last and pops
+        // first. Metadata and counts arrive a quad at a time (16-byte
+        // loads of lanes 96-127).
         const bool neg = axis == 0 ? snx : (axis == 1 ? sny : snz);
-#if BVH16_VEC_META
         const int n_hit = __popc(mask);
         if (sp + n_hit > stack_size) {  // never truncate silently
           atomicOr(err, 1);
@@ -265,66 +257,33 @@ __device__ Record trace(const float* __restrict__ nodes,
           for (int k = 0; k < 4; ++k) {
             const int cc = 4 * qd + k;
             if (!((mask >> cc) & 1u)) continue;
-            const float mf = k == 0 ? mq.x : (k == 1 ? mq.y : (k == 2 ? mq.z : mq.w));
-            const float cf = k == 0 ? cq.x : (k == 1 ? cq.y : (k == 2 ? cq.z : cq.w));
-            const int meta = (int)mf;
-            int entry = meta;
-            if (meta < 0) entry = -1 - (((-meta - 1) << 4) | (((int)cf) & 15));
+            const int meta = (int)(k == 0 ? mq.x
+                                   : (k == 1 ? mq.y : (k == 2 ? mq.z : mq.w)));
+            const float cf =
+                k == 0 ? cq.x : (k == 1 ? cq.y : (k == 2 ? cq.z : cq.w));
+            const int entry =
+                meta >= 0 ? meta : -1 - (((-meta - 1) << 4) | ((int)cf & 15));
             const int pos = neg ? __popc(mask & ((1u << cc) - 1u))
                                 : __popc(mask >> (cc + 1));
             stack[sp + pos] = entry;
           }
         }
         sp += n_hit;
-        if (false)
-#endif
-        for (int j = 0; j < 16; ++j) {
-          const int cc = neg ? j : 15 - j;
-          if (!((mask >> cc) & 1u)) continue;
-          const int meta = (int)__ldg(row + 96 + cc);
-          int entry = meta;
-          if (meta < 0) {
-            const int cnt = ((int)__ldg(row + 112 + cc)) & 15;
-            entry = -1 - (((-meta - 1) << 4) | cnt);
-          }
-          if (sp >= stack_size) {  // never truncate silently
-            atomicOr(err, 1);
-            sp = 0;
-            break;
-          }
-          stack[sp++] = entry;
-        }
       } else {
         const int packed = -1 - e;
         const float* lrow = leafs + (size_t)(packed >> 4) * 128;
         const int cnt = packed & 15;
-#if BVH16_VEC_LEAF
-        for (int g = 0; 4 * g < cnt; ++g) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int ti = 4 * g + kk;
-          if (ti >= cnt) break;
-          const float4* q4 = reinterpret_cast<const float4*>(
-              lrow + 36 * g + (kk * 9 / 4) * 4);
-          const float4 A4 = __ldg(q4), B4 = __ldg(q4 + 1), C4 = __ldg(q4 + 2);
-          const float fv[12] = {A4.x, A4.y, A4.z, A4.w, B4.x, B4.y,
-                                B4.z, B4.w, C4.x, C4.y, C4.z, C4.w};
-          const float* q = fv + kk;
-#define BVH16_LD(x) (*(x))
-#else
         for (int ti = 0; ti < cnt; ++ti) {
           const float* q = lrow + 9 * ti;
-#define BVH16_LD(x) __ldg(x)
-#endif
           float tt, uu, vv;
           bool ok;
           if (kWatertight) {
-            const float ax = BVH16_LD(q) - sox, ay = BVH16_LD(q + 1) - soy,
-                        az = BVH16_LD(q + 2) - soz;
-            const float bx = BVH16_LD(q + 3) - sox, by = BVH16_LD(q + 4) - soy,
-                        bz = BVH16_LD(q + 5) - soz;
-            const float cx = BVH16_LD(q + 6) - sox, cy = BVH16_LD(q + 7) - soy,
-                        cz = BVH16_LD(q + 8) - soz;
+            const float ax = __ldg(q) - sox, ay = __ldg(q + 1) - soy,
+                        az = __ldg(q + 2) - soz;
+            const float bx = __ldg(q + 3) - sox, by = __ldg(q + 4) - soy,
+                        bz = __ldg(q + 5) - soz;
+            const float cx = __ldg(q + 6) - sox, cy = __ldg(q + 7) - soy,
+                        cz = __ldg(q + 8) - soz;
             const float Az = comp(ax, ay, az, kz), Bz = comp(bx, by, bz, kz),
                         Cz = comp(cx, cy, cz, kz);
             const float Ax = comp(ax, ay, az, kx) - shx * Az;
@@ -350,14 +309,14 @@ __device__ Record trace(const float* __restrict__ nodes,
             vv = W * rcp;
             ok = edge_ok && tt >= s_min && tt <= t_b;
           } else {
-            const float p0x = BVH16_LD(q), p0y = BVH16_LD(q + 1),
-                        p0z = BVH16_LD(q + 2);
-            const float e1x = BVH16_LD(q + 3) - p0x,
-                        e1y = BVH16_LD(q + 4) - p0y,
-                        e1z = BVH16_LD(q + 5) - p0z;
-            const float e2x = BVH16_LD(q + 6) - p0x,
-                        e2y = BVH16_LD(q + 7) - p0y,
-                        e2z = BVH16_LD(q + 8) - p0z;
+            const float p0x = __ldg(q), p0y = __ldg(q + 1),
+                        p0z = __ldg(q + 2);
+            const float e1x = __ldg(q + 3) - p0x,
+                        e1y = __ldg(q + 4) - p0y,
+                        e1z = __ldg(q + 5) - p0z;
+            const float e2x = __ldg(q + 6) - p0x,
+                        e2y = __ldg(q + 7) - p0y,
+                        e2z = __ldg(q + 8) - p0z;
             const float pvx = sdy * e2z - sdz * e2y;
             const float pvy = sdz * e2x - sdx * e2z;
             const float pvz = sdx * e2y - sdy * e2x;
@@ -392,11 +351,6 @@ __device__ Record trace(const float* __restrict__ nodes,
             gz = __ldg(arow + 3 * ti + 2);
           }
         }
-#if BVH16_VEC_LEAF
-        if (kOcclusion && found) break;
-        }
-#endif
-#undef BVH16_LD
         if (kOcclusion && found) break;
       }
     }
