@@ -162,15 +162,9 @@ def ao_fused_outputs(nodes, leafs, aux, org, dir, tmin, tmax, draws,
 
 
 def ao_grid(n: int, blocks_per_sm: int, sms: int) -> int:
-    """K5's grid for ``n`` pixels: the blocks that stay resident
-    (``blocks_per_sm`` from the occupancy API, times ``sms``), or fewer
-    when the pixels would not give every warp of that grid a tile."""
-    if blocks_per_sm < 1:
-        raise ValueError(f"K5 does not fit an SM: {blocks_per_sm} blocks")
-    return max(1, min(blocks_per_sm * sms, -(-n // THREADS)))
-
-
-_OCCUPANCY: dict = {}
+    """K5's grid for ``n`` pixels (``_ext.resident_grid``: the resident
+    blocks, or one tile a warp for a smaller batch)."""
+    return _ext.resident_grid(n, blocks_per_sm, sms, THREADS)
 
 
 def ao_occupancy(device=None) -> dict:
@@ -178,21 +172,10 @@ def ao_occupancy(device=None) -> dict:
     resident ``blocks_per_sm``, ``registers`` and ``local_bytes`` (stack
     and spill) a thread, ``threads`` and static ``shared_bytes`` a block,
     and the card's ``sms``. Cached per device."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if dev.index not in _OCCUPANCY:
-        out = (ctypes.c_int * 5)()
-        with torch.cuda.device(dev):
-            rc = _ext.load("ao_fused").nrt_ao_fused_occupancy(out)
-        if rc != 0:
-            raise RuntimeError(f"K5 occupancy query failed: CUDA error {rc}")
-        occ = dict(zip(("blocks_per_sm", "registers", "local_bytes",
-                        "threads", "shared_bytes"), out))
-        occ["sms"] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-        _OCCUPANCY[dev.index] = occ
-    return _OCCUPANCY[dev.index]
+    return _ext.occupancy(
+        "ao_fused", "nrt_ao_fused_occupancy",
+        ("blocks_per_sm", "registers", "local_bytes", "threads",
+         "shared_bytes"), device)
 
 
 def render_ao_fused(mesh, rays, seed: int | None, s8, aux,

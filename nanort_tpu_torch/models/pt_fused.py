@@ -715,15 +715,9 @@ def _launch_fused(tri, face, light, lights, org, dirs, seed, spp,
 
 
 def brute_grid(n: int, blocks_per_sm: int, sms: int) -> int:
-    """K3's grid for ``n`` pixels: the blocks that stay resident
-    (``blocks_per_sm`` from the occupancy API, times ``sms``), or fewer
-    when the pixels would not give every lane of that grid one."""
-    if blocks_per_sm < 1:
-        raise ValueError(f"K3 does not fit an SM: {blocks_per_sm} blocks")
-    return max(1, min(blocks_per_sm * sms, -(-n // BRUTE_THREADS)))
-
-
-_BRUTE_OCCUPANCY: dict = {}
+    """K3's grid for ``n`` pixels (``_ext.resident_grid``: the resident
+    blocks, or one lane a pixel for a smaller batch)."""
+    return _ext.resident_grid(n, blocks_per_sm, sms, BRUTE_THREADS)
 
 
 def brute_occupancy(device=None) -> dict:
@@ -731,21 +725,9 @@ def brute_occupancy(device=None) -> dict:
     resident ``blocks_per_sm``, ``registers`` and ``local_bytes`` (spill)
     a thread, ``threads`` a block, and the card's ``sms``. Cached per
     device."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if dev.index not in _BRUTE_OCCUPANCY:
-        out = (ctypes.c_int * 4)()
-        with torch.cuda.device(dev):
-            rc = _ext.load("pt_fused").nrt_pt_fused_brute_occupancy(out)
-        if rc != 0:
-            raise RuntimeError(f"K3 occupancy query failed: CUDA error {rc}")
-        occ = dict(zip(("blocks_per_sm", "registers", "local_bytes",
-                        "threads"), out))
-        occ["sms"] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-        _BRUTE_OCCUPANCY[dev.index] = occ
-    return _BRUTE_OCCUPANCY[dev.index]
+    return _ext.occupancy(
+        "pt_fused", "nrt_pt_fused_brute_occupancy",
+        ("blocks_per_sm", "registers", "local_bytes", "threads"), device)
 
 
 def render_fused_bvh(scene, org, dirs, seed: int, spp: int,

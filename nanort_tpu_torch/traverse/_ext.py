@@ -127,6 +127,44 @@ def load_all() -> dict:
     return {n: s for n, (_, s) in done.items()}
 
 
+_OCCUPANCY: dict = {}
+
+
+def occupancy(name: str, fn: str, fields, device=None) -> dict:
+    """What the card's occupancy API and a compiled kernel say of it: the
+    C function ``fn`` of library ``name`` fills one int per name in
+    ``fields`` (resident ``blocks_per_sm`` first); the card's ``sms`` is
+    added. Cached per function and device."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (fn, dev.index)
+    if key not in _OCCUPANCY:
+        out = (ctypes.c_int * len(fields))()
+        with torch.cuda.device(dev):
+            rc = getattr(load(name), fn)(out)
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed: CUDA error {rc}")
+        occ = dict(zip(fields, out))
+        occ["sms"] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        _OCCUPANCY[key] = occ
+    return _OCCUPANCY[key]
+
+
+def resident_grid(n: int, blocks_per_sm: int, sms: int, threads: int) -> int:
+    """A persistent kernel's grid for ``n`` items, one a thread at a time:
+    the blocks that stay resident (``blocks_per_sm`` from the occupancy
+    API, times ``sms``), or fewer when the items would not give every
+    thread of that grid one."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"the kernel does not fit an SM: {blocks_per_sm} "
+                         "blocks")
+    return max(1, min(blocks_per_sm * sms, -(-n // threads)))
+
+
 def resource_usage(name: str) -> str:
     """What ``ptxas -v`` reports for library ``name``'s kernels (registers,
     spill stores and loads, stack frame), compiled with the same flags
