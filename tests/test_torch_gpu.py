@@ -11,7 +11,9 @@ sweep counters against the plain version's live sweeps; K4's pooled
 kernel also at edge shapes,
 against its lane kernel, with each schedule option, and with a stack too
 small for the tree), K5 (csrc/ao_fused.cu vs
-models/ao_fused.py::_ao_fused_reference). Config A's render_ao must
+models/ao_fused.py::_ao_fused_reference; also at its persistent schedule's
+edge shapes, with warps that claim many tiles, and with its launch and
+item counters). Config A's render_ao must
 launch K1 and never a plain version, and the stack engine (plain torch)
 must give on the card what it gives on the CPU. Tolerance: bit-identical results (kernel
 and plain version share one child order and one arithmetic; the kernels
