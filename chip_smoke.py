@@ -121,8 +121,36 @@ nothing of JAX. Phases, one line or more each:
     edge shapes (ray counts of 1, 31, 32, 33 and a claim count the grid
     does not divide, every mode on grids of 1 and 3 blocks, dead rays,
     roots across claims, deep walks, a stack too small, which must set
-    the overflow word) == plain; then one line per
-    K1 shape (phases 5, 6, 11, 13, 16-18) with its time, its bound and,
+    the overflow word) == plain;
+19. the device build: ``collapse_lbvh_device(width=16, max_leaf=9)`` on
+    the card over phase 4's sphere (a warm-up, then 3 builds timed with
+    CUDA events, the peak allocation), its tables held to
+    ``testing.wide_table_report`` (every prim once, parents enclose
+    children, pad rows empty, depth equal to the levels); the build and
+    the frame run as the slice's path with the counts zeroed before and
+    read after (one K1 launch); the midscale scene (99,236 tris) built on
+    the card and on the CPU at widths 16 and 8 and with ``woop=True``,
+    whose tables must be equal bit for bit; K1 on the device tables ==
+    plain on 131,072 of the frame's rays (every 512th); the 8192^2
+    frame's records on the device tables against the host-built tree's
+    (equal hit masks, t bit for bit, prim ids differing only at equal-t
+    ties) and both frames in turns (host, device, device, host) with
+    their Mrays/s; the woop path (``woop=True`` tables, K1-woop on the
+    frame, one launch) and K1-woop == plain; then ~10M triangles: the
+    build's seconds and ``torch.cuda.max_memory_allocated()``, the
+    structure, the frame (hit fraction, 1,024 pixels against brute
+    force, 16,384 rays == plain);
+20. the traversal features on the card (plain torch, no kernel): 1M
+    spheres on a LiDAR-like terrain at 512^2 rays, 100,000 cylinders at
+    512^2 rays and 100,000 curves (4 subdivisions) at 256^2 rays, and
+    ``multi_hit_traverse`` and ``multi_hit_wavefront`` at K = 8 on the
+    midscale scene (262,144 rays inside the box), each with its seconds
+    and Mrays/s and held to the same code on the CPU over every 64th ray
+    (4,096 of 512^2, spread over the image: the same mask and prim ids,
+    t within 4 ulp);
+
+then one line per
+    K1 shape (phases 5, 6, 11, 13, 16-19) with its time, its bound and,
     where ``tools/ab_port_kernels.py ... --out
     chiprun_out/ab_port_kernels.json`` ran before it in the same
     command, the parent's and this tree's times from its turns.
@@ -2364,6 +2392,453 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     return entries + il_entries, frame_bound
 
 
+def _tables_equal(a, b) -> bool:
+    """Two BVH8Scenes with the same sizes and bit-identical tables."""
+    import torch
+
+    for k in ("nodes", "leafs", "leafs_woop"):
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not torch.equal(
+                x.cpu().view(torch.int32), y.cpu().view(torch.int32)):
+            return False
+    return all(getattr(a, k) == getattr(b, k)
+               for k in ("num_nodes", "num_leaf_rows", "depth", "width"))
+
+
+def frame_records_agree(got, want) -> dict:
+    """Two records of one frame on two trees, on the card: the hit
+    masks, t bit for bit, prim ids (where they differ t is bit-equal,
+    so every difference is an equal-t tie), u/v where the prims agree."""
+    import torch
+
+    gh, wh = got.hit, want.hit
+    both = gh & wh
+    same_p = both & (got.prim_id == want.prim_id)
+    uv = max(max_abs(got.u, want.u, same_p), max_abs(got.v, want.v, same_p))
+    r = dict(rays=int(gh.numel()), hits=int(wh.sum()),
+             hit_mismatch=int((gh != wh).sum()),
+             t_bits_equal=torch.equal(got.t.view(torch.int32),
+                                      want.t.view(torch.int32)),
+             ties=int((both & ~same_p).sum()), uv_max_err=uv)
+    r["ok"] = (r["hit_mismatch"] == 0 and r["t_bits_equal"]
+               and uv <= 2e-6)
+    return r
+
+
+def device_build_phases(dev, v, f, scene, res: int = 8192):
+    """Phase 19: the device build on the card (phase 4's sphere), its
+    tables against the CPU's (midscale) and their structure, K1 and
+    K1-woop against their plain versions on them, the frame on them
+    against the host-built tree's records, and the same at ~10M
+    triangles. Returns (K1 launches on the phase's paths, K1's largest
+    error, K1-woop's launches, K1-woop's largest error)."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.device_collapse import collapse_lbvh_device
+    from nanort_tpu_torch.io.procedural import (make_cornell_dense_pt_scene,
+                                                make_subdivided_sphere_scene)
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import compare_hits, wide_table_report
+    from nanort_tpu_torch.traverse import packet
+
+    t_phase = time.perf_counter()
+    n_rays = res * res
+    cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=res, height=res,
+                  fov=60.0, device=dev)
+    rays_t, _ = packet.tile_image_rays(pinhole_rays(cam), 128, 64)
+    del cam
+    sub = nt.Rays(*(x[::512].contiguous() for x in rays_t))  # 131,072
+
+    def plain(s, rays, woop=False, stats=None):
+        return packet._traverse_reference(
+            s.nodes, s.leafs_woop if woop else s.leafs, s.width, rays.org,
+            rays.dir, rays.min_t, rays.max_t, None, None, False, not woop,
+            False, packet.stack_slots(s), woop, stats=stats)
+
+    def path(vt, ft, woop=False):
+        """The slice's path, counts zeroed before and read after: the
+        device build, then K1 (or K1-woop) on the frame."""
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        s = collapse_lbvh_device(vt, ft, width=16, max_leaf=9, woop=woop)
+        h = packet.traverse_bvh8(s, rays_t, intersector="woop" if woop
+                                 else "watertight")
+        torch.cuda.synchronize()
+        return s, h, time.perf_counter() - t0, launch_counts()
+
+    # ---- 19. the 1M build, timed after a warm-up
+    vt, ft = torch.from_numpy(v).to(dev), torch.from_numpy(f).to(dev)
+    holder = {"s": collapse_lbvh_device(vt, ft, width=16, max_leaf=9)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    b_ms = cuda_ms(lambda: holder.__setitem__(
+        "s", collapse_lbvh_device(vt, ft, width=16, max_leaf=9)), 3)
+    wall = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated() - base
+    del holder
+    s16, h_dev, path_s, counts = path(vt, ft)
+    rep = wide_table_report(s16, len(f))
+    say(f"# phase 19: collapse_lbvh_device(width=16, max_leaf=9) on the "
+        f"card over phase 4's {len(f)} tris: ms "
+        f"{[round(x, 3) for x in b_ms]} (CUDA events, after a warm-up; "
+        f"{wall:.4f} s host wall a build, one sync); peak "
+        f"{peak / 2**20:.1f} MiB above the {base / 2**30:.2f} GiB held; "
+        f"{s16.num_nodes} nodes in {s16.nodes.shape[0]} rows, "
+        f"{s16.num_leaf_rows} leaf rows in {s16.leafs.shape[0]}, depth "
+        f"{s16.depth} (host-built BVH16: {scene.num_nodes} nodes, "
+        f"{scene.num_leaf_rows} leaf rows, depth {scene.depth}); structure "
+        f"{rep}")
+    check(rep["ok"], f"phase 19: device tables fail the checks: {rep}")
+    say(f"phase 19 path (build + frame, {path_s:.3f} s host wall): "
+        f"launches {counts}")
+    check(counts["packet_traverse"] == 1 and sum(counts.values()) == 1,
+          f"phase 19 path launches {counts}")
+    k1_launches = counts["packet_traverse"]
+
+    # ---- 19. midscale: the card's tables are the CPU's
+    dv, df, _, _ = make_cornell_dense_pt_scene(100_000)
+    same = {}
+    for name, kw in (("w16", dict(width=16)), ("w8", dict(width=8)),
+                     ("w16 woop", dict(width=16, woop=True))):
+        a = collapse_lbvh_device(dv, df, max_leaf=9, device="cpu", **kw)
+        b = collapse_lbvh_device(torch.from_numpy(dv).to(dev),
+                                 torch.from_numpy(df).to(dev), max_leaf=9,
+                                 **kw)
+        same[name] = _tables_equal(a, b) and wide_table_report(
+            b, len(df))["ok"]
+    say(f"phase 19 midscale ({len(df)} tris): card tables == CPU tables bit "
+        f"for bit and well formed: {same}")
+    check(all(same.values()), f"phase 19 midscale tables differ: {same}")
+
+    # ---- 19. K1 on the device tables == plain, 131,072 frame rays
+    got = packet.traverse_bvh8(s16, sub)
+    st = {}
+    ref = plain(s16, sub, stats=st)
+    k1_same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    k1_err = record_err(got, ref)
+    k_ms = median(cuda_ms(lambda: packet.traverse_bvh8(s16, sub), 10))
+    p_ms = min(cuda_ms(lambda: plain(s16, sub), 2))
+    k1_b = bound(sub.org.shape[0] * (32 + 20) + row_bytes(st),
+                 trace_ops(st, 16, WT_OPS))
+    say(f"phase 19 K1 on the device tables, {sub.org.shape[0]} of the "
+        f"frame's rays (every 512th): kernel == plain bit for bit: "
+        f"{k1_same} (max abs err {k1_err}); kernel {k_ms:.3f} ms (median of "
+        f"10), plain {p_ms:.1f} ms; work {st}")
+    check(k1_same, "phase 19: K1 differs from its plain version on device "
+          "tables")
+    k1_shape(f"phase 19 K1 on device-built BVH16, {sub.org.shape[0]} frame "
+             f"rays", k_ms, k1_b)
+
+    # ---- 19. the frame on both trees, in turns (host, device, device, host)
+    h_host = packet.traverse_bvh8(scene, rays_t)
+    c = frame_records_agree(h_dev, h_host)
+    say(f"phase 19 frame records, device tree vs host tree: {c}")
+    check(c["ok"], f"phase 19: frame records differ: {c}")
+    del h_dev, h_host, got, ref
+    holder = {}
+
+    def frame(s):
+        holder.pop("h", None)  # the last records back to the allocator
+        holder["h"] = packet.traverse_bvh8(s, rays_t)
+
+    frame(s16)
+    turns = {"host": [], "device": []}
+    for who in ("host", "device", "device", "host"):
+        s = scene if who == "host" else s16
+        turns[who] += cuda_ms(lambda: frame(s), 1)
+    holder.clear()
+    best = {k: min(x) for k, x in turns.items()}
+    say(f"phase 19 the {res}^2 frame in turns (host, device, device, host): "
+        f"host-built BVH16 ms {[round(x, 3) for x in turns['host']]} = "
+        f"{n_rays / best['host'] / 1e3:.1f} Mrays/s, device-built "
+        f"{[round(x, 3) for x in turns['device']]} = "
+        f"{n_rays / best['device'] / 1e3:.1f} Mrays/s; traversal tax "
+        f"{best['device'] / best['host'] - 1:+.4f}")
+    # the frame's work on each tree, counted on every 1,024th ray
+    work = {}
+    for who, s in (("host", scene), ("device", s16)):
+        work[who] = {}
+        plain(s, nt.Rays(*(x[::1024].contiguous() for x in rays_t)),
+              stats=work[who])
+    frame_b = bound(n_rays * (32 + 20) + nbytes(s16.nodes, s16.leafs),
+                    trace_ops(work["device"], 16, WT_OPS) * 1024)
+    say(f"phase 19 frame work (every 1,024th ray, x1024): host tree "
+        f"{work['host']}, device tree {work['device']}; device bound "
+        f"{frame_b[0]:.4f} ms ({frame_b[1]})")
+    k1_shape(f"phase 19: the {res}^2 frame on the device-built BVH16 (best "
+             f"of 2)", best["device"], frame_b)
+
+    # ---- 19. K1-woop on woop tables: its path, then == plain
+    sw, h_w, w_s, counts = path(vt, ft, woop=True)
+    say(f"phase 19 woop path (build woop=True + K1-woop frame, {w_s:.3f} s "
+        f"host wall): launches {counts}; hit fraction "
+        f"{float(h_w.hit.float().mean()):.5f}")
+    check(counts["packet_traverse_woop"] == 1 and sum(counts.values()) == 1,
+          f"phase 19 woop path launches {counts}")
+    woop_launches = counts["packet_traverse_woop"]
+    del h_w
+    got = packet.traverse_bvh8(sw, sub, intersector="woop")
+    ref = plain(sw, sub, woop=True)
+    w_same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    woop_err = record_err(got, ref)
+    w_ms = median(cuda_ms(lambda: packet.traverse_bvh8(
+        sw, sub, intersector="woop"), 10))
+    say(f"phase 19 K1-woop on device woop tables, {sub.org.shape[0]} frame "
+        f"rays: kernel == plain bit for bit: {w_same} (max abs err "
+        f"{woop_err}); kernel {w_ms:.3f} ms (median of 10)")
+    check(w_same, "phase 19: K1-woop differs from its plain version")
+    del sw, got, ref, s16, vt, ft
+    torch.cuda.empty_cache()
+
+    # ---- 19. ~10M triangles: the build's seconds and peak memory, then
+    # the frame (no host-built tree at this size: the frame's sampled
+    # pixels are held to brute force, a subset to the plain version)
+    t0 = time.perf_counter()
+    v10, f10 = make_subdivided_sphere_scene(10_000_000)
+    gen_s = time.perf_counter() - t0
+    vt, ft = torch.from_numpy(v10).to(dev), torch.from_numpy(f10).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s10 = collapse_lbvh_device(vt, ft, width=16, max_leaf=9)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    del s10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    s10 = collapse_lbvh_device(vt, ft, width=16, max_leaf=9)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rep = wide_table_report(s10, len(f10))
+    say(f"# phase 19 at {len(f10)} tris (generated in {gen_s:.2f} s): "
+        f"collapse_lbvh_device(width=16, max_leaf=9) {cold_s:.3f} s first, "
+        f"{warm_s:.3f} s warm (host wall, synced); "
+        f"torch.cuda.max_memory_allocated() {peak} B = "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB held before the build); {s10.num_nodes} "
+        f"nodes, {s10.num_leaf_rows} leaf rows, depth {s10.depth}, merge and "
+        f"preorder off (above 4M prims); structure {rep}")
+    check(rep["ok"], f"phase 19 10M: tables fail the checks: {rep}")
+    del s10
+    s10, h10, p10_s, counts = path(vt, ft)
+    check(counts["packet_traverse"] == 1 and sum(counts.values()) == 1,
+          f"phase 19 10M path launches {counts}")
+    k1_launches += counts["packet_traverse"]
+    frac = float(h10.hit.float().mean())
+    r_img = 1.0 / math.sqrt(2.2 ** 2 - 1.0)
+    expect = math.pi * r_img ** 2 / (2.0 * math.tan(math.radians(30.0))) ** 2
+    pick = torch.from_numpy(np.random.default_rng(12).choice(
+        n_rays, 1024, replace=False)).to(dev)
+    c = compare_hits(nt.Hits(*(x[pick] for x in h10)), nt.brute_force_traverse(
+        TriangleMesh(vt, ft), nt.Rays(*(x[pick] for x in rays_t)),
+        chunk_size=16384))
+    del h10
+    sub10 = nt.Rays(*(x[::4096].contiguous() for x in rays_t))
+    got = packet.traverse_bvh8(s10, sub10)
+    ref = plain(s10, sub10)
+    same10 = all(torch.equal(a, b) for a, b in zip(got, ref))
+    k1_err = max(k1_err, record_err(got, ref))
+    holder = {}
+    ms10 = cuda_ms(lambda: frame(s10), 3)
+    holder.clear()
+    say(f"phase 19 10M path (build + frame, {p10_s:.3f} s host wall): "
+        f"launches {counts}; frame ms {[round(x, 3) for x in ms10]} = "
+        f"{n_rays / min(ms10) / 1e3:.1f} Mrays/s best; hit fraction "
+        f"{frac:.5f} (disc coverage {expect:.5f}); 1,024 sampled pixels vs "
+        f"brute force: {c}; K1 == plain on {sub10.org.shape[0]} frame rays: "
+        f"{same10}")
+    check(abs(frac - expect) < 5e-3 and c["ok"] and same10,
+          "phase 19 10M: the frame is wrong")
+    del s10, vt, ft, rays_t, sub, sub10, got, ref
+    torch.cuda.empty_cache()
+    say(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return k1_launches, k1_err, woop_launches, woop_err
+
+
+def lidar_spheres(n: int, seed: int = 21):
+    """A LiDAR-like point cloud: ``n`` points on a 100 m x 100 m rolling
+    terrain (z up to +-2 m plus 5 cm of noise), one sphere of 4-8 cm a
+    point, as the LAS viewer draws them."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-50.0, 50.0, (n, 2))
+    z = 2.0 * np.sin(xy[:, 0] / 7.0) * np.cos(xy[:, 1] / 5.0) \
+        + rng.normal(0.0, 0.05, n)
+    c = np.concatenate([xy, z[:, None]], 1).astype(np.float32)
+    return c, rng.uniform(0.04, 0.08, n).astype(np.float32)
+
+
+def branch_cylinders(n: int, seed: int = 22):
+    """``n`` capped segments (branches) in a 20 m box, 2-10 cm thick."""
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(-10.0, 10.0, (n, 3))
+    p1 = p0 + rng.normal(0.0, 0.5, (n, 3))
+    return (p0.astype(np.float32), p1.astype(np.float32),
+            rng.uniform(0.02, 0.1, n).astype(np.float32),
+            rng.uniform(0.02, 0.1, n).astype(np.float32))
+
+
+def hair_curves(n: int, seed: int = 23):
+    """``n`` cubic Bezier strands rooted on a unit sphere, growing
+    outwards about 0.3 with a random curl, 2-5 mm thick, thinning."""
+    rng = np.random.default_rng(seed)
+    root = rng.normal(size=(n, 3))
+    root /= np.linalg.norm(root, axis=1, keepdims=True)
+    steps = root[:, None, :] * np.asarray([0.0, 0.1, 0.2, 0.3])[None, :, None]
+    curl = np.cumsum(rng.normal(0.0, 0.03, (n, 4, 3)), axis=1)
+    curl[:, 0] = 0.0
+    pts = (root[:, None, :] + steps + curl).astype(np.float32)
+    r = np.linspace(1.0, 0.4, 4)[None, :] * rng.uniform(0.002, 0.005, (n, 1))
+    return pts, r.astype(np.float32)
+
+
+def feature_phases(dev, cpu_every: int = 64):
+    """Phase 20: spheres (1M, 512^2 rays), cylinders (100,000, 512^2
+    rays), curves (100,000, 4 subdivisions, 256^2 rays) and K = 8
+    multi-hit (both engines, midscale, 262,144 rays) on the card, each
+    held to the same port code on the CPU over every ``cpu_every``-th ray
+    (4,096 of 512^2, spread over the image: its first rows are sky).
+    Plain torch: no kernel may launch."""
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch import interop
+    from nanort_tpu_torch.io.procedural import make_cornell_dense_pt_scene
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops import curve, cylinder, sphere
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import compare_hits, ulp_distance
+    from nanort_tpu_torch.traverse import multi_hit
+    from nanort_tpu_torch.traverse.packed import pack_scene
+
+    t_phase = time.perf_counter()
+
+    def camera(eye, center, res=512, fov=50.0):
+        r = pinhole_rays(look_at(eye, center, width=res, height=res,
+                                 fov=fov, device=dev))
+        return nt.Rays(*(x.reshape((res * res,) + x.shape[2:]).contiguous()
+                         for x in r))
+
+    def cpu(rays):
+        return nt.Rays(*(x[::cpu_every].cpu() for x in rays))
+
+    def head(tree):
+        """The rays (records) the CPU run traces, on the host."""
+        return type(tree)(*(x[::cpu_every].cpu() for x in tree))
+
+    def timed(fn):
+        """``fn()`` once, timed, with the launch counts zeroed first:
+        (result, seconds, launches). Plain torch has nothing to compile,
+        so no warm-up run: the phase keeps inside the script's time."""
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts()
+
+    runs = []
+    # spheres: the LiDAR viewer's scale
+    c, r = lidar_spheres(1_000_000)
+    t0 = time.perf_counter()
+    s_card = interop.spheres_from_numpy(c, r, device=dev)
+    bvh, _ = sphere.build_sphere_bvh(s_card)
+    build_s = time.perf_counter() - t0
+    rays = camera((0.0, -60.0, 40.0), (0.0, 0.0, 0.0))
+    runs.append(("spheres", len(r), build_s, rays,
+                 lambda: sphere.traverse_spheres(bvh, s_card, rays),
+                 lambda: sphere.traverse_spheres(
+                     bvh, interop.spheres_from_numpy(c, r, device="cpu"),
+                     cpu(rays))))
+    cyl = branch_cylinders(100_000)
+    t0 = time.perf_counter()
+    c_card = interop.cylinders_from_numpy(*cyl, device=dev)
+    cbvh, _ = cylinder.build_cylinder_bvh(c_card)
+    cbuild_s = time.perf_counter() - t0
+    crays = camera((0.0, -30.0, 8.0), (0.0, 0.0, 0.0))
+    runs.append(("cylinders", len(cyl[2]), cbuild_s, crays,
+                 lambda: cylinder.traverse_cylinders(cbvh, c_card, crays),
+                 lambda: cylinder.traverse_cylinders(
+                     cbvh, interop.cylinders_from_numpy(*cyl, device="cpu"),
+                     cpu(crays))))
+    hair = hair_curves(100_000)
+    t0 = time.perf_counter()
+    h_card = interop.curves_from_numpy(*hair, device=dev)
+    hbvh, _ = curve.build_curve_bvh(h_card)
+    hbuild_s = time.perf_counter() - t0
+    hrays = camera((0.0, -4.0, 0.5), (0.0, 0.0, 0.0), res=256, fov=40.0)
+    runs.append(("curves (4 subdivisions)", len(hair[1]), hbuild_s, hrays,
+                 lambda: curve.traverse_curves(hbvh, h_card, hrays,
+                                               num_subdivisions=4),
+                 lambda: curve.traverse_curves(
+                     hbvh, interop.curves_from_numpy(*hair, device="cpu"),
+                     cpu(hrays), num_subdivisions=4)))
+    for what, n, b_s, rr, on_card, on_cpu in runs:
+        got, secs, counts = timed(on_card)
+        want = on_cpu()
+        cmp_ = compare_hits(head(got), want, uv_atol=1e-6)
+        R = rr.org.shape[0]
+        say(f"# phase 20 {what}: {n} prims (host BVH {b_s:.2f} s), {R} "
+            f"rays: {secs:.3f} s = {R / secs / 1e6:.3f} Mrays/s (one "
+            f"run), hit fraction {float(got.hit.float().mean()):.4f}; "
+            f"every {cpu_every}th ray on the card vs the CPU: {cmp_}; "
+            f"launches {counts}")
+        check(cmp_["ok"] and cmp_["ties"] == 0 and cmp_["hits"] > 0,
+              f"phase 20 {what}: the card differs from the CPU")
+        check(sum(counts.values()) == 0, f"phase 20 {what} launched a kernel")
+    del runs, s_card, c_card, h_card, bvh, cbvh, hbvh
+    torch.cuda.empty_cache()
+
+    # multi-hit at K = 8 on the midscale scene, both engines
+    dv, df, _, _ = make_cornell_dense_pt_scene(100_000)
+    mbvh, _ = nt.build_triangle_bvh(TriangleMesh(dv, df))
+    packed = pack_scene(mbvh, dv, df)
+    mesh = TriangleMesh(torch.from_numpy(dv).to(dev),
+                        torch.from_numpy(df).to(dev))
+    g = np.random.default_rng(24)
+    R = 262_144
+    org = g.uniform(-0.9, 0.9, (R, 3)).astype(np.float32)
+    d = g.normal(size=(R, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    mrays = nt.make_rays(torch.from_numpy(org).to(dev),
+                         torch.from_numpy(d).to(dev))
+    cmesh = TriangleMesh(torch.from_numpy(dv), torch.from_numpy(df))
+    for engine, on_card, on_cpu in (
+            ("multi_hit_traverse",
+             lambda: multi_hit.multi_hit_traverse(mbvh, mesh, mrays, 8),
+             lambda: multi_hit.multi_hit_traverse(mbvh, cmesh, cpu(mrays),
+                                                  8)),
+            ("multi_hit_wavefront",
+             lambda: multi_hit.multi_hit_wavefront(packed, mrays, 8),
+             lambda: multi_hit.multi_hit_wavefront(packed, cpu(mrays), 8))):
+        got, secs, counts = timed(on_card)
+        want = on_cpu()
+        part = head(got)
+        valid = want.prim_id != nt.INVALID_PRIM_ID
+        same = (torch.equal(part.count, want.count)
+                and torch.equal(part.prim_id, want.prim_id))
+        t_ulp = int(ulp_distance(part.t[valid], want.t[valid]).max(initial=0))
+        say(f"# phase 20 {engine}, K = 8, midscale {len(df)} tris, {R} "
+            f"rays inside the box: {secs:.3f} s = {R / secs / 1e6:.3f} "
+            f"Mrays/s (one run); hits a ray: mean "
+            f"{float(got.count.float().mean()):.3f}, max "
+            f"{int(got.count.max())}; every {cpu_every}th ray on the card vs "
+            f"the CPU: counts and prim ids equal {same}, t max ulp {t_ulp}; "
+            f"launches {counts}")
+        check(same and t_ulp <= 4 and int(got.count.max()) >= 2,
+              f"phase 20 {engine}: the card differs from the CPU")
+        check(sum(counts.values()) == 0, f"phase 20 {engine} launched a "
+              "kernel")
+    say(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+
 def time_calls(fn):
     """``fn()`` once to warm up and 3 times timed with CUDA events, the
     launch counts zeroed first. Returns the 3 times in ms, the device's
@@ -2712,12 +3187,23 @@ def main() -> int:
     entries_18, frame_bound_18 = k1_mode_phases(dev, scene, sub, s8i, rays_i,
                                                 usage_k1)
     pool.shutdown()
+    del s8i, rays_i, sub
+    torch.cuda.empty_cache()
+    launches_19, err_19, woop_19, woop_err_19 = device_build_phases(
+        dev, v, f, scene)
+    feature_phases(dev)
+    for e in k2k5:  # K1-woop's entry gains phase 19's woop path
+        if e["name"] == "packet_traverse_woop":
+            e["launches"] += woop_19
+            e["max_abs_err"] = max(e["max_abs_err"], woop_err_19)
     k1_shape(f"phase 6: the {res}^2 frame (median of 3; bound from phase "
              f"18's counters)", frame_ms, frame_bound_18, "k1_frame_8192_ms")
     report_k1_shapes()
     say(f"packet_traverse launches on the main paths: {launches} (phase 6) "
         f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13) + "
-        f"{launches_17} (phase 17); the 8192^2 frame's bound from its "
+        f"{launches_17} (phase 17) + {launches_19} (phase 19, device-built "
+        f"tables); packet_traverse_woop gains {woop_19} (phase 19); the "
+        f"8192^2 frame's bound from its "
         f"counters {frame_bound_18[0]:.4f} ms ({frame_bound_18[1]})")
     say(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from its start "
         "to the kernels line")
@@ -2727,8 +3213,9 @@ def main() -> int:
         "route": "cuda",
         "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
         "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
-        "launches": launches + launches_pt + launches_a + launches_17,
-        "max_abs_err": max(max_abs, err_pt, err_a, err_17),
+        "launches": (launches + launches_pt + launches_a + launches_17
+                     + launches_19),
+        "max_abs_err": max(max_abs, err_pt, err_a, err_17, err_19),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound[0],

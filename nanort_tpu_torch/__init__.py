@@ -15,6 +15,13 @@ with ``scene8``, or on the reference-exact stack engine
 ``traverse_triangles`` without it; ``models.ao_fused.render_ao_fused``
 does the AO pass in one launch (K5).
 
+The device build: ``build.device_collapse.collapse_lbvh_device(v, f,
+width=16)`` makes the same tables on the card, with no host pass over
+the primitives (``build.lbvh.build_lbvh`` the binary tree,
+``build.refit.refit_bvh`` new bounds for moved geometry). Spheres,
+cylinders and curves (``ops.sphere``, ``ops.cylinder``, ``ops.curve``)
+and ``multi_hit_traverse`` run on the stack engine.
+
 This package imports torch and NumPy, never jax: ``nanort_tpu``'s own
 ``__init__`` pulls in jax, so nothing here imports from it.
 """
@@ -49,6 +56,7 @@ from .ops.triangle import (
     triangle_prim_bounds,
 )
 from .traverse.brute import brute_force_traverse
+from .traverse.multi_hit import MultiHits, multi_hit_traverse
 from .traverse.stack import (
     list_node_intersections,
     traverse,

@@ -27,14 +27,18 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a0 * b1 - a1 * b0], dim=-1)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root: torch's vectorized float32 ``sqrt``
+    on the CPU is off by one ulp on ~0.7% of inputs, so float32 takes the
+    square root in float64 and rounds once (exact for sqrt)."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def length(a: torch.Tensor) -> torch.Tensor:
-    """Euclidean length, correctly rounded: torch's vectorized float32
-    ``sqrt`` on the CPU is off by one ulp on ~0.7% of inputs, so float32
-    takes the square root in float64 and rounds once (exact for sqrt)."""
-    s = dot(a, a)
-    if s.dtype == torch.float32:
-        return torch.sqrt(s.double()).float()
-    return torch.sqrt(s)
+    """Euclidean length, correctly rounded (``sqrt``)."""
+    return sqrt(dot(a, a))
 
 
 def normalize(a: torch.Tensor, eps: float = 1e-17) -> torch.Tensor:
@@ -63,3 +67,32 @@ def surface_area(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
     d = bmax - bmin
     return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
                   + d[..., 2] * d[..., 0])
+
+
+# Min and max as XLA computes them (``jnp.minimum``, ``jnp.min``): NaN
+# propagates and -0.0 orders below +0.0. torch's return either zero of an
+# equal pair, so the device build, whose table bits must be the JAX
+# package's, takes these.
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(a == b, torch.where(a.signbit(), a, b),
+                       torch.minimum(a, b))
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(a == b, torch.where(a.signbit(), b, a),
+                       torch.maximum(a, b))
+
+
+def amin(x: torch.Tensor, dim: int) -> torch.Tensor:
+    r = x.amin(dim)
+    neg_zero = ((x == 0) & x.signbit()).any(dim)
+    return torch.where(r == 0, torch.where(neg_zero, -0.0, 0.0).to(r.dtype),
+                       r)
+
+
+def amax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    r = x.amax(dim)
+    pos_zero = ((x == 0) & ~x.signbit()).any(dim)
+    return torch.where(r == 0, torch.where(pos_zero, 0.0, -0.0).to(r.dtype),
+                       r)

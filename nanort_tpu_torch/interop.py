@@ -89,3 +89,32 @@ def rays_from_numpy(org, dir, min_t, max_t, device="cuda") -> Rays:
 
     return Rays(t(org), t(dir), t(min_t), t(max_t))
 
+
+
+def _prim_tensor(x, device):
+    a = np.array(x, order="C")
+    if a.dtype.kind != "f":
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device)
+
+
+def spheres_from_numpy(centers, radii, device="cuda"):
+    """Port ``Spheres`` on ``device`` (the card unless the caller asks
+    for another device); float arrays keep their dtype."""
+    from .ops.sphere import Spheres
+
+    return Spheres(_prim_tensor(centers, device), _prim_tensor(radii, device))
+
+
+def cylinders_from_numpy(p0, p1, r0, r1, device="cuda"):
+    """Port ``Cylinders`` on ``device``; float arrays keep their dtype."""
+    from .ops.cylinder import Cylinders
+
+    return Cylinders(*(_prim_tensor(x, device) for x in (p0, p1, r0, r1)))
+
+
+def curves_from_numpy(points, radii, device="cuda"):
+    """Port ``Curves`` on ``device``; float arrays keep their dtype."""
+    from .ops.curve import Curves
+
+    return Curves(_prim_tensor(points, device), _prim_tensor(radii, device))

@@ -60,3 +60,18 @@ def apply_trace_filters(valid: torch.Tensor, prim_ids: torch.Tensor,
     if skip.ndim:
         skip = skip[..., None]  # per-ray skip vs trailing leaf axis
     return valid & (prim_ids != skip)
+
+
+def _build_bvh(bmin, bmax, centers, options):
+    """Binary SAH BVH over host boxes: the native builder when it is
+    available (float32), else ``build/sah.py``."""
+    import numpy as np
+
+    from ..build.native import build_sah_native, native_available
+    from ..build.sah import build_sah
+    from ..core.options import BVHBuildOptions
+
+    options = options or BVHBuildOptions()
+    if np.asarray(bmin).dtype == np.float32 and native_available():
+        return build_sah_native(bmin, bmax, centers, options)
+    return build_sah(bmin, bmax, centers, options)

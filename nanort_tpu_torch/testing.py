@@ -135,6 +135,79 @@ def overlap_soup(n_tris: int, n_rays: int, seed: int = 3):
             d.astype(np.float32))
 
 
+MAX_LEAF_SLOTS = 10  # triangles a leaf row holds (build/bvh8.py)
+
+
+def wide_table_report(scene, n_prims: int) -> dict:
+    """Structural checks of BVH8/BVH16 tables (host NumPy, vectorized),
+    walked level by level from root row 0: ``prims_once`` (every prim id
+    in exactly one reachable leaf slot), ``enclosed`` (each child node's
+    slot boxes inside its parent's slot box, and each leaf triangle's
+    vertices inside its slot box; exact comparisons), ``acyclic`` (no row
+    reached twice), ``leaf_rows_once``, ``pad_rows_empty`` (every slot
+    box of a row past ``num_nodes`` inverted) and ``depth_ok`` (the
+    levels walked equal ``scene.depth``), with ``ok`` when all hold."""
+    nodes, leafs = _np(scene.nodes), _np(scene.leafs)
+    W = scene.width
+    box0 = (6 if W == 16 else 8) * np.arange(W)
+    meta_lane, cnt_lane = (96, 112) if W == 16 else (64, 72)
+    lo = np.stack([nodes[:, box0 + k] for k in range(3)], -1)  # (N, W, 3)
+    hi = np.stack([nodes[:, box0 + 3 + k] for k in range(3)], -1)
+    live = lo[..., 0] <= hi[..., 0]
+    meta = nodes[:, meta_lane + np.arange(W)].astype(np.int64)
+    cnt = nodes[:, cnt_lane + np.arange(W)].astype(np.int64)
+    if W == 16:
+        cnt &= 15  # child 0's count lane also carries 16 * axis
+    frontier = np.zeros(1, np.int64)
+    seen = [frontier]
+    enclosed, levels, leaf_slots = True, 0, []
+    while frontier.size and levels <= nodes.shape[0]:  # a cycle stops
+        levels += 1
+        p, s = np.nonzero(live[frontier])
+        p = frontier[p]
+        internal = meta[p, s] >= 0
+        kids = meta[p, s][internal]
+        kp, ks = p[internal], s[internal]
+        # a child's live slot boxes lie inside the parent's slot box
+        kl = live[kids]
+        big = np.float32(3.0e38)
+        klo = np.where(kl[..., None], lo[kids], big).min(1)
+        khi = np.where(kl[..., None], hi[kids], -big).max(1)
+        enclosed &= bool((klo >= lo[kp, ks]).all() and
+                         (khi <= hi[kp, ks]).all())
+        leaf_slots.append((p[~internal], s[~internal]))
+        frontier = kids
+        seen.append(kids)
+    seen = np.concatenate(seen)
+    lp = np.concatenate([x[0] for x in leaf_slots])
+    ls = np.concatenate([x[1] for x in leaf_slots])
+    rows = -meta[lp, ls] - 1
+    count = cnt[lp, ls]
+    t = np.arange(MAX_LEAF_SLOTS)
+    held = t < count[:, None]  # (slots, 10)
+    pids = leafs[rows[:, None], 90 + t][held].astype(np.int64)
+    tri = np.stack([leafs[rows[:, None], 9 * t + j] for j in range(9)],
+                   -1).reshape(len(rows), MAX_LEAF_SLOTS, 3, 3)
+    vmin = np.where(held[..., None], tri.min(2), np.inf)
+    vmax = np.where(held[..., None], tri.max(2), -np.inf)
+    enclosed &= bool((vmin >= lo[lp, ls][:, None]).all()
+                     and (vmax <= hi[lp, ls][:, None]).all())
+    r = dict(
+        nodes_reached=int(seen.size), leaf_slots=int(rows.size),
+        levels=levels,
+        prims_once=bool(np.array_equal(np.sort(pids),
+                                       np.arange(n_prims))),
+        enclosed=enclosed,
+        acyclic=bool(np.unique(seen).size == seen.size),
+        leaf_rows_once=bool(np.unique(rows).size == rows.size
+                            and rows.size == scene.num_leaf_rows),
+        pad_rows_empty=bool(not live[scene.num_nodes:].any()),
+        depth_ok=levels == scene.depth,
+    )
+    r["ok"] = all(v for k, v in r.items() if isinstance(v, bool))
+    return r
+
+
 def run_without_fma(script: str, inputs: dict, timeout: float = 600.0) -> dict:
     """Run ``python script IN OUT`` and return the arrays it saved.
 

@@ -21,17 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..build.lbvh import _expand_bits
 from ..core.ray import Hits, Rays
-
-
-def _expand_bits(v: torch.Tensor) -> torch.Tensor:
-    """Spread 10 bits to every 3rd position (``build/lbvh.py``'s Morton
-    magic; int64 holding uint32 values, so no product wraps)."""
-    v = (v * 0x00010001) & 0xFF0000FF
-    v = (v * 0x00000101) & 0x0F00F00F
-    v = (v * 0x00000011) & 0xC30C30C3
-    v = (v * 0x00000005) & 0x49249249
-    return v
 
 
 def ray_sort_keys(rays: Rays, scene_lo, scene_hi,

@@ -153,3 +153,64 @@ def test_root_reexports_like_jax(name):
         return
     assert hasattr(jrt, name)
     assert getattr(nt, name) is getattr(home, name)
+
+
+# The device build, the custom primitives and multi-hit: each public name
+# of the JAX module exists in the port's module of the same path, and a
+# function takes the JAX function's parameters, in its order (the port
+# may add trailing keyword parameters, such as ``device``).
+PORTED_MODULES = {
+    "build.lbvh": ["build_lbvh", "morton_codes", "hybrid_deltas",
+                   "MAX_DEPTH", "D_FLOOR"],
+    "build.refit": ["refit_bvh"],
+    "build.sah_top": ["sah_top_partition", "sah_hybrid_deltas",
+                      "sah_cost_estimate"],
+    "build.device_collapse": ["collapse_lbvh_device", "preorder_device"],
+    "ops.sphere": ["Spheres", "SphereRayCtx", "sphere_prim_bounds",
+                   "sphere_prepare", "sphere_intersect", "sphere_post",
+                   "build_sphere_bvh", "traverse_spheres"],
+    "ops.cylinder": ["Cylinders", "CylRayCtx", "cylinder_prim_bounds",
+                     "cylinder_prepare", "cylinder_intersect",
+                     "build_cylinder_bvh", "traverse_cylinders"],
+    "ops.curve": ["Curves", "CurveRayCtx", "curve_prim_bounds",
+                  "curve_prepare", "make_curve_intersect",
+                  "build_curve_bvh", "traverse_curves"],
+    "traverse.multi_hit": ["MultiHits", "multi_hit_traverse",
+                           "multi_hit_wavefront", "brute_force_multi_hit"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(PORTED_MODULES))
+def test_ported_module_names_match(module):
+    import importlib
+    import inspect
+
+    jm = importlib.import_module(f"nanort_tpu.{module}")
+    tm = importlib.import_module(f"nanort_tpu_torch.{module}")
+    for name in PORTED_MODULES[module]:
+        j, t = getattr(jm, name), getattr(tm, name)
+        if isinstance(j, int):
+            assert t == j, name
+        elif isinstance(j, type):
+            assert getattr(t, "_fields", None) == getattr(j, "_fields",
+                                                          None), name
+        else:
+            jp = list(inspect.signature(j).parameters)
+            tp = list(inspect.signature(t).parameters)
+            assert tp[:len(jp)] == jp, (name, jp, tp)
+
+
+@pytest.mark.parametrize("name", ["multi_hit_traverse", "MultiHits"])
+def test_multi_hit_root_names(name):
+    from nanort_tpu_torch.traverse import multi_hit
+
+    assert getattr(nt, name) is getattr(multi_hit, name)
+    if name == "multi_hit_traverse":
+        assert hasattr(jrt, name)  # the JAX package exports it too
+
+
+def test_ray_sort_shares_the_morton_spread():
+    from nanort_tpu_torch.build import lbvh
+    from nanort_tpu_torch.traverse import ray_sort
+
+    assert ray_sort._expand_bits is lbvh._expand_bits

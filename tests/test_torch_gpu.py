@@ -1160,3 +1160,133 @@ def test_k1_occupancy_and_plan(dev, width, mode):
     # STACK_CAP entries
     assert occ["shared_bytes"] == 0
     assert occ["local_bytes"] >= packet.STACK_CAP * 4
+
+
+# ------------------------------ the device build and the traversal features
+
+DEVICE_BUILDS = {
+    "w16": dict(width=16),
+    "w16_woop_sah": dict(width=16, woop=True, merge_leaves=False,
+                         preorder=False, sah_levels=4, sah_stop=16),
+    "w8": dict(width=8),
+    "w8_woop": dict(width=8, woop=True),
+}
+
+
+@pytest.fixture(scope="module")
+def lbvh_mesh():
+    return merge_meshes(make_cornell_box(2.0), make_uv_sphere(24, 48, 0.5))
+
+
+@pytest.mark.parametrize("case", list(DEVICE_BUILDS))
+def test_device_build_on_card_equals_cpu(dev, lbvh_mesh, case):
+    from nanort_tpu_torch.build.device_collapse import collapse_lbvh_device
+    from nanort_tpu_torch.testing import wide_table_report
+
+    v, f = lbvh_mesh
+    cpu = collapse_lbvh_device(v, f, device="cpu", **DEVICE_BUILDS[case])
+    card = collapse_lbvh_device(torch.from_numpy(v).to(dev),
+                                torch.from_numpy(f).to(dev),
+                                **DEVICE_BUILDS[case])
+    for k in ("nodes", "leafs", "leafs_woop"):
+        a, b = getattr(card, k), getattr(cpu, k)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.is_cuda and a.is_contiguous()
+            assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    for k in ("num_nodes", "num_leaf_rows", "depth", "max_leaf", "width"):
+        assert getattr(card, k) == getattr(cpu, k)
+    assert wide_table_report(card, len(f))["ok"]
+
+
+def test_lbvh_and_refit_on_card_equal_cpu(dev, lbvh_mesh):
+    from nanort_tpu_torch.build.lbvh import build_lbvh
+    from nanort_tpu_torch.build.refit import refit_bvh
+    from nanort_tpu_torch.ops.triangle import triangle_prim_bounds
+    from nanort_tpu_torch.testing import same_bits
+
+    v, f = lbvh_mesh
+    bmin, bmax, ctr = triangle_prim_bounds(TriangleMesh(v, f))
+    cpu, _ = build_lbvh(bmin, bmax, ctr, device="cpu")
+    card, _ = build_lbvh(torch.from_numpy(bmin).to(dev),
+                         torch.from_numpy(bmax).to(dev),
+                         torch.from_numpy(ctr).to(dev))
+    assert all(same_bits(a, b) for a, b in zip(card, cpu))
+    v2 = v * np.asarray([1.0, 0.4, 1.3], np.float32)
+    b2 = triangle_prim_bounds(TriangleMesh(v2, f))
+    assert all(same_bits(a, b) for a, b in zip(
+        refit_bvh(cpu, *b2[:2], device=dev),
+        refit_bvh(cpu, *b2[:2], device="cpu")))
+
+
+@pytest.mark.parametrize("grid", ["plan", 1, "claims"])
+@pytest.mark.parametrize("case", list(DEVICE_BUILDS))
+def test_k1_on_device_tables_matches_plain(dev, monkeypatch, lbvh_mesh, case,
+                                           grid):
+    """K1 and K1-woop on device-built tables (power-of-two padding, a
+    park row, LBVH topology): the launch plan's grid, one block, and
+    more 32-ray claims than resident warps."""
+    from nanort_tpu_torch.build.device_collapse import collapse_lbvh_device
+
+    v, f = lbvh_mesh
+    scene = collapse_lbvh_device(v, f, device="cpu", **DEVICE_BUILDS[case])
+    n = 3001
+    if grid == 1:
+        _grid(monkeypatch, 1)
+    elif grid == "claims":
+        occ = packet.k1_occupancy(scene.width, woop=scene.leafs_woop
+                                  is not None)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        warps = occ["blocks_per_sm"] * sms * packet.K1_THREADS // 32
+        n = packet.K1_CLAIM * (warps + 3) + 5
+    rays = _rays(n, 14)
+    if scene.leafs_woop is not None:
+        _same_on_both(scene, rays, dev, intersector="woop")
+    _same_on_both(scene, rays, dev)
+
+
+def test_spheres_on_card_match_cpu(dev):
+    from nanort_tpu_torch.ops import sphere
+
+    rng = np.random.default_rng(8)
+    c = rng.uniform(-2, 2, (4000, 3)).astype(np.float32)
+    r = rng.uniform(0.02, 0.1, 4000).astype(np.float32)
+    bvh, _ = sphere.build_sphere_bvh(interop.spheres_from_numpy(
+        c, r, device="cpu"))
+    rays = _rays(2048, 15, broken=False)
+    want = sphere.traverse_spheres(
+        bvh, interop.spheres_from_numpy(c, r, device="cpu"), rays)
+    got = sphere.traverse_spheres(
+        bvh, interop.spheres_from_numpy(c, r, device=dev),
+        nt.Rays(*(x.to(dev) for x in rays)))
+    from nanort_tpu_torch.testing import compare_hits
+
+    res = compare_hits(got, want, uv_atol=1e-6)
+    assert res["ok"] and res["hits"] > 100, res
+
+
+@pytest.mark.parametrize("engine", ["stack", "wavefront"])
+def test_multi_hit_on_card_matches_cpu(dev, lbvh_mesh, engine):
+    from nanort_tpu_torch.testing import ulp_distance
+    from nanort_tpu_torch.traverse import multi_hit
+    from nanort_tpu_torch.traverse.packed import pack_scene
+
+    v, f = lbvh_mesh
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f))
+    rays = _rays(2048, 16, broken=False)
+    mesh = TriangleMesh(torch.from_numpy(v), torch.from_numpy(f))
+    if engine == "stack":
+        want = multi_hit.multi_hit_traverse(bvh, mesh, rays, 8)
+        got = multi_hit.multi_hit_traverse(
+            bvh, TriangleMesh(mesh.vertices.to(dev), mesh.faces.to(dev)),
+            nt.Rays(*(x.to(dev) for x in rays)), 8)
+    else:
+        packed = pack_scene(bvh, v, f)
+        want = multi_hit.multi_hit_wavefront(packed, rays, 8)
+        got = multi_hit.multi_hit_wavefront(
+            packed, nt.Rays(*(x.to(dev) for x in rays)), 8)
+    assert got.t.is_cuda
+    assert torch.equal(got.count.cpu(), want.count)
+    assert torch.equal(got.prim_id.cpu(), want.prim_id)
+    assert int(ulp_distance(got.t.cpu(), want.t).max()) <= 4
+    assert int(want.count.max()) >= 2
