@@ -147,10 +147,39 @@ nothing of JAX. Phases, one line or more each:
     midscale scene (262,144 rays inside the box), each with its seconds
     and Mrays/s and held to the same code on the CPU over every 64th ray
     (4,096 of 512^2, spread over the image: the same mask and prim ids,
-    t within 4 ulp);
+    t within 4 ulp); and, in phase 19's ~10M cell, the device build with
+    ``merge_leaves=True, preorder=True`` asked for explicitly (its
+    seconds, peak allocation, structure, K1 == plain, and the frame on
+    its tables against the default tables' in turns);
+21. the Embree-style API and the scene graph at real size: an rtc scene
+    of 10 copies of the midscale mesh (99,236 tris each) turned and set
+    on a ring (992,360 world tris), committed on the card (the seconds
+    of 10 graph builds and the BVH8 of the world-space union);
+    ``intersect`` and ``occluded`` on 2048^2 pinhole rays (a warm-up and
+    3 timed with CUDA events, Mrays/s; one K1 launch a call, counted),
+    each call's K1 launch held to the plain version bit for bit on every
+    32nd of its 4,194,304 sorted rays; the card against the CPU on 4,096
+    spread rays for the fast route and ``Scene.traverse`` (the same hit
+    mask, geometry and local prim ids, t within 4 ulp); the fast route
+    against the graph walk on 65,536 spread rays (masks differing on at
+    most 1% of rays, ids on 1% of shared hits, relative t error 1e-5:
+    the CPU test's bounds); then the glTF path: the same mesh as one
+    buffer under 10 TRS nodes in a ``.glb``, ``load_gltf``,
+    ``to_scene_graph``, ``commit`` (one build), ``traverse`` of 256^2
+    rays, and a re-commit after one ``translate`` that builds nothing;
+22. the renderers: ``render_pbr`` on config A's scene with BVH16 tables
+    at 1024^2 (2 K1 launches a render, finite and not black, card ==
+    CPU on 4,096 spread pixels), ``trace_bdpt`` on the midscale
+    ``PTScene`` with BVH16 tables at 256^2 x 1 sample (K1) and on its
+    Woop twin at 128^2 (K1-woop), every launch counted and each
+    captured launch held to the plain version on its first 16,384
+    sorted rays, ``rasterize_uv_atlas`` at 256^2 and every camera model
+    at 512^2 against the CPU, and a ``ProgressiveRenderer`` of
+    ``render_pbr`` passes whose pass 2 is cancelled in flight (the
+    snapshots are the means of the kept passes only);
 
 then one line per
-    K1 shape (phases 5, 6, 11, 13, 16-19) with its time, its bound and,
+    K1 shape (phases 5, 6, 11, 13, 16-19, 21) with its time, its bound and,
     where ``tools/ab_port_kernels.py ... --out
     chiprun_out/ab_port_kernels.json`` ran before it in the same
     command, the parent's and this tree's times from its turns.
@@ -159,7 +188,9 @@ It then prints one JSON line with every kernel (its launches on the main
 path, its error against its plain version, its time, its plain
 version's time, and its bound: the larger of the bytes it must move over
 3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s,
-counted by the plain version) and, last, the ok line. Any failed phase
+counted by the plain version; ``packet_traverse[rtc]`` is K1 at the
+API's shape, on phase 21's sorted rays, its launches counted in
+``packet_traverse``'s too) and, last, the ok line. Any failed phase
 exits non-zero without the ok line; so does a machine without CUDA.
 """
 
@@ -1270,6 +1301,7 @@ def hold_k1_trace(scene8, rays, args, kw, got, m: int | None = None) -> dict:
 
     opts = args[0] if args else kw.get("options", nt.BVHTraceOptions())
     occ = kw.get("occlusion", False)
+    woop = kw.get("intersector") == "woop"
     flat = nt.Rays(rays.org.reshape(-1, 3), rays.dir.reshape(-1, 3),
                    rays.min_t.reshape(-1), rays.max_t.reshape(-1))
     n = flat.org.shape[0] if m is None else m
@@ -1290,10 +1322,10 @@ def hold_k1_trace(scene8, rays, args, kw, got, m: int | None = None) -> dict:
 
     def plain():
         holder["want"] = packet._traverse_reference(
-            scene8.nodes, scene8.leafs, scene8.width, flat.org, flat.dir,
-            flat.min_t, flat.max_t, skip, None, opts.cull_back_face,
-            opts.exact_edge_fallback, occ, packet.stack_slots(scene8),
-            stats=stats, start=start)
+            scene8.nodes, scene8.leafs_woop if woop else scene8.leafs,
+            scene8.width, flat.org, flat.dir, flat.min_t, flat.max_t, skip,
+            None, opts.cull_back_face, opts.exact_edge_fallback and not woop,
+            occ, packet.stack_slots(scene8), woop, stats=stats, start=start)
 
     p_ms = cuda_ms(plain, 1)[0]
     want = holder.pop("want")
@@ -2657,7 +2689,64 @@ def device_build_phases(dev, v, f, scene, res: int = 8192):
         f"{same10}")
     check(abs(frac - expect) < 5e-3 and c["ok"] and same10,
           "phase 19 10M: the frame is wrong")
-    del s10, vt, ft, rays_t, sub, sub10, got, ref
+
+    # ---- 19. ~10M with leaf merging and preorder asked for explicitly
+    # (the default turns both off above 4M prims, a TPU memory threshold)
+    del got, ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s10x = collapse_lbvh_device(vt, ft, width=16, max_leaf=9,
+                                merge_leaves=True, preorder=True)
+    torch.cuda.synchronize()
+    x_cold = time.perf_counter() - t0
+    del s10x
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_x = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    s10x = collapse_lbvh_device(vt, ft, width=16, max_leaf=9,
+                                merge_leaves=True, preorder=True)
+    torch.cuda.synchronize()
+    x_warm = time.perf_counter() - t0
+    peak_x = torch.cuda.max_memory_allocated()
+    rep_x = wide_table_report(s10x, len(f10))
+    got = packet.traverse_bvh8(s10x, sub10)
+    ref = plain(s10x, sub10)
+    same_x = all(torch.equal(a, b) for a, b in zip(got, ref))
+    k1_err = max(k1_err, record_err(got, ref))
+    del got, ref
+    c_x = frame_records_agree(packet.traverse_bvh8(s10x, rays_t),
+                              packet.traverse_bvh8(s10, rays_t))
+    frame(s10x)
+    turns = {"default": [], "merged": []}
+    for who in ("default", "merged", "merged", "default"):
+        s = s10 if who == "default" else s10x
+        turns[who] += cuda_ms(lambda: frame(s), 1)
+    holder.clear()
+    work = {}
+    for who, s in (("default", s10), ("merged", s10x)):
+        work[who] = {}
+        plain(s, nt.Rays(*(x[::1024].contiguous() for x in rays_t)),
+              stats=work[who])
+    best = {k: min(x) for k, x in turns.items()}
+    say(f"phase 19 10M with merge_leaves=True, preorder=True: build "
+        f"{x_cold:.3f} s first, {x_warm:.3f} s warm (host wall, synced); "
+        f"torch.cuda.max_memory_allocated() {peak_x / 2**30:.3f} GiB "
+        f"({(peak_x - base_x) / 2**30:.3f} above the {base_x / 2**30:.3f} "
+        f"held); {s10x.num_nodes} nodes, {s10x.num_leaf_rows} leaf rows, "
+        f"depth {s10x.depth} (default: {s10.num_nodes}, "
+        f"{s10.num_leaf_rows}, {s10.depth}); structure {rep_x['ok']}; K1 == "
+        f"plain on {sub10.org.shape[0]} frame rays: {same_x}; frame records "
+        f"vs the default tables {c_x}; the {res}^2 frame in turns (default, "
+        f"merged, merged, default): default ms "
+        f"{[round(x, 3) for x in turns['default']]}, merged "
+        f"{[round(x, 3) for x in turns['merged']]}, ratio "
+        f"{best['merged'] / best['default']:.4f}; work on every 1,024th ray: "
+        f"default {work['default']}, merged {work['merged']}")
+    check(rep_x["ok"] and same_x and c_x["ok"],
+          "phase 19 10M merged tables: wrong structure or records")
+    del s10x
+    del s10, vt, ft, rays_t, sub, sub10
     torch.cuda.empty_cache()
     say(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     return k1_launches, k1_err, woop_launches, woop_err
@@ -2839,6 +2928,533 @@ def feature_phases(dev, cpu_every: int = 64):
     say(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
 
 
+def _rtc_cpu_copy(sc):
+    """A committed ``RTCScene`` whose tables are copies of ``sc``'s on the
+    CPU (same geometry, same build): the card's calls against the CPU's
+    on the same tables."""
+    import dataclasses
+
+    import torch
+
+    from nanort_tpu_torch.api import rtc
+    from nanort_tpu_torch.scene.graph import CommittedScene, Scene
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    out = rtc.new_device(device="cpu").new_scene()
+    out._geoms, out._node_of = sc._geoms, sc._node_of
+    cs = sc._sg.committed
+    out._sg = Scene(device="cpu")
+    out._sg._committed = CommittedScene(
+        *(dataclasses.replace(x, nodes=x.nodes.cpu(), soup=x.soup.cpu())
+          if k == "packed" else cpu(x) for k, x in zip(cs._fields, cs)))
+    out._scene8 = dataclasses.replace(sc._scene8, nodes=sc._scene8.nodes.cpu(),
+                                      leafs=sc._scene8.leafs.cpu())
+    out._flat_pack = tuple(x.cpu() for x in sc._flat_pack)
+    out._committed = True
+    return out
+
+
+def _card_vs_cpu(got, want) -> dict:
+    """Scene hit records of the card against the CPU's: the same hit mask,
+    geometry (node) and local prim ids, t within 4 ulp where both hit."""
+    from nanort_tpu_torch.testing import ulp_distance
+
+    g = type(got)(*(x.cpu() for x in got))
+    h = want.hit
+    r = {"rays": int(h.numel()), "hits": int(h.sum()),
+         "hit_mismatch": int((g.hit != h).sum()),
+         "id_mismatch": int(((g.node_id != want.node_id)
+                             | (g.prim_id != want.prim_id)).sum()),
+         "t_ulp_max": int(ulp_distance(g.t[h], want.t[h]).max(initial=0))}
+    r["ok"] = (r["hit_mismatch"] == 0 and r["id_mismatch"] == 0
+               and r["t_ulp_max"] <= 4 and r["hits"] > 0)
+    return r
+
+
+def _ring_glb(path, v, f, xfs):
+    """An in-memory glTF: one mesh buffer (float32 positions, uint32
+    indices) instanced by one TRS node per transform, written as a
+    ``.glb``."""
+    import struct
+
+    pos, idx = v.astype(np.float32).tobytes(), f.astype(np.uint32).tobytes()
+    nodes = []
+    for k, (t, axis, ang) in enumerate(xfs):
+        a = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+        q = list(a * math.sin(0.5 * ang)) + [math.cos(0.5 * ang)]  # x y z w
+        nodes.append({"mesh": 0, "name": f"ring{k}",
+                      "translation": [float(c) for c in t],
+                      "rotation": [float(c) for c in q]})
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"byteLength": len(pos) + len(idx)}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": len(pos)},
+            {"buffer": 0, "byteOffset": len(pos), "byteLength": len(idx)}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(v),
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5125, "count": f.size,
+             "type": "SCALAR"}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0},
+                                    "indices": 1}]}],
+        "nodes": nodes,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "scene": 0,
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    buf = pos + idx
+    buf += b"\0" * (-len(buf) % 4)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<III", 0x46546C67, 2,
+                             12 + 8 + len(js) + 8 + len(buf)))
+        fh.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        fh.write(struct.pack("<II", len(buf), 0x004E4942) + buf)
+
+
+def api_phases(dev, res: int = 2048, n_geoms: int = 10) -> tuple:
+    """Phase 21: the Embree-style API and the scene graph at real size.
+    Returns (K1 launches on the phase's paths, K1's largest error against
+    its plain version, the ``packet_traverse[rtc]`` entry)."""
+    import tempfile
+
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.api import rtc
+    from nanort_tpu_torch.io import gltf
+    from nanort_tpu_torch.io.procedural import make_cornell_dense_pt_scene
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.scene import matrix as mat
+    from nanort_tpu_torch.traverse import packet
+
+    t_phase = time.perf_counter()
+    dv, df, _, _ = make_cornell_dense_pt_scene(100_000)
+    # the ring: each copy turned about its own tilted axis and set on a
+    # circle of radius 3.5 around the origin
+    ring = []
+    for k in range(n_geoms):
+        a = 2.0 * np.pi * k / n_geoms
+        ring.append(((3.5 * np.cos(a), 0.25 * (k % 3) - 0.25, 3.5 * np.sin(a)),
+                     (0.15 * k - 0.6, 1.0, 0.2), 0.6 * k + 0.3))
+    sc = rtc.new_device(device=dev).new_scene()
+    for t, axis, ang in ring:
+        g = sc.new_triangle_mesh(len(df), len(dv))
+        sc.map_buffer(g, rtc.BufferType.VERTEX)[:] = dv
+        sc.map_buffer(g, rtc.BufferType.INDEX)[:] = df
+        sc.set_transform(g, mat.compose(mat.translate(t),
+                                        mat.rotate(axis, ang)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc.commit()
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    s8 = sc._scene8
+    n_tris = n_geoms * len(df)
+    say(f"# phase 21: rtc scene of {n_geoms} transformed copies of midscale "
+        f"({len(df)} tris each, {n_tris} world tris); commit on the card "
+        f"{commit_s:.3f} s host wall ({n_geoms} graph builds, the packed "
+        f"tables, one BVH8 of the world-space union: {s8.num_nodes} nodes, "
+        f"{s8.num_leaf_rows} leaf rows, depth {s8.depth})")
+    check(n_tris == 992_360 and s8 is not None and s8.nodes.is_cuda,
+          "phase 21: the fast tables are not on the card")
+
+    cam = look_at((0.0, 5.0, 9.0), (0.0, 0.0, 0.0), width=res, height=res,
+                  fov=55.0, device=dev)
+    rays = pinhole_rays(cam)
+    del cam
+    n_rays = res * res
+    launches = 0
+    holder = {}
+    results = {}
+    for name, call in (("intersect", lambda: sc.intersect(rays)),
+                       ("occluded", lambda: sc.occluded(rays))):
+        ms, counts = [], []
+        for rep in range(4):  # a warm-up, then 3 timed
+            zero_launch_counts()
+            t = cuda_ms(lambda: holder.__setitem__(name, call()), 1)[0]
+            counts.append(launch_counts())
+            if rep:
+                ms.append(t)
+        launches += sum(c["packet_traverse"] for c in counts)
+        one = all(c["packet_traverse"] == 1 and sum(c.values()) == 1
+                  for c in counts)
+        results[name] = (ms, one)
+        say(f"phase 21 {name} on {n_rays} pinhole rays: ms "
+            f"{[round(x, 3) for x in ms]} (CUDA events, after a warm-up) = "
+            f"{n_rays / min(ms) / 1e3:.1f} Mrays/s best; K1 launches a call "
+            f"{[c['packet_traverse'] for c in counts]}, others none: {one}")
+        check(one, f"phase 21 {name}: K1 launches "
+              f"{[c['packet_traverse'] for c in counts]}, all "
+              f"{[sum(c.values()) for c in counts]}")
+    hits = holder["intersect"]
+    frac = float(hits.hit.float().mean())
+    check(0.05 < frac < 0.95 and torch.equal(holder["occluded"], hits.hit),
+          f"phase 21: hit fraction {frac}, or occluded differs from "
+          "intersect's hit mask")
+
+    # K1 against its plain version on every 32nd of each call's sorted rays
+    err = 0.0
+    entry = None
+    for name, call in (("intersect", lambda: sc.intersect(rays)),
+                       ("occluded", lambda: sc.occluded(rays))):
+        (srays, a, kw, got), = capture_traces(call)
+        sub = nt.Rays(*(x.reshape(-1, *x.shape[1:])[::32].contiguous()
+                        for x in srays))
+        g = nt.Hits(*(x[::32] for x in got))
+        h = hold_k1_trace(s8, sub, a, kw, g)
+        err = max(err, h["err"])
+        b = bound(h["rays"] * (32 + 20) + row_bytes(h["stats"]),
+                  trace_ops(h["stats"], s8.width, WT_OPS))
+        full_ms = median(cuda_ms(lambda: packet.traverse_bvh8(
+            s8, srays, *a, **kw), 3))
+        full_b = bound(n_rays * (32 + 20) + nbytes(s8.nodes, s8.leafs),
+                       trace_ops(h["stats"], s8.width, WT_OPS) * 32)
+        say(f"phase 21 {name}'s K1 launch, every 32nd of its {n_rays} sorted "
+            f"rays ({h['rays']}, {h['hits']} hits): kernel == plain bit for "
+            f"bit: {h['same']} (max abs err {h['err']}); kernel "
+            f"{h['ms']:.3f} ms (median of 5), plain {h['plain_ms']:.1f} ms; "
+            f"bound {b[0]:.4f} ms ({b[1]}); work {h['stats']}; the whole "
+            f"launch {full_ms:.3f} ms (median of 3), bound {full_b[0]:.4f} "
+            f"({full_b[1]})")
+        check(h["same"], f"phase 21: K1 differs from its plain version on "
+              f"{name}'s sorted rays")
+        k1_shape(f"phase 21 rtc.{name}, {n_rays} sorted rays over "
+                 f"{n_tris} world tris (median of 3)", full_ms, full_b)
+        if name == "intersect":
+            entry = {
+                "name": "packet_traverse[rtc]",
+                "route": "cuda",
+                "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
+                "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
+                "launches": launches,
+                "max_abs_err": h["err"],
+                "ms": h["ms"],
+                "plain_ms": h["plain_ms"],
+                "bound_ms": b[0],
+                "bound_by": b[1],
+                "library_ms": None,
+            }
+
+    # the card against the CPU on 4,096 rays spread over the image
+    cpu_sc = _rtc_cpu_copy(sc)
+    flat = nt.Rays(*(x.reshape(n_rays, *x.shape[2:]) for x in rays))
+    spread = nt.Rays(*(x[::1024].contiguous() for x in flat))
+    spread_cpu = nt.Rays(*(x.cpu() for x in spread))
+    c_fast = _card_vs_cpu(sc.intersect(spread), cpu_sc.intersect(spread_cpu))
+    c_graph = _card_vs_cpu(sc._sg.traverse(spread),
+                           cpu_sc._sg.traverse(spread_cpu))
+    say(f"phase 21 card vs CPU on {spread.org.shape[0]} spread rays: fast "
+        f"route {c_fast}; Scene.traverse {c_graph}")
+    check(c_fast["ok"] and c_graph["ok"], "phase 21: the card differs from "
+          "the CPU")
+
+    # the fast route against the graph walk on 65,536 spread rays
+    wide = nt.Rays(*(x[::64].contiguous() for x in flat))
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk = sc._sg.traverse(wide)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    walk_counts = launch_counts()
+    fast = sc.intersect(wide)
+    hf, hw = fast.hit, walk.hit
+    both = hf & hw
+    geom_walk = torch.tensor(sorted(sc._geoms), device=dev)[
+        walk.node_id.clamp(max=n_geoms - 1)]
+    mism = float((hf != hw).float().mean())
+    ids = float(((fast.node_id != geom_walk) | (fast.prim_id != walk.prim_id)
+                 )[both].float().mean())
+    rel = float(((fast.t - walk.t).abs() / walk.t.abs())[both].max())
+    n_w = wide.org.shape[0]
+    say(f"phase 21 fast route vs graph walk on {n_w} spread rays: hit masks "
+        f"differ on {mism:.6f} of rays, ids on {ids:.6f} of {int(both.sum())} "
+        f"rays both hit, largest relative t error {rel:.3e} (bounds 0.01, "
+        f"0.01, 1e-5, the CPU test's); the walk {walk_s:.3f} s = "
+        f"{n_w / walk_s / 1e6:.3f} Mrays/s, launches {nonzero(walk_counts)}")
+    check(mism <= 0.01 and ids <= 0.01 and rel <= 1e-5 and int(both.sum()),
+          "phase 21: the fast route and the graph walk disagree")
+    check(sum(walk_counts.values()) == 0, "phase 21: the graph walk launched "
+          "a kernel")
+    del holder, hits, fast, walk, cpu_sc
+
+    # the glTF path: one buffer, 10 TRS nodes, in a .glb on disk
+    import nanort_tpu_torch
+
+    builds = []
+    real_build = nanort_tpu_torch.build_triangle_bvh
+
+    def counted(*a, **k):
+        builds.append(1)
+        return real_build(*a, **k)
+
+    gres = 256
+    with tempfile.TemporaryDirectory() as d, \
+            patched(nanort_tpu_torch, "build_triangle_bvh", counted):
+        path = os.path.join(d, "ring.glb")
+        _ring_glb(path, dv, df, ring)
+        t0 = time.perf_counter()
+        g = gltf.load_gltf(path)
+        load_s = time.perf_counter() - t0
+        gsc = gltf.to_scene_graph(g, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gsc.commit()
+        torch.cuda.synchronize()
+        gcommit_s = time.perf_counter() - t0
+        n_builds = len(builds)
+        gcam = look_at((0.0, 5.0, 9.0), (0.0, 0.0, 0.0), width=gres,
+                       height=gres, fov=55.0, device=dev)
+        grays = pinhole_rays(gcam)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        gh = gsc.traverse(grays)
+        torch.cuda.synchronize()
+        gtrav_s = time.perf_counter() - t0
+        gcounts = launch_counts()
+        gsc.find_node("ring3#3").translate(dx=0.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gsc.commit()
+        torch.cuda.synchronize()
+        recommit_s = time.perf_counter() - t0
+        gh2 = gsc.traverse(grays)
+        rebuilt = len(builds) - n_builds
+    nodes_seen = sorted(set(gh.node_id[gh.hit].tolist()))
+    moved = int((gh2.t != gh.t).sum())
+    say(f"phase 21 glTF: {len(g.instances)} TRS nodes over one {len(df)}-tri "
+        f"buffer, load_gltf {load_s:.3f} s, commit {gcommit_s:.3f} s "
+        f"({n_builds} BVH build), traverse {gres}^2 rays {gtrav_s:.3f} s = "
+        f"{gres * gres / gtrav_s / 1e6:.3f} Mrays/s, hit fraction "
+        f"{float(gh.hit.float().mean()):.4f}, instances seen {nodes_seen}, "
+        f"launches {nonzero(gcounts)}; re-commit after one translate {recommit_s:.3f} "
+        f"s with {rebuilt} builds, {moved} rays' t changed")
+    check(n_builds == 1 and rebuilt == 0 and len(nodes_seen) >= 5
+          and moved > 0 and recommit_s < gcommit_s,
+          "phase 21: the glTF path is wrong")
+    say(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err, entry
+
+
+def renderer_phases(dev, res: int = 1024, sphere=(64, 128)) -> tuple:
+    """Phase 22: PBR, BDPT, the UV atlas, the cameras and the progressive
+    loop on the card. Returns (K1 launches, K1's largest error, K1-woop
+    launches, K1-woop's largest error)."""
+    import threading
+
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.io.procedural import (
+        make_cornell_box, make_cornell_dense_pt_scene, make_uv_sphere,
+        merge_meshes)
+    from nanort_tpu_torch.models import bdpt, cameras, pbr, path_tracer
+    from nanort_tpu_torch.models.progressive import ProgressiveRenderer
+    from nanort_tpu_torch.models.uv_raster import rasterize_uv_atlas
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import ulp_distance
+
+    t_phase = time.perf_counter()
+    # ---- PBR on config A's scene with BVH16 tables
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(*sphere, 0.6))
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    s16 = collapse_bvh8(bvh, v, f, width=16).to(dev)
+    mesh = TriangleMesh(torch.from_numpy(v).to(dev),
+                        torch.from_numpy(f).to(dev))
+    mat = pbr.PBRMaterial(torch.tensor([0.75, 0.6, 0.45], device=dev),
+                          torch.tensor(0.2, device=dev),
+                          torch.tensor(0.45, device=dev))
+    cam = cameras.look_at((0.3, 0.4, 2.6), (0.0, -0.1, 0.0), width=res,
+                          height=res, fov=55.0, device=dev)
+    rays = cameras.pinhole_rays(cam)
+    holder = {}
+    ms, busy, counts = time_calls(lambda: holder.__setitem__(
+        "out", pbr.render_pbr(bvh, mesh, rays, mat, scene8=s16)))
+    aovs, hits = holder.pop("out")
+    rgb = aovs["rgb"]
+    k1 = counts["packet_traverse"]
+    say(f"# phase 22: render_pbr on config A's scene ({len(f)} tris, BVH16) "
+        f"at {res}^2 with shadows: ms {[round(x, 3) for x in ms]} (CUDA "
+        f"events, after a warm-up; device busy {busy:.3f}), launches over "
+        f"4 renders {nonzero(counts)}; image mean {float(rgb.mean()):.5f}")
+    check(k1 == 8 and sum(counts.values()) == 8,
+          f"phase 22 render_pbr launches {nonzero(counts)}, expected 2 a render")
+    check(bool(torch.isfinite(rgb).all()) and float(rgb.mean()) > 0.01,
+          "phase 22: the PBR image is not finite or black")
+    pick = torch.arange(0, res * res, 256, device=dev)  # 4,096 spread pixels
+    flat = nt.Rays(*(x.reshape(res * res, *x.shape[2:])[pick] for x in rays))
+    ca, ch = pbr.render_pbr(
+        bvh, TriangleMesh(mesh.vertices.cpu(), mesh.faces.cpu()),
+        nt.Rays(*(x.cpu() for x in flat)),
+        pbr.PBRMaterial(*(x.cpu() for x in mat)), scene8=s16.to("cpu"))
+    got_rgb = rgb.reshape(res * res, 3)[pick].cpu()
+    ids = torch.equal(hits.prim_id.reshape(-1)[pick].cpu(), ch.prim_id)
+    perr = float((got_rgb - ca["rgb"]).abs().max())
+    psame = float((got_rgb == ca["rgb"]).all(1).float().mean())
+    say(f"phase 22 render_pbr card vs CPU on {pick.numel()} spread pixels: "
+        f"prim ids equal {ids}, rgb bit-identical on {psame:.4f}, max abs "
+        f"diff {perr:.3e} ({int(ch.hit.sum())} hits)")
+    check(ids and perr <= 1e-5, "phase 22: render_pbr on the card differs "
+          "from the CPU")
+    launches, err = k1, 0.0
+    del holder, aovs, rgb, hits, ca, ch
+
+    # ---- BDPT on the midscale PTScene (BVH16 tables: K1), then on its
+    # Woop twin (K1-woop), each launch held to the plain version
+    woop_launches, woop_err = 0, 0.0
+    dv, df, dm, dmats = make_cornell_dense_pt_scene(100_000)
+    for engine, bres in (("pallas", 256), ("turbo", 128)):
+        scene = path_tracer.make_pt_scene(dv, df, dm, dmats, engine=engine,
+                                          device=dev)
+        bcam = cameras.look_at((0.0, 0.0, 2.6), (0.0, 0.0, 0.0), width=bres,
+                               height=bres, fov=45.0, device=dev)
+        br = cameras.pinhole_rays(bcam)
+        org, d = br.org.reshape(-1, 3), br.dir.reshape(-1, 3)
+        cdf, total = bdpt._light_sampler_arrays(scene)
+
+        def run():
+            return bdpt.trace_bdpt(scene, org, d, cdf, 5, total)
+
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        col = run()
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        counts = launch_counts()
+        key = "packet_traverse_woop" if engine == "turbo" else "packet_traverse"
+        kept = capture_traces(run)
+        same, e = True, 0.0
+        for srays, a, kw, got in kept:
+            h = hold_k1_trace(scene.scene8, srays, a, kw, got, m=16384)
+            same &= h["same"]
+            e = max(e, h["err"])
+        n_l = counts[key]
+        say(f"phase 22 trace_bdpt, midscale {len(df)} tris (engine "
+            f"{engine!r}), {bres}^2 x 1 sample, 5 eye + 4 light bounces: "
+            f"{b_s:.3f} s, launches {nonzero(counts)}; each of its {len(kept)} "
+            f"captured launches == plain on its first 16,384 sorted rays: "
+            f"{same} (max abs err {e}); image mean {float(col.mean()):.5f}")
+        check(n_l == len(kept) and n_l > 0 and sum(counts.values()) == n_l
+              and same, f"phase 22 trace_bdpt ({engine}): launches {nonzero(counts)}, "
+              f"captured {len(kept)}, == plain {same}")
+        check(bool(torch.isfinite(col).all()) and float(col.mean()) > 0,
+              f"phase 22 trace_bdpt ({engine}): the image is not finite or "
+              "black")
+        if engine == "turbo":
+            woop_launches, woop_err = n_l, e
+        else:
+            launches += n_l
+            err = max(err, e)
+        del scene, col, kept
+
+    # ---- the UV atlas (stack engine), card against the CPU
+    n = len(f)
+    cells = int(np.ceil(np.sqrt(n)))
+    corner = np.stack([np.arange(n) % cells, np.arange(n) // cells], 1)
+    tri = np.array([[0.1, 0.1], [0.9, 0.1], [0.1, 0.9]])
+    uvs = ((corner[:, None, :] + tri[None]) / cells).astype(np.float32)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    atlas = rasterize_uv_atlas(mesh, uvs, 256, device=dev)
+    torch.cuda.synchronize()
+    uv_s = time.perf_counter() - t0
+    uv_counts = launch_counts()
+    want = rasterize_uv_atlas(TriangleMesh(v, f), uvs, 256, device="cpu")
+    uv_same = torch.equal(atlas["prim_id"].cpu(), want["prim_id"])
+    uv_err = float((atlas["position"].cpu() - want["position"]).abs().max())
+    cov = float((atlas["prim_id"] != nt.INVALID_PRIM_ID).float().mean())
+    say(f"phase 22 rasterize_uv_atlas 256^2 over {n} tris: {uv_s:.3f} s, "
+        f"coverage {cov:.4f}, launches {nonzero(uv_counts)}; card vs CPU prim ids "
+        f"equal {uv_same}, position max abs diff {uv_err:.3e}")
+    check(uv_same and uv_err <= 1e-5 and cov > 0.2
+          and sum(uv_counts.values()) == 0, "phase 22: the UV atlas is wrong")
+
+    # ---- every camera model at 512^2, card against the CPU
+    cres = 512
+    cam_c = cameras.look_at((0.3, 0.4, 2.6), (0, 0, 0), width=cres,
+                            height=cres, fov=70.0, device=dev)
+    cam_h = cameras.look_at((0.3, 0.4, 2.6), (0, 0, 0), width=cres,
+                            height=cres, fov=70.0, device="cpu")
+    lines, cam_ok = [], True
+    for name in list(cameras.CAMERA_REGISTRY) + ["vr"]:
+        if name == "vr":
+            a = cameras.vr_omnistereo_rays(2 * cres, cres, device=dev)
+            b = cameras.vr_omnistereo_rays(2 * cres, cres, device="cpu")
+        else:
+            a = cameras.generate_rays(cam_c, name)
+            b = cameras.generate_rays(cam_h, name)
+        same_frac, ulp = 1.0, 0
+        for x, y in zip(a, b):
+            x = x.cpu()
+            eq = x.view(torch.int32) == y.view(torch.int32)
+            close = (torch.from_numpy(ulp_distance(x, y)) <= 8) | (
+                (x - y).abs() <= 2e-7)
+            cam_ok &= bool(close.all())
+            same_frac = min(same_frac, float(eq.float().mean()))
+            ulp = max(ulp, int(ulp_distance(x, y).max()))
+        cam_ok &= same_frac >= 0.99
+        lines.append(f"{name} {same_frac:.5f}/{ulp}")
+    say(f"phase 22 cameras at {cres}^2 (VR {2 * cres}x{cres}), card vs CPU, "
+        f"share of bit-identical components / largest ulp: "
+        + ", ".join(lines))
+    check(cam_ok, "phase 22: a camera model differs between card and CPU")
+
+    # ---- the progressive loop: render_pbr passes with subpixel jitter,
+    # pass 2 cancelled in flight, then a restart and 4 passes
+    pres = 512
+    pcam = cameras.look_at((0.3, 0.4, 2.6), (0.0, -0.1, 0.0), width=pres,
+                           height=pres, fov=55.0, device=dev)
+    outs, gate, box = [], threading.Event(), {}
+
+    def one_pass(p, gen):
+        x, y = cameras.pixel_grid(pcam)
+        j = torch.rand((2,), generator=gen, device=dev) - 0.5
+        img = pbr.render_pbr(bvh, mesh, cameras.pinhole_rays(
+            pcam, (x + j[0], y + j[1])), mat, scene8=s16)[0]["rgb"]
+        if p == 2 and not gate.is_set():
+            box["r"].cancel()
+            gate.set()
+        outs.append((p, img.double().cpu().numpy()))
+        return {"rgb": img}
+
+    r = ProgressiveRenderer(one_pass, max_passes=4, seed=9, device=dev)
+    box["r"] = r
+    t0 = time.perf_counter()
+    r.start()
+    ok = gate.wait(60)
+    time.sleep(0.05)
+    done_at_cancel = r.passes_done
+    snap = r.snapshot()
+    first = [o for p, o in outs[:2]]
+    ok &= done_at_cancel == 2 and np.array_equal(
+        snap["rgb"], (first[0] + first[1]) / 2)
+    n_calls = len(outs)
+    r.request_render()
+    ok &= r.wait_for(4, timeout=60)
+    snap = r.snapshot()
+    r.quit()
+    prog_s = time.perf_counter() - t0
+    kept4 = {p: o for p, o in outs[n_calls:]}  # the last pass p of each p
+    ok &= sorted(kept4) == [0, 1, 2, 3] and np.array_equal(
+        snap["rgb"], sum(kept4[p] for p in range(4)) / 4)
+    say(f"phase 22 ProgressiveRenderer, render_pbr passes at {pres}^2: "
+        f"{n_calls} calls before the restart (pass 2 cancelled in flight, "
+        f"{done_at_cancel} kept), then 4 passes; the snapshots equal the "
+        f"means of the kept passes only: {bool(ok)}; {prog_s:.3f} s")
+    check(bool(ok), "phase 22: the progressive loop averaged a discarded "
+          "pass or lost one")
+    say(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err, woop_launches, woop_err
+
+
 def time_calls(fn):
     """``fn()`` once to warm up and 3 times timed with CUDA events, the
     launch counts zeroed first. Returns the 3 times in ms, the device's
@@ -2862,6 +3478,11 @@ def launch_counts() -> dict:
 
     return {**packet.LAUNCHES, **fused_trace.LAUNCHES, **pt_fused.LAUNCHES,
             "ao_fused": ao_fused.LAUNCHES}
+
+
+def nonzero(counts: dict) -> dict:
+    """The kernels of ``counts`` that launched."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def zero_launch_counts():
@@ -3192,18 +3813,25 @@ def main() -> int:
     launches_19, err_19, woop_19, woop_err_19 = device_build_phases(
         dev, v, f, scene)
     feature_phases(dev)
-    for e in k2k5:  # K1-woop's entry gains phase 19's woop path
+    torch.cuda.empty_cache()
+    launches_21, err_21, rtc_entry = api_phases(dev)
+    torch.cuda.empty_cache()
+    launches_22, err_22, woop_22, woop_err_22 = renderer_phases(dev)
+    for e in k2k5:  # K1-woop's entry gains phase 19's and 22's woop paths
         if e["name"] == "packet_traverse_woop":
-            e["launches"] += woop_19
-            e["max_abs_err"] = max(e["max_abs_err"], woop_err_19)
+            e["launches"] += woop_19 + woop_22
+            e["max_abs_err"] = max(e["max_abs_err"], woop_err_19,
+                                   woop_err_22)
     k1_shape(f"phase 6: the {res}^2 frame (median of 3; bound from phase "
              f"18's counters)", frame_ms, frame_bound_18, "k1_frame_8192_ms")
     report_k1_shapes()
     say(f"packet_traverse launches on the main paths: {launches} (phase 6) "
         f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13) + "
         f"{launches_17} (phase 17) + {launches_19} (phase 19, device-built "
-        f"tables); packet_traverse_woop gains {woop_19} (phase 19); the "
-        f"8192^2 frame's bound from its "
+        f"tables) + {launches_21} (phase 21, rtc) + {launches_22} (phase 22, "
+        f"render_pbr and trace_bdpt); packet_traverse_woop gains {woop_19} "
+        f"(phase 19) + {woop_22} (phase 22, trace_bdpt on the Woop scene); "
+        f"the 8192^2 frame's bound from its "
         f"counters {frame_bound_18[0]:.4f} ms ({frame_bound_18[1]})")
     say(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from its start "
         "to the kernels line")
@@ -3214,14 +3842,15 @@ def main() -> int:
         "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
         "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
         "launches": (launches + launches_pt + launches_a + launches_17
-                     + launches_19),
-        "max_abs_err": max(max_abs, err_pt, err_a, err_17, err_19),
+                     + launches_19 + launches_21 + launches_22),
+        "max_abs_err": max(max_abs, err_pt, err_a, err_17, err_19, err_21,
+                           err_22),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }] + k2k5 + entries_a + [roots_entry] + entries_18}))
+    }, rtc_entry] + k2k5 + entries_a + [roots_entry] + entries_18}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
               file=sys.stderr)

@@ -1,8 +1,10 @@
 """Packed, gather-friendly BVH + triangle tables (host NumPy; a copy of
 ``nanort_tpu.traverse.packed`` without its JAX pytree registration, so
-both packages emit bit-identical tables). The port keeps them on
-``PTScene.packed``; the wavefront engine that walks them is not ported
-yet.
+both packages emit bit-identical tables). The wavefront engine
+(``traverse/wavefront.py``) and ``multi_hit_wavefront`` walk them; the
+path tracer keeps them on ``PTScene.packed``, and the scene graph
+(``scene/graph.py``) concatenates its meshes' tables with
+``pack_scene_multi`` and walks them from per-instance roots.
 
 The reference's traversal chases 32-byte nodes and then dereferences
 ``indices_[i+offset] -> faces -> vertices`` per primitive (nanort.h:

@@ -155,10 +155,14 @@ def test_root_reexports_like_jax(name):
     assert getattr(nt, name) is getattr(home, name)
 
 
-# The device build, the custom primitives and multi-hit: each public name
-# of the JAX module exists in the port's module of the same path, and a
-# function takes the JAX function's parameters, in its order (the port
-# may add trailing keyword parameters, such as ``device``).
+# The device build, the custom primitives, multi-hit, the scene graph,
+# the Embree-style API, the loaders, the renderers and the cameras: each
+# public name of the JAX module exists in the port's module of the same
+# path, and a function takes the JAX function's parameters, in its order
+# (the port may add trailing keyword parameters, such as ``device``). A
+# NamedTuple has the JAX fields, an enum the JAX members, a class the
+# JAX public methods with their parameters, a dict the JAX keys, a number
+# the JAX value.
 PORTED_MODULES = {
     "build.lbvh": ["build_lbvh", "morton_codes", "hybrid_deltas",
                    "MAX_DEPTH", "D_FLOOR"],
@@ -177,27 +181,79 @@ PORTED_MODULES = {
                   "build_curve_bvh", "traverse_curves"],
     "traverse.multi_hit": ["MultiHits", "multi_hit_traverse",
                            "multi_hit_wavefront", "brute_force_multi_hit"],
+    "scene.matrix": ["identity", "translate", "scale", "rotate", "compose",
+                     "inverse", "inv_transpose33", "transform_points",
+                     "transform_dirs", "xform_bbox"],
+    "scene.graph": ["Node", "SceneHits", "CommittedScene", "Scene",
+                    "scene_traverse"],
+    "io.voxels": ["voxels_to_mesh", "grid2d_to_boxes"],
+    "io.gltf": ["GltfMesh", "GltfScene", "load_gltf", "to_scene_graph"],
+    "api.rtc": ["BufferType", "RTCScene", "RTCDevice", "new_device"],
+    "api.embree3": ["RTC_INVALID_GEOMETRY_ID", "GeometryType", "BufferType3",
+                    "RTCRayHit", "rtc_new_device", "rtc_new_scene",
+                    "rtc_new_geometry", "rtc_set_new_geometry_buffer",
+                    "rtc_commit_geometry", "rtc_attach_geometry",
+                    "rtc_release_geometry", "rtc_commit_scene",
+                    "rtc_get_scene_bounds", "rtc_intersect1",
+                    "rtc_occluded1"],
+    "models.cameras": ["Camera", "look_at", "pixel_grid", "pinhole_rays",
+                       "orthographic_rays", "spherical_rays",
+                       "spherical_panorama_rays", "cylindrical_rays",
+                       "fisheye_rays", "fisheye_mkx22_rays",
+                       "CAMERA_REGISTRY", "generate_rays",
+                       "vr_omnistereo_rays"],
+    "models.pbr": ["PBRMaterial", "shade_pbr", "render_pbr"],
+    "models.uv_raster": ["make_uv_mesh", "rasterize_uv_atlas"],
+    "models.progressive": ["ProgressiveRenderer"],
+    "models.bdpt": ["K_EPS", "K_INF", "trace_bdpt", "render_bdpt"],
 }
+# Parameters renamed on purpose (CHANGES.md): a JAX threefry ``key``
+# becomes a ``seed`` (an int or a torch.Generator).
+RENAMED = {("models.bdpt", "trace_bdpt"): {"key": "seed"},
+           ("models.bdpt", "render_bdpt"): {"key": "seed"}}
+
+
+def _params(fn, renamed=None):
+    import inspect
+
+    names = list(inspect.signature(fn).parameters)
+    return [(renamed or {}).get(n, n) for n in names]
+
+
+def _same_api(j, t, where, renamed=None):
+    import enum
+    import inspect
+
+    if isinstance(j, (int, float)):
+        assert t == j, where
+    elif isinstance(j, dict):
+        assert list(t) == list(j), where
+    elif isinstance(j, type) and issubclass(j, enum.Enum):
+        assert [m.name for m in t] == [m.name for m in j], where
+    elif isinstance(j, type) and hasattr(j, "_fields"):
+        assert getattr(t, "_fields", None) == j._fields, where
+    elif isinstance(j, type):
+        jp = _params(j)
+        assert _params(t)[:len(jp)] == jp, where
+        for name, member in vars(j).items():
+            if name.startswith("_") or not inspect.isfunction(member):
+                continue
+            jm = _params(member)
+            assert _params(getattr(t, name))[:len(jm)] == jm, (where, name)
+    else:
+        jp = _params(j, renamed)
+        assert _params(t)[:len(jp)] == jp, (where, jp, _params(t))
 
 
 @pytest.mark.parametrize("module", sorted(PORTED_MODULES))
 def test_ported_module_names_match(module):
     import importlib
-    import inspect
 
     jm = importlib.import_module(f"nanort_tpu.{module}")
     tm = importlib.import_module(f"nanort_tpu_torch.{module}")
     for name in PORTED_MODULES[module]:
-        j, t = getattr(jm, name), getattr(tm, name)
-        if isinstance(j, int):
-            assert t == j, name
-        elif isinstance(j, type):
-            assert getattr(t, "_fields", None) == getattr(j, "_fields",
-                                                          None), name
-        else:
-            jp = list(inspect.signature(j).parameters)
-            tp = list(inspect.signature(t).parameters)
-            assert tp[:len(jp)] == jp, (name, jp, tp)
+        _same_api(getattr(jm, name), getattr(tm, name), name,
+                  RENAMED.get((module, name)))
 
 
 @pytest.mark.parametrize("name", ["multi_hit_traverse", "MultiHits"])
@@ -214,3 +270,24 @@ def test_ray_sort_shares_the_morton_spread():
     from nanort_tpu_torch.traverse import ray_sort
 
     assert ray_sort._expand_bits is lbvh._expand_bits
+
+
+def test_slice_modules_import_without_jax():
+    """The scene graph, API, loader and renderer modules import with jax
+    blocked, and pull in nothing of the JAX package."""
+    import os
+    import subprocess
+    import sys
+
+    mods = ["scene.matrix", "scene.graph", "io.voxels", "io.gltf", "api.rtc",
+            "api.embree3", "models.cameras", "models.pbr", "models.uv_raster",
+            "models.progressive", "models.bdpt"]
+    code = ("import sys, importlib; sys.modules['jax'] = None; "
+            + "; ".join(f"importlib.import_module('nanort_tpu_torch.{m}')"
+                        for m in mods)
+            + "; assert 'nanort_tpu' not in sys.modules; print('ok')")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=root)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"

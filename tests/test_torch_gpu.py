@@ -26,7 +26,13 @@ mean within 2%. The megabatch route (``render_path_traced(...,
 fused=False)``) must launch K1 or K1-woop for every trace and never a
 plain version, and ``trace_paths`` on the card must agree with its CPU
 run on the same draws on at least 99% of rays (its shading is plain
-torch on both; cos/sin come from two float64 libms).
+torch on both; cos/sin come from two float64 libms). The scene graph and
+the Embree-style API (``scene/``, ``api/``): the fast route launches K1
+once per ``intersect`` and ``occluded`` call, its captured launches equal
+the plain version bit for bit, and its records, like the graph walk's
+(which launches nothing), equal the CPU's in hit mask and ids with t
+within 4 ulp; ``render_pbr`` launches K1 twice and gives the CPU's
+records, its image within 1e-5.
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where only torch is installed:
@@ -51,6 +57,12 @@ from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
 from nanort_tpu_torch.testing import overlap_soup, zero_edge_rays
 from nanort_tpu_torch.traverse import fused_trace, packet
+# this slice's modules: importable where only torch is installed
+from nanort_tpu_torch.api import embree3, rtc  # noqa: F401
+from nanort_tpu_torch.io import gltf, voxels  # noqa: F401
+from nanort_tpu_torch.models import (bdpt, pbr, progressive,  # noqa: F401
+                                     uv_raster)
+from nanort_tpu_torch.scene import graph, matrix  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -1290,3 +1302,157 @@ def test_multi_hit_on_card_matches_cpu(dev, lbvh_mesh, engine):
     assert torch.equal(got.prim_id.cpu(), want.prim_id)
     assert int(ulp_distance(got.t.cpu(), want.t).max()) <= 4
     assert int(want.count.max()) >= 2
+
+
+# ---- the scene graph, the Embree-style API and the renderers
+
+def _rtc_scene(device, fast):
+    """Five transformed spheres of one mesh on a ring, committed on
+    ``device``."""
+    from nanort_tpu_torch.api import rtc
+    from nanort_tpu_torch.scene import matrix as mat
+
+    sv, sf = make_uv_sphere(16, 32, 0.6)
+    sc = rtc.new_device(device=device).new_scene()
+    for k in range(5):
+        a = 2.0 * np.pi * k / 5
+        g = sc.new_triangle_mesh(len(sf), len(sv))
+        sc.map_buffer(g, rtc.BufferType.VERTEX)[:] = sv
+        sc.map_buffer(g, rtc.BufferType.INDEX)[:] = sf
+        sc.set_transform(g, mat.compose(
+            mat.translate([2.0 * np.cos(a), 0.2 * k, 2.0 * np.sin(a)]),
+            mat.rotate([0.2, 1.0, 0.1], 0.5 * k), mat.scale([1, 1.2, 0.8])))
+    sc.commit(fast=fast)
+    return sc
+
+
+def _ring_rays(n=4096, seed=17):
+    rng = np.random.default_rng(seed)
+    org = np.tile(np.asarray([[0.0, 0.4, 6.0]], np.float32), (n, 1))
+    tgt = rng.uniform(-3.0, 3.0, (n, 3)) * [1, 1, 0.5]
+    d = tgt - org
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return nt.make_rays(torch.from_numpy(org), torch.from_numpy(d))
+
+
+def _close_scene_hits(got, want):
+    """Scene hit records on the card against the CPU's: the same hit
+    mask and ids, t within 4 ulp where both hit, the other floats within
+    1e-5 (plain torch on both; the traversal records are K1's or the
+    wavefront walk's)."""
+    from nanort_tpu_torch.testing import ulp_distance
+
+    g = type(got)(*(x.cpu() for x in got))
+    assert torch.equal(g.hit, want.hit)
+    assert torch.equal(g.prim_id, want.prim_id)
+    assert torch.equal(g.node_id, want.node_id)
+    h = want.hit
+    assert int(ulp_distance(g.t[h], want.t[h]).max(initial=0)) <= 4
+    for k in ("u", "v", "position", "normal_g", "normal_s"):
+        assert float((getattr(g, k) - getattr(want, k)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_rtc_on_card_equals_cpu(dev, fast):
+    """``intersect`` and ``occluded`` on the card against the same calls
+    on the CPU (``_close_scene_hits``); the fast route launches K1 once a
+    call."""
+    card, cpu = _rtc_scene(dev, fast), _rtc_scene("cpu", fast)
+    assert (card._scene8 is not None) == fast
+    rays = _ring_rays()
+    crays = nt.Rays(*(x.to(dev) for x in rays))
+    before = dict(packet.LAUNCHES)
+    got = card.intersect(crays)
+    occ = card.occluded(crays)
+    n = packet.LAUNCHES["packet_traverse"] - before["packet_traverse"]
+    assert n == (2 if fast else 0)
+    want = cpu.intersect(rays)
+    assert bool(want.hit.any())
+    _close_scene_hits(got, want)
+    assert torch.equal(occ.cpu(), cpu.occluded(rays))
+
+
+def test_rtc_k1_equals_plain_on_sorted_rays(dev, monkeypatch):
+    """The API's K1 launch, captured with its sorted rays, against the
+    plain version on the same tensors."""
+    sc = _rtc_scene(dev, True)
+    kept = []
+    real = packet.traverse_bvh8
+
+    def keep(scene, rays, *a, **k):
+        out = real(scene, rays, *a, **k)
+        kept.append((scene, rays, a, k, out))
+        return out
+
+    monkeypatch.setattr(packet, "traverse_bvh8", keep)
+    rays = nt.Rays(*(x.to(dev) for x in _ring_rays()))
+    sc.intersect(rays)
+    sc.occluded(rays)
+    assert len(kept) == 2
+    for scene, r, a, k, out in kept:
+        cpu = dataclasses.replace(scene, nodes=scene.nodes.cpu(),
+                                  leafs=scene.leafs.cpu())
+        want = real(cpu, nt.Rays(*(x.cpu() for x in r)), *a,
+                    **{n: (x.cpu() if isinstance(x, torch.Tensor) else x)
+                       for n, x in k.items()})
+        _same_records(out, want)
+
+
+def test_scene_graph_walk_on_card_equals_cpu(dev):
+    from nanort_tpu_torch.scene import graph
+    from nanort_tpu_torch.scene import matrix as mat
+
+    sv, sf = make_uv_sphere(12, 24, 0.5)
+    bv, bf = make_cornell_box(2.0)
+
+    def build(device):
+        sc = graph.Scene(device=device)
+        ball = TriangleMesh(sv, sf)
+        for k in range(4):
+            sc.add_node(graph.Node(f"b{k}", ball, mat.compose(
+                mat.translate([0.6 * k - 0.9, 0.1 * k, 0]),
+                mat.rotate([0, 1, 0], 0.3 * k))))
+        sc.add_node(graph.Node("box", TriangleMesh(bv, bf), mat.scale(1.5)))
+        sc.commit()
+        return sc
+
+    rays = _ring_rays(2048, 18)
+    before = dict(packet.LAUNCHES)
+    got = build(dev).traverse(nt.Rays(*(x.to(dev) for x in rays)))
+    assert packet.LAUNCHES == before  # the graph walks the plain engine
+    want = build("cpu").traverse(rays)
+    assert bool(want.hit.any())
+    _close_scene_hits(got, want)
+
+
+def test_render_pbr_on_card_equals_cpu(dev):
+    """``render_pbr`` with BVH16 tables: two K1 launches on the card, the
+    same records as on the CPU, and the image and AOVs within 1e-5 (plain
+    torch shading on both)."""
+    from nanort_tpu_torch.models import pbr
+
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f))
+    s8 = _scene(v, f, 16)
+    mat = pbr.PBRMaterial(torch.tensor([0.7, 0.6, 0.5]), torch.tensor(0.2),
+                          torch.tensor(0.4))
+
+    def render(device):
+        rays = pinhole_rays(look_at((0.2, 0.3, 2.4), (0, 0, 0), width=128,
+                                    height=128, fov=60, device=device))
+        mesh = TriangleMesh(torch.from_numpy(v).to(device),
+                            torch.from_numpy(f).to(device))
+        return pbr.render_pbr(bvh, mesh, rays,
+                              pbr.PBRMaterial(*(x.to(device) for x in mat)),
+                              scene8=s8.to(device))
+
+    before = dict(packet.LAUNCHES)
+    got, gh = render(dev)
+    assert packet.LAUNCHES["packet_traverse"] == \
+        before["packet_traverse"] + 2
+    want, wh = render("cpu")
+    assert float(want["rgb"].mean()) > 0.01
+    _same_records(gh, wh)
+    assert torch.equal(got["prim_id"].cpu(), want["prim_id"])
+    for k in ("rgb", "normal", "position", "depth"):
+        assert float((got[k].cpu() - want[k]).abs().max()) <= 1e-5, k
