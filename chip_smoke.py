@@ -114,8 +114,12 @@ nothing of JAX. Phases, one line or more each:
     8192^2 frame (the frame's work and bound); the zero-edge flags on
     phase 5's rays (== plain, sound) and on an axis-aligned case, and
     ``traverse_bvh8_exact`` / ``_exact_fused`` against single-pass
-    exact; ``interleave`` 2 and 4 on the frame, on phase 16's rays and
-    (== plain) on phase 5's rays; each K1 instantiation's registers,
+    exact; K1b (``interleave`` 1, 2 and 4, each equal to K = 1 bit for
+    bit) on five shapes: the frame, phase 5's rays (== plain), phase
+    16's random rays, phase 17's sorted AO rays and phase 11's pallas
+    bounce-2 closest-hit trace, each with its bound from the counts
+    kernel's pops (a plain sample's triangles a leaf pop and rows read);
+    each K1 and K1b instantiation's registers,
     spills and stack frame (``ptxas -v``) and its shared bytes and
     resident warps an SM (the occupancy API); the persistent schedule's
     edge shapes (ray counts of 1, 31, 32, 33 and a claim count the grid
@@ -179,7 +183,8 @@ nothing of JAX. Phases, one line or more each:
     snapshots are the means of the kept passes only);
 
 then one line per
-    K1 shape (phases 5, 6, 11, 13, 16-19, 21) with its time, its bound and,
+    K1 shape (phases 5, 6, 11, 13, 16-19, 21) and K1b shape (phase 18)
+    with its time, its bound and,
     where ``tools/ab_port_kernels.py ... --out
     chiprun_out/ab_port_kernels.json`` ran before it in the same
     command, the parent's and this tree's times from its turns.
@@ -208,8 +213,12 @@ import time
 import numpy as np
 
 FAILURES: list[str] = []
-# K1's shapes for the summary lines: (what, card ms, bound, A/B key)
+# K1's and K1b's shapes for the summary lines: (kernel, what, card ms,
+# bound, A/B key)
 K1_SHAPES: list[tuple] = []
+# traces that phases 11 and 17 capture for phase 18's K1b shapes:
+# {shape: (scene8, sorted rays, positional, keyword arguments)}
+K1B_TRACES: dict = {}
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores.
@@ -275,11 +284,12 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def k1_shape(what: str, ms: float, b: tuple, ab_key: str | None = None):
-    """Record one K1 shape for the summary lines: its card ms, its bound
-    and, where ``tools/ab_port_kernels.py`` times the same shape, that
-    tool's key."""
-    K1_SHAPES.append((what, ms, b, ab_key))
+def k1_shape(what: str, ms: float, b: tuple, ab_key: str | None = None,
+             kernel: str = "K1"):
+    """Record one K1 (or K1b) shape for the summary lines: its card ms,
+    its bound and, where ``tools/ab_port_kernels.py`` times the same
+    shape, that tool's key."""
+    K1_SHAPES.append((kernel, what, ms, b, ab_key))
 
 
 def report_k1_shapes():
@@ -293,8 +303,8 @@ def report_k1_shapes():
     if os.path.exists(path):
         with open(path) as fh:
             ab = json.load(fh)
-    for what, ms, b, key in K1_SHAPES:
-        line = (f"K1 shape {what}: {ms:.3f} ms on the card, bound "
+    for kernel, what, ms, b, key in K1_SHAPES:
+        line = (f"{kernel} shape {what}: {ms:.3f} ms on the card, bound "
                 f"{b[0]:.4f} ms ({b[1]}), {ms / b[0]:.1f}x the bound")
         if key and ab and all(key in r for r in ab["turns_ms"]["A"]):
             line += (f"; A/B {key} ({ab['card']}): parent "
@@ -1111,6 +1121,8 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
         for kind, (r, kw, got) in zip(("closest", "shadow"),
                                       capture_bounce(scene, cam_rays, 2)):
             h = hold_megabatch_trace(scene.scene8, r, kw, got)
+            if name == "pallas" and kind == "closest":
+                K1B_TRACES["bounce2_closest"] = (scene.scene8, r, (), kw)
             del r, got
             torch.cuda.empty_cache()
             held[name, kind] = h
@@ -1957,6 +1969,7 @@ def incoherent_phases(dev, n_tris: int = 1_000_000, R: int = 4_194_304,
           f"phase 17 launches {counts}")
     check(not bool(hb.hit[~live].any()), "a dead AO ray hit")
     (sr, sa, skw, sout), = capture_traces(run_ao)
+    K1B_TRACES["ao_sorted"] = (s8, sr, sa, skw)
     held_b = hold_k1_trace(s8, sr, sa, skw, sout, hold_rays)
     say(f"phase 17 sorted trace, first {held_b['rays']} rays ({held_b['hits']} "
         f"occluded): kernel == plain bit for bit: {held_b['same']}; max abs "
@@ -2152,9 +2165,11 @@ def k1_edge_shapes(dev) -> int:
 
 
 def k1_resources(text: str) -> list[str]:
-    """One line per K1 instantiation: ``ptxas -v``'s registers, spills and
-    stack frame (from ``text``), then the occupancy API's registers, local
-    and shared bytes and resident warps an SM for each mode."""
+    """One line per K1 and K1b instantiation: ``ptxas -v``'s registers,
+    spills and stack frame (from ``text``), then the occupancy API's
+    registers, local and shared bytes and resident warps an SM for each
+    of K1's modes and each K1b instantiation (width, leaf test, K and
+    stack)."""
     import re
 
     from nanort_tpu_torch.traverse import packet
@@ -2191,6 +2206,18 @@ def k1_resources(text: str) -> list[str]:
                 f"{o['blocks_per_sm']} blocks of {o['threads']} threads = "
                 f"{o['blocks_per_sm'] * o['threads'] // 32} resident warps "
                 f"an SM")
+    for w in (8, 16):
+        for woop in (False, True):
+            for K in (2, 4):
+                for cap in (packet.IL_STACK, packet.STACK_CAP):
+                    o = packet.k1_occupancy(w, woop, interleave=K, stack=cap)
+                    out.append(
+                        f"K1b w{w}{' woop' if woop else ''} K={K} stack "
+                        f"{cap}: {o['registers']} registers, "
+                        f"{o['local_bytes']} local bytes a thread, "
+                        f"{o['blocks_per_sm']} blocks of {o['threads']} "
+                        f"threads = {o['blocks_per_sm'] * o['threads'] // 32}"
+                        f" resident warps an SM, {o['claim']} rays a claim")
     return out
 
 
@@ -2198,7 +2225,8 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
                    n_edge: int = 65_536) -> tuple:
     """Phase 18: K1's counters, zero-edge flags and K1b on the card.
     ``scene``/``sub``: phase 4's BVH16 scene and phase 5's 131,072 rays;
-    ``s8i``/``rays_i``: phase 16's BVH8 scene and random rays;
+    ``s8i``/``rays_i``: phase 16's BVH8 scene and random rays; the
+    traces phases 11 and 17 left in ``K1B_TRACES``;
     ``usage_k1``: a future of K1's ``ptxas -v`` report. Returns the
     entries of the ``kernels`` line and the frame's bound from the
     counters."""
@@ -2280,28 +2308,75 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     check(counts_launches == 1 and f_nodes > 0, "frame counters")
     del fc
 
-    # ---- 18. interleave: the frame, phase 16's rays, phase 5's rays
+    # ---- 18. K1b (interleave 2, 4) on its five shapes against K = 1: the
+    # frame, phase 5's rays, phase 16's random rays, phase 17's sorted AO
+    # rays and phase 11's bounce-2 closest-hit trace; each shape's bound
+    # from the counts kernel's pops (a plain sample's triangles a leaf pop
+    # and rows read, as the frame's)
+    shapes = {"frame": (f"the {res}^2 frame", scene, rays_t, (),
+                        dict(specialize=spec), "frame_8192"),
+              "phase5": (f"phase 5's {m2} rays", scene, sub, (), {},
+                         "phase5"),
+              "random": (f"phase 16's {rays_i.org.shape[0]} random rays",
+                         s8i, rays_i, (), {}, "random")}
+    for key, what in (("ao_sorted", "phase 17's sorted AO rays"),
+                      ("bounce2_closest", "phase 11's pallas bounce-2 "
+                                          "closest-hit trace")):
+        sc8, r, a, kw = K1B_TRACES.pop(key)
+        shapes[key] = (f"{what} ({r.org.shape[0]} sorted rays)", sc8, r, a,
+                       kw, key)
+    il_bound = {"frame": frame_bound, "phase5": c_bound}
+    for key, (what, s, r, a, kw, _) in shapes.items():
+        if key in il_bound:
+            continue
+        cnt = packet.traverse_bvh8(s, r, *a, debug_counts=True, **kw)
+        pops = (int(cnt.u.double().sum()), int(cnt.v.double().sum()))
+        del cnt
+        smp = type(r)(*(x.reshape(-1, *x.shape[1:])[::64].contiguous()
+                        for x in r))
+        opts = a[0] if a else (kw.get("options") or nt.BVHTraceOptions())
+        st_s = {}
+        packet._traverse_reference(
+            s.nodes, s.leafs, s.width, smp.org, smp.dir, smp.min_t,
+            smp.max_t, None, None, opts.cull_back_face,
+            opts.exact_edge_fallback, kw.get("occlusion", False),
+            packet.stack_slots(s), stats=st_s)
+        tpl = st_s.get("tris", 0) / max(st_s.get("leaves", 0), 1)
+        il_bound[key] = bound(
+            r.org.shape[0] * (32 + 20) + row_bytes(st_s),
+            pops[0] * s.width * SLAB_OPS + pops[1] * tpl * WT_OPS)
+        say(f"phase 18 {what}: K1 counters node pops {pops[0]}, leaf pops "
+            f"{pops[1]} (x {tpl:.3f} tris a leaf pop, every 64th ray's "
+            f"plain ratio); bound {il_bound[key][0]:.4f} ms "
+            f"({il_bound[key][1]})")
     zero_launch_counts()
     il = {}
-    for what, s, r, kw in ((f"{res}^2 frame", scene, rays_t,
-                            dict(specialize=spec)),
-                           ("phase 16 random", s8i, rays_i, {})):
-        ref = packet.traverse_bvh8(s, r, **kw)
+    for key, (what, s, r, a, kw, ab) in shapes.items():
+        ref = packet.traverse_bvh8(s, r, *a, **kw)
         line = []
         for K in (1, 2, 4):
-            out = packet.traverse_bvh8(s, r, interleave=K, **kw)
-            same = all(torch.equal(a, b) for a, b in zip(out, ref))
-            ms = median(cuda_ms(lambda: packet.traverse_bvh8(
-                s, r, interleave=K, **kw), 3))
-            il[(what, K)] = ms
-            line.append(f"K={K} {ms:.3f} ms (same as K=1: {same})")
-            check(same, f"interleave={K} on the {what} changes records")
+            out = packet.traverse_bvh8(s, r, *a, interleave=K, **kw)
+            same = all(torch.equal(x, y) for x, y in zip(out, ref))
             del out
-        say(f"phase 18 interleave on the {what} ({r.org.shape[0]} rays, "
-            f"medians of 3): " + "; ".join(line))
+            ms = median(cuda_ms(lambda: packet.traverse_bvh8(
+                s, r, *a, interleave=K, **kw), 10 if key == "phase5" else 3))
+            il[key, K] = ms
+            line.append(f"K={K} {ms:.3f} ms (same as K=1: {same})")
+            check(same, f"interleave={K} on {what} changes records")
+            if K > 1:
+                k1_shape(f"K={K} on {what}", ms, il_bound[key],
+                         f"k1b{K}_{ab}_ms", kernel="K1b")
+            elif key in ("random", "ao_sorted"):
+                k1_shape(f"K1 alone on {what}", ms, il_bound[key],
+                         f"k1_{ab}_ms")
+        say(f"phase 18 interleave on {what} (medians of "
+            f"{10 if key == 'phase5' else 3}; bound {il_bound[key][0]:.4f} "
+            f"ms, {il_bound[key][1]}): " + "; ".join(line)
+            + f"; K=2 / K=1 {il[key, 2] / il[key, 1]:.3f}, K=4 / K=2 "
+            f"{il[key, 4] / il[key, 2]:.3f}")
         del ref
     il_launches = launch_counts()
-    del rays_t
+    del rays_t, shapes
     torch.cuda.empty_cache()
     want, p_ms, st5 = plain()
     k_bound = bound(m2 * (32 + 20) + row_bytes(st5),
@@ -2311,11 +2386,10 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
         got = packet.traverse_bvh8(scene, sub, interleave=K)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         err = record_err(list(got), want)
-        ms = kernel_ms(interleave=K)
         say(f"phase 18 interleave={K} on phase 5's rays: kernel == plain bit "
-            f"for bit: {same}; {ms:.3f} ms vs K=1 {base_ms:.3f} ms (medians "
-            f"of 10); launches on the frame and phase 16's rays "
-            f"{il_launches[f'packet_traverse[interleave={K}]']}")
+            f"for bit: {same}; {il['phase5', K]:.3f} ms vs K=1 "
+            f"{il['phase5', 1]:.3f} ms (medians of 10); launches on the five "
+            f"shapes {il_launches[f'packet_traverse[interleave={K}]']}")
         check(same, f"interleave={K} disagrees with the plain version")
         il_entries.append({
             "name": f"packet_traverse[interleave={K}]",
@@ -2324,7 +2398,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
             "replaces": "nanort_tpu/traverse/pallas_packet.py:1060",
             "launches": il_launches[f"packet_traverse[interleave={K}]"],
             "max_abs_err": err,
-            "ms": ms,
+            "ms": il["phase5", K],
             "plain_ms": p_ms,
             "bound_ms": k_bound[0],
             "bound_by": k_bound[1],

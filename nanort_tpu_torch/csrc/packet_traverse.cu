@@ -84,9 +84,34 @@
 #include <math.h>
 #include <stdint.h>
 
+// Switches of K1b's parts, for their measurement.
+#ifndef K1B_FETCH
+#define K1B_FETCH 1  // ask for every live slot's rows first (1: L2, 2: L1)
+#endif
+#ifndef K1B_SMALL
+#define K1B_SMALL 1  // the kStackSmall-entry stack where the scene fits it
+#endif
+#ifndef K1B_MINB2
+#define K1B_MINB2 1  // __launch_bounds__ minimum blocks at K = 2 (1: none)
+#endif
+#ifndef K1B_MINB4
+#define K1B_MINB4 1  // and at K = 4
+#endif
+#ifndef K1B_REFILL
+#define K1B_REFILL 8  // refill a slot once this many of its lanes are empty
+#endif
+#ifndef K1B_LOCK
+// lock-step claims: 0 none, 1 all, 2 shared-origin ones, 3 those and any-hit
+#define K1B_LOCK 3
+#endif
+#ifndef K1B_STRIDE
+#define K1B_STRIDE 1  // a claim's slots 128 rays apart (0: consecutive)
+#endif
+
 namespace {
 
 constexpr int kStackCap = 512;     // per-thread stack ceiling (entries)
+constexpr int kStackSmall = 128;   // K1b's stack when stack_size fits it
 constexpr int kThreads = 128;      // threads per block
 constexpr int kClaim = 32;         // K1: consecutive rays a warp claims
 constexpr float kBig = 3.0e38f;    // degenerate-ray threshold (TPU kernel)
@@ -120,6 +145,7 @@ struct Params {
   int use_range;        // prim_ids_range filter: lo <= pid < hi
   int range_lo;
   int range_hi;
+  int spread;           // K1b: claims of 32 rays (launch_plan's choice)
 };
 // With the Woop test, ``leafs`` is the scene's leafs_woop table: one row
 // for each watertight leaf row, triangle t at lanes [12t, 12t+12) as its
@@ -561,34 +587,249 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(Params p) {
   }
 }
 
-// One thread, kK rays (K1b): block b holds rays [b*kThreads*kK,
-// (b+1)*kThreads*kK), ray k of a thread at threadIdx.x + k*kThreads, so
-// the 32 lanes of a warp walk 32 neighbouring rays at every k.
-template <int W, bool kWoop, int kK>
-__global__ void __launch_bounds__(kThreads) traverse_kernel_il(Params p) {
-  const long long first =
-      (long long)blockIdx.x * (kThreads * kK) + threadIdx.x;
-  int stack[kK][kStackCap];
+// K1b's schedule, a lane's K slots refilled from its warp's claims. The
+// per-slot parts are functions of their own, so that a CPU build of this
+// file can step the schedule lane by lane (tests/test_torch_k1_emulation.py).
+//
+// Claim q holds 32 kK rays, its r-th at claim_ray(q, r): four claims
+// tile 128 kK consecutive rays as one block of 128 threads with kK rays
+// each would, so a slot's 32 rays are consecutive and slot k's ray is 128
+// rays after slot k - 1's (a 128-wide image tile's next row). With
+// ``spread`` (a batch that leaves resident warps idle) a claim is one
+// packet of 32 consecutive rays, so that more warps share the batch.
+template <int kK>
+__device__ __forceinline__ unsigned long long claim_ray(const Params& p,
+                                                        unsigned long long q,
+                                                        unsigned r) {
+  if (p.spread) return q * kClaim + r;
+#if K1B_STRIDE
+  return (q >> 2) * (128ull * kK) + 32ull * (q & 3ull) + (r & 31u) +
+         128ull * (r >> 5);
+#else
+  return q * (unsigned long long)(kClaim * kK) + r;
+#endif
+}
+
+// Rays a claim, and the claims that cover n_rays.
+template <int kK>
+__device__ __forceinline__ unsigned claim_rays(const Params& p) {
+  return p.spread ? kClaim : kClaim * kK;
+}
+
+template <int kK>
+__device__ __forceinline__ unsigned long long claims_of(const Params& p) {
+  const unsigned long long n = (unsigned long long)p.n_rays;
+  if (p.spread) return (n + kClaim - 1) / kClaim;
+#if K1B_STRIDE
+  return (n + 128ull * kK - 1) / (128ull * kK) * 4ull;
+#else
+  return (n + kClaim * kK - 1) / (kClaim * kK);
+#endif
+}
+
+// Slot k takes ray i (< n): its set-up; a ray that retires before its
+// first node is written at once and leaves the slot empty. Returns the
+// slot's ray, or -1.
+__device__ __forceinline__ int slot_take(const Params& p, unsigned long long i,
+                                         Walk& w) {
+  if (i >= (unsigned long long)p.n_rays) return -1;
+  begin<true>(p, (long long)i, w);
+  if (w.e != kNone) return (int)i;
+  finish<false, false>(p, (long long)i, w);
+  return -1;
+}
+
+// Slot refill: this lane's slot, empty when ``ray`` < 0, takes the ray of
+// claim q whose rank is r plus its rank among the warp's empty slots
+// (``empty``, a ballot), while the claim has that many.
+template <int kK>
+__device__ __forceinline__ int slot_fill(const Params& p, unsigned empty,
+                                         unsigned lane, unsigned q, unsigned r,
+                                         int ray, Walk& w) {
+  if (ray >= 0) return ray;
+  const unsigned rank = r + __popc(empty & ((1u << lane) - 1u));
+  if (rank >= claim_rays<kK>(p)) return -1;
+  return slot_take(p, claim_ray<kK>(p, q, rank), w);
+}
+
+// This lane's vote on whether claim q is walked in lock-step: its ray r
+// = lane has ray 0's origin (a ray past n agrees), or the launch is
+// any-hit. The claim locks when all 32 agree.
+template <int kK>
+__device__ __forceinline__ bool lock_vote(const Params& p, unsigned q,
+                                          unsigned lane) {
+#if K1B_LOCK == 1
+  return true;
+#elif K1B_LOCK >= 2
+  if (K1B_LOCK == 3 && p.occlusion) return true;
+  const unsigned long long i = claim_ray<kK>(p, q, lane);
+  const unsigned long long i0 = claim_ray<kK>(p, q, 0);
+  if (i >= (unsigned long long)p.n_rays) return true;
+  return p.org[3 * i] == p.org[3 * i0] &&
+         p.org[3 * i + 1] == p.org[3 * i0 + 1] &&
+         p.org[3 * i + 2] == p.org[3 * i0 + 2];
+#else
+  return false;
+#endif
+}
+
+// A slot whose walk has ended (its entry is kNone) writes its ray's
+// record and is free again. Returns the slot's ray, or -1.
+__device__ __forceinline__ int slot_end(const Params& p, int ray,
+                                        const Walk& w) {
+  if (ray < 0 || w.e != kNone) return ray;
+  finish<false, false>(p, ray, w);
+  return -1;
+}
+
+__device__ __forceinline__ void prefetch_line(const float* a) {
+#ifdef __CUDA_ARCH__
+#if K1B_FETCH == 1
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
+#elif K1B_FETCH == 2
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
+#endif
+#endif
+}
+
+// Asks for the 128-byte lines of the row that a live slot's next step
+// reads: a node row's boxes and child metadata, or a leaf row's
+// triangles and prim ids.
+template <int W, bool kWoop>
+__device__ __forceinline__ void slot_fetch(const Params& p, const Walk& w) {
+  if (w.e >= 0) {
+    const float* row = p.nodes + (size_t)w.e * 128;
+#pragma unroll
+    for (int l = 0; l < (W == 16 ? 4 : 3); ++l) prefetch_line(row + 32 * l);
+  } else {
+    const int packed = -1 - w.e;
+    const float* row = p.leafs + (size_t)(packed >> 4) * 128;
+    const int last = (kWoop ? 12 : 9) * (packed & 15) - 1;
+    const int pid0 = kWoop ? 108 : 90;
+    const int pid1 = pid0 + (packed & 15) - 1;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      if (32 * l <= last || (32 * l + 31 >= pid0 && 32 * l <= pid1)) {
+        prefetch_line(row + 32 * l);
+      }
+    }
+  }
+}
+
+constexpr int kRefill = K1B_REFILL;
+
+// K1b: persistent warps whose lanes keep kK rays in flight, one per
+// slot, each slot with its own stack of kCap entries. A warp takes claims
+// of 32 kK rays (lane 0's atomicAdd; claim_ray) in rounds. A round writes
+// the records of the slots whose walks ended, then fills the free slots.
+// A lock-step claim (lock_vote: a camera's rays, or any-hit) waits until
+// the whole warp is free and walks its packets of 32 rays one after
+// another in slot 0. Otherwise each slot with at least kRefill free lanes
+// takes the claim's next rays by rank in a ballot, and the warp steps
+// every live slot once a step, until some slot has kRefill free lanes
+// again or every walk has ended. The warp retires when the counter has
+// passed the claims and no slot is live.
+template <int W, bool kWoop, int kK, int kCap>
+__global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
+    traverse_kernel_il(Params p) {
+  const unsigned kRun = claim_rays<kK>(p);  // rays a claim
+  int stack[kK][kCap];
   Walk w[kK];
+  int ray[kK];  // each slot's ray, or -1 (K1b takes n_rays < 2^31)
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned n_claims = (unsigned)claims_of<kK>(p);
+  unsigned q = 0;            // the warp's claim
+  unsigned r = kRun;         // rays of claim q handed out
+  bool drained = false;      // the counter passed n_claims
+  bool lock = false;         // claim q waits for an idle warp
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
-    const long long i = first + (long long)k * kThreads;
+    ray[k] = -1;
     w[k].e = kNone;
-    if (i < p.n_rays) begin<true>(p, i, w[k]);
   }
+  auto claim = [&]() {
+    unsigned c = 0;
+    if (lane == 0) c = (unsigned)atomicAdd(p.counter, 1ull);
+    q = __shfl_sync(0xffffffffu, c, 0);
+    r = 0;
+    drained = q >= n_claims;
+    if (!drained) {
+      lock = __ballot_sync(0xffffffffu, lock_vote<kK>(p, q, lane)) ==
+             0xffffffffu;
+    }
+  };
   for (;;) {
-    bool live = false;
+    // the round: records of ended walks, then the fill
+    bool busy = false;
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
-      if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], stack[k]);
-      live |= w[k].e != kNone;
+      ray[k] = slot_end(p, ray[k], w[k]);
+      busy |= ray[k] >= 0;
     }
-    if (!live) break;
-  }
+    const bool idle = __ballot_sync(0xffffffffu, busy) == 0u;
+    if (idle && !drained && r == kRun) claim();
+    if (lock && idle && !drained) {
+      // a lock-step claim: its packets of 32 rays one after another, each
+      // ray walked to its end in slot 0, as K1 walks its claims
+#pragma unroll 1
+      for (unsigned k = 0; k < kRun; k += 32u) {
+        ray[0] = slot_take(p, claim_ray<kK>(p, q, k + lane), w[0]);
+        while (w[0].e != kNone) {
+          step<W, kWoop, false, false>(p, w[0], stack[0]);
+        }
+        ray[0] = slot_end(p, ray[0], w[0]);
+      }
+      r = kRun;
+      continue;
+    }
+    if (!lock) {
 #pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    const long long i = first + (long long)k * kThreads;
-    if (i < p.n_rays) finish<false, false>(p, i, w[k]);
+      for (int k = 0; k < kK; ++k) {
+        for (;;) {
+          const unsigned empty = __ballot_sync(0xffffffffu, ray[k] < 0);
+          if (drained || __popc(empty) < kRefill) break;
+          if (r == kRun) {
+            claim();
+            if (drained || lock) break;  // a lock-step claim waits
+          }
+          ray[k] = slot_fill<kK>(p, empty, lane, q, r, ray[k], w[k]);
+          r = min(r + (unsigned)__popc(empty), kRun);
+        }
+      }
+    }
+    bool live = false;
+#pragma unroll
+    for (int k = 0; k < kK; ++k) live |= ray[k] >= 0;
+    if (__ballot_sync(0xffffffffu, live) == 0u) {
+      if (drained) return;
+      continue;
+    }
+    // the steps
+    const bool refill = !lock && !drained;
+    for (;;) {
+#if K1B_FETCH > 0
+#pragma unroll
+      for (int k = 0; k < kK; ++k) {
+        if (w[k].e != kNone) slot_fetch<W, kWoop>(p, w[k]);
+      }
+#endif
+      bool on = false;
+#pragma unroll
+      for (int k = 0; k < kK; ++k) {
+        if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], stack[k]);
+        on |= w[k].e != kNone;
+      }
+      if (__ballot_sync(0xffffffffu, on) == 0u) break;
+      if (refill) {
+        bool wake = false;
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          wake |= __popc(__ballot_sync(0xffffffffu, w[k].e == kNone)) >=
+                  kRefill;
+        }
+        if (wake) break;
+      }
+    }
   }
 }
 
@@ -616,16 +857,31 @@ const void* k1_pick(int width, int woop, int counts, int flags, int roots) {
               : k1_kernel<8, false>(counts, flags, roots);
 }
 
-template <int W, bool kWoop>
-void launch_il(const Params& p, int interleave, cudaStream_t s) {
-  const long long n = p.n_rays;
-  if (interleave == 2) {
-    const unsigned g = (unsigned)((n + 2 * kThreads - 1) / (2 * kThreads));
-    traverse_kernel_il<W, kWoop, 2><<<g, kThreads, 0, s>>>(p);
-  } else {
-    const unsigned g = (unsigned)((n + 4 * kThreads - 1) / (4 * kThreads));
-    traverse_kernel_il<W, kWoop, 4><<<g, kThreads, 0, s>>>(p);
+// The K1b instantiation: the kStackSmall-entry stack when stack_size
+// fits it, else kStackCap entries.
+template <int W, bool kWoop, int kK>
+const void* il_kernel(int stack_size) {
+#if K1B_SMALL
+  if (stack_size <= kStackSmall) {
+    return (const void*)traverse_kernel_il<W, kWoop, kK, kStackSmall>;
   }
+#endif
+  return (const void*)traverse_kernel_il<W, kWoop, kK, kStackCap>;
+}
+
+template <int W, bool kWoop>
+const void* il_width(int interleave, int stack_size) {
+  return interleave == 2 ? il_kernel<W, kWoop, 2>(stack_size)
+                         : il_kernel<W, kWoop, 4>(stack_size);
+}
+
+const void* il_pick(int width, int woop, int interleave, int stack_size) {
+  if (width == 16) {
+    return woop ? il_width<16, true>(interleave, stack_size)
+                : il_width<16, false>(interleave, stack_size);
+  }
+  return woop ? il_width<8, true>(interleave, stack_size)
+              : il_width<8, false>(interleave, stack_size);
 }
 
 }  // namespace
@@ -633,7 +889,9 @@ void launch_il(const Params& p, int interleave, cudaStream_t s) {
 // counts, flags and interleave > 1 are exclusive modes; flags need the
 // watertight test; roots (with packet > 0) combine with any mode.
 // ``scratch``: two zeroed uint64, the claim counter and the overflow
-// word. ``grid`` is traverse/packet.py::launch_plan's; K1b takes its own.
+// word. ``grid`` is traverse/packet.py::launch_plan's, for K1 and K1b;
+// ``spread`` (K1b) is launch_plan's: claims of 32 rays, for a batch whose
+// claims of 32 K would leave resident warps idle.
 extern "C" int nrt_packet_traverse(
     const float* nodes, const float* leafs, const float* org, const float* dir,
     const float* min_t, const float* max_t, const int* skip, const int* roots,
@@ -641,7 +899,8 @@ extern "C" int nrt_packet_traverse(
     unsigned long long* scratch, long long n_rays, long long packet,
     int width, int stack_size, int occlusion, int cull_back_face,
     int exact_edge, int use_range, int range_lo, int range_hi, int woop,
-    int counts, int zero_flags, int interleave, int grid, void* stream) {
+    int counts, int zero_flags, int interleave, int grid, int spread,
+    void* stream) {
   if (stack_size < 1 || stack_size > kStackCap) return (int)cudaErrorInvalidValue;
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
   if (interleave != 1 && interleave != 2 && interleave != 4)
@@ -651,40 +910,41 @@ extern "C" int nrt_packet_traverse(
   if (zero_flags && (woop || flags == nullptr)) return (int)cudaErrorInvalidValue;
   if (roots && packet < 1) return (int)cudaErrorInvalidValue;
   if (grid < 1) return (int)cudaErrorInvalidValue;
+  if (interleave > 1 && n_rays > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   Params p{nodes,   leafs,          org,        dir,       min_t,
            max_t,   skip,           roots,      t_out,     u_out,
            v_out,   pid_out,        flags,      scratch,   scratch + 1,
            n_rays,  packet,         stack_size, occlusion, cull_back_face,
-           exact_edge, use_range,   range_lo,   range_hi};
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (interleave > 1) {
-    if (width == 16) {
-      woop ? launch_il<16, true>(p, interleave, s)
-           : launch_il<16, false>(p, interleave, s);
-    } else {
-      woop ? launch_il<8, true>(p, interleave, s)
-           : launch_il<8, false>(p, interleave, s);
-    }
-    return (int)cudaGetLastError();
-  }
-  const void* fn = k1_pick(width, woop, counts, zero_flags, roots != nullptr);
+           exact_edge, use_range,   range_lo,   range_hi,  spread};
+  const void* fn =
+      interleave > 1
+          ? il_pick(width, woop, interleave, stack_size)
+          : k1_pick(width, woop, counts, zero_flags, roots != nullptr);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   void* args[] = {&p};
-  const cudaError_t e =
-      cudaLaunchKernel(fn, dim3((unsigned)grid), dim3(kThreads), args, 0, s);
+  const cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)grid),
+                                         dim3(kThreads), args, 0,
+                                         reinterpret_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// What the launch plan needs of one K1 instantiation: out[0] resident
+// What the launch plan needs of one K1 or K1b instantiation (K1b when
+// interleave > 1, with the stack that stack_size picks): out[0] resident
 // blocks per SM (occupancy API), out[1] registers a thread, out[2] local
 // bytes a thread (the stack frame), out[3] shared bytes a block, out[4]
 // threads a block, out[5] rays a claim.
 extern "C" int nrt_packet_traverse_occupancy(int width, int woop, int counts,
-                                             int flags, int roots, int* out) {
+                                             int flags, int roots,
+                                             int interleave, int stack_size,
+                                             int* out) {
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
-  const void* fn = k1_pick(width, woop, counts, flags, roots);
+  if (interleave != 1 && interleave != 2 && interleave != 4)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = interleave > 1
+                       ? il_pick(width, woop, interleave, stack_size)
+                       : k1_pick(width, woop, counts, flags, roots);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fn);
@@ -697,6 +957,6 @@ extern "C" int nrt_packet_traverse_occupancy(int width, int woop, int counts,
   out[2] = (int)a.localSizeBytes;
   out[3] = (int)a.sharedSizeBytes;
   out[4] = kThreads;
-  out[5] = kClaim;
+  out[5] = kClaim * interleave;
   return 0;
 }

@@ -46,6 +46,7 @@ from . import _ext
 LANES = 128
 DEF_SUB = 32  # rays per packet / LANES in the TPU kernel (specialization)
 STACK_CAP = 512  # kStackCap in csrc/packet_traverse.cu
+IL_STACK = 128  # kStackSmall: K1b's stack when a scene's slots fit it
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
 
@@ -79,25 +80,65 @@ def stack_slots(scene: BVH8Scene) -> int:
     return scene.depth * (scene.width - 1) + 1
 
 
+def stack_cap(slots: int, interleave: int = 1) -> int:
+    """Entries of the stack array each walk holds in the kernel: K1's
+    ``STACK_CAP``; K1b's ``IL_STACK`` instantiation when ``slots``
+    (``stack_slots(scene)``) fit it, else ``STACK_CAP``. A K1b lane holds
+    ``interleave`` stacks, so the smaller one keeps its frame at 1 or 2
+    KB in place of 4 or 8."""
+    return IL_STACK if interleave > 1 and slots <= IL_STACK else STACK_CAP
+
+
+def k1b_claims(n_rays: int, interleave: int, spread: bool = False) -> int:
+    """K1b's claims for ``n_rays`` rays (csrc/packet_traverse.cu
+    ``claims_of``): four claims of ``32 * interleave`` rays tile each
+    ``128 * interleave`` consecutive rays, slot k of a claim 128 rays
+    after slot k - 1, so the last group's claims may hold rays past
+    ``n_rays``, which the kernel skips; with ``spread``, one claim for
+    each 32 rays."""
+    if spread:
+        return -(-n_rays // K1_CLAIM)
+    return -(-n_rays // (K1_THREADS * interleave)) * (K1_THREADS // 32)
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """One K1 launch: ``grid`` persistent blocks of ``threads`` threads,
-    warps claiming ``claim`` consecutive rays at a time."""
+    """One K1 or K1b launch: ``grid`` persistent blocks of ``threads``
+    threads, warps claiming ``claim`` rays at a time (32 for K1; 32 * K
+    for K1b, one packet for each of a lane's K slots, or 32 with
+    ``spread``), each walk with a stack of ``stack_cap`` entries."""
     grid: int
     threads: int
     claim: int
+    stack_cap: int
+    spread: bool = False
 
 
-def launch_plan(n_rays: int, blocks_per_sm: int, sms: int) -> LaunchPlan:
-    """K1's launch for ``n_rays`` rays: the blocks that stay resident
-    (``blocks_per_sm`` from the occupancy API, times ``sms``), or fewer
-    when the batch has fewer claims than that grid has warps."""
+def launch_plan(n_rays: int, blocks_per_sm: int, sms: int,
+                interleave: int = 1, slots: int = STACK_CAP) -> LaunchPlan:
+    """The launch of K1 (``interleave=1``) or K1b for ``n_rays`` rays over
+    a scene of ``slots`` stack slots: the blocks that stay resident
+    (``blocks_per_sm`` from the occupancy API of the instantiation that
+    ``stack_cap(slots, interleave)`` picks, times ``sms``), or fewer when
+    the batch has fewer claims than that grid has warps. Each warp claims
+    ``claim`` rays at a time until the counter passes the batch. K1b's
+    claims of 32 K rays would leave resident warps idle on a batch of
+    fewer than 128 K rays a resident block: such a batch is ``spread``,
+    claimed 32 rays at a time, so that more warps share it."""
     if blocks_per_sm < 1:
         raise ValueError(f"K1 does not fit an SM: {blocks_per_sm} blocks")
-    claims = -(-n_rays // K1_CLAIM)
-    blocks = -(-claims // (K1_THREADS // 32))
-    return LaunchPlan(max(1, min(blocks_per_sm * sms, blocks)), K1_THREADS,
-                      K1_CLAIM)
+    resident = blocks_per_sm * sms
+    warps_a_block = K1_THREADS // 32
+    cap = stack_cap(slots, interleave)
+    if interleave == 1:
+        blocks = -(-n_rays // K1_CLAIM // warps_a_block)
+        return LaunchPlan(max(1, min(resident, blocks)), K1_THREADS,
+                          K1_CLAIM, cap)
+    spread = -(-k1b_claims(n_rays, interleave) // warps_a_block) < resident
+    blocks = -(-k1b_claims(n_rays, interleave, spread) // warps_a_block)
+    return LaunchPlan(max(1, min(resident, blocks)), K1_THREADS,
+                      K1_CLAIM if spread else K1_CLAIM * interleave, cap,
+                      spread)
 
 
 _OCCUPANCY: dict = {}
@@ -105,21 +146,27 @@ _OCCUPANCY: dict = {}
 
 def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
                  flags: bool = False, roots: bool = False,
-                 device=None) -> dict:
+                 device=None, interleave: int = 1,
+                 stack: int = STACK_CAP) -> dict:
     """What the card's occupancy API and the compiled kernel say of one K1
-    instantiation: resident ``blocks_per_sm``, ``registers`` and
-    ``local_bytes`` (the stack frame) a thread, ``shared_bytes`` a block,
-    ``threads`` a block and rays a ``claim``. Cached per device."""
+    instantiation, or with ``interleave`` 2 or 4 of the K1b one whose
+    stack holds ``stack`` entries (``stack_cap``'s choice): resident
+    ``blocks_per_sm``, ``registers`` and ``local_bytes`` (the stack
+    frame) a thread, ``shared_bytes`` a block, ``threads`` a block and
+    rays a ``claim``. Cached per device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    if interleave not in INTERLEAVES:
+        raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
     key = (dev.index, width, bool(woop), bool(counts), bool(flags),
-           bool(roots))
+           bool(roots), interleave, stack if interleave > 1 else STACK_CAP)
     if key not in _OCCUPANCY:
         out = (ctypes.c_int * 6)()
         with torch.cuda.device(dev):
             rc = _ext.load("packet_traverse").nrt_packet_traverse_occupancy(
-                width, int(woop), int(counts), int(flags), int(roots), out)
+                width, int(woop), int(counts), int(flags), int(roots),
+                interleave, key[-1], out)
         if rc != 0:
             raise RuntimeError(f"K1 occupancy query failed: CUDA error {rc}")
         _OCCUPANCY[key] = dict(zip(
@@ -337,12 +384,11 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             flags = torch.empty(n, dtype=torch.int32, device=dev)
         # the claim counter and the overflow word, zeroed on the stream
         scratch = torch.zeros(2, dtype=torch.int64, device=dev)
-        grid = 1  # K1b sizes its own grid
-        if interleave == 1:
-            occ = k1_occupancy(scene.width, woop, debug_counts,
-                               _flag_zero_edges, roots is not None, dev)
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            grid = launch_plan(n, occ["blocks_per_sm"], sms).grid
+        occ = k1_occupancy(scene.width, woop, debug_counts,
+                           _flag_zero_edges, roots is not None, dev,
+                           interleave, stack_cap(slots, interleave))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = launch_plan(n, occ["blocks_per_sm"], sms, interleave, slots)
         lib = _ext.load("packet_traverse")
         ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
         with torch.cuda.device(dev):
@@ -357,7 +403,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                 prim_range[0] if prim_range else 0,
                 prim_range[1] if prim_range else 0, int(woop),
                 int(debug_counts), int(_flag_zero_edges), int(interleave),
-                grid, ctypes.c_void_p(stream))
+                plan.grid, int(plan.spread), ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
         LAUNCHES[_launch_key(woop, roots is not None, debug_counts,

@@ -13,7 +13,9 @@ against its lane kernel, with each schedule option, and with a stack too
 small for the tree), K5 (csrc/ao_fused.cu vs
 models/ao_fused.py::_ao_fused_reference; also at its persistent schedule's
 edge shapes, with warps that claim many tiles, and with its launch and
-item counters). Config A's render_ao must
+item counters). K1b (``interleave`` 2 and 4) also at ray counts that are
+not a multiple of its claims, on grids of 1 to 3 blocks, with dead rays,
+roots across claims and both of its stacks. Config A's render_ao must
 launch K1 and never a plain version, and the stack engine (plain torch)
 must give on the card what it gives on the CPU. Tolerance: bit-identical results (kernel
 and plain version share one child order and one arithmetic; the kernels
@@ -982,12 +984,12 @@ def test_two_pass_exact_on_card_matches_cpu(dev):
 
 # ------------------------------ K1's schedule: persistent warps, claims
 
-def _grid(monkeypatch, grid):
+def _grid(monkeypatch, grid, **kw):
     """K1 launches on ``grid`` blocks, so that every warp claims many
-    times even on a small batch."""
+    times even on a small batch (``kw`` overrides more of the plan)."""
     real = packet.launch_plan
     monkeypatch.setattr(packet, "launch_plan", lambda *a: dataclasses.replace(
-        real(*a), grid=grid))
+        real(*a), grid=grid, **kw))
 
 
 def _soup(width, n_rays=1500):
@@ -1107,6 +1109,94 @@ def test_interleave_deep_stack_matches_plain(dev, K):
     scene, rays = _soup(16)
     _mode_on_both(scene, rays, dev, f"packet_traverse[interleave={K}]",
                   interleave=K)
+
+
+# ------------------------------ K1b: K slots a lane, refilled from claims
+
+@pytest.mark.parametrize("n", [1, 31, 33, 69, 133, 1000])
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("K", [2, 4])
+def test_k1b_ray_counts_match_plain(dev, K, width, n):
+    # n < 32 and counts that are not a multiple of a 32 K-ray claim
+    _mode_on_both(_modes_scene(width), _rays(n, 12), dev,
+                  f"packet_traverse[interleave={K}]", interleave=K)
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "woop",
+                                  "woop_any_hit", "cull", "range"])
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("K", [2, 4])
+def test_k1b_small_grid_matches_plain(dev, monkeypatch, K, grid, mode,
+                                      spread):
+    # every warp takes many claims (of 32 K rays, or of 32 when spread)
+    # and refills its slots many times
+    _grid(monkeypatch, grid, spread=spread)
+    _, kw = SCHEDULE_MODES[mode]
+    _mode_on_both(_modes_scene(16, woop="intersector" in kw),
+                  _rays(3001, 14), dev, f"packet_traverse[interleave={K}]",
+                  interleave=K, **kw)
+
+
+@pytest.mark.parametrize("case", ["all_dead", "dead_tail"])
+@pytest.mark.parametrize("K", [2, 4])
+def test_k1b_dead_rays_match_plain(dev, monkeypatch, K, case):
+    _grid(monkeypatch, 2)
+    rays = _rays(3001, 16, broken=False)
+    dead = torch.ones(3001, dtype=torch.bool)
+    if case == "dead_tail":
+        dead[:1800] = False
+    rays = rays._replace(max_t=torch.where(dead, -1.0, rays.max_t))
+    for occlusion in (False, True):
+        _mode_on_both(_modes_scene(8), rays, dev,
+                      f"packet_traverse[interleave={K}]", interleave=K,
+                      occlusion=occlusion)
+
+
+@pytest.mark.parametrize("sub", [1, 3])
+@pytest.mark.parametrize("K", [2, 4])
+def test_k1b_roots_across_claims_match_plain(dev, monkeypatch, K, sub):
+    from nanort_tpu_torch.traverse import treelet
+
+    _grid(monkeypatch, 2)
+    tl, scene = treelet.make_treelets(_modes_scene(8), 24)
+    n = 3001
+    n_pk = -(-n // (sub * packet.LANES))
+    roots = tl.roots[np.random.default_rng(2).integers(0, tl.count, n_pk)]
+    _mode_on_both(scene, _rays(n, 17), dev,
+                  f"packet_traverse[interleave={K}]", sub=sub,
+                  packet_roots=torch.from_numpy(roots), interleave=K)
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_k1b_large_stack_matches_plain(dev, monkeypatch, K):
+    # more stack slots than the 128-entry stack holds take the 512-entry
+    # instantiation (both sides get the same 200 slots)
+    scene, rays = _soup(8)
+    monkeypatch.setattr(packet, "stack_slots", lambda s: 200)
+    assert packet.stack_cap(200, K) == packet.STACK_CAP
+    _mode_on_both(scene, rays, dev, f"packet_traverse[interleave={K}]",
+                  interleave=K)
+
+
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("woop", [False, True])
+@pytest.mark.parametrize("width", [8, 16])
+def test_k1b_occupancy_and_plan(dev, width, woop, K):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for cap in (packet.IL_STACK, packet.STACK_CAP):
+        occ = packet.k1_occupancy(width, woop, interleave=K, stack=cap)
+        assert occ["threads"] == packet.K1_THREADS
+        assert occ["claim"] == packet.K1_CLAIM * K
+        assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+        assert occ["shared_bytes"] == 0
+        # K stacks of ``cap`` entries a thread
+        assert occ["local_bytes"] >= K * cap * 4
+        slots = 106 if cap == packet.IL_STACK else 200
+        plan = packet.launch_plan(1 << 26, occ["blocks_per_sm"], sms, K,
+                                  slots)
+        assert plan.grid == occ["blocks_per_sm"] * sms
+        assert plan.stack_cap == cap
 
 
 @pytest.mark.parametrize("mode", ["closest", "interleave"])

@@ -36,6 +36,7 @@ torch.set_num_threads(1)
 # appended to the kernel source: each ray walked alone (K1), or K rays
 # stepped in turns (K1b), with the kernel's own functions
 HARNESS = r"""
+#include <vector>
 uint3 threadIdx, blockIdx;
 namespace {
 template <int W, bool kWoop, bool kCounts, bool kFlags, bool kRoots>
@@ -48,31 +49,148 @@ void walk_all(const Params& p) {
     finish<kCounts, kFlags>(p, i, w);
   }
 }
+// K1b's schedule: ``warps`` warps of 32 lanes with kK slots each,
+// stepped in turns, one pass of the kernel's inner loop a turn (one step
+// of every live slot), with the kernel's round (the records of ended
+// walks, then a lock-step claim's packets walked one after another when
+// the warp is idle, or the refill of each slot by rank in the warp's
+// empty slots) before the first step and after each break. The c-th claim taken is claim
+// order[c], so claims land on the warps in a shuffled order; the lanes of
+// each round and step run in a shuffled order.
 template <int W, bool kWoop, int kK>
-void walk_il(const Params& p) {
-  static int stack[kK][kStackCap];
-  for (long long first = 0; first < p.n_rays; first += kK) {
-    Walk w[kK];
-    for (int k = 0; k < kK; ++k) {
-      w[k].e = kNone;
-      if (first + k < p.n_rays) begin<true>(p, first + k, w[k]);
+void walk_il(const Params& p, int warps, const long long* order,
+             unsigned seed) {
+  struct Warp {
+    std::vector<Walk> w = std::vector<Walk>(32 * kK);
+    std::vector<int> ray = std::vector<int>(32 * kK, -1);
+    std::vector<int> stack = std::vector<int>(32 * kK * kStackCap);
+    unsigned q = 0;
+    unsigned r = ~0u;  // set to kRun below
+    bool drained = false, done = false, lock = false, stepping = false;
+    bool refill = false;
+  };
+  std::vector<Warp> ws(warps);
+  for (Warp& wp : ws) {
+    for (Walk& x : wp.w) x.e = kNone;
+    wp.r = claim_rays<kK>(p);
+  }
+  const long long n_claims = (long long)claims_of<kK>(p);
+  const unsigned kRun = claim_rays<kK>(p);
+  long long next = 0;
+  int lanes[32];
+  for (int l = 0; l < 32; ++l) lanes[l] = l;
+  auto shuffle = [&]() {
+    for (int l = 31; l > 0; --l) {
+      seed = seed * 1664525u + 1013904223u;
+      const int x = (int)((seed >> 8) % (unsigned)(l + 1));
+      const int y = lanes[l];
+      lanes[l] = lanes[x];
+      lanes[x] = y;
     }
-    for (bool live = true; live;) {
-      live = false;
+  };
+  auto claim = [&](Warp& wp) {
+    wp.r = 0;
+    wp.drained = next >= n_claims;
+    if (wp.drained) return;
+    wp.q = (unsigned)order[next++];
+    bool all = true;
+    for (unsigned l = 0; l < 32; ++l) all &= lock_vote<kK>(p, wp.q, l);
+    wp.lock = all;
+  };
+  // the kernel's round; false when the warp retires
+  auto round = [&](Warp& wp) {
+    shuffle();
+    bool idle = true;
+    for (int l : lanes) {
       for (int k = 0; k < kK; ++k) {
-        if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], stack[k]);
-        live |= w[k].e != kNone;
+        const int s = l * kK + k;
+        wp.ray[s] = slot_end(p, wp.ray[s], wp.w[s]);
+        idle &= wp.ray[s] < 0;
       }
     }
-    for (int k = 0; k < kK; ++k) {
-      if (first + k < p.n_rays) finish<false, false>(p, first + k, w[k]);
+    if (idle && !wp.drained && wp.r == kRun) claim(wp);
+    if (wp.lock && idle && !wp.drained) {
+      // the claim's packets one after another, each lane's ray walked to
+      // its end in slot 0
+      for (unsigned k = 0; k < kRun; k += 32u) {
+        shuffle();
+        for (int l : lanes) {
+          const int s = l * kK;
+          wp.ray[s] = slot_take(p, claim_ray<kK>(p, wp.q, k + l), wp.w[s]);
+          while (wp.w[s].e != kNone) {
+            step<W, kWoop, false, false>(p, wp.w[s],
+                                         &wp.stack[s * kStackCap]);
+          }
+          wp.ray[s] = slot_end(p, wp.ray[s], wp.w[s]);
+        }
+      }
+      wp.r = kRun;
+      return true;
+    } else if (!wp.lock) {
+      for (int k = 0; k < kK; ++k) {
+        for (;;) {
+          unsigned empty = 0u;
+          for (int l = 0; l < 32; ++l) {
+            empty |= (unsigned)(wp.ray[l * kK + k] < 0) << l;
+          }
+          if (wp.drained || __popc(empty) < kRefill) break;
+          if (wp.r == kRun) {
+            claim(wp);
+            if (wp.drained || wp.lock) break;
+          }
+          shuffle();
+          for (int l : lanes) {
+            wp.ray[l * kK + k] = slot_fill<kK>(p, empty, l, wp.q, wp.r,
+                                               wp.ray[l * kK + k],
+                                               wp.w[l * kK + k]);
+          }
+          wp.r = std::min(wp.r + (unsigned)__popc(empty), kRun);
+        }
+      }
+    }
+    bool live = false;
+    for (int x : wp.ray) live |= x >= 0;
+    if (!live) return !wp.drained;
+    wp.stepping = true;
+    wp.refill = !wp.lock && !wp.drained;
+    return true;
+  };
+  for (bool any = true; any;) {
+    any = false;
+    for (Warp& wp : ws) {
+      if (wp.done) continue;
+      any = true;
+      if (!wp.stepping) {
+        if (!round(wp)) wp.done = true;
+        continue;
+      }
+      shuffle();
+      bool on = false;
+      for (int l : lanes) {
+        for (int k = 0; k < kK; ++k) {
+          const int s = l * kK + k;
+          if (wp.w[s].e != kNone) {
+            step<W, kWoop, false, false>(p, wp.w[s],
+                                         &wp.stack[s * kStackCap]);
+          }
+          on |= wp.w[s].e != kNone;
+        }
+      }
+      bool wake = false;
+      for (int k = 0; k < kK; ++k) {
+        int ended = 0;
+        for (int l = 0; l < 32; ++l) ended += wp.w[l * kK + k].e == kNone;
+        wake |= ended >= kRefill;
+      }
+      if (!on || (wp.refill && wake)) wp.stepping = false;
     }
   }
 }
 template <int W, bool kWoop>
-void pick(const Params& p, int counts, int flags, int il) {
-  if (il == 2) return walk_il<W, kWoop, 2>(p);
-  if (il == 4) return walk_il<W, kWoop, 4>(p);
+void pick(const Params& p, int counts, int flags, int il, int warps,
+          const long long* order, unsigned seed) {
+  if (il == 2) return walk_il<W, kWoop, 2>(p, warps, order, seed);
+  if (il == 4) return walk_il<W, kWoop, 4>(p, warps, order, seed);
   if (counts) return walk_all<W, kWoop, true, false, true>(p);
   if (flags) return walk_all<W, false, false, true, true>(p);
   if (p.roots) return walk_all<W, kWoop, false, false, true>(p);
@@ -87,17 +205,20 @@ extern "C" void emulate_k1(
     unsigned long long* scratch, long long n_rays, long long packet,
     int width, int stack_size, int occlusion, int cull_back_face,
     int exact_edge, int use_range, int range_lo, int range_hi, int woop,
-    int counts, int zero_flags, int interleave) {
+    int counts, int zero_flags, int interleave, int warps,
+    const long long* order, unsigned seed, int spread) {
   const Params p{nodes, leafs, org, dir, min_t, max_t, skip, roots, t_out,
                  u_out, v_out, pid_out, flags, scratch, scratch + 1, n_rays,
                  packet, stack_size, occlusion, cull_back_face, exact_edge,
-                 use_range, range_lo, range_hi};
+                 use_range, range_lo, range_hi, spread};
   if (width == 16) {
-    woop ? pick<16, true>(p, counts, zero_flags, interleave)
-         : pick<16, false>(p, counts, zero_flags, interleave);
+    woop ? pick<16, true>(p, counts, zero_flags, interleave, warps, order, seed)
+         : pick<16, false>(p, counts, zero_flags, interleave, warps, order,
+                           seed);
   } else {
-    woop ? pick<8, true>(p, counts, zero_flags, interleave)
-         : pick<8, false>(p, counts, zero_flags, interleave);
+    woop ? pick<8, true>(p, counts, zero_flags, interleave, warps, order, seed)
+         : pick<8, false>(p, counts, zero_flags, interleave, warps, order,
+                          seed);
   }
 }
 """
@@ -108,7 +229,8 @@ def lib(tmp_path_factory):
     lib = build_with_cuda_mock("packet_traverse.cu", HARNESS,
                                tmp_path_factory.mktemp("k1_emulation"))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.emulate_k1.argtypes = [P] * 14 + [L] * 2 + [I] * 12
+    lib.emulate_k1.argtypes = ([P] * 14 + [L] * 2 + [I] * 13
+                               + [P, ctypes.c_uint, I])
     lib.emulate_k1.restype = None
     return lib
 
@@ -116,9 +238,11 @@ def lib(tmp_path_factory):
 def _emulate(lib, scene, rays, options=nt.BVHTraceOptions(),
              skip_prim_id=None, occlusion=False, intersector="watertight",
              sub=32, packet_roots=None, debug_counts=False, interleave=1,
-             _flag_zero_edges=False, slots=None):
+             _flag_zero_edges=False, slots=None, warps=3, claims_seed=0,
+             spread=0):
     """The emulated kernel with traverse_bvh8's arguments: its records
-    (and flags) and the overflow word."""
+    (and flags) and the overflow word. K1b runs ``warps`` warps, its
+    claims in an order shuffled by ``claims_seed``."""
     woop = intersector == "woop"
     n = rays.org.shape[0]
     nodes = torch.as_tensor(scene.nodes)
@@ -132,6 +256,8 @@ def _emulate(lib, scene, rays, options=nt.BVHTraceOptions(),
     pid = torch.empty(n, dtype=torch.int64)
     flags = torch.empty(n, dtype=torch.int32) if _flag_zero_edges else None
     scratch = torch.zeros(2, dtype=torch.int64)
+    order = np.random.default_rng(claims_seed).permutation(
+        max(1, packet.k1b_claims(n, interleave, spread))).astype(np.int64)
 
     def ptr(x):
         return None if x is None else ctypes.c_void_p(x.data_ptr())
@@ -145,7 +271,8 @@ def _emulate(lib, scene, rays, options=nt.BVHTraceOptions(),
         int(occlusion), int(options.cull_back_face),
         int(options.exact_edge_fallback and not woop), int(use_range),
         int(lo), int(hi), int(woop), int(debug_counts),
-        int(_flag_zero_edges), interleave)
+        int(_flag_zero_edges), interleave, warps,
+        ctypes.c_void_p(order.ctypes.data), claims_seed + 1, spread)
     out = [t, u, v, pid] + ([flags] if flags is not None else [])
     return out, int(scratch[1])
 
@@ -271,3 +398,112 @@ def test_emulated_kernel_sets_the_overflow_word(lib, scenes, width):
             torch.as_tensor(scene.nodes), torch.as_tensor(scene.leafs), width,
             rays.org, rays.dir, rays.min_t, rays.max_t, None, None, False,
             True, False, 3)
+
+
+# ------------------------------ K1b: K slots a lane, refilled from claims
+
+def _held(lib, scene, rays, **kw):
+    got, err = _emulate(lib, scene, rays, **kw)
+    kw = {k: v for k, v in kw.items()
+          if k not in ("warps", "claims_seed", "slots", "spread")}
+    for a, b in zip(got, _plain(scene, rays, **kw)):
+        assert torch.equal(a, b)
+    return err
+
+
+@pytest.mark.parametrize("spread", [0, 1])
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("intersector", ["watertight", "woop"])
+@pytest.mark.parametrize("kind", ["box", "soup"])
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("K", [2, 4])
+def test_emulated_il_schedule_matches_plain(lib, scenes, K, width, kind,
+                                            intersector, occlusion, spread):
+    # 1500 rays (box) or 600 (soup) over 3 warps: many claims a warp, a
+    # ragged last claim, refills of slots whose walks end at different
+    # steps (closest hit) or lock-step claims (any-hit); the soup's walks
+    # leave entries on many levels
+    scene = scenes[kind, width, intersector == "woop"]
+    assert _held(lib, scene, scenes[f"{kind}_rays"], interleave=K,
+                 intersector=intersector, occlusion=occlusion,
+                 claims_seed=K * width, spread=spread) == 0
+
+
+def _camera_and_scatter(n_cam, n_rand, seed):
+    """``n_cam`` rays from one eye (a camera's: lock-step claims), then
+    ``n_rand`` incoherent ones (refilled claims), as phase 5's batch."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n_cam)))
+    a, b = np.meshgrid(np.linspace(-0.6, 0.6, side),
+                       np.linspace(-0.6, 0.6, side))
+    d = np.stack([a.ravel(), b.ravel(), -np.ones(side * side)], 1)[:n_cam]
+    org = np.tile([0.1, -0.2, 3.0], (n_cam, 1))
+    org = np.concatenate([org, rng.uniform(-3, 3, (n_rand, 3))])
+    d = np.concatenate([d, rng.normal(size=(n_rand, 3))])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return nt.make_rays(torch.from_numpy(org.astype(np.float32)),
+                        torch.from_numpy(d.astype(np.float32)))
+
+
+@pytest.mark.parametrize("spread", [0, 1])
+@pytest.mark.parametrize("n_cam", [512, 700, 1000])
+@pytest.mark.parametrize("K", [2, 4])
+def test_emulated_il_camera_claims_match_plain(lib, scenes, K, n_cam, spread):
+    # claims whose rays share one origin walk in lock-step, the others
+    # refill; a claim may hold both (n_cam not a multiple of 128 K)
+    rays = _camera_and_scatter(n_cam, 900, n_cam)
+    for width in (8, 16):
+        _held(lib, scenes["box", width, False], rays, interleave=K,
+              spread=spread, claims_seed=n_cam + K)
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 33, 64 + 5, 128 + 5, 1000])
+@pytest.mark.parametrize("warps", [1, 2, 7])
+@pytest.mark.parametrize("K", [2, 4])
+def test_emulated_il_ray_counts_match_plain(lib, scenes, K, warps, n):
+    # n < 32, n not a multiple of 32 K, more warps than claims
+    rays = nt.Rays(*(x[:n].contiguous() for x in scenes["box_rays"]))
+    _held(lib, scenes["box", 16, False], rays, interleave=K, warps=warps,
+          claims_seed=n)
+
+
+@pytest.mark.parametrize("case", ["all_dead", "dead_tail", "dead_every_3rd"])
+@pytest.mark.parametrize("K", [2, 4])
+def test_emulated_il_dead_rays_match_plain(lib, scenes, K, case):
+    # rays that retire before their first node are written at refill and
+    # free their slot at once (ray_sort puts them last)
+    rays = scenes["box_rays"]
+    n = rays.org.shape[0]
+    dead = torch.ones(n, dtype=torch.bool)
+    if case == "dead_tail":
+        dead[:900] = False
+    elif case == "dead_every_3rd":
+        dead = torch.arange(n) % 3 == 0
+    rays = rays._replace(max_t=torch.where(dead, -1.0, rays.max_t))
+    for occlusion in (False, True):
+        _held(lib, scenes["box", 8, False], rays, interleave=K,
+              occlusion=occlusion)
+
+
+@pytest.mark.parametrize("sub", [1, 3])
+@pytest.mark.parametrize("K", [2, 4])
+def test_emulated_il_roots_across_claims_match_plain(lib, scenes, K, sub):
+    # packets of 128 or 384 rays span several claims of 32 K rays
+    tl, scene = treelet.make_treelets(scenes["box", 8, False], 24)
+    rays = scenes["box_rays"]
+    n_pk = -(-rays.org.shape[0] // (sub * packet.LANES))
+    roots = torch.from_numpy(tl.roots[np.random.default_rng(3).integers(
+        0, tl.count, n_pk)])
+    for occlusion in (False, True):
+        _held(lib, scene, rays, interleave=K, sub=sub, packet_roots=roots,
+              occlusion=occlusion, warps=2)
+
+
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("width", [8, 16])
+def test_emulated_il_sets_the_overflow_word(lib, scenes, K, width):
+    # a stack too small for the walks: the slot's walk stops, its slot
+    # takes the next ray, and the launch's error word is set
+    _, err = _emulate(lib, scenes["soup", width, False], scenes["soup_rays"],
+                      interleave=K, slots=3)
+    assert err == 1

@@ -11,8 +11,10 @@ faster on an H100 (PERF.md), so the stack has one part. The plain
 version's peak stack (``stats["max_sp"]``) on seeded camera-like and
 incoherent rays over small BVH16 and BVH8 scenes stays within
 ``stack_slots``; a stack smaller than a walk needs raises, as the kernel
-sets its error word. Its records equal the JAX package's brute force
-under ``testing.compare_hits`` (``jax.disable_jit``). The kernel itself
+sets its error word. K1b's plan claims 32 K rays a warp, one for each
+of its K slots a lane, and takes a 128-entry stack where the scene's
+``stack_slots`` fit it. The plain version's records equal the JAX
+package's brute force under ``testing.compare_hits`` (``jax.disable_jit``). The kernel itself
 is held to the plain version on the card by test_torch_gpu.py.
 """
 
@@ -53,6 +55,62 @@ def test_launch_plan_grid_and_claims(n_rays, blocks_per_sm):
     # no block without a claim for each of its warps' first round but the
     # last one
     assert (plan.grid - 1) * warps_a_block < claims
+
+
+@pytest.mark.parametrize("n_rays", [1, 31, 64, 65, 128, 129, 131_072,
+                                    4_194_305, 67_108_864])
+@pytest.mark.parametrize("blocks_per_sm", [1, 5, 12])
+@pytest.mark.parametrize("K", [2, 4])
+def test_k1b_launch_plan_grid_and_claims(K, blocks_per_sm, n_rays):
+    # K1b: a warp claims one packet of 32 rays for each of its K slots at a
+    # time, four claims tiling 128 K rays; a batch whose claims would not
+    # reach every resident warp is spread: claims of 32 rays
+    plan = packet.launch_plan(n_rays, blocks_per_sm, SMS, K, 106)
+    warps_a_block = plan.threads // 32
+    resident = blocks_per_sm * SMS
+    full = packet.k1b_claims(n_rays, K)
+    assert full == -(-n_rays // (128 * K)) * 4
+    assert full * 32 * K >= n_rays > (full - 4) * 32 * K
+    assert plan.spread == (-(-full // warps_a_block) < resident)
+    assert plan.threads == packet.K1_THREADS
+    assert plan.claim == (packet.K1_CLAIM if plan.spread
+                          else packet.K1_CLAIM * K)
+    claims = packet.k1b_claims(n_rays, K, plan.spread)
+    assert claims * plan.claim >= n_rays
+    assert plan.grid == max(1, min(resident, -(-claims // warps_a_block)))
+    assert (plan.grid - 1) * warps_a_block < claims
+    if plan.spread:  # more warps take part than 32 K-ray claims would give
+        assert plan.grid >= -(-full // warps_a_block)
+
+
+@pytest.mark.parametrize("slots", [1, 106, 127, 128, 129, 136, 512])
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_launch_plan_stack_cap_from_stack_slots(K, slots):
+    # K1 keeps its one instantiation of STACK_CAP entries; K1b takes the
+    # IL_STACK-entry stack where the scene's slots fit it
+    plan = packet.launch_plan(4096, 4, SMS, K, slots)
+    want = (packet.IL_STACK if K > 1 and slots <= packet.IL_STACK
+            else packet.STACK_CAP)
+    assert plan.stack_cap == packet.stack_cap(slots, K) == want
+    assert slots <= plan.stack_cap
+    assert packet.launch_plan(4096, 4, SMS).stack_cap == packet.STACK_CAP
+
+
+@pytest.mark.parametrize("width,depth,cap", [(16, 7, 128), (16, 8, 128),
+                                             (16, 9, 512), (8, 18, 128),
+                                             (8, 19, 512), (8, 73, 512)])
+def test_k1b_stack_cap_of_scene_depths(width, depth, cap):
+    # the 8192^2 frame's BVH16 (depth 7) needs 106 slots: the small stack
+    _, _, scene = _scene(width, "box")
+    deep = dataclasses.replace(scene, depth=depth)
+    for K in (2, 4):
+        assert packet.stack_cap(packet.stack_slots(deep), K) == cap
+    # the records do not depend on the stack K1b holds
+    rays = nt.make_rays(*(torch.from_numpy(x) for x in _ray_batch(
+        "incoherent", 64, 4)))
+    got = packet.traverse_bvh8(deep, rays, interleave=2)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, packet.traverse_bvh8(scene, rays)))
 
 
 def test_launch_plan_refuses_a_kernel_that_does_not_fit():

@@ -19,7 +19,11 @@ warm-up:
   renders; config A's K1 route (``render_ao``, phase 13) and its two
   traces; the round-1 launch of the treelet engine with its roots
   (phase 16); the AO bounce run (``traverse_bvh8_sorted(occlusion=True)``,
-  4,194,304 rays, phase 17);
+  4,194,304 rays, phase 17); K1 alone on phase 16's random rays and
+  phase 17's sorted AO rays;
+- K1b (``traverse_bvh8(..., interleave=K)``, ``k1b{K}_*``, K = 2 and 4):
+  the frame, phase 5's rays, phase 16's random rays, phase 17's sorted
+  AO rays and phase 11's bounce-2 closest-hit trace (``k1b_shapes``);
 - K2 alone (``fused_trace.trace_bvh16``): closest hit with aux rows and
   occlusion on 65,536 seeded incoherent rays over the 99,236-triangle
   dense Cornell scene (phase 7's rays), median of 20;
@@ -93,18 +97,127 @@ def capture_k1(render, calls) -> list:
     return kept
 
 
+def sphere_shapes(dev) -> dict:
+    """The ~1M-triangle sphere's K1 shapes: the BVH16 scene (leaf 9) with
+    the tiled 8192^2 frame (phases 4-6) and phase 5's 131,072 rays, and
+    the BVH8 scene (leaf 8, 1,024 treelets) with phase 16's 4,194,304
+    random rays and phase 17's AO rays off 1024^2 primaries."""
+    import numpy as np
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.io.procedural import make_subdivided_sphere_scene
+    from nanort_tpu_torch.models import objrender
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.traverse import packet, treelet
+
+    v, f = make_subdivided_sphere_scene(1_000_000)
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=9, max_leaf_primitives=9))
+    s16 = collapse_bvh8(bvh, v, f, width=16).to(dev)
+    cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=8192, height=8192,
+                  fov=60.0, device=dev)
+    frame, _ = packet.tile_image_rays(pinhole_rays(cam), 128, 64)
+    spec = packet.detect_specialization(frame, sub=packet.DEF_SUB)
+    m = 65_536
+    g = np.random.default_rng(7)
+    iorg = g.uniform(-1.5, 1.5, (m, 3)).astype(np.float32)
+    idir = g.normal(size=(m, 3))
+    idir = (idir / np.linalg.norm(idir, axis=1, keepdims=True)).astype(
+        np.float32)
+    sub = nt.Rays(
+        torch.cat([frame.org[:m], torch.from_numpy(iorg).to(dev)]),
+        torch.cat([frame.dir[:m], torch.from_numpy(idir).to(dev)]),
+        torch.cat([frame.min_t[:m], torch.zeros(m, device=dev)]),
+        torch.cat([frame.max_t[:m], torch.full((m,), 3.4e38, device=dev)]))
+
+    bvh8, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    tl, s8h = treelet.make_treelets(collapse_bvh8(bvh8, v, f), 1024)
+    s8 = s8h.to(dev)
+    rng = np.random.default_rng(11)
+    R = 4_194_304
+    org = rng.uniform(np.asarray(bvh8.bmin[0]), np.asarray(bvh8.bmax[0]),
+                      (R, 3)).astype(np.float32)
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays_i = nt.make_rays(torch.from_numpy(org).to(dev),
+                          torch.from_numpy(d.astype(np.float32)).to(dev))
+    cam_b = look_at(eye=(0, 0, 2.2), center=(0, 0, 0), width=1024,
+                    height=1024, fov=60.0, device=dev)
+    rays_p, _ = packet.tile_image_rays(pinhole_rays(cam_b), 128, 32)
+    hp = packet.traverse_bvh8(s8, rays_p,
+                              specialize=packet.detect_specialization(rays_p))
+    mesh = TriangleMesh(torch.from_numpy(v).to(dev),
+                        torch.from_numpy(f).to(dev).long())
+    n = objrender.face_normals(mesh, hp.prim_id)
+    x = rays_p.org + rays_p.dir * hp.t[:, None]
+    n = torch.where((n * rays_p.dir).sum(-1, keepdim=True) > 0, -n, n)
+    t_o, b_o = objrender.build_onb(n)
+    local = objrender._cosine_hemisphere(
+        torch.Generator(device=dev).manual_seed(3), (4, n.shape[0]),
+        torch.float32, dev)
+    wdir = (local[..., 0:1] * t_o + local[..., 1:2] * b_o
+            + local[..., 2:3] * n)
+    brays = nt.make_rays((x + n * 1e-3).expand(4, -1, -1).reshape(-1, 3),
+                         wdir.reshape(-1, 3),
+                         max_t=torch.where(hp.hit.expand(4, -1).reshape(-1),
+                                           0.5, -1.0))
+    return dict(v=v, f=f, s16=s16, frame=frame, spec=spec, sub=sub, s8=s8,
+                tl=tl, rays_i=rays_i, brays=brays)
+
+
+def k1b_shapes(dev, sph=None, bounce2=None) -> dict:
+    """K1b's shapes: ``{name: (scene8, rays, positional, keyword
+    arguments)}`` of the K1 call each one makes without ``interleave``:
+    the 8192^2 frame, phase 5's 131,072 rays, phase 16's 4,194,304
+    random rays (unsorted), phase 17's sorted AO rays (the trace that
+    ``traverse_bvh8_sorted(occlusion=True)`` launches) and phase 11's
+    bounce-2 closest-hit trace of the pallas megabatch render
+    (6,553,600 sorted rays; ``bounce2`` when the caller captured it)."""
+    from nanort_tpu_torch.io.procedural import make_cornell_dense_pt_scene
+    from nanort_tpu_torch.models import path_tracer
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.traverse import ray_sort
+
+    sph = sphere_shapes(dev) if sph is None else sph
+    (sa,) = capture_k1(lambda: ray_sort.traverse_bvh8_sorted(
+        sph["s8"], sph["brays"], occlusion=True), (0,))
+    if bounce2 is None:
+        dense = path_tracer.make_pt_scene(
+            *make_cornell_dense_pt_scene(100_000), engine="pallas",
+            device=dev)
+        cam512 = pinhole_rays(look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0),
+                                      width=512, height=512, fov=45.0,
+                                      device=dev))
+        (bounce2,) = capture_k1(lambda: path_tracer.render_path_traced(
+            dense, cam512, 3, spp=100, max_bounces=10, fused=False), (4,))
+    return {
+        "frame_8192": (sph["s16"], sph["frame"], (),
+                       dict(specialize=sph["spec"])),
+        "phase5": (sph["s16"], sph["sub"], (), {}),
+        "random": (sph["s8"], sph["rays_i"], (), {}),
+        "ao_sorted": sa,
+        "bounce2_closest": bounce2,
+    }
+
+
 def k1_cases(dev) -> dict:
     """K1's shapes: ``{name: (fn, repetitions)}``, each ``fn`` one call
     through the port's entry points that returns what it computed (hits
-    or an image). Uses only entry points that PR 5's port has."""
+    or an image), and K1b's (``k1b{K}_*``, K = 2 and 4, on
+    ``k1b_shapes``; K1 on the two of them it has no case for). Uses only
+    entry points that PR 5's port has."""
     import numpy as np
     import torch
 
     import nanort_tpu_torch as nt
     from nanort_tpu_torch.build.bvh8 import collapse_bvh8
     from nanort_tpu_torch.io.procedural import (
-        make_cornell_box, make_cornell_dense_pt_scene,
-        make_subdivided_sphere_scene, make_uv_sphere, merge_meshes)
+        make_cornell_box, make_cornell_dense_pt_scene, make_uv_sphere,
+        merge_meshes)
     from nanort_tpu_torch.models import objrender, path_tracer
     from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
     from nanort_tpu_torch.ops.triangle import TriangleMesh
@@ -117,26 +230,10 @@ def k1_cases(dev) -> dict:
         return lambda: call(scene, rays, *a, **k)
 
     # phases 4-6 and 18: the ~1M-triangle sphere, leaf 9, BVH16
-    v, f = make_subdivided_sphere_scene(1_000_000)
-    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
-        min_leaf_primitives=9, max_leaf_primitives=9))
-    s16 = collapse_bvh8(bvh, v, f, width=16).to(dev)
-    cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=8192, height=8192,
-                  fov=60.0, device=dev)
-    frame, _ = packet.tile_image_rays(pinhole_rays(cam), 128, 64)
-    spec = packet.detect_specialization(frame, sub=packet.DEF_SUB)
-    cases["k1_frame_8192"] = (k1(s16, frame, specialize=spec), 3)
-    m = 65_536
-    g = np.random.default_rng(7)
-    iorg = g.uniform(-1.5, 1.5, (m, 3)).astype(np.float32)
-    idir = g.normal(size=(m, 3))
-    idir = (idir / np.linalg.norm(idir, axis=1, keepdims=True)).astype(
-        np.float32)
-    sub = nt.Rays(
-        torch.cat([frame.org[:m], torch.from_numpy(iorg).to(dev)]),
-        torch.cat([frame.dir[:m], torch.from_numpy(idir).to(dev)]),
-        torch.cat([frame.min_t[:m], torch.zeros(m, device=dev)]),
-        torch.cat([frame.max_t[:m], torch.full((m,), 3.4e38, device=dev)]))
+    sph = sphere_shapes(dev)
+    s16, sub = sph["s16"], sph["sub"]
+    cases["k1_frame_8192"] = (k1(s16, sph["frame"], specialize=sph["spec"]),
+                              3)
     fast = nt.BVHTraceOptions(exact_edge_fallback=False)
     cases["k1_phase5"] = (k1(s16, sub), 10)
     cases["k1_phase5_counts"] = (k1(s16, sub, debug_counts=True), 10)
@@ -149,6 +246,7 @@ def k1_cases(dev) -> dict:
     cam512 = pinhole_rays(look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0),
                                   width=512, height=512, fov=45.0,
                                   device=dev))
+    bounce2 = None
     for engine, name in (("turbo", "k1woop"), ("pallas", "k1")):
         scene = path_tracer.make_pt_scene(*dense, engine=engine, device=dev)
 
@@ -156,9 +254,12 @@ def k1_cases(dev) -> dict:
             return path_tracer.render_path_traced(
                 scene, cam512, 3, spp=100, max_bounces=10, fused=False)
 
-        for kind, (s8, r, a, k) in zip(("closest", "shadow"),
-                                       capture_k1(render, (4, 5))):
+        for kind, kept in zip(("closest", "shadow"),
+                              capture_k1(render, (4, 5))):
+            s8, r, a, k = kept
             cases[f"{name}_bounce2_{kind}"] = (k1(s8, r, *a, **k), 5)
+            if engine == "pallas" and kind == "closest":
+                bounce2 = kept
         cases[f"megabatch_{engine}"] = (render, 3)
 
     # phase 13: config A on the K1 route and its two traces
@@ -184,43 +285,22 @@ def k1_cases(dev) -> dict:
         cases[f"k1_config_a_{kind}"] = (k1(s8, r, *a, **k), 5)
 
     # phases 16-17: the ~1M-triangle sphere, leaf 8, BVH8 with treelets
-    bvh8, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
-        min_leaf_primitives=8, max_leaf_primitives=8))
-    tl, s8h = treelet.make_treelets(collapse_bvh8(bvh8, v, f), 1024)
-    s8 = s8h.to(dev)
-    rng = np.random.default_rng(11)
-    R = 4_194_304
-    org = rng.uniform(np.asarray(bvh8.bmin[0]), np.asarray(bvh8.bmax[0]),
-                      (R, 3)).astype(np.float32)
-    d = rng.normal(size=(R, 3))
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    rays_i = nt.make_rays(torch.from_numpy(org).to(dev),
-                          torch.from_numpy(d.astype(np.float32)).to(dev))
+    s8, rays_i, tl = sph["s8"], sph["rays_i"], sph["tl"]
     (s8r, r1, a1, k1kw), = capture_k1(lambda: treelet.traverse_bvh8_binned(
         s8, rays_i, treelets=tl, K=8, octant_major=True, sub=16), (0,))
     cases["k1_roots_round1"] = (k1(s8r, r1, *a1, **k1kw), 5)
-    cam_b = look_at(eye=(0, 0, 2.2), center=(0, 0, 0), width=1024,
-                    height=1024, fov=60.0, device=dev)
-    rays_p, _ = packet.tile_image_rays(pinhole_rays(cam_b), 128, 32)
-    hp = packet.traverse_bvh8(s8, rays_p,
-                              specialize=packet.detect_specialization(rays_p))
-    mesh = TriangleMesh(torch.from_numpy(v).to(dev),
-                        torch.from_numpy(f).to(dev).long())
-    n = objrender.face_normals(mesh, hp.prim_id)
-    x = rays_p.org + rays_p.dir * hp.t[:, None]
-    n = torch.where((n * rays_p.dir).sum(-1, keepdim=True) > 0, -n, n)
-    t_o, b_o = objrender.build_onb(n)
-    local = objrender._cosine_hemisphere(
-        torch.Generator(device=dev).manual_seed(3), (4, n.shape[0]),
-        torch.float32, dev)
-    wdir = (local[..., 0:1] * t_o + local[..., 1:2] * b_o
-            + local[..., 2:3] * n)
-    brays = nt.make_rays((x + n * 1e-3).expand(4, -1, -1).reshape(-1, 3),
-                         wdir.reshape(-1, 3),
-                         max_t=torch.where(hp.hit.expand(4, -1).reshape(-1),
-                                           0.5, -1.0))
+    brays = sph["brays"]
     cases["k1_ao_bounce"] = (lambda: ray_sort.traverse_bvh8_sorted(
         s8, brays, occlusion=True), 5)
+
+    # K1b on its five shapes, and K1 on the two that have no case above
+    reps = {"frame_8192": 3, "phase5": 10}
+    for shape, (sc, r, a, k) in k1b_shapes(dev, sph, bounce2).items():
+        if shape in ("random", "ao_sorted"):
+            cases[f"k1_{shape}"] = (k1(sc, r, *a, **k), 5)
+        for K in (2, 4):
+            cases[f"k1b{K}_{shape}"] = (k1(sc, r, *a, interleave=K, **k),
+                                        reps.get(shape, 5))
     return cases
 
 
