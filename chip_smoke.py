@@ -2148,6 +2148,19 @@ def k1_edge_shapes(dev) -> int:
                         soup[w, "intersector" in kw], soup_rays, **kw)
         results[f"deep stack w{w} interleave=2"] = held(sc, soup_rays,
                                                         interleave=2)
+    # K1b's claims: ray counts below and across a claim, and grids of 1
+    # and 3 blocks, so that warps claim and refill many times
+    for K in (2, 4):
+        for n in (1, 33, 1000):
+            results[f"K1b K={K} w16 n={n}"] = held(box[16, False],
+                                                   rays_of(n, 18),
+                                                   interleave=K)
+        for grid in (1, 3):
+            for name in ("closest", "any_hit", "woop"):
+                kw = modes[name]
+                results[f"K1b K={K} grid {grid} w8 {name}"] = held(
+                    box[8, "intersector" in kw], rays_of(935, 19), grid,
+                    interleave=K, **kw)
     # a stack too small for the walks: the overflow word, not a wrong record
     words = []
     with patched(packet, "stack_slots", lambda s: 3), \

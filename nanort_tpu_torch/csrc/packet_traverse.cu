@@ -65,15 +65,35 @@
 //              set when the ray tested a triangle whose U, V or W was 0
 //              before any exact recompute: the rays whose records could
 //              change with the exact-edge recompute.
-//   kK > 1     (interleave, K1b, _kernel_body_il :1060): K rays a
-//              thread, each with its own stack, one pop per live ray per
-//              loop step, so a thread has K independent row fetches to
-//              wait on. Each ray's pop sequence is that of kK == 1, so
-//              its records are bit-identical. The TPU reason for K1b
-//              (amortising the vector-to-scalar drain) has no Hopper
-//              counterpart; this is the nearest one, latency hiding. It
-//              keeps a fixed grid and a local stack.
-//
+//   kK > 1     (interleave, K1b, _kernel_body_il :1060): a lane keeps
+//              K rays in flight, each in a slot with its own stack; each
+//              ray's pop sequence is that of kK == 1, so its records are
+//              bit-identical. The TPU reason for K1b (amortising the
+//              vector-to-scalar drain) has no Hopper counterpart: here it
+//              is the caller's schedule for incoherent batches. What
+//              bounds it is what bounds K1, plus lanes that idle while
+//              the longest walk of their warp runs on, and the registers
+//              that K walks hold (fewer warps stay resident). Its design,
+//              measured part by part on an H100 (PERF.md): persistent
+//              warps on the resident grid take numbered claims of 32 K
+//              rays, a slot's 32 rays consecutive and slot k's 128 rays
+//              after slot k - 1's; a claim of a camera's rays (one
+//              origin) or of an any-hit launch is walked one packet
+//              after another as K1 walks, which on this card beats
+//              stepping K coherent packets together; other claims fill
+//              the K slots, and a slot with 8 free lanes takes the
+//              claim's next rays by rank in a ballot, so a lane's time
+//              is the sum of its walks and not the longest of K fixed
+//              ones; each step prefetches every live slot's rows to L2
+//              before any slot computes; a batch whose claims would leave
+//              resident warps idle is claimed 32 rays at a time; a
+//              128-entry stack where the scene's slots fit it, and
+//              __launch_bounds__ minimum blocks (6 at K = 2, 5 at K = 4).
+//              Measured and left out: a slot refilled as soon as its ray
+//              ends (lanes drift apart and share no rows: the frame 3x
+//              slower), whole-packet refills, lane-major slots, prefetch
+//              to L1, K packets of a camera claim stepped together.
+
 // Interface: plain C functions (ctypes, no PyTorch headers). The launch
 // runs on the caller's stream, allocates nothing (the claim counter and
 // the overflow word are the caller's zeroed scratch), and returns
@@ -84,34 +104,11 @@
 #include <math.h>
 #include <stdint.h>
 
-// Switches of K1b's parts, for their measurement.
-#ifndef K1B_FETCH
-#define K1B_FETCH 1  // ask for every live slot's rows first (1: L2, 2: L1)
-#endif
-#ifndef K1B_SMALL
-#define K1B_SMALL 1  // the kStackSmall-entry stack where the scene fits it
-#endif
-#ifndef K1B_MINB2
-#define K1B_MINB2 1  // __launch_bounds__ minimum blocks at K = 2 (1: none)
-#endif
-#ifndef K1B_MINB4
-#define K1B_MINB4 1  // and at K = 4
-#endif
-#ifndef K1B_REFILL
-#define K1B_REFILL 8  // refill a slot once this many of its lanes are empty
-#endif
-#ifndef K1B_LOCK
-// lock-step claims: 0 none, 1 all, 2 shared-origin ones, 3 those and any-hit
-#define K1B_LOCK 3
-#endif
-#ifndef K1B_STRIDE
-#define K1B_STRIDE 1  // a claim's slots 128 rays apart (0: consecutive)
-#endif
-
 namespace {
 
 constexpr int kStackCap = 512;     // per-thread stack ceiling (entries)
 constexpr int kStackSmall = 128;   // K1b's stack when stack_size fits it
+constexpr int kRefill = 8;         // K1b: free lanes of a slot that refill it
 constexpr int kThreads = 128;      // threads per block
 constexpr int kClaim = 32;         // K1: consecutive rays a warp claims
 constexpr float kBig = 3.0e38f;    // degenerate-ray threshold (TPU kernel)
@@ -602,12 +599,8 @@ __device__ __forceinline__ unsigned long long claim_ray(const Params& p,
                                                         unsigned long long q,
                                                         unsigned r) {
   if (p.spread) return q * kClaim + r;
-#if K1B_STRIDE
   return (q >> 2) * (128ull * kK) + 32ull * (q & 3ull) + (r & 31u) +
          128ull * (r >> 5);
-#else
-  return q * (unsigned long long)(kClaim * kK) + r;
-#endif
 }
 
 // Rays a claim, and the claims that cover n_rays.
@@ -620,11 +613,7 @@ template <int kK>
 __device__ __forceinline__ unsigned long long claims_of(const Params& p) {
   const unsigned long long n = (unsigned long long)p.n_rays;
   if (p.spread) return (n + kClaim - 1) / kClaim;
-#if K1B_STRIDE
   return (n + 128ull * kK - 1) / (128ull * kK) * 4ull;
-#else
-  return (n + kClaim * kK - 1) / (kClaim * kK);
-#endif
 }
 
 // Slot k takes ray i (< n): its set-up; a ray that retires before its
@@ -652,25 +641,29 @@ __device__ __forceinline__ int slot_fill(const Params& p, unsigned empty,
   return slot_take(p, claim_ray<kK>(p, q, rank), w);
 }
 
-// This lane's vote on whether claim q is walked in lock-step: its ray r
-// = lane has ray 0's origin (a ray past n agrees), or the launch is
-// any-hit. The claim locks when all 32 agree.
+// The rays of claim q handed out after a refill gave ``empty``'s lanes the
+// ranks from r on.
+__device__ __forceinline__ unsigned claim_advance(unsigned r, unsigned empty,
+                                                  unsigned run) {
+  return min(r + (unsigned)__popc(empty), run);
+}
+
+// This lane's vote on whether claim q is walked in lock-step, one packet
+// after another as K1 walks: the launch is spread (idle warps gain more
+// than K rays a lane) or any-hit (short walks, measured faster so), or
+// the lane's ray r = lane has ray 0's origin (a ray past n agrees): a
+// camera's rays, whose walks end together. The claim locks when all 32
+// agree.
 template <int kK>
 __device__ __forceinline__ bool lock_vote(const Params& p, unsigned q,
                                           unsigned lane) {
-#if K1B_LOCK == 1
-  return true;
-#elif K1B_LOCK >= 2
-  if (K1B_LOCK == 3 && p.occlusion) return true;
+  if (p.spread || p.occlusion) return true;
   const unsigned long long i = claim_ray<kK>(p, q, lane);
   const unsigned long long i0 = claim_ray<kK>(p, q, 0);
   if (i >= (unsigned long long)p.n_rays) return true;
   return p.org[3 * i] == p.org[3 * i0] &&
          p.org[3 * i + 1] == p.org[3 * i0 + 1] &&
          p.org[3 * i + 2] == p.org[3 * i0 + 2];
-#else
-  return false;
-#endif
 }
 
 // A slot whose walk has ended (its entry is kNone) writes its ray's
@@ -684,11 +677,7 @@ __device__ __forceinline__ int slot_end(const Params& p, int ray,
 
 __device__ __forceinline__ void prefetch_line(const float* a) {
 #ifdef __CUDA_ARCH__
-#if K1B_FETCH == 1
   asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
-#elif K1B_FETCH == 2
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
-#endif
 #endif
 }
 
@@ -716,7 +705,6 @@ __device__ __forceinline__ void slot_fetch(const Params& p, const Walk& w) {
   }
 }
 
-constexpr int kRefill = K1B_REFILL;
 
 // K1b: persistent warps whose lanes keep kK rays in flight, one per
 // slot, each slot with its own stack of kCap entries. A warp takes claims
@@ -730,7 +718,7 @@ constexpr int kRefill = K1B_REFILL;
 // again or every walk has ended. The warp retires when the counter has
 // passed the claims and no slot is live.
 template <int W, bool kWoop, int kK, int kCap>
-__global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
+__global__ void __launch_bounds__(kThreads, kK == 2 ? 6 : 5)
     traverse_kernel_il(Params p) {
   const unsigned kRun = claim_rays<kK>(p);  // rays a claim
   int stack[kK][kCap];
@@ -773,7 +761,7 @@ __global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
       // ray walked to its end in slot 0, as K1 walks its claims
 #pragma unroll 1
       for (unsigned k = 0; k < kRun; k += 32u) {
-        ray[0] = slot_take(p, claim_ray<kK>(p, q, k + lane), w[0]);
+        ray[0] = slot_fill<kK>(p, ~0u, lane, q, k, -1, w[0]);
         while (w[0].e != kNone) {
           step<W, kWoop, false, false>(p, w[0], stack[0]);
         }
@@ -793,7 +781,7 @@ __global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
             if (drained || lock) break;  // a lock-step claim waits
           }
           ray[k] = slot_fill<kK>(p, empty, lane, q, r, ray[k], w[k]);
-          r = min(r + (unsigned)__popc(empty), kRun);
+          r = claim_advance(r, empty, kRun);
         }
       }
     }
@@ -807,12 +795,10 @@ __global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
     // the steps
     const bool refill = !lock && !drained;
     for (;;) {
-#if K1B_FETCH > 0
 #pragma unroll
       for (int k = 0; k < kK; ++k) {
         if (w[k].e != kNone) slot_fetch<W, kWoop>(p, w[k]);
       }
-#endif
       bool on = false;
 #pragma unroll
       for (int k = 0; k < kK; ++k) {
@@ -861,11 +847,9 @@ const void* k1_pick(int width, int woop, int counts, int flags, int roots) {
 // fits it, else kStackCap entries.
 template <int W, bool kWoop, int kK>
 const void* il_kernel(int stack_size) {
-#if K1B_SMALL
   if (stack_size <= kStackSmall) {
     return (const void*)traverse_kernel_il<W, kWoop, kK, kStackSmall>;
   }
-#endif
   return (const void*)traverse_kernel_il<W, kWoop, kK, kStackCap>;
 }
 

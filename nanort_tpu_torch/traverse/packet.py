@@ -22,7 +22,8 @@ The TPU kernel's other modes are the same kernel's: per-packet start
 nodes (``packet_roots``, the treelet engine's), visit counters
 (``debug_counts``, per ray here), zero-edge flags (``_flag_zero_edges``,
 the first pass of ``traverse_bvh8_exact`` and ``_exact_fused``) and
-``interleave`` (K1b: K rays a thread). Its TPU memory and scheduling
+``interleave`` (K1b: K rays a lane, the caller's schedule for
+incoherent batches; ``launch_plan``). Its TPU memory and scheduling
 knobs (``scene_space``, ``vmem_mb``, ``node_split``/``leaf_split``,
 ``frustum``, ``pop_n``/``lq_cap``, ``t_sync_every``, ``refit_inkernel``,
 ``_oracle_t``) have no counterpart and are not taken.
@@ -47,6 +48,7 @@ LANES = 128
 DEF_SUB = 32  # rays per packet / LANES in the TPU kernel (specialization)
 STACK_CAP = 512  # kStackCap in csrc/packet_traverse.cu
 IL_STACK = 128  # kStackSmall: K1b's stack when a scene's slots fit it
+IL_MAX_RAYS = 2**31 - 1  # K1b indexes rays with 32-bit ints
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
 
@@ -267,8 +269,17 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
       ray, 1 where the ray tested a triangle whose U, V or W was 0 before
       any exact recompute. Every ray whose record could change with the
       recompute is flagged. Needs the watertight test.
-    - ``interleave=K`` (1, 2 or 4; K1b): each thread walks K rays, with
-      the same records as ``interleave=1``. The kernel implements it
+    - ``interleave=K`` (1, 2 or 4; K1b): the same records as
+      ``interleave=1``, under another schedule. Warps claim 32 K rays at
+      a time; where the claim's rays do not share one origin (bounce,
+      AO or random rays) and the launch is closest-hit, each lane keeps
+      K rays in flight and refills a slot from the claim once 8 lanes of
+      it are free, so lanes do not idle while the longest walk of their
+      warp runs on. A camera's rays and any-hit launches are walked as
+      K1 walks them. On an H100 it is slower than ``interleave=1`` on
+      every shape measured (PERF.md §6: 1.2-1.7x at K = 2 on incoherent
+      rays); pass it to trade K1's time for that schedule, never for
+      speed. Needs fewer than 2^31 rays. The kernel implements it
       without ``debug_counts`` and ``_flag_zero_edges``; those
       combinations raise (the JAX package warns and falls back to 1).
 
@@ -281,6 +292,9 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     exact_edge = options.exact_edge_fallback and not woop
     if interleave not in INTERLEAVES:
         raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
+    if interleave > 1 and rays.org.numel() // 3 > IL_MAX_RAYS:
+        raise ValueError(f"the interleaved kernel takes at most "
+                         f"{IL_MAX_RAYS} rays a launch")
     if interleave > 1 and (debug_counts or _flag_zero_edges):
         raise ValueError("the interleaved kernel runs without debug_counts "
                          "and _flag_zero_edges")

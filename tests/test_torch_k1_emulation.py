@@ -116,7 +116,7 @@ void walk_il(const Params& p, int warps, const long long* order,
         shuffle();
         for (int l : lanes) {
           const int s = l * kK;
-          wp.ray[s] = slot_take(p, claim_ray<kK>(p, wp.q, k + l), wp.w[s]);
+          wp.ray[s] = slot_fill<kK>(p, ~0u, l, wp.q, k, -1, wp.w[s]);
           while (wp.w[s].e != kNone) {
             step<W, kWoop, false, false>(p, wp.w[s],
                                          &wp.stack[s * kStackCap]);
@@ -144,7 +144,7 @@ void walk_il(const Params& p, int warps, const long long* order,
                                                wp.ray[l * kK + k],
                                                wp.w[l * kK + k]);
           }
-          wp.r = std::min(wp.r + (unsigned)__popc(empty), kRun);
+          wp.r = claim_advance(wp.r, empty, kRun);
         }
       }
     }

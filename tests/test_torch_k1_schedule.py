@@ -113,6 +113,17 @@ def test_k1b_stack_cap_of_scene_depths(width, depth, cap):
         got, packet.traverse_bvh8(scene, rays)))
 
 
+def test_k1b_refuses_more_rays_than_its_indices_hold():
+    # K1b indexes rays with 32-bit ints; K1 takes any count
+    _, _, scene = _scene(16, "box")
+    n = packet.IL_MAX_RAYS + 1
+    big = nt.Rays(torch.zeros(1, 3).expand(n, 3),
+                  torch.ones(1, 3).expand(n, 3), torch.zeros(1).expand(n),
+                  torch.ones(1).expand(n))
+    with pytest.raises(ValueError, match="at most"):
+        packet.traverse_bvh8(scene, big, interleave=2)
+
+
 def test_launch_plan_refuses_a_kernel_that_does_not_fit():
     with pytest.raises(ValueError, match="does not fit"):
         packet.launch_plan(1024, 0, SMS)
