@@ -104,11 +104,25 @@
 #include <math.h>
 #include <stdint.h>
 
+// Switches of K1b's parts, for their measurement.
+#ifndef K1B_ACTIVE
+#define K1B_ACTIVE 0  // slots a lane fills from refilled claims (0: all K)
+#endif
+#ifndef K1B_REFILL
+#define K1B_REFILL 8
+#endif
+#ifndef K1B_MINB2
+#define K1B_MINB2 6
+#endif
+#ifndef K1B_MINB4
+#define K1B_MINB4 5
+#endif
+
 namespace {
 
 constexpr int kStackCap = 512;     // per-thread stack ceiling (entries)
 constexpr int kStackSmall = 128;   // K1b's stack when stack_size fits it
-constexpr int kRefill = 8;         // K1b: free lanes of a slot that refill it
+constexpr int kRefill = K1B_REFILL;  // K1b: free lanes of a slot that refill it
 constexpr int kThreads = 128;      // threads per block
 constexpr int kClaim = 32;         // K1: consecutive rays a warp claims
 constexpr float kBig = 3.0e38f;    // degenerate-ray threshold (TPU kernel)
@@ -718,8 +732,9 @@ __device__ __forceinline__ void slot_fetch(const Params& p, const Walk& w) {
 // again or every walk has ended. The warp retires when the counter has
 // passed the claims and no slot is live.
 template <int W, bool kWoop, int kK, int kCap>
-__global__ void __launch_bounds__(kThreads, kK == 2 ? 6 : 5)
+__global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
     traverse_kernel_il(Params p) {
+  constexpr int kActive = K1B_ACTIVE > 0 && K1B_ACTIVE < kK ? K1B_ACTIVE : kK;
   const unsigned kRun = claim_rays<kK>(p);  // rays a claim
   int stack[kK][kCap];
   Walk w[kK];
@@ -772,7 +787,7 @@ __global__ void __launch_bounds__(kThreads, kK == 2 ? 6 : 5)
     }
     if (!lock) {
 #pragma unroll
-      for (int k = 0; k < kK; ++k) {
+      for (int k = 0; k < kActive; ++k) {
         for (;;) {
           const unsigned empty = __ballot_sync(0xffffffffu, ray[k] < 0);
           if (drained || __popc(empty) < kRefill) break;
@@ -796,12 +811,12 @@ __global__ void __launch_bounds__(kThreads, kK == 2 ? 6 : 5)
     const bool refill = !lock && !drained;
     for (;;) {
 #pragma unroll
-      for (int k = 0; k < kK; ++k) {
+      for (int k = 0; k < kActive; ++k) {
         if (w[k].e != kNone) slot_fetch<W, kWoop>(p, w[k]);
       }
       bool on = false;
 #pragma unroll
-      for (int k = 0; k < kK; ++k) {
+      for (int k = 0; k < kActive; ++k) {
         if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], stack[k]);
         on |= w[k].e != kNone;
       }
@@ -809,7 +824,7 @@ __global__ void __launch_bounds__(kThreads, kK == 2 ? 6 : 5)
       if (refill) {
         bool wake = false;
 #pragma unroll
-        for (int k = 0; k < kK; ++k) {
+        for (int k = 0; k < kActive; ++k) {
           wake |= __popc(__ballot_sync(0xffffffffu, w[k].e == kNone)) >=
                   kRefill;
         }
