@@ -65,34 +65,31 @@
 //              set when the ray tested a triangle whose U, V or W was 0
 //              before any exact recompute: the rays whose records could
 //              change with the exact-edge recompute.
-//   kK > 1     (interleave, K1b, _kernel_body_il :1060): a lane keeps
-//              K rays in flight, each in a slot with its own stack; each
-//              ray's pop sequence is that of kK == 1, so its records are
-//              bit-identical. The TPU reason for K1b (amortising the
-//              vector-to-scalar drain) has no Hopper counterpart: here it
-//              is the caller's schedule for incoherent batches. What
-//              bounds it is what bounds K1, plus lanes that idle while
-//              the longest walk of their warp runs on, and the registers
-//              that K walks hold (fewer warps stay resident). Its design,
-//              measured part by part on an H100 (PERF.md): persistent
-//              warps on the resident grid take numbered claims of 32 K
-//              rays, a slot's 32 rays consecutive and slot k's 128 rays
-//              after slot k - 1's; a claim of a camera's rays (one
-//              origin) or of an any-hit launch is walked one packet
-//              after another as K1 walks, which on this card beats
-//              stepping K coherent packets together; other claims fill
-//              the K slots, and a slot with 8 free lanes takes the
-//              claim's next rays by rank in a ballot, so a lane's time
-//              is the sum of its walks and not the longest of K fixed
-//              ones; each step prefetches every live slot's rows to L2
-//              before any slot computes; a batch whose claims would leave
-//              resident warps idle is claimed 32 rays at a time; a
-//              128-entry stack where the scene's slots fit it, and
-//              __launch_bounds__ minimum blocks (6 at K = 2, 5 at K = 4).
-//              Measured and left out: a slot refilled as soon as its ray
-//              ends (lanes drift apart and share no rows: the frame 3x
-//              slower), whole-packet refills, lane-major slots, prefetch
-//              to L1, K packets of a camera claim stepped together.
+//   kK > 1     (interleave, K1b, _kernel_body_il :1060): the caller's
+//              schedule for incoherent batches, with the records of
+//              kK == 1 (each ray's pop sequence is K1's). The TPU reason
+//              for K1b (amortising the vector-to-scalar drain) has no
+//              Hopper counterpart. What bounds K1 on incoherent rays
+//              besides its fetches is lanes that idle while the longest
+//              walk of their 32 runs on. K1b's design, measured part by
+//              part on an H100 (PERF.md): persistent warps on the
+//              resident grid take numbered claims of 32 kK rays, four
+//              claims tiling 128 kK rays as a block would; a claim of a
+//              camera's rays (one origin) or of an any-hit launch is
+//              walked one packet after another as K1 walks; any other
+//              claim is handed out to free lanes by rank in a ballot, 16
+//              or more lanes at a time, so a lane takes its next ray as
+//              soon as half its warp idles; a batch whose claims would
+//              leave resident warps idle is claimed 32 rays at a time; a
+//              128-entry stack where the scene's slots fit it; 8 resident
+//              blocks (__launch_bounds__). Measured and left out: kK rays
+//              in flight a lane, each with its own stack, stepped
+//              together (the registers of kK walks cost resident warps:
+//              1.2-1.7x slower than one ray a lane on every shape), a
+//              lane refilled as soon as its ray ends (lanes drift apart
+//              and share no rows: the frame 3x slower), whole-packet
+//              refills, lane-major packets, the next rows prefetched to
+//              L1 or L2 before a step.
 
 // Interface: plain C functions (ctypes, no PyTorch headers). The launch
 // runs on the caller's stream, allocates nothing (the claim counter and
@@ -104,25 +101,11 @@
 #include <math.h>
 #include <stdint.h>
 
-// Switches of K1b's parts, for their measurement.
-#ifndef K1B_ACTIVE
-#define K1B_ACTIVE 0  // slots a lane fills from refilled claims (0: all K)
-#endif
-#ifndef K1B_REFILL
-#define K1B_REFILL 8
-#endif
-#ifndef K1B_MINB2
-#define K1B_MINB2 6
-#endif
-#ifndef K1B_MINB4
-#define K1B_MINB4 5
-#endif
-
 namespace {
 
 constexpr int kStackCap = 512;     // per-thread stack ceiling (entries)
 constexpr int kStackSmall = 128;   // K1b's stack when stack_size fits it
-constexpr int kRefill = K1B_REFILL;  // K1b: free lanes of a slot that refill it
+constexpr int kRefill = 16;        // K1b: free lanes that take new rays
 constexpr int kThreads = 128;      // threads per block
 constexpr int kClaim = 32;         // K1: consecutive rays a warp claims
 constexpr float kBig = 3.0e38f;    // degenerate-ray threshold (TPU kernel)
@@ -598,14 +581,15 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(Params p) {
   }
 }
 
-// K1b's schedule, a lane's K slots refilled from its warp's claims. The
-// per-slot parts are functions of their own, so that a CPU build of this
-// file can step the schedule lane by lane (tests/test_torch_k1_emulation.py).
+// K1b's schedule: its warps' claims, each lane's ray refilled from them.
+// The per-lane parts are functions of their own, so that a CPU build of
+// this file can step the schedule lane by lane
+// (tests/test_torch_k1_emulation.py).
 //
 // Claim q holds 32 kK rays, its r-th at claim_ray(q, r): four claims
 // tile 128 kK consecutive rays as one block of 128 threads with kK rays
-// each would, so a slot's 32 rays are consecutive and slot k's ray is 128
-// rays after slot k - 1's (a 128-wide image tile's next row). With
+// each would, so each packet of 32 is consecutive and packet k starts 128
+// rays after packet k - 1 (a 128-wide image tile's next row). With
 // ``spread`` (a batch that leaves resident warps idle) a claim is one
 // packet of 32 consecutive rays, so that more warps share the batch.
 template <int kK>
@@ -630,9 +614,9 @@ __device__ __forceinline__ unsigned long long claims_of(const Params& p) {
   return (n + 128ull * kK - 1) / (128ull * kK) * 4ull;
 }
 
-// Slot k takes ray i (< n): its set-up; a ray that retires before its
-// first node is written at once and leaves the slot empty. Returns the
-// slot's ray, or -1.
+// A free lane takes ray i (< n): its set-up; a ray that retires before
+// its first node is written at once and leaves the lane free. Returns
+// the lane's ray, or -1.
 __device__ __forceinline__ int slot_take(const Params& p, unsigned long long i,
                                          Walk& w) {
   if (i >= (unsigned long long)p.n_rays) return -1;
@@ -642,9 +626,9 @@ __device__ __forceinline__ int slot_take(const Params& p, unsigned long long i,
   return -1;
 }
 
-// Slot refill: this lane's slot, empty when ``ray`` < 0, takes the ray of
-// claim q whose rank is r plus its rank among the warp's empty slots
-// (``empty``, a ballot), while the claim has that many.
+// Refill: this lane, free when ``ray`` < 0, takes the ray of claim q
+// whose rank is r plus its rank among the warp's free lanes (``empty``, a
+// ballot), while the claim has that many.
 template <int kK>
 __device__ __forceinline__ int slot_fill(const Params& p, unsigned empty,
                                          unsigned lane, unsigned q, unsigned r,
@@ -663,8 +647,8 @@ __device__ __forceinline__ unsigned claim_advance(unsigned r, unsigned empty,
 }
 
 // This lane's vote on whether claim q is walked in lock-step, one packet
-// after another as K1 walks: the launch is spread (idle warps gain more
-// than K rays a lane) or any-hit (short walks, measured faster so), or
+// after another as K1 walks: the launch is spread (its warps take one
+// packet a claim) or any-hit (short walks, measured faster so), or
 // the lane's ray r = lane has ray 0's origin (a ray past n agrees): a
 // camera's rays, whose walks end together. The claim locks when all 32
 // agree.
@@ -680,8 +664,8 @@ __device__ __forceinline__ bool lock_vote(const Params& p, unsigned q,
          p.org[3 * i + 2] == p.org[3 * i0 + 2];
 }
 
-// A slot whose walk has ended (its entry is kNone) writes its ray's
-// record and is free again. Returns the slot's ray, or -1.
+// A lane whose walk has ended (its entry is kNone) writes its ray's
+// record and is free again. Returns the lane's ray, or -1.
 __device__ __forceinline__ int slot_end(const Params& p, int ray,
                                         const Walk& w) {
   if (ray < 0 || w.e != kNone) return ray;
@@ -689,67 +673,31 @@ __device__ __forceinline__ int slot_end(const Params& p, int ray,
   return -1;
 }
 
-__device__ __forceinline__ void prefetch_line(const float* a) {
-#ifdef __CUDA_ARCH__
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
-#endif
-}
-
-// Asks for the 128-byte lines of the row that a live slot's next step
-// reads: a node row's boxes and child metadata, or a leaf row's
-// triangles and prim ids.
-template <int W, bool kWoop>
-__device__ __forceinline__ void slot_fetch(const Params& p, const Walk& w) {
-  if (w.e >= 0) {
-    const float* row = p.nodes + (size_t)w.e * 128;
-#pragma unroll
-    for (int l = 0; l < (W == 16 ? 4 : 3); ++l) prefetch_line(row + 32 * l);
-  } else {
-    const int packed = -1 - w.e;
-    const float* row = p.leafs + (size_t)(packed >> 4) * 128;
-    const int last = (kWoop ? 12 : 9) * (packed & 15) - 1;
-    const int pid0 = kWoop ? 108 : 90;
-    const int pid1 = pid0 + (packed & 15) - 1;
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      if (32 * l <= last || (32 * l + 31 >= pid0 && 32 * l <= pid1)) {
-        prefetch_line(row + 32 * l);
-      }
-    }
-  }
-}
-
-
-// K1b: persistent warps whose lanes keep kK rays in flight, one per
-// slot, each slot with its own stack of kCap entries. A warp takes claims
-// of 32 kK rays (lane 0's atomicAdd; claim_ray) in rounds. A round writes
-// the records of the slots whose walks ended, then fills the free slots.
-// A lock-step claim (lock_vote: a camera's rays, or any-hit) waits until
+// K1b: persistent warps take numbered claims of 32 kK rays (lane 0's
+// atomicAdd; claim_ray) in rounds, each lane walking one ray at a time
+// with its own stack of kCap entries. A round writes the record of a
+// lane whose walk ended, then gives free lanes rays. A lock-step claim
+// (lock_vote: a camera's rays, any-hit, or a spread batch) waits until
 // the whole warp is free and walks its packets of 32 rays one after
-// another in slot 0. Otherwise each slot with at least kRefill free lanes
-// takes the claim's next rays by rank in a ballot, and the warp steps
-// every live slot once a step, until some slot has kRefill free lanes
-// again or every walk has ended. The warp retires when the counter has
-// passed the claims and no slot is live.
+// another, as K1 walks its claims. Any other claim is handed out by rank
+// in a ballot of the free lanes, kRefill or more at a time: the warp
+// steps its walks until kRefill lanes are free again (or all are), so a
+// lane takes its next ray as soon as enough lanes idle, where K1 waits
+// for the longest walk of its 32. The warp retires when the counter has
+// passed the claims and no walk is live.
 template <int W, bool kWoop, int kK, int kCap>
-__global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
-    traverse_kernel_il(Params p) {
-  constexpr int kActive = K1B_ACTIVE > 0 && K1B_ACTIVE < kK ? K1B_ACTIVE : kK;
+__global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
   const unsigned kRun = claim_rays<kK>(p);  // rays a claim
-  int stack[kK][kCap];
-  Walk w[kK];
-  int ray[kK];  // each slot's ray, or -1 (K1b takes n_rays < 2^31)
+  int stack[kCap];
+  Walk w;
+  int ray = -1;  // the lane's ray, or -1 (K1b takes n_rays < 2^31)
+  w.e = kNone;
   const unsigned lane = threadIdx.x & 31u;
   const unsigned n_claims = (unsigned)claims_of<kK>(p);
   unsigned q = 0;            // the warp's claim
   unsigned r = kRun;         // rays of claim q handed out
   bool drained = false;      // the counter passed n_claims
   bool lock = false;         // claim q waits for an idle warp
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    ray[k] = -1;
-    w[k].e = kNone;
-  }
   auto claim = [&]() {
     unsigned c = 0;
     if (lane == 0) c = (unsigned)atomicAdd(p.counter, 1ull);
@@ -762,74 +710,46 @@ __global__ void __launch_bounds__(kThreads, kK == 2 ? K1B_MINB2 : K1B_MINB4)
     }
   };
   for (;;) {
-    // the round: records of ended walks, then the fill
-    bool busy = false;
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      ray[k] = slot_end(p, ray[k], w[k]);
-      busy |= ray[k] >= 0;
-    }
-    const bool idle = __ballot_sync(0xffffffffu, busy) == 0u;
+    // the round: the record of an ended walk, then the fill
+    ray = slot_end(p, ray, w);
+    const bool idle = __ballot_sync(0xffffffffu, ray >= 0) == 0u;
     if (idle && !drained && r == kRun) claim();
     if (lock && idle && !drained) {
       // a lock-step claim: its packets of 32 rays one after another, each
-      // ray walked to its end in slot 0, as K1 walks its claims
+      // ray walked to its end, as K1 walks its claims
 #pragma unroll 1
       for (unsigned k = 0; k < kRun; k += 32u) {
-        ray[0] = slot_fill<kK>(p, ~0u, lane, q, k, -1, w[0]);
-        while (w[0].e != kNone) {
-          step<W, kWoop, false, false>(p, w[0], stack[0]);
-        }
-        ray[0] = slot_end(p, ray[0], w[0]);
+        ray = slot_fill<kK>(p, ~0u, lane, q, k, -1, w);
+        while (w.e != kNone) step<W, kWoop, false, false>(p, w, stack);
+        ray = slot_end(p, ray, w);
       }
       r = kRun;
       continue;
     }
     if (!lock) {
-#pragma unroll
-      for (int k = 0; k < kActive; ++k) {
-        for (;;) {
-          const unsigned empty = __ballot_sync(0xffffffffu, ray[k] < 0);
-          if (drained || __popc(empty) < kRefill) break;
-          if (r == kRun) {
-            claim();
-            if (drained || lock) break;  // a lock-step claim waits
-          }
-          ray[k] = slot_fill<kK>(p, empty, lane, q, r, ray[k], w[k]);
-          r = claim_advance(r, empty, kRun);
+      for (;;) {
+        const unsigned empty = __ballot_sync(0xffffffffu, ray < 0);
+        if (drained || __popc(empty) < kRefill) break;
+        if (r == kRun) {
+          claim();
+          if (drained || lock) break;  // a lock-step claim waits
         }
+        ray = slot_fill<kK>(p, empty, lane, q, r, ray, w);
+        r = claim_advance(r, empty, kRun);
       }
     }
-    bool live = false;
-#pragma unroll
-    for (int k = 0; k < kK; ++k) live |= ray[k] >= 0;
-    if (__ballot_sync(0xffffffffu, live) == 0u) {
+    if (__ballot_sync(0xffffffffu, ray >= 0) == 0u) {
       if (drained) return;
       continue;
     }
-    // the steps
+    // the steps, until kRefill lanes are free (or all, once no claim can
+    // refill them)
     const bool refill = !lock && !drained;
     for (;;) {
-#pragma unroll
-      for (int k = 0; k < kActive; ++k) {
-        if (w[k].e != kNone) slot_fetch<W, kWoop>(p, w[k]);
-      }
-      bool on = false;
-#pragma unroll
-      for (int k = 0; k < kActive; ++k) {
-        if (w[k].e != kNone) step<W, kWoop, false, false>(p, w[k], stack[k]);
-        on |= w[k].e != kNone;
-      }
-      if (__ballot_sync(0xffffffffu, on) == 0u) break;
-      if (refill) {
-        bool wake = false;
-#pragma unroll
-        for (int k = 0; k < kActive; ++k) {
-          wake |= __popc(__ballot_sync(0xffffffffu, w[k].e == kNone)) >=
-                  kRefill;
-        }
-        if (wake) break;
-      }
+      if (w.e != kNone) step<W, kWoop, false, false>(p, w, stack);
+      const unsigned done = __ballot_sync(0xffffffffu, w.e == kNone);
+      if (done == 0xffffffffu) break;
+      if (refill && __popc(done) >= kRefill) break;
     }
   }
 }

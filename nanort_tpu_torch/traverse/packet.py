@@ -22,8 +22,8 @@ The TPU kernel's other modes are the same kernel's: per-packet start
 nodes (``packet_roots``, the treelet engine's), visit counters
 (``debug_counts``, per ray here), zero-edge flags (``_flag_zero_edges``,
 the first pass of ``traverse_bvh8_exact`` and ``_exact_fused``) and
-``interleave`` (K1b: K rays a lane, the caller's schedule for
-incoherent batches; ``launch_plan``). Its TPU memory and scheduling
+``interleave`` (K1b: the caller's schedule for incoherent batches,
+claims of 32 K rays refilling idle lanes; ``launch_plan``). Its TPU memory and scheduling
 knobs (``scene_space``, ``vmem_mb``, ``node_split``/``leaf_split``,
 ``frustum``, ``pop_n``/``lq_cap``, ``t_sync_every``, ``refit_inkernel``,
 ``_oracle_t``) have no counterpart and are not taken.
@@ -85,9 +85,8 @@ def stack_slots(scene: BVH8Scene) -> int:
 def stack_cap(slots: int, interleave: int = 1) -> int:
     """Entries of the stack array each walk holds in the kernel: K1's
     ``STACK_CAP``; K1b's ``IL_STACK`` instantiation when ``slots``
-    (``stack_slots(scene)``) fit it, else ``STACK_CAP``. A K1b lane holds
-    ``interleave`` stacks, so the smaller one keeps its frame at 1 or 2
-    KB in place of 4 or 8."""
+    (``stack_slots(scene)``) fit it, else ``STACK_CAP`` (a frame of 512
+    bytes a thread in place of 2 KB)."""
     return IL_STACK if interleave > 1 and slots <= IL_STACK else STACK_CAP
 
 
@@ -107,8 +106,8 @@ def k1b_claims(n_rays: int, interleave: int, spread: bool = False) -> int:
 class LaunchPlan:
     """One K1 or K1b launch: ``grid`` persistent blocks of ``threads``
     threads, warps claiming ``claim`` rays at a time (32 for K1; 32 * K
-    for K1b, one packet for each of a lane's K slots, or 32 with
-    ``spread``), each walk with a stack of ``stack_cap`` entries."""
+    for K1b, K packets of 32, or 32 with ``spread``), each walk with a
+    stack of ``stack_cap`` entries."""
     grid: int
     threads: int
     claim: int
@@ -270,16 +269,16 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
       any exact recompute. Every ray whose record could change with the
       recompute is flagged. Needs the watertight test.
     - ``interleave=K`` (1, 2 or 4; K1b): the same records as
-      ``interleave=1``, under another schedule. Warps claim 32 K rays at
-      a time; where the claim's rays do not share one origin (bounce,
-      AO or random rays) and the launch is closest-hit, each lane keeps
-      K rays in flight and refills a slot from the claim once 8 lanes of
-      it are free, so lanes do not idle while the longest walk of their
-      warp runs on. A camera's rays and any-hit launches are walked as
-      K1 walks them. On an H100 it is slower than ``interleave=1`` on
-      every shape measured (PERF.md §6: 1.2-1.7x at K = 2 on incoherent
-      rays); pass it to trade K1's time for that schedule, never for
-      speed. Needs fewer than 2^31 rays. The kernel implements it
+      ``interleave=1``, under the schedule for incoherent batches. Warps
+      claim 32 K rays at a time; where the claim's rays do not share one
+      origin (bounce, shadow or random rays) and the launch is
+      closest-hit, a lane whose ray ended takes the claim's next ray as
+      soon as 16 lanes of its warp are free, where K1 waits for the
+      longest walk of its 32. A camera's rays and any-hit launches are
+      walked as K1 walks them. Pass it for incoherent closest-hit
+      batches (on an H100 1.2-1.4x faster than ``interleave=1`` on
+      random and sorted bounce rays, slower on a camera frame and on
+      any-hit rays: PERF.md §6). Needs fewer than 2^31 rays. The kernel implements it
       without ``debug_counts`` and ``_flag_zero_edges``; those
       combinations raise (the JAX package warns and falls back to 1).
 

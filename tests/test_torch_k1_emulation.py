@@ -9,11 +9,20 @@ This reaches the kernel's node step (slab tests, the child metadata read
 a quad at a time, the far-first stores by rank in the hit mask, the
 stack bound checked once a node), its leaf step (the 16-byte leaf loads,
 watertight with the Dekker recompute, Woop, skip, range, cull, any-hit),
-the counters, the zero-edge flags, per-packet roots and K1b's
-interleaved steps on a machine without a card. The persistent warps'
-claims need the card and are held there by test_torch_gpu.py. g++
-builds with -ffp-contract=off and no -ffast-math, as nvcc builds with
---fmad=false: every product rounded on its own, IEEE division.
+the counters, the zero-edge flags and per-packet roots on a machine
+without a card. K1b's schedule is stepped as its kernel runs it
+(``walk_il``): warps in turns, claims taken in a shuffled order through
+the kernel's ``claim_ray``, ``claims_of`` and ``lock_vote``, lock-step
+claims walked packet after packet, other claims handed to free lanes by
+rank (``slot_fill``, ``claim_advance``) 16 at a time, ended walks
+written by ``slot_end``, lanes in a shuffled order; each ray's record is
+held to the plain version bit for bit at K = 2 and 4: widths 8 and 16,
+watertight and Woop, closest and any-hit, roots, camera claims beside
+incoherent ones, ray counts below and across a claim, spread and not,
+dead rays, and the overflow word. The atomicAdd and the ballots need the
+card and are held there by test_torch_gpu.py. g++ builds with
+-ffp-contract=off and no -ffast-math, as nvcc builds with --fmad=false:
+every product rounded on its own, IEEE division.
 """
 
 import ctypes
@@ -49,33 +58,33 @@ void walk_all(const Params& p) {
     finish<kCounts, kFlags>(p, i, w);
   }
 }
-// K1b's schedule: ``warps`` warps of 32 lanes with kK slots each,
-// stepped in turns, one pass of the kernel's inner loop a turn (one step
-// of every live slot), with the kernel's round (the records of ended
-// walks, then a lock-step claim's packets walked one after another when
-// the warp is idle, or the refill of each slot by rank in the warp's
-// empty slots) before the first step and after each break. The c-th claim taken is claim
-// order[c], so claims land on the warps in a shuffled order; the lanes of
-// each round and step run in a shuffled order.
+// K1b's schedule: ``warps`` warps of 32 lanes, stepped in turns, one pass
+// of the kernel's inner loop a turn (one step of every live walk), with
+// the kernel's round (the records of ended walks, then a lock-step
+// claim's packets walked one after another when the warp is idle, or
+// the free lanes' rays by rank in a ballot) before the first step and
+// after each break. The c-th claim taken is claim order[c], so claims
+// land on the warps in a shuffled order; the lanes of each round and
+// step run in a shuffled order.
 template <int W, bool kWoop, int kK>
 void walk_il(const Params& p, int warps, const long long* order,
              unsigned seed) {
   struct Warp {
-    std::vector<Walk> w = std::vector<Walk>(32 * kK);
-    std::vector<int> ray = std::vector<int>(32 * kK, -1);
-    std::vector<int> stack = std::vector<int>(32 * kK * kStackCap);
+    std::vector<Walk> w = std::vector<Walk>(32);
+    std::vector<int> ray = std::vector<int>(32, -1);
+    std::vector<int> stack = std::vector<int>(32 * kStackCap);
     unsigned q = 0;
-    unsigned r = ~0u;  // set to kRun below
+    unsigned r = 0;
     bool drained = false, done = false, lock = false, stepping = false;
     bool refill = false;
   };
+  const unsigned kRun = claim_rays<kK>(p);
   std::vector<Warp> ws(warps);
   for (Warp& wp : ws) {
     for (Walk& x : wp.w) x.e = kNone;
-    wp.r = claim_rays<kK>(p);
+    wp.r = kRun;
   }
   const long long n_claims = (long long)claims_of<kK>(p);
-  const unsigned kRun = claim_rays<kK>(p);
   long long next = 0;
   int lanes[32];
   for (int l = 0; l < 32; ++l) lanes[l] = l;
@@ -102,50 +111,42 @@ void walk_il(const Params& p, int warps, const long long* order,
     shuffle();
     bool idle = true;
     for (int l : lanes) {
-      for (int k = 0; k < kK; ++k) {
-        const int s = l * kK + k;
-        wp.ray[s] = slot_end(p, wp.ray[s], wp.w[s]);
-        idle &= wp.ray[s] < 0;
-      }
+      wp.ray[l] = slot_end(p, wp.ray[l], wp.w[l]);
+      idle &= wp.ray[l] < 0;
     }
     if (idle && !wp.drained && wp.r == kRun) claim(wp);
     if (wp.lock && idle && !wp.drained) {
       // the claim's packets one after another, each lane's ray walked to
-      // its end in slot 0
+      // its end
       for (unsigned k = 0; k < kRun; k += 32u) {
         shuffle();
         for (int l : lanes) {
-          const int s = l * kK;
-          wp.ray[s] = slot_fill<kK>(p, ~0u, l, wp.q, k, -1, wp.w[s]);
-          while (wp.w[s].e != kNone) {
-            step<W, kWoop, false, false>(p, wp.w[s],
-                                         &wp.stack[s * kStackCap]);
+          wp.ray[l] = slot_fill<kK>(p, ~0u, l, wp.q, k, -1, wp.w[l]);
+          while (wp.w[l].e != kNone) {
+            step<W, kWoop, false, false>(p, wp.w[l],
+                                         &wp.stack[l * kStackCap]);
           }
-          wp.ray[s] = slot_end(p, wp.ray[s], wp.w[s]);
+          wp.ray[l] = slot_end(p, wp.ray[l], wp.w[l]);
         }
       }
       wp.r = kRun;
       return true;
-    } else if (!wp.lock) {
-      for (int k = 0; k < kK; ++k) {
-        for (;;) {
-          unsigned empty = 0u;
-          for (int l = 0; l < 32; ++l) {
-            empty |= (unsigned)(wp.ray[l * kK + k] < 0) << l;
-          }
-          if (wp.drained || __popc(empty) < kRefill) break;
-          if (wp.r == kRun) {
-            claim(wp);
-            if (wp.drained || wp.lock) break;
-          }
-          shuffle();
-          for (int l : lanes) {
-            wp.ray[l * kK + k] = slot_fill<kK>(p, empty, l, wp.q, wp.r,
-                                               wp.ray[l * kK + k],
-                                               wp.w[l * kK + k]);
-          }
-          wp.r = claim_advance(wp.r, empty, kRun);
+    }
+    if (!wp.lock) {
+      for (;;) {
+        unsigned empty = 0u;
+        for (int l = 0; l < 32; ++l) empty |= (unsigned)(wp.ray[l] < 0) << l;
+        if (wp.drained || __popc(empty) < kRefill) break;
+        if (wp.r == kRun) {
+          claim(wp);
+          if (wp.drained || wp.lock) break;
         }
+        shuffle();
+        for (int l : lanes) {
+          wp.ray[l] = slot_fill<kK>(p, empty, l, wp.q, wp.r, wp.ray[l],
+                                    wp.w[l]);
+        }
+        wp.r = claim_advance(wp.r, empty, kRun);
       }
     }
     bool live = false;
@@ -165,24 +166,14 @@ void walk_il(const Params& p, int warps, const long long* order,
         continue;
       }
       shuffle();
-      bool on = false;
+      int ended = 0;
       for (int l : lanes) {
-        for (int k = 0; k < kK; ++k) {
-          const int s = l * kK + k;
-          if (wp.w[s].e != kNone) {
-            step<W, kWoop, false, false>(p, wp.w[s],
-                                         &wp.stack[s * kStackCap]);
-          }
-          on |= wp.w[s].e != kNone;
+        if (wp.w[l].e != kNone) {
+          step<W, kWoop, false, false>(p, wp.w[l], &wp.stack[l * kStackCap]);
         }
+        ended += wp.w[l].e == kNone;
       }
-      bool wake = false;
-      for (int k = 0; k < kK; ++k) {
-        int ended = 0;
-        for (int l = 0; l < 32; ++l) ended += wp.w[l * kK + k].e == kNone;
-        wake |= ended >= kRefill;
-      }
-      if (!on || (wp.refill && wake)) wp.stepping = false;
+      if (ended == 32 || (wp.refill && ended >= kRefill)) wp.stepping = false;
     }
   }
 }
@@ -400,7 +391,7 @@ def test_emulated_kernel_sets_the_overflow_word(lib, scenes, width):
             True, False, 3)
 
 
-# ------------------------------ K1b: K slots a lane, refilled from claims
+# ------------------------------ K1b: claims of 32 K rays, idle lanes refilled
 
 def _held(lib, scene, rays, **kw):
     got, err = _emulate(lib, scene, rays, **kw)
@@ -471,7 +462,7 @@ def test_emulated_il_ray_counts_match_plain(lib, scenes, K, warps, n):
 @pytest.mark.parametrize("K", [2, 4])
 def test_emulated_il_dead_rays_match_plain(lib, scenes, K, case):
     # rays that retire before their first node are written at refill and
-    # free their slot at once (ray_sort puts them last)
+    # free their lane at once (ray_sort puts them last)
     rays = scenes["box_rays"]
     n = rays.org.shape[0]
     dead = torch.ones(n, dtype=torch.bool)
@@ -502,7 +493,7 @@ def test_emulated_il_roots_across_claims_match_plain(lib, scenes, K, sub):
 @pytest.mark.parametrize("K", [2, 4])
 @pytest.mark.parametrize("width", [8, 16])
 def test_emulated_il_sets_the_overflow_word(lib, scenes, K, width):
-    # a stack too small for the walks: the slot's walk stops, its slot
+    # a stack too small for the walks: the lane's walk stops, the lane
     # takes the next ray, and the launch's error word is set
     _, err = _emulate(lib, scenes["soup", width, False], scenes["soup_rays"],
                       interleave=K, slots=3)

@@ -11,11 +11,12 @@ faster on an H100 (PERF.md), so the stack has one part. The plain
 version's peak stack (``stats["max_sp"]``) on seeded camera-like and
 incoherent rays over small BVH16 and BVH8 scenes stays within
 ``stack_slots``; a stack smaller than a walk needs raises, as the kernel
-sets its error word. K1b's plan claims 32 K rays a warp, one for each
-of its K slots a lane, and takes a 128-entry stack where the scene's
-``stack_slots`` fit it. The plain version's records equal the JAX
-package's brute force under ``testing.compare_hits`` (``jax.disable_jit``). The kernel itself
-is held to the plain version on the card by test_torch_gpu.py.
+sets its error word. K1b's plan claims K packets of 32 rays a warp
+(or one packet, for a batch that would leave resident warps idle), and
+takes a 128-entry stack where the scene's ``stack_slots`` fit it. The
+plain version's records equal the JAX package's brute force under
+``testing.compare_hits`` (``jax.disable_jit``). The kernel itself is
+held to the plain version on the card by test_torch_gpu.py.
 """
 
 import dataclasses
@@ -62,9 +63,9 @@ def test_launch_plan_grid_and_claims(n_rays, blocks_per_sm):
 @pytest.mark.parametrize("blocks_per_sm", [1, 5, 12])
 @pytest.mark.parametrize("K", [2, 4])
 def test_k1b_launch_plan_grid_and_claims(K, blocks_per_sm, n_rays):
-    # K1b: a warp claims one packet of 32 rays for each of its K slots at a
-    # time, four claims tiling 128 K rays; a batch whose claims would not
-    # reach every resident warp is spread: claims of 32 rays
+    # K1b: a warp claims K packets of 32 rays at a time, four claims
+    # tiling 128 K rays; a batch whose claims would not reach every
+    # resident warp is spread: claims of 32 rays
     plan = packet.launch_plan(n_rays, blocks_per_sm, SMS, K, 106)
     warps_a_block = plan.threads // 32
     resident = blocks_per_sm * SMS
