@@ -2034,8 +2034,9 @@ def k1_edge_shapes(dev) -> int:
     do not divide; every mode on a grid of 1 and 3 blocks (so each warp
     claims several times); all rays dead and a sorted dead tail; packet
     roots whose packets span several claims; deep walks (an
-    overlapping triangle soup); and a stack too small for the walks,
-    which must set the overflow word.
+    overlapping triangle soup); K1b at K = 2 and 4 on 1, 33 and 1,000
+    rays and on grids of 1 and 3 blocks (closest, any-hit, Woop); and a
+    stack too small for the walks, which must set the overflow word.
     Returns the number of shapes held."""
     import dataclasses
 

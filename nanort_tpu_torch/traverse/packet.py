@@ -23,8 +23,8 @@ nodes (``packet_roots``, the treelet engine's), visit counters
 (``debug_counts``, per ray here), zero-edge flags (``_flag_zero_edges``,
 the first pass of ``traverse_bvh8_exact`` and ``_exact_fused``) and
 ``interleave`` (K1b: the caller's schedule for incoherent batches,
-claims of 32 K rays refilling idle lanes; ``launch_plan``). Its TPU memory and scheduling
-knobs (``scene_space``, ``vmem_mb``, ``node_split``/``leaf_split``,
+claims of 32 K rays refilling idle lanes; ``launch_plan``). Its TPU
+memory and scheduling knobs (``scene_space``, ``vmem_mb``, ``node_split``/``leaf_split``,
 ``frustum``, ``pop_n``/``lq_cap``, ``t_sync_every``, ``refit_inkernel``,
 ``_oracle_t``) have no counterpart and are not taken.
 """
@@ -93,8 +93,8 @@ def stack_cap(slots: int, interleave: int = 1) -> int:
 def k1b_claims(n_rays: int, interleave: int, spread: bool = False) -> int:
     """K1b's claims for ``n_rays`` rays (csrc/packet_traverse.cu
     ``claims_of``): four claims of ``32 * interleave`` rays tile each
-    ``128 * interleave`` consecutive rays, slot k of a claim 128 rays
-    after slot k - 1, so the last group's claims may hold rays past
+    ``128 * interleave`` consecutive rays, packet k of a claim 128 rays
+    after packet k - 1, so the last group's claims may hold rays past
     ``n_rays``, which the kernel skips; with ``spread``, one claim for
     each 32 rays."""
     if spread:
@@ -130,16 +130,17 @@ def launch_plan(n_rays: int, blocks_per_sm: int, sms: int,
         raise ValueError(f"K1 does not fit an SM: {blocks_per_sm} blocks")
     resident = blocks_per_sm * sms
     warps_a_block = K1_THREADS // 32
-    cap = stack_cap(slots, interleave)
     if interleave == 1:
-        blocks = -(-n_rays // K1_CLAIM // warps_a_block)
-        return LaunchPlan(max(1, min(resident, blocks)), K1_THREADS,
-                          K1_CLAIM, cap)
-    spread = -(-k1b_claims(n_rays, interleave) // warps_a_block) < resident
-    blocks = -(-k1b_claims(n_rays, interleave, spread) // warps_a_block)
-    return LaunchPlan(max(1, min(resident, blocks)), K1_THREADS,
-                      K1_CLAIM if spread else K1_CLAIM * interleave, cap,
-                      spread)
+        claim, spread = K1_CLAIM, False
+        claims = -(-n_rays // K1_CLAIM)
+    else:
+        full = k1b_claims(n_rays, interleave)
+        spread = -(-full // warps_a_block) < resident
+        claim = K1_CLAIM if spread else K1_CLAIM * interleave
+        claims = k1b_claims(n_rays, interleave, spread)
+    blocks = -(-claims // warps_a_block)
+    return LaunchPlan(max(1, min(resident, blocks)), K1_THREADS, claim,
+                      stack_cap(slots, interleave), spread)
 
 
 _OCCUPANCY: dict = {}
@@ -276,11 +277,12 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
       soon as 16 lanes of its warp are free, where K1 waits for the
       longest walk of its 32. A camera's rays and any-hit launches are
       walked as K1 walks them. Pass it for incoherent closest-hit
-      batches (on an H100 1.2-1.4x faster than ``interleave=1`` on
+      batches (on an H100 1.2-1.5x faster than ``interleave=1`` on
       random and sorted bounce rays, slower on a camera frame and on
-      any-hit rays: PERF.md §6). Needs fewer than 2^31 rays. The kernel implements it
-      without ``debug_counts`` and ``_flag_zero_edges``; those
-      combinations raise (the JAX package warns and falls back to 1).
+      any-hit rays: PERF.md §6). Needs fewer than 2^31 rays. The kernel
+      implements it without ``debug_counts`` and ``_flag_zero_edges``;
+      those combinations raise (the JAX package warns and falls back to
+      1).
 
     ``sub`` only groups rays into packets for ``packet_roots``.
     """
