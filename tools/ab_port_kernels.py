@@ -209,7 +209,7 @@ def k1_cases(dev) -> dict:
     through the port's entry points that returns what it computed (hits
     or an image), and K1b's (``k1b{K}_*``, K = 2 and 4, on
     ``k1b_shapes``; K1 on the two of them it has no case for). Uses only
-    entry points that PR 5's port has."""
+    entry points that the other checkout of an A/B has too."""
     import numpy as np
     import torch
 
