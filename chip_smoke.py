@@ -118,14 +118,18 @@ nothing of JAX. Phases, one line or more each:
     bit) on five shapes: the frame, phase 5's rays (== plain), phase
     16's random rays, phase 17's sorted AO rays and phase 11's pallas
     bounce-2 closest-hit trace, each with its bound from the counts
-    kernel's pops (a plain sample's triangles a leaf pop and rows read);
+    kernel's pops (a plain sample's triangles a leaf pop and rows read)
+    and, on the last three, every 64th ray's records == plain; each
+    shape again with the plan's claim size turned the other way
+    (== K = 1, timed beside the plan's);
     each K1 and K1b instantiation's registers,
     spills and stack frame (``ptxas -v``) and its shared bytes and
     resident warps an SM (the occupancy API); the persistent schedule's
     edge shapes (ray counts of 1, 31, 32, 33 and a claim count the grid
     does not divide, every mode on grids of 1 and 3 blocks, dead rays,
-    roots across claims, deep walks, a stack too small, which must set
-    the overflow word) == plain;
+    roots across claims, deep walks, K1b's small batches with the plan's
+    claims and with claims of 32 K rays forced, a stack too small, which
+    must set the overflow word) == plain;
 19. the device build: ``collapse_lbvh_device(width=16, max_leaf=9)`` on
     the card over phase 4's sphere (a warm-up, then 3 builds timed with
     CUDA events, the peak allocation), its tables held to
@@ -338,6 +342,30 @@ def trace_ops(stats: dict, width: int, tri_ops: int) -> float:
     counted."""
     return stats.get("nodes", 0) * width * SLAB_OPS + stats.get(
         "tris", 0) * tri_ops
+
+
+def one_packet_plan(one: bool):
+    """``packet.launch_plan`` with K1b's claims forced to one packet of 32
+    rays (``one``) or to K packets, the grid sized for them: the claims
+    the plan would not pick for a launch, for holding and timing them."""
+    import dataclasses
+
+    from nanort_tpu_torch.traverse import packet
+
+    real = packet.launch_plan
+
+    def plan(n, blocks_per_sm, sms, interleave=1, occlusion=False):
+        p = real(n, blocks_per_sm, sms, interleave, occlusion)
+        if interleave == 1:
+            return p
+        packets = 1 if one else interleave
+        claims = packet.k1b_claims(n, packets)
+        grid = max(1, min(blocks_per_sm * sms,
+                          -(-claims // (packet.K1_THREADS // 32))))
+        return dataclasses.replace(p, grid=grid,
+                                   claim=packet.K1_CLAIM * packets)
+
+    return plan
 
 
 @contextlib.contextmanager
@@ -2035,7 +2063,9 @@ def k1_edge_shapes(dev) -> int:
     claims several times); all rays dead and a sorted dead tail; packet
     roots whose packets span several claims; deep walks (an
     overlapping triangle soup); K1b at K = 2 and 4 on 1, 33 and 1,000
-    rays and on grids of 1 and 3 blocks (closest, any-hit, Woop); and a
+    rays and on grids of 1 and 3 blocks (closest, any-hit, Woop), each
+    with the plan's claims (K packets of 32 rays, one on any-hit) and
+    with the other size forced (``one_packet_plan``); and a
     stack too small for the walks, which must set the overflow word.
     Returns the number of shapes held."""
     import dataclasses
@@ -2080,13 +2110,14 @@ def k1_edge_shapes(dev) -> int:
              "flags": dict(options=fast, _flag_zero_edges=True)}
     real_plan = packet.launch_plan
 
-    def held(scene, rays, grid=None, **kw):
+    def held(scene, rays, grid=None, one=None, **kw):
         def on(dev_):
             return {k: (x.to(dev_) if isinstance(x, torch.Tensor) else x)
                     for k, x in kw.items()}
 
-        plan = real_plan if grid is None else (
-            lambda *a: dataclasses.replace(real_plan(*a), grid=grid))
+        base = real_plan if one is None else one_packet_plan(one)
+        plan = base if grid is None else (
+            lambda *a: dataclasses.replace(base(*a), grid=grid))
         with patched(packet, "launch_plan", plan):
             got = packet.traverse_bvh8(scene.to(dev), nt.Rays(
                 *(x.to(dev) for x in rays)), **on(dev))
@@ -2150,18 +2181,22 @@ def k1_edge_shapes(dev) -> int:
         results[f"deep stack w{w} interleave=2"] = held(sc, soup_rays,
                                                         interleave=2)
     # K1b's claims: ray counts below and across a claim, and grids of 1
-    # and 3 blocks, so that warps claim and refill many times
+    # and 3 blocks, so that warps claim and refill many times; the plan's
+    # claims, then claims of 32 K rays forced (refilled lanes)
     for K in (2, 4):
-        for n in (1, 33, 1000):
-            results[f"K1b K={K} w16 n={n}"] = held(box[16, False],
-                                                   rays_of(n, 18),
-                                                   interleave=K)
-        for grid in (1, 3):
-            for name in ("closest", "any_hit", "woop"):
-                kw = modes[name]
-                results[f"K1b K={K} grid {grid} w8 {name}"] = held(
-                    box[8, "intersector" in kw], rays_of(935, 19), grid,
-                    interleave=K, **kw)
+        for flip in (False, True):
+            tag = " other claims" if flip else ""
+            for n in (1, 33, 1000):
+                results[f"K1b K={K} w16 n={n}{tag}"] = held(
+                    box[16, False], rays_of(n, 18), one=True if flip else None,
+                    interleave=K)
+            for grid in (1, 3):
+                for name in ("closest", "any_hit", "woop"):
+                    kw = modes[name]
+                    one = not kw.get("occlusion", False) if flip else None
+                    results[f"K1b K={K} grid {grid} w8 {name}{tag}"] = held(
+                        box[8, "intersector" in kw], rays_of(935, 19), grid,
+                        one=one, interleave=K, **kw)
     # a stack too small for the walks: the overflow word, not a wrong record
     words = []
     with patched(packet, "stack_slots", lambda s: 3), \
@@ -2182,8 +2217,7 @@ def k1_resources(text: str) -> list[str]:
     """One line per K1 and K1b instantiation: ``ptxas -v``'s registers,
     spills and stack frame (from ``text``), then the occupancy API's
     registers, local and shared bytes and resident warps an SM for each
-    of K1's modes and each K1b instantiation (width, leaf test, K and
-    stack)."""
+    of K1's modes and each K1b instantiation (width, leaf test)."""
     import re
 
     from nanort_tpu_torch.traverse import packet
@@ -2222,16 +2256,13 @@ def k1_resources(text: str) -> list[str]:
                 f"an SM")
     for w in (8, 16):
         for woop in (False, True):
-            for K in (2, 4):
-                for cap in (packet.IL_STACK, packet.STACK_CAP):
-                    o = packet.k1_occupancy(w, woop, interleave=K, stack=cap)
-                    out.append(
-                        f"K1b w{w}{' woop' if woop else ''} K={K} stack "
-                        f"{cap}: {o['registers']} registers, "
-                        f"{o['local_bytes']} local bytes a thread, "
-                        f"{o['blocks_per_sm']} blocks of {o['threads']} "
-                        f"threads = {o['blocks_per_sm'] * o['threads'] // 32}"
-                        f" resident warps an SM, {o['claim']} rays a claim")
+            o = packet.k1_occupancy(w, woop, interleave=2)
+            out.append(
+                f"K1b w{w}{' woop' if woop else ''} (K = 2 and 4): "
+                f"{o['registers']} registers, {o['local_bytes']} local bytes "
+                f"a thread, {o['blocks_per_sm']} blocks of {o['threads']} "
+                f"threads = {o['blocks_per_sm'] * o['threads'] // 32} "
+                f"resident warps an SM, 32 K rays a claim")
     return out
 
 
@@ -2340,6 +2371,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
         shapes[key] = (f"{what} ({r.org.shape[0]} sorted rays)", sc8, r, a,
                        kw, key)
     il_bound = {"frame": frame_bound, "phase5": c_bound}
+    sampled = {}  # every 64th ray's plain records, K1b held to them
     for key, (what, s, r, a, kw, _) in shapes.items():
         if key in il_bound:
             continue
@@ -2349,12 +2381,16 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
         smp = type(r)(*(x.reshape(-1, *x.shape[1:])[::64].contiguous()
                         for x in r))
         opts = a[0] if a else (kw.get("options") or nt.BVHTraceOptions())
+        woop = kw.get("intersector") == "woop"
+        skip = kw.get("skip_prim_id")
         st_s = {}
-        packet._traverse_reference(
-            s.nodes, s.leafs, s.width, smp.org, smp.dir, smp.min_t,
-            smp.max_t, None, None, opts.cull_back_face,
-            opts.exact_edge_fallback, kw.get("occlusion", False),
-            packet.stack_slots(s), stats=st_s)
+        sampled[key] = packet._traverse_reference(
+            s.nodes, s.leafs_woop if woop else s.leafs, s.width, smp.org,
+            smp.dir, smp.min_t, smp.max_t,
+            None if skip is None else skip.reshape(-1)[::64].long(), None,
+            opts.cull_back_face, opts.exact_edge_fallback and not woop,
+            kw.get("occlusion", False), packet.stack_slots(s), woop,
+            stats=st_s)
         tpl = st_s.get("tris", 0) / max(st_s.get("leaves", 0), 1)
         il_bound[key] = bound(
             r.org.shape[0] * (32 + 20) + row_bytes(st_s),
@@ -2365,12 +2401,21 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
             f"({il_bound[key][1]})")
     zero_launch_counts()
     il = {}
+    il_err = {2: 0.0, 4: 0.0}
     for key, (what, s, r, a, kw, ab) in shapes.items():
         ref = packet.traverse_bvh8(s, r, *a, **kw)
         line = []
         for K in (1, 2, 4):
             out = packet.traverse_bvh8(s, r, *a, interleave=K, **kw)
             same = all(torch.equal(x, y) for x, y in zip(out, ref))
+            if K > 1 and key in sampled:
+                got_s = [x.reshape(-1)[::64] for x in out]
+                same_s = all(torch.equal(x, y)
+                             for x, y in zip(got_s, sampled[key]))
+                il_err[K] = max(il_err[K], record_err(got_s, sampled[key]))
+                line.append(f"K={K} every 64th ray == plain: {same_s}")
+                check(same_s, f"interleave={K} on {what} disagrees with "
+                      "the plain version")
             del out
             ms = median(cuda_ms(lambda: packet.traverse_bvh8(
                 s, r, *a, interleave=K, **kw), 10 if key == "phase5" else 3))
@@ -2390,6 +2435,35 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
             f"{il[key, 4] / il[key, 2]:.3f}")
         del ref
     il_launches = launch_counts()
+    # the plan's claims against the other size on every shape: one packet
+    # of 32 rays (the plan's on any-hit) or K packets
+    for key, (what, s, r, a, kw, _) in shapes.items():
+        n = r.org.reshape(-1, 3).shape[0]
+        ref = packet.traverse_bvh8(s, r, *a, **kw)
+        line = []
+        for K in (2, 4):
+            occ_ = packet.k1_occupancy(s.width, kw.get("intersector") == "woop",
+                                       interleave=K)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            chosen = packet.launch_plan(
+                n, occ_["blocks_per_sm"], sms, K,
+                kw.get("occlusion", False)).claim == packet.K1_CLAIM
+            with patched(packet, "launch_plan", one_packet_plan(not chosen)):
+                out = packet.traverse_bvh8(s, r, *a, interleave=K, **kw)
+                same = all(torch.equal(x, y) for x, y in zip(out, ref))
+                del out
+                ms = median(cuda_ms(lambda: packet.traverse_bvh8(
+                    s, r, *a, interleave=K, **kw),
+                    10 if key == "phase5" else 3))
+            check(same, f"interleave={K} with one-packet claims {not chosen} "
+                  f"on {what} "
+                  "changes records")
+            line.append(f"K={K} plan's claims of {1 if chosen else K} "
+                        f"packets {il[key, K]:.3f} ms, of {K if chosen else 1}"
+                        f" {ms:.3f} ms (same as K=1: "
+                        f"{same}; plan / other {il[key, K] / ms:.3f})")
+        say(f"phase 18 K1b claim size on {what}: " + "; ".join(line))
+        del ref
     del rays_t, shapes
     torch.cuda.empty_cache()
     want, p_ms, st5 = plain()
@@ -2399,7 +2473,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     for K in (2, 4):
         got = packet.traverse_bvh8(scene, sub, interleave=K)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
-        err = record_err(list(got), want)
+        err = max(record_err(list(got), want), il_err[K])
         say(f"phase 18 interleave={K} on phase 5's rays: kernel == plain bit "
             f"for bit: {same}; {il['phase5', K]:.3f} ms vs K=1 "
             f"{il['phase5', 1]:.3f} ms (medians of 10); launches on the five "

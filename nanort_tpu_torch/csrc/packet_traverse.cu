@@ -65,31 +65,30 @@
 //              set when the ray tested a triangle whose U, V or W was 0
 //              before any exact recompute: the rays whose records could
 //              change with the exact-edge recompute.
-//   kK > 1     (interleave, K1b, _kernel_body_il :1060): the caller's
-//              schedule for incoherent batches, with the records of
-//              kK == 1 (each ray's pop sequence is K1's). The TPU reason
-//              for K1b (amortising the vector-to-scalar drain) has no
-//              Hopper counterpart. What bounds K1 on incoherent rays
-//              besides its fetches is lanes that idle while the longest
-//              walk of their 32 runs on. K1b's design, measured part by
-//              part on an H100 (PERF.md): persistent warps on the
-//              resident grid take numbered claims of 32 kK rays, four
-//              claims tiling 128 kK rays as a block would; a claim of a
-//              camera's rays (one origin) or of an any-hit launch is
-//              walked one packet after another as K1 walks; any other
-//              claim is handed out to free lanes by rank in a ballot, 16
-//              or more lanes at a time, so a lane takes its next ray as
-//              soon as half its warp idles; a batch whose claims would
-//              leave resident warps idle is claimed 32 rays at a time; a
-//              128-entry stack where the scene's slots fit it; 8 resident
-//              blocks (__launch_bounds__). Measured and left out: kK rays
-//              in flight a lane, each with its own stack, stepped
-//              together (the registers of kK walks cost resident warps:
-//              1.2-1.7x slower than one ray a lane on every shape), a
-//              lane refilled as soon as its ray ends (lanes drift apart
-//              and share no rows: the frame 3x slower), whole-packet
-//              refills, lane-major packets, the next rows prefetched to
-//              L1 or L2 before a step.
+//
+// K1b (interleave K = 2 or 4, _kernel_body_il :1060) is a kernel of its
+// own, traverse_kernel_il, one instantiation a width and leaf test: the
+// caller's schedule for incoherent batches, with the records of K1 (each
+// ray's pop sequence is K1's). The TPU reason for K1b (amortising the
+// vector-to-scalar drain) has no Hopper counterpart. What bounds K1 on
+// incoherent rays besides its fetches is lanes that idle while the
+// longest walk of their 32 runs on. K1b's design, measured part by part
+// on an H100 (PERF.md): persistent warps on the resident grid take
+// numbered claims of K packets of 32 rays (K a launch parameter; one
+// packet on an any-hit launch), four claims tiling 128 K rays as a block
+// would; a claim of a camera's rays (one origin) or of an any-hit launch
+// is walked one packet after another as K1 walks; any other claim is
+// handed out to free lanes by rank in a ballot, 16 or more lanes at a
+// time, so a lane takes its next ray as soon as half its warp idles; one
+// ray a lane, on K1's 512-entry stack; 8 resident blocks
+// (__launch_bounds__). Measured and left out: K rays in flight a lane,
+// each with its own stack, stepped together (the registers of K walks
+// cost resident warps: 1.2-1.7x slower than one ray a lane on every
+// shape), a lane refilled as soon as its ray ends (lanes drift apart and
+// share no rows: the frame 3x slower), whole-packet refills, lane-major
+// packets, the next rows prefetched to L1 or L2 before a step, a second
+// instantiation with a 128-entry stack (the frame 1-2% faster, no other
+// shape).
 
 // Interface: plain C functions (ctypes, no PyTorch headers). The launch
 // runs on the caller's stream, allocates nothing (the claim counter and
@@ -104,7 +103,6 @@
 namespace {
 
 constexpr int kStackCap = 512;     // per-thread stack ceiling (entries)
-constexpr int kStackSmall = 128;   // K1b's stack when stack_size fits it
 constexpr int kRefill = 16;        // K1b: free lanes that take new rays
 constexpr int kThreads = 128;      // threads per block
 constexpr int kClaim = 32;         // K1: consecutive rays a warp claims
@@ -139,7 +137,7 @@ struct Params {
   int use_range;        // prim_ids_range filter: lo <= pid < hi
   int range_lo;
   int range_hi;
-  int spread;           // K1b: claims of 32 rays (launch_plan's choice)
+  int packets;          // K1b: packets of 32 rays a claim (launch_plan's)
 };
 // With the Woop test, ``leafs`` is the scene's leafs_woop table: one row
 // for each watertight leaf row, triangle t at lanes [12t, 12t+12) as its
@@ -586,32 +584,29 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(Params p) {
 // this file can step the schedule lane by lane
 // (tests/test_torch_k1_emulation.py).
 //
-// Claim q holds 32 kK rays, its r-th at claim_ray(q, r): four claims
-// tile 128 kK consecutive rays as one block of 128 threads with kK rays
-// each would, so each packet of 32 is consecutive and packet k starts 128
-// rays after packet k - 1 (a 128-wide image tile's next row). With
-// ``spread`` (a batch that leaves resident warps idle) a claim is one
-// packet of 32 consecutive rays, so that more warps share the batch.
-template <int kK>
+// Claim q holds P = p.packets packets of 32 rays, its r-th ray at
+// claim_ray(q, r): four claims tile 128 P consecutive rays as one block
+// of 128 threads with P rays each would, so each packet of 32 is
+// consecutive and packet k starts 128 rays after packet k - 1 (a
+// 128-wide image tile's next row). With P = 1 claim q is rays
+// [32 q, 32 q + 32), as K1's claims are.
 __device__ __forceinline__ unsigned long long claim_ray(const Params& p,
                                                         unsigned long long q,
                                                         unsigned r) {
-  if (p.spread) return q * kClaim + r;
-  return (q >> 2) * (128ull * kK) + 32ull * (q & 3ull) + (r & 31u) +
+  return (q >> 2) * (128ull * p.packets) + 32ull * (q & 3ull) + (r & 31u) +
          128ull * (r >> 5);
 }
 
-// Rays a claim, and the claims that cover n_rays.
-template <int kK>
+// Rays a claim, and the claims that cover n_rays (the last four may hold
+// rays past it, which slot_take skips).
 __device__ __forceinline__ unsigned claim_rays(const Params& p) {
-  return p.spread ? kClaim : kClaim * kK;
+  return kClaim * p.packets;
 }
 
-template <int kK>
 __device__ __forceinline__ unsigned long long claims_of(const Params& p) {
   const unsigned long long n = (unsigned long long)p.n_rays;
-  if (p.spread) return (n + kClaim - 1) / kClaim;
-  return (n + 128ull * kK - 1) / (128ull * kK) * 4ull;
+  const unsigned long long group = 128ull * p.packets;
+  return (n + group - 1) / group * 4ull;
 }
 
 // A free lane takes ray i (< n): its set-up; a ray that retires before
@@ -629,14 +624,13 @@ __device__ __forceinline__ int slot_take(const Params& p, unsigned long long i,
 // Refill: this lane, free when ``ray`` < 0, takes the ray of claim q
 // whose rank is r plus its rank among the warp's free lanes (``empty``, a
 // ballot), while the claim has that many.
-template <int kK>
 __device__ __forceinline__ int slot_fill(const Params& p, unsigned empty,
                                          unsigned lane, unsigned q, unsigned r,
                                          int ray, Walk& w) {
   if (ray >= 0) return ray;
   const unsigned rank = r + __popc(empty & ((1u << lane) - 1u));
-  if (rank >= claim_rays<kK>(p)) return -1;
-  return slot_take(p, claim_ray<kK>(p, q, rank), w);
+  if (rank >= claim_rays(p)) return -1;
+  return slot_take(p, claim_ray(p, q, rank), w);
 }
 
 // The rays of claim q handed out after a refill gave ``empty``'s lanes the
@@ -647,17 +641,15 @@ __device__ __forceinline__ unsigned claim_advance(unsigned r, unsigned empty,
 }
 
 // This lane's vote on whether claim q is walked in lock-step, one packet
-// after another as K1 walks: the launch is spread (its warps take one
-// packet a claim) or any-hit (short walks, measured faster so), or
-// the lane's ray r = lane has ray 0's origin (a ray past n agrees): a
-// camera's rays, whose walks end together. The claim locks when all 32
-// agree.
-template <int kK>
+// after another as K1 walks: the launch is any-hit (short walks,
+// measured faster so), or the lane's ray r = lane has ray 0's origin (a
+// ray past n agrees): a camera's rays, whose walks end together. The
+// claim locks when all 32 agree.
 __device__ __forceinline__ bool lock_vote(const Params& p, unsigned q,
                                           unsigned lane) {
-  if (p.spread || p.occlusion) return true;
-  const unsigned long long i = claim_ray<kK>(p, q, lane);
-  const unsigned long long i0 = claim_ray<kK>(p, q, 0);
+  if (p.occlusion) return true;
+  const unsigned long long i = claim_ray(p, q, lane);
+  const unsigned long long i0 = claim_ray(p, q, 0);
   if (i >= (unsigned long long)p.n_rays) return true;
   return p.org[3 * i] == p.org[3 * i0] &&
          p.org[3 * i + 1] == p.org[3 * i0 + 1] &&
@@ -673,11 +665,11 @@ __device__ __forceinline__ int slot_end(const Params& p, int ray,
   return -1;
 }
 
-// K1b: persistent warps take numbered claims of 32 kK rays (lane 0's
+// K1b: persistent warps take numbered claims of 32 P rays (lane 0's
 // atomicAdd; claim_ray) in rounds, each lane walking one ray at a time
-// with its own stack of kCap entries. A round writes the record of a
+// with its own stack of kStackCap entries. A round writes the record of a
 // lane whose walk ended, then gives free lanes rays. A lock-step claim
-// (lock_vote: a camera's rays, any-hit, or a spread batch) waits until
+// (lock_vote: a camera's rays or any-hit) waits until
 // the whole warp is free and walks its packets of 32 rays one after
 // another, as K1 walks its claims. Any other claim is handed out by rank
 // in a ballot of the free lanes, kRefill or more at a time: the warp
@@ -685,15 +677,15 @@ __device__ __forceinline__ int slot_end(const Params& p, int ray,
 // lane takes its next ray as soon as enough lanes idle, where K1 waits
 // for the longest walk of its 32. The warp retires when the counter has
 // passed the claims and no walk is live.
-template <int W, bool kWoop, int kK, int kCap>
+template <int W, bool kWoop>
 __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
-  const unsigned kRun = claim_rays<kK>(p);  // rays a claim
-  int stack[kCap];
+  const unsigned kRun = claim_rays(p);  // rays a claim
+  int stack[kStackCap];
   Walk w;
   int ray = -1;  // the lane's ray, or -1 (K1b takes n_rays < 2^31)
   w.e = kNone;
   const unsigned lane = threadIdx.x & 31u;
-  const unsigned n_claims = (unsigned)claims_of<kK>(p);
+  const unsigned n_claims = (unsigned)claims_of(p);
   unsigned q = 0;            // the warp's claim
   unsigned r = kRun;         // rays of claim q handed out
   bool drained = false;      // the counter passed n_claims
@@ -705,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
     r = 0;
     drained = q >= n_claims;
     if (!drained) {
-      lock = __ballot_sync(0xffffffffu, lock_vote<kK>(p, q, lane)) ==
+      lock = __ballot_sync(0xffffffffu, lock_vote(p, q, lane)) ==
              0xffffffffu;
     }
   };
@@ -719,7 +711,7 @@ __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
       // ray walked to its end, as K1 walks its claims
 #pragma unroll 1
       for (unsigned k = 0; k < kRun; k += 32u) {
-        ray = slot_fill<kK>(p, ~0u, lane, q, k, -1, w);
+        ray = slot_fill(p, ~0u, lane, q, k, -1, w);
         while (w.e != kNone) step<W, kWoop, false, false>(p, w, stack);
         ray = slot_end(p, ray, w);
       }
@@ -734,7 +726,7 @@ __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
           claim();
           if (drained || lock) break;  // a lock-step claim waits
         }
-        ray = slot_fill<kK>(p, empty, lane, q, r, ray, w);
+        ray = slot_fill(p, empty, lane, q, r, ray, w);
         r = claim_advance(r, empty, kRun);
       }
     }
@@ -778,29 +770,14 @@ const void* k1_pick(int width, int woop, int counts, int flags, int roots) {
               : k1_kernel<8, false>(counts, flags, roots);
 }
 
-// The K1b instantiation: the kStackSmall-entry stack when stack_size
-// fits it, else kStackCap entries.
-template <int W, bool kWoop, int kK>
-const void* il_kernel(int stack_size) {
-  if (stack_size <= kStackSmall) {
-    return (const void*)traverse_kernel_il<W, kWoop, kK, kStackSmall>;
-  }
-  return (const void*)traverse_kernel_il<W, kWoop, kK, kStackCap>;
-}
-
-template <int W, bool kWoop>
-const void* il_width(int interleave, int stack_size) {
-  return interleave == 2 ? il_kernel<W, kWoop, 2>(stack_size)
-                         : il_kernel<W, kWoop, 4>(stack_size);
-}
-
-const void* il_pick(int width, int woop, int interleave, int stack_size) {
+// The K1b instantiation (K is the launch's packets a claim).
+const void* il_pick(int width, int woop) {
   if (width == 16) {
-    return woop ? il_width<16, true>(interleave, stack_size)
-                : il_width<16, false>(interleave, stack_size);
+    return woop ? (const void*)traverse_kernel_il<16, true>
+                : (const void*)traverse_kernel_il<16, false>;
   }
-  return woop ? il_width<8, true>(interleave, stack_size)
-              : il_width<8, false>(interleave, stack_size);
+  return woop ? (const void*)traverse_kernel_il<8, true>
+              : (const void*)traverse_kernel_il<8, false>;
 }
 
 }  // namespace
@@ -808,9 +785,8 @@ const void* il_pick(int width, int woop, int interleave, int stack_size) {
 // counts, flags and interleave > 1 are exclusive modes; flags need the
 // watertight test; roots (with packet > 0) combine with any mode.
 // ``scratch``: two zeroed uint64, the claim counter and the overflow
-// word. ``grid`` is traverse/packet.py::launch_plan's, for K1 and K1b;
-// ``spread`` (K1b) is launch_plan's: claims of 32 rays, for a batch whose
-// claims of 32 K would leave resident warps idle.
+// word. ``grid`` and, for K1b, ``packets`` (packets of 32 rays a claim:
+// interleave, or 1) are traverse/packet.py::launch_plan's.
 extern "C" int nrt_packet_traverse(
     const float* nodes, const float* leafs, const float* org, const float* dir,
     const float* min_t, const float* max_t, const int* skip, const int* roots,
@@ -818,7 +794,7 @@ extern "C" int nrt_packet_traverse(
     unsigned long long* scratch, long long n_rays, long long packet,
     int width, int stack_size, int occlusion, int cull_back_face,
     int exact_edge, int use_range, int range_lo, int range_hi, int woop,
-    int counts, int zero_flags, int interleave, int grid, int spread,
+    int counts, int zero_flags, int interleave, int grid, int packets,
     void* stream) {
   if (stack_size < 1 || stack_size > kStackCap) return (int)cudaErrorInvalidValue;
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
@@ -830,15 +806,18 @@ extern "C" int nrt_packet_traverse(
   if (roots && packet < 1) return (int)cudaErrorInvalidValue;
   if (grid < 1) return (int)cudaErrorInvalidValue;
   if (interleave > 1 && n_rays > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (interleave > 1 && packets != 1 && packets != interleave)
+    return (int)cudaErrorInvalidValue;
   if (n_rays <= 0) return 0;
   Params p{nodes,   leafs,          org,        dir,       min_t,
            max_t,   skip,           roots,      t_out,     u_out,
            v_out,   pid_out,        flags,      scratch,   scratch + 1,
            n_rays,  packet,         stack_size, occlusion, cull_back_face,
-           exact_edge, use_range,   range_lo,   range_hi,  spread};
+           exact_edge, use_range,   range_lo,   range_hi,
+           packets};
   const void* fn =
       interleave > 1
-          ? il_pick(width, woop, interleave, stack_size)
+          ? il_pick(width, woop)
           : k1_pick(width, woop, counts, zero_flags, roots != nullptr);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   void* args[] = {&p};
@@ -850,20 +829,18 @@ extern "C" int nrt_packet_traverse(
 }
 
 // What the launch plan needs of one K1 or K1b instantiation (K1b when
-// interleave > 1, with the stack that stack_size picks): out[0] resident
+// interleave > 1): out[0] resident
 // blocks per SM (occupancy API), out[1] registers a thread, out[2] local
 // bytes a thread (the stack frame), out[3] shared bytes a block, out[4]
 // threads a block, out[5] rays a claim.
 extern "C" int nrt_packet_traverse_occupancy(int width, int woop, int counts,
                                              int flags, int roots,
-                                             int interleave, int stack_size,
-                                             int* out) {
+                                             int interleave, int* out) {
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
   if (interleave != 1 && interleave != 2 && interleave != 4)
     return (int)cudaErrorInvalidValue;
-  const void* fn = interleave > 1
-                       ? il_pick(width, woop, interleave, stack_size)
-                       : k1_pick(width, woop, counts, flags, roots);
+  const void* fn = interleave > 1 ? il_pick(width, woop)
+                                  : k1_pick(width, woop, counts, flags, roots);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fn);

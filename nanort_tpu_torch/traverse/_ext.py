@@ -42,7 +42,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 KERNELS = {
     "packet_traverse": ("packet_traverse.cu", (), {
         "nrt_packet_traverse": [_P] * 14 + [_L] * 2 + [_I] * 14 + [_P],
-        "nrt_packet_traverse_occupancy": [_I] * 7 + [_P],
+        "nrt_packet_traverse_occupancy": [_I] * 6 + [_P],
     }),
     "bvh16_trace": ("bvh16_trace.cu", ("bvh16_trace.cuh",), {
         "nrt_bvh16_trace": [_P] * 16 + [_L] + [_I] * 4 + [_P],

@@ -47,7 +47,6 @@ from . import _ext
 LANES = 128
 DEF_SUB = 32  # rays per packet / LANES in the TPU kernel (specialization)
 STACK_CAP = 512  # kStackCap in csrc/packet_traverse.cu
-IL_STACK = 128  # kStackSmall: K1b's stack when a scene's slots fit it
 IL_MAX_RAYS = 2**31 - 1  # K1b indexes rays with 32-bit ints
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
@@ -82,65 +81,42 @@ def stack_slots(scene: BVH8Scene) -> int:
     return scene.depth * (scene.width - 1) + 1
 
 
-def stack_cap(slots: int, interleave: int = 1) -> int:
-    """Entries of the stack array each walk holds in the kernel: K1's
-    ``STACK_CAP``; K1b's ``IL_STACK`` instantiation when ``slots``
-    (``stack_slots(scene)``) fit it, else ``STACK_CAP`` (a frame of 512
-    bytes a thread in place of 2 KB)."""
-    return IL_STACK if interleave > 1 and slots <= IL_STACK else STACK_CAP
-
-
-def k1b_claims(n_rays: int, interleave: int, spread: bool = False) -> int:
+def k1b_claims(n_rays: int, packets: int) -> int:
     """K1b's claims for ``n_rays`` rays (csrc/packet_traverse.cu
-    ``claims_of``): four claims of ``32 * interleave`` rays tile each
-    ``128 * interleave`` consecutive rays, packet k of a claim 128 rays
-    after packet k - 1, so the last group's claims may hold rays past
-    ``n_rays``, which the kernel skips; with ``spread``, one claim for
-    each 32 rays."""
-    if spread:
-        return -(-n_rays // K1_CLAIM)
-    return -(-n_rays // (K1_THREADS * interleave)) * (K1_THREADS // 32)
+    ``claims_of``): claims of ``packets`` packets of 32 rays, four of
+    them tiling each ``128 * packets`` consecutive rays, packet k of a
+    claim 128 rays after packet k - 1, so the last four claims may hold
+    rays past ``n_rays``, which the kernel skips."""
+    return -(-n_rays // (K1_THREADS * packets)) * (K1_THREADS // 32)
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One K1 or K1b launch: ``grid`` persistent blocks of ``threads``
-    threads, warps claiming ``claim`` rays at a time (32 for K1; 32 * K
-    for K1b, K packets of 32, or 32 with ``spread``), each walk with a
-    stack of ``stack_cap`` entries."""
+    threads, warps claiming ``claim`` rays at a time (32 for K1; for K1b
+    K packets of 32, or one on an any-hit launch)."""
     grid: int
     threads: int
     claim: int
-    stack_cap: int
-    spread: bool = False
 
 
 def launch_plan(n_rays: int, blocks_per_sm: int, sms: int,
-                interleave: int = 1, slots: int = STACK_CAP) -> LaunchPlan:
-    """The launch of K1 (``interleave=1``) or K1b for ``n_rays`` rays over
-    a scene of ``slots`` stack slots: the blocks that stay resident
-    (``blocks_per_sm`` from the occupancy API of the instantiation that
-    ``stack_cap(slots, interleave)`` picks, times ``sms``), or fewer when
-    the batch has fewer claims than that grid has warps. Each warp claims
-    ``claim`` rays at a time until the counter passes the batch. K1b's
-    claims of 32 K rays would leave resident warps idle on a batch of
-    fewer than 128 K rays a resident block: such a batch is ``spread``,
-    claimed 32 rays at a time, so that more warps share it."""
+                interleave: int = 1, occlusion: bool = False) -> LaunchPlan:
+    """The launch of K1 (``interleave=1``) or K1b for ``n_rays`` rays: the
+    blocks that stay resident (``blocks_per_sm`` from the occupancy API
+    of the instantiation, times ``sms``), or fewer when the batch has
+    fewer claims than that grid has warps. Each warp claims ``claim``
+    rays at a time until the counter passes the batch. K1b claims K
+    packets of 32 rays, one packet on an any-hit launch, whose claims it
+    walks as K1 walks them (on an H100, claims of K packets measured
+    faster on sorted closest-hit bounce rays and slower on any-hit rays:
+    PERF.md §6)."""
     if blocks_per_sm < 1:
         raise ValueError(f"K1 does not fit an SM: {blocks_per_sm} blocks")
-    resident = blocks_per_sm * sms
-    warps_a_block = K1_THREADS // 32
-    if interleave == 1:
-        claim, spread = K1_CLAIM, False
-        claims = -(-n_rays // K1_CLAIM)
-    else:
-        full = k1b_claims(n_rays, interleave)
-        spread = -(-full // warps_a_block) < resident
-        claim = K1_CLAIM if spread else K1_CLAIM * interleave
-        claims = k1b_claims(n_rays, interleave, spread)
-    blocks = -(-claims // warps_a_block)
-    return LaunchPlan(max(1, min(resident, blocks)), K1_THREADS, claim,
-                      stack_cap(slots, interleave), spread)
+    packets = 1 if interleave == 1 or occlusion else interleave
+    blocks = -(-n_rays // (K1_THREADS * packets))
+    return LaunchPlan(max(1, min(blocks_per_sm * sms, blocks)), K1_THREADS,
+                      K1_CLAIM * packets)
 
 
 _OCCUPANCY: dict = {}
@@ -148,11 +124,9 @@ _OCCUPANCY: dict = {}
 
 def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
                  flags: bool = False, roots: bool = False,
-                 device=None, interleave: int = 1,
-                 stack: int = STACK_CAP) -> dict:
+                 device=None, interleave: int = 1) -> dict:
     """What the card's occupancy API and the compiled kernel say of one K1
-    instantiation, or with ``interleave`` 2 or 4 of the K1b one whose
-    stack holds ``stack`` entries (``stack_cap``'s choice): resident
+    instantiation, or with ``interleave`` 2 or 4 of the K1b one: resident
     ``blocks_per_sm``, ``registers`` and ``local_bytes`` (the stack
     frame) a thread, ``shared_bytes`` a block, ``threads`` a block and
     rays a ``claim``. Cached per device."""
@@ -162,13 +136,13 @@ def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
     if interleave not in INTERLEAVES:
         raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
     key = (dev.index, width, bool(woop), bool(counts), bool(flags),
-           bool(roots), interleave, stack if interleave > 1 else STACK_CAP)
+           bool(roots), interleave)
     if key not in _OCCUPANCY:
         out = (ctypes.c_int * 6)()
         with torch.cuda.device(dev):
             rc = _ext.load("packet_traverse").nrt_packet_traverse_occupancy(
                 width, int(woop), int(counts), int(flags), int(roots),
-                interleave, key[-1], out)
+                interleave, out)
         if rc != 0:
             raise RuntimeError(f"K1 occupancy query failed: CUDA error {rc}")
         _OCCUPANCY[key] = dict(zip(
@@ -272,14 +246,14 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     - ``interleave=K`` (1, 2 or 4; K1b): the same records as
       ``interleave=1``, under the schedule for incoherent batches. Warps
       claim 32 K rays at a time; where the claim's rays do not share one
-      origin (bounce, shadow or random rays) and the launch is
-      closest-hit, a lane whose ray ended takes the claim's next ray as
-      soon as 16 lanes of its warp are free, where K1 waits for the
-      longest walk of its 32. A camera's rays and any-hit launches are
-      walked as K1 walks them. Pass it for incoherent closest-hit
-      batches (on an H100 1.2-1.5x faster than ``interleave=1`` on
-      random and sorted bounce rays, slower on a camera frame and on
-      any-hit rays: PERF.md §6). Needs fewer than 2^31 rays. The kernel
+      origin (bounce, shadow or random rays), a lane whose ray ended
+      takes the claim's next ray as soon as 16 lanes of its warp are
+      free, where K1 waits for the longest walk of its 32. A camera's
+      rays are walked as K1 walks them, and an any-hit launch takes K1's
+      claims of 32 rays too. Pass it for incoherent closest-hit batches
+      (on an H100 1.2-1.5x faster than ``interleave=1`` on random and
+      sorted bounce rays, slower on a camera frame: PERF.md §6). Needs
+      fewer than 2^31 rays. The kernel
       implements it without ``debug_counts`` and ``_flag_zero_edges``;
       those combinations raise (the JAX package warns and falls back to
       1).
@@ -401,9 +375,10 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
         scratch = torch.zeros(2, dtype=torch.int64, device=dev)
         occ = k1_occupancy(scene.width, woop, debug_counts,
                            _flag_zero_edges, roots is not None, dev,
-                           interleave, stack_cap(slots, interleave))
+                           interleave)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = launch_plan(n, occ["blocks_per_sm"], sms, interleave, slots)
+        plan = launch_plan(n, occ["blocks_per_sm"], sms, interleave,
+                           occlusion)
         lib = _ext.load("packet_traverse")
         ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
         with torch.cuda.device(dev):
@@ -418,7 +393,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                 prim_range[0] if prim_range else 0,
                 prim_range[1] if prim_range else 0, int(woop),
                 int(debug_counts), int(_flag_zero_edges), int(interleave),
-                plan.grid, int(plan.spread), ctypes.c_void_p(stream))
+                plan.grid, plan.claim // K1_CLAIM, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
         LAUNCHES[_launch_key(woop, roots is not None, debug_counts,

@@ -1129,9 +1129,9 @@ def test_k1b_ray_counts_match_plain(dev, K, width, n):
 @pytest.mark.parametrize("K", [2, 4])
 def test_k1b_small_grid_matches_plain(dev, monkeypatch, K, grid, mode,
                                       spread):
-    # every warp takes many claims (of 32 K rays, or of 32 when spread)
-    # and refills its slots many times
-    _grid(monkeypatch, grid, spread=spread)
+    # every warp takes many claims (of 32 K rays, or of 32 as the plan
+    # gives any-hit launches) and refills its lanes many times
+    _grid(monkeypatch, grid, claim=packet.K1_CLAIM * (1 if spread else K))
     _, kw = SCHEDULE_MODES[mode]
     _mode_on_both(_modes_scene(16, woop="intersector" in kw),
                   _rays(3001, 14), dev, f"packet_traverse[interleave={K}]",
@@ -1170,11 +1170,10 @@ def test_k1b_roots_across_claims_match_plain(dev, monkeypatch, K, sub):
 
 @pytest.mark.parametrize("K", [2, 4])
 def test_k1b_large_stack_matches_plain(dev, monkeypatch, K):
-    # more stack slots than the 128-entry stack holds take the 512-entry
-    # instantiation (both sides get the same 200 slots)
+    # deep walks with more stack slots than the frame's BVH16 needs (both
+    # sides get the same 200 slots)
     scene, rays = _soup(8)
     monkeypatch.setattr(packet, "stack_slots", lambda s: 200)
-    assert packet.stack_cap(200, K) == packet.STACK_CAP
     _mode_on_both(scene, rays, dev, f"packet_traverse[interleave={K}]",
                   interleave=K)
 
@@ -1184,19 +1183,19 @@ def test_k1b_large_stack_matches_plain(dev, monkeypatch, K):
 @pytest.mark.parametrize("width", [8, 16])
 def test_k1b_occupancy_and_plan(dev, width, woop, K):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for cap in (packet.IL_STACK, packet.STACK_CAP):
-        occ = packet.k1_occupancy(width, woop, interleave=K, stack=cap)
-        assert occ["threads"] == packet.K1_THREADS
-        assert occ["claim"] == packet.K1_CLAIM * K
-        assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
-        assert occ["shared_bytes"] == 0
-        # a stack of ``cap`` entries a thread
-        assert occ["local_bytes"] >= cap * 4
-        slots = 106 if cap == packet.IL_STACK else 200
-        plan = packet.launch_plan(1 << 26, occ["blocks_per_sm"], sms, K,
-                                  slots)
-        assert plan.grid == occ["blocks_per_sm"] * sms
-        assert plan.stack_cap == cap
+    occ = packet.k1_occupancy(width, woop, interleave=K)
+    assert occ["threads"] == packet.K1_THREADS
+    assert occ["claim"] == packet.K1_CLAIM * K
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+    assert occ["shared_bytes"] == 0
+    # K1's stack of STACK_CAP entries a thread
+    assert occ["local_bytes"] >= packet.STACK_CAP * 4
+    plan = packet.launch_plan(1 << 26, occ["blocks_per_sm"], sms, K)
+    assert plan.grid == occ["blocks_per_sm"] * sms
+    assert plan.claim == packet.K1_CLAIM * K
+    # an any-hit launch claims one packet at a time
+    assert packet.launch_plan(1 << 26, occ["blocks_per_sm"], sms, K,
+                              True).claim == packet.K1_CLAIM
 
 
 @pytest.mark.parametrize("mode", ["closest", "interleave"])

@@ -18,7 +18,8 @@ rank (``slot_fill``, ``claim_advance``) 16 at a time, ended walks
 written by ``slot_end``, lanes in a shuffled order; each ray's record is
 held to the plain version bit for bit at K = 2 and 4: widths 8 and 16,
 watertight and Woop, closest and any-hit, roots, camera claims beside
-incoherent ones, ray counts below and across a claim, spread and not,
+incoherent ones, ray counts below and across a claim, claims of K
+packets and of one (as an any-hit launch takes),
 dead rays, and the overflow word. The atomicAdd and the ballots need the
 card and are held there by test_torch_gpu.py. g++ builds with
 -ffp-contract=off and no -ffast-math, as nvcc builds with --fmad=false:
@@ -66,7 +67,7 @@ void walk_all(const Params& p) {
 // after each break. The c-th claim taken is claim order[c], so claims
 // land on the warps in a shuffled order; the lanes of each round and
 // step run in a shuffled order.
-template <int W, bool kWoop, int kK>
+template <int W, bool kWoop>
 void walk_il(const Params& p, int warps, const long long* order,
              unsigned seed) {
   struct Warp {
@@ -78,13 +79,13 @@ void walk_il(const Params& p, int warps, const long long* order,
     bool drained = false, done = false, lock = false, stepping = false;
     bool refill = false;
   };
-  const unsigned kRun = claim_rays<kK>(p);
+  const unsigned kRun = claim_rays(p);
   std::vector<Warp> ws(warps);
   for (Warp& wp : ws) {
     for (Walk& x : wp.w) x.e = kNone;
     wp.r = kRun;
   }
-  const long long n_claims = (long long)claims_of<kK>(p);
+  const long long n_claims = (long long)claims_of(p);
   long long next = 0;
   int lanes[32];
   for (int l = 0; l < 32; ++l) lanes[l] = l;
@@ -103,7 +104,7 @@ void walk_il(const Params& p, int warps, const long long* order,
     if (wp.drained) return;
     wp.q = (unsigned)order[next++];
     bool all = true;
-    for (unsigned l = 0; l < 32; ++l) all &= lock_vote<kK>(p, wp.q, l);
+    for (unsigned l = 0; l < 32; ++l) all &= lock_vote(p, wp.q, l);
     wp.lock = all;
   };
   // the kernel's round; false when the warp retires
@@ -121,7 +122,7 @@ void walk_il(const Params& p, int warps, const long long* order,
       for (unsigned k = 0; k < kRun; k += 32u) {
         shuffle();
         for (int l : lanes) {
-          wp.ray[l] = slot_fill<kK>(p, ~0u, l, wp.q, k, -1, wp.w[l]);
+          wp.ray[l] = slot_fill(p, ~0u, l, wp.q, k, -1, wp.w[l]);
           while (wp.w[l].e != kNone) {
             step<W, kWoop, false, false>(p, wp.w[l],
                                          &wp.stack[l * kStackCap]);
@@ -143,8 +144,8 @@ void walk_il(const Params& p, int warps, const long long* order,
         }
         shuffle();
         for (int l : lanes) {
-          wp.ray[l] = slot_fill<kK>(p, empty, l, wp.q, wp.r, wp.ray[l],
-                                    wp.w[l]);
+          wp.ray[l] = slot_fill(p, empty, l, wp.q, wp.r, wp.ray[l],
+                                wp.w[l]);
         }
         wp.r = claim_advance(wp.r, empty, kRun);
       }
@@ -180,14 +181,29 @@ void walk_il(const Params& p, int warps, const long long* order,
 template <int W, bool kWoop>
 void pick(const Params& p, int counts, int flags, int il, int warps,
           const long long* order, unsigned seed) {
-  if (il == 2) return walk_il<W, kWoop, 2>(p, warps, order, seed);
-  if (il == 4) return walk_il<W, kWoop, 4>(p, warps, order, seed);
+  if (il > 1) return walk_il<W, kWoop>(p, warps, order, seed);
   if (counts) return walk_all<W, kWoop, true, false, true>(p);
   if (flags) return walk_all<W, false, false, true, true>(p);
   if (p.roots) return walk_all<W, kWoop, false, false, true>(p);
   walk_all<W, kWoop, false, false, false>(p);
 }
 }  // namespace
+
+// The rays of K1b's claims for a batch of n_rays: claim q's r-th ray at
+// out[q * claim_rays + r]. Returns claims_of, or -1 when cap is short.
+extern "C" long long claim_map(long long n_rays, int packets,
+                               unsigned long long* out, long long cap) {
+  Params p{};
+  p.n_rays = n_rays;
+  p.packets = packets;
+  const unsigned long long claims = claims_of(p);
+  const unsigned run = claim_rays(p);
+  if ((long long)(claims * run) > cap) return -1;
+  for (unsigned long long q = 0; q < claims; ++q) {
+    for (unsigned r = 0; r < run; ++r) out[q * run + r] = claim_ray(p, q, r);
+  }
+  return (long long)claims;
+}
 
 extern "C" void emulate_k1(
     const float* nodes, const float* leafs, const float* org, const float* dir,
@@ -197,11 +213,11 @@ extern "C" void emulate_k1(
     int width, int stack_size, int occlusion, int cull_back_face,
     int exact_edge, int use_range, int range_lo, int range_hi, int woop,
     int counts, int zero_flags, int interleave, int warps,
-    const long long* order, unsigned seed, int spread) {
+    const long long* order, unsigned seed, int packets) {
   const Params p{nodes, leafs, org, dir, min_t, max_t, skip, roots, t_out,
                  u_out, v_out, pid_out, flags, scratch, scratch + 1, n_rays,
                  packet, stack_size, occlusion, cull_back_face, exact_edge,
-                 use_range, range_lo, range_hi, spread};
+                 use_range, range_lo, range_hi, packets};
   if (width == 16) {
     woop ? pick<16, true>(p, counts, zero_flags, interleave, warps, order, seed)
          : pick<16, false>(p, counts, zero_flags, interleave, warps, order,
@@ -223,6 +239,8 @@ def lib(tmp_path_factory):
     lib.emulate_k1.argtypes = ([P] * 14 + [L] * 2 + [I] * 13
                                + [P, ctypes.c_uint, I])
     lib.emulate_k1.restype = None
+    lib.claim_map.argtypes = [L, I, P, L]
+    lib.claim_map.restype = L
     return lib
 
 
@@ -233,7 +251,8 @@ def _emulate(lib, scene, rays, options=nt.BVHTraceOptions(),
              spread=0):
     """The emulated kernel with traverse_bvh8's arguments: its records
     (and flags) and the overflow word. K1b runs ``warps`` warps, its
-    claims in an order shuffled by ``claims_seed``."""
+    claims (of ``interleave`` packets of 32 rays, or of one with
+    ``spread``) in an order shuffled by ``claims_seed``."""
     woop = intersector == "woop"
     n = rays.org.shape[0]
     nodes = torch.as_tensor(scene.nodes)
@@ -247,8 +266,9 @@ def _emulate(lib, scene, rays, options=nt.BVHTraceOptions(),
     pid = torch.empty(n, dtype=torch.int64)
     flags = torch.empty(n, dtype=torch.int32) if _flag_zero_edges else None
     scratch = torch.zeros(2, dtype=torch.int64)
+    packets = 1 if spread else interleave
     order = np.random.default_rng(claims_seed).permutation(
-        max(1, packet.k1b_claims(n, interleave, spread))).astype(np.int64)
+        max(1, packet.k1b_claims(n, packets))).astype(np.int64)
 
     def ptr(x):
         return None if x is None else ctypes.c_void_p(x.data_ptr())
@@ -263,7 +283,7 @@ def _emulate(lib, scene, rays, options=nt.BVHTraceOptions(),
         int(options.exact_edge_fallback and not woop), int(use_range),
         int(lo), int(hi), int(woop), int(debug_counts),
         int(_flag_zero_edges), interleave, warps,
-        ctypes.c_void_p(order.ctypes.data), claims_seed + 1, spread)
+        ctypes.c_void_p(order.ctypes.data), claims_seed + 1, packets)
     out = [t, u, v, pid] + ([flags] if flags is not None else [])
     return out, int(scratch[1])
 
@@ -392,6 +412,27 @@ def test_emulated_kernel_sets_the_overflow_word(lib, scenes, width):
 
 
 # ------------------------------ K1b: claims of 32 K rays, idle lanes refilled
+
+@pytest.mark.parametrize("spread", [0, 1])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 517, 1000, 4096])
+@pytest.mark.parametrize("K", [2, 4])
+def test_il_claims_tile_the_batch(lib, K, n, spread):
+    # the kernel's claims_of, claim_rays and claim_ray: claims of P packets
+    # of 32 consecutive rays (P = K, or 1 as on any-hit), packet k of a
+    # claim 128 rays after packet k - 1, every ray of the batch in exactly
+    # one claim, and rays past it only in the last four claims
+    P = 1 if spread else K
+    claims = packet.k1b_claims(n, P)
+    out = np.empty(claims * 32 * P, np.uint64)
+    assert lib.claim_map(n, P, out.ctypes.data, out.size) == claims
+    m = out.astype(np.int64).reshape(claims, P, 32)
+    assert (np.diff(m, axis=2) == 1).all()
+    assert (np.diff(m[:, :, 0], axis=1) == 128).all()
+    assert np.array_equal(np.sort(m[m < n]), np.arange(n))
+    assert (m[:max(0, claims - 4)] < n).all()
+    if spread:
+        assert np.array_equal(m[:, 0, 0], 32 * np.arange(claims))
+
 
 def _held(lib, scene, rays, **kw):
     got, err = _emulate(lib, scene, rays, **kw)

@@ -12,8 +12,9 @@ version's peak stack (``stats["max_sp"]``) on seeded camera-like and
 incoherent rays over small BVH16 and BVH8 scenes stays within
 ``stack_slots``; a stack smaller than a walk needs raises, as the kernel
 sets its error word. K1b's plan claims K packets of 32 rays a warp
-(or one packet, for a batch that would leave resident warps idle), and
-takes a 128-entry stack where the scene's ``stack_slots`` fit it. The
+(one packet on an any-hit launch, as K1 claims), each
+walk on the same ``STACK_CAP``-entry stack as K1's, so its records do
+not depend on the depth a scene states. The
 plain version's records equal the JAX package's brute force under
 ``testing.compare_hits`` (``jax.disable_jit``). The kernel itself is
 held to the plain version on the card by test_torch_gpu.py.
@@ -64,54 +65,37 @@ def test_launch_plan_grid_and_claims(n_rays, blocks_per_sm):
 @pytest.mark.parametrize("K", [2, 4])
 def test_k1b_launch_plan_grid_and_claims(K, blocks_per_sm, n_rays):
     # K1b: a warp claims K packets of 32 rays at a time, four claims
-    # tiling 128 K rays; a batch whose claims would not reach every
-    # resident warp is spread: claims of 32 rays
-    plan = packet.launch_plan(n_rays, blocks_per_sm, SMS, K, 106)
-    warps_a_block = plan.threads // 32
+    # tiling 128 K rays; an any-hit launch claims one packet, as K1 does
+    warps_a_block = packet.K1_THREADS // 32
     resident = blocks_per_sm * SMS
-    full = packet.k1b_claims(n_rays, K)
-    assert full == -(-n_rays // (128 * K)) * 4
-    assert full * 32 * K >= n_rays > (full - 4) * 32 * K
-    assert plan.spread == (-(-full // warps_a_block) < resident)
-    assert plan.threads == packet.K1_THREADS
-    assert plan.claim == (packet.K1_CLAIM if plan.spread
-                          else packet.K1_CLAIM * K)
-    claims = packet.k1b_claims(n_rays, K, plan.spread)
-    assert claims * plan.claim >= n_rays
-    assert plan.grid == max(1, min(resident, -(-claims // warps_a_block)))
-    assert (plan.grid - 1) * warps_a_block < claims
-    if plan.spread:  # more warps take part than 32 K-ray claims would give
-        assert plan.grid >= -(-full // warps_a_block)
+    for occlusion, packets in ((False, K), (True, 1)):
+        plan = packet.launch_plan(n_rays, blocks_per_sm, SMS, K, occlusion)
+        claims = packet.k1b_claims(n_rays, packets)
+        assert claims == -(-n_rays // (128 * packets)) * 4
+        assert claims * 32 * packets >= n_rays > (claims - 4) * 32 * packets
+        assert plan.threads == packet.K1_THREADS
+        assert plan.claim == packet.K1_CLAIM * packets
+        assert plan.grid == max(1, min(resident, -(-claims // warps_a_block)))
+        assert (plan.grid - 1) * warps_a_block < claims
+    # the any-hit plan is K1's
+    assert packet.launch_plan(n_rays, blocks_per_sm, SMS, K, True) == \
+        packet.launch_plan(n_rays, blocks_per_sm, SMS)
 
 
-@pytest.mark.parametrize("slots", [1, 106, 127, 128, 129, 136, 512])
-@pytest.mark.parametrize("K", [1, 2, 4])
-def test_launch_plan_stack_cap_from_stack_slots(K, slots):
-    # K1 keeps its one instantiation of STACK_CAP entries; K1b takes the
-    # IL_STACK-entry stack where the scene's slots fit it
-    plan = packet.launch_plan(4096, 4, SMS, K, slots)
-    want = (packet.IL_STACK if K > 1 and slots <= packet.IL_STACK
-            else packet.STACK_CAP)
-    assert plan.stack_cap == packet.stack_cap(slots, K) == want
-    assert slots <= plan.stack_cap
-    assert packet.launch_plan(4096, 4, SMS).stack_cap == packet.STACK_CAP
-
-
-@pytest.mark.parametrize("width,depth,cap", [(16, 7, 128), (16, 8, 128),
-                                             (16, 9, 512), (8, 18, 128),
-                                             (8, 19, 512), (8, 73, 512)])
-def test_k1b_stack_cap_of_scene_depths(width, depth, cap):
-    # the 8192^2 frame's BVH16 (depth 7) needs 106 slots: the small stack
+@pytest.mark.parametrize("width,depth", [(16, 7), (16, 8), (16, 9), (8, 18),
+                                         (8, 19), (8, 73)])
+def test_k1b_records_of_scene_depths(width, depth):
+    # every K1b walk holds K1's STACK_CAP-entry stack, whatever stack_slots
+    # the scene's depth gives (the 8192^2 frame's BVH16, depth 7, needs 106)
     _, _, scene = _scene(width, "box")
     deep = dataclasses.replace(scene, depth=depth)
-    for K in (2, 4):
-        assert packet.stack_cap(packet.stack_slots(deep), K) == cap
-    # the records do not depend on the stack K1b holds
+    assert packet.stack_slots(deep) <= packet.STACK_CAP
     rays = nt.make_rays(*(torch.from_numpy(x) for x in _ray_batch(
         "incoherent", 64, 4)))
-    got = packet.traverse_bvh8(deep, rays, interleave=2)
-    assert all(torch.equal(a, b) for a, b in zip(
-        got, packet.traverse_bvh8(scene, rays)))
+    want = packet.traverse_bvh8(scene, rays)
+    for K in (2, 4):
+        got = packet.traverse_bvh8(deep, rays, interleave=K)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_k1b_refuses_more_rays_than_its_indices_hold():
