@@ -185,9 +185,38 @@ nothing of JAX. Phases, one line or more each:
     at 512^2 against the CPU, and a ``ProgressiveRenderer`` of
     ``render_pbr`` passes whose pass 2 is cancelled in flight (the
     snapshots are the means of the kept passes only);
+23. the loaders at the sizes their users load, each mesh through the
+    native build (leaf 9) and BVH16 to K1 (a warm-up and 3 launches
+    timed and counted, every 64th ray held to the plain version bit for
+    bit): a 1024^2 heightmap (``heightmap_to_mesh``, 2,093,058 tris)
+    under 2048^2 pinhole rays from ``camera_from_quat``, and
+    ``sample_tri_hits`` of per-face textures on its hits (card == CPU
+    on 4,096 spread pixels); a vector-displaced 512^2 grid
+    (``apply_vector_displacement``) at 1024^2; a version-10 QR code
+    (57^2 modules, ``grid2d_to_boxes``) under 1024^2 rays looking
+    straight down, whose hit mask read at the module centres must
+    ``verify_qr`` to the payload; a Minecraft region of 8x8
+    full-height chunks written here (``load_region_mesh``) at 1024^2;
+    and a 1,000,000-point LAS round trip (``save_las`` / ``load_las`` /
+    ``save_las``: files byte-equal) drawn as spheres
+    (``to_spheres(device="cuda")``, ``traverse_spheres`` at 256^2, card
+    == CPU on spread rays);
+24. the multi-device layer on one card: a one-rank NCCL group through a
+    ``file://`` store in a temporary directory, ``ray_mesh(1)``;
+    ``sharded_traverse_triangles``, ``sharded_traverse_wavefront`` and
+    ``sharded_render_step`` on config A's scene at 512^2 (equal hit
+    counts through ``all_reduce``, mean AO in [0, 1], no kernel); phase
+    4's sphere in 4 packet chunks (``build_scene_chunks(4, packet=True)``)
+    under 2048^2 pinhole rays through ``sequential_chunk_traverse`` (4
+    K1 launches, each == plain on every 64th sorted ray), its records
+    against one K1 trace of the unsplit sphere (phase 16's BVH8: equal
+    hit masks, t bit for bit, prim ids differing only at equal-t ties),
+    both timed in turns; and ``sharded_scene_traverse(engine="packet")``
+    on a one-chunk scene of config A through the group (1 K1 launch)
+    against the unsplit trace; the group is destroyed after;
 
 then one line per
-    K1 shape (phases 5, 6, 11, 13, 16-19, 21) and K1b shape (phase 18)
+    K1 shape (phases 5, 6, 11, 13, 16-19, 21, 23) and K1b shape (phase 18)
     with its time, its bound and,
     where ``tools/ab_port_kernels.py ... --out
     chiprun_out/ab_port_kernels.json`` ran before it in the same
@@ -3617,6 +3646,484 @@ def renderer_phases(dev, res: int = 1024, sphere=(64, 128)) -> tuple:
     return launches, err, woop_launches, woop_err
 
 
+def region_bytes(cols: int = 8, seed: int = 31) -> tuple[bytes, int]:
+    """A Minecraft region of ``cols`` x ``cols`` full-height chunks in the
+    legacy schema (16 sections of 16^3 blocks each, zlib), over a
+    rolling terrain 40-100 blocks high with cave pockets carved out.
+    Returns the .mca bytes and the solid block count."""
+    import struct
+    import zlib
+
+    rng = np.random.default_rng(seed)
+    n = 16 * cols
+    x, z = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    h = (70 + 18 * np.sin(x / 13.0) * np.cos(z / 17.0)
+         + 8 * np.sin((x + 2 * z) / 7.0)).astype(np.int64)
+    y = np.arange(256)[None, :, None]
+    solid = y < h[:, None, :]  # [x, y, z]
+    for cx, cy, cz in rng.integers([0, 10, 0], [n, 40, n], (40, 3)):
+        r2 = (np.arange(n)[:, None, None] - cx) ** 2 + (
+            np.arange(256)[None, :, None] - cy) ** 2 + (
+            np.arange(n)[None, None, :] - cz) ** 2
+        solid &= r2 > 36
+
+    def tag(value):
+        if isinstance(value, int):
+            return 3, struct.pack(">i", value)
+        if isinstance(value, np.ndarray):
+            return 7, struct.pack(">i", value.size) + value.tobytes()
+        if isinstance(value, list):
+            body = b"".join(tag(v)[1] for v in value)
+            return 9, struct.pack(">bi", tag(value[0])[0], len(value)) + body
+        body = b""
+        for k, v in value.items():
+            t, payload = tag(v)
+            body += struct.pack(">bH", t, len(k)) + k.encode() + payload
+        return 10, body + b"\x00"
+
+    header = bytearray(8192)
+    body = b""
+    sector = 2
+    for cx in range(cols):
+        for cz in range(cols):
+            blk = solid[16 * cx:16 * cx + 16, :, 16 * cz:16 * cz + 16]
+            sections = [{"Y": s, "Blocks": np.ascontiguousarray(
+                blk[:, 16 * s:16 * s + 16, :].transpose(1, 2, 0)
+            ).astype(np.int8)} for s in range(16)]  # [y, z, x]
+            root = {"Level": {"xPos": cx, "zPos": cz, "Sections": sections}}
+            t, payload = tag(root)
+            blob = zlib.compress(struct.pack(">bH", t, 0) + payload)
+            chunk = struct.pack(">I", len(blob) + 1) + b"\x02" + blob
+            chunk += b"\x00" * (-len(chunk) % 4096)
+            struct.pack_into(">I", header, 4 * (cx + 32 * cz),
+                             (sector << 8) | (len(chunk) // 4096))
+            body += chunk
+            sector += len(chunk) // 4096
+    return bytes(header) + body, int(solid.sum())
+
+
+def loader_phases(dev, hres: int = 1024, res: int = 2048, dres: int = 512,
+                  qres: int = 1024, mres: int = 1024, n_las: int = 1_000_000,
+                  sres: int = 256, every: int = 64) -> tuple:
+    """Phase 23: the loaders at the sizes their users load, each mesh
+    through the native build and BVH16 to K1 on the card. Returns (K1
+    launches on the phase's paths, K1's largest error against its plain
+    version)."""
+    import tempfile
+
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+    from nanort_tpu_torch.io import (displacement, heightmap, las, minecraft,
+                                     ptex, qrcode, voxels)
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops import sphere
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.testing import compare_hits
+    from nanort_tpu_torch.traverse import packet
+    from nanort_tpu_torch.utils.trackball import camera_from_quat
+
+    t_phase = time.perf_counter()
+    launches, err = 0, 0.0
+
+    def k1_frame(what, v, f, rays, grid=None):
+        """Build (native, leaf 9, BVH16), then K1 on ``rays`` as the path:
+        a warm-up and 3 launches timed, counted; every ``every``-th ray
+        held to the plain version. Returns (scene, hits)."""
+        nonlocal launches, err
+        t0 = time.perf_counter()
+        bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+            min_leaf_primitives=9, max_leaf_primitives=9))
+        s16 = collapse_bvh8(bvh, v, f, width=16).to(dev)
+        build_s = time.perf_counter() - t0
+        holder = {}
+        zero_launch_counts()
+        times = [cuda_ms(lambda: holder.__setitem__(
+            "h", packet.traverse_bvh8(s16, rays)), 1)[0] for _ in range(4)][1:]
+        counts = launch_counts()
+        n_l = counts["packet_traverse"]
+        launches += n_l
+        hits = holder["h"]
+        R = hits.t.numel()
+        sub = nt.Rays(*(x.reshape(R, *x.shape[len(hits.t.shape):])[::every]
+                        .contiguous() for x in rays))
+        g = nt.Hits(*(x.reshape(R)[::every] for x in hits))
+        h = hold_k1_trace(s16, sub, (), {}, g)
+        err = max(err, h["err"])
+        frac = float(hits.hit.float().mean())
+        b = bound(R * (32 + 20) + nbytes(s16.nodes, s16.leafs),
+                  trace_ops(h["stats"], 16, WT_OPS) * every)
+        say(f"phase 23 {what}: {len(f)} tris, native build + BVH16 "
+            f"{build_s:.2f} s ({s16.num_nodes} nodes, depth {s16.depth}); "
+            f"K1 on {R} rays: ms {[round(t, 3) for t in times]} (CUDA "
+            f"events, after a warm-up) = {R / min(times) / 1e3:.1f} "
+            f"Mrays/s best; hit fraction {frac:.5f}; launches "
+            f"{nonzero(counts)}; every {every}th ray ({h['rays']}) == plain "
+            f"bit for bit: {h['same']} (max abs err {h['err']}, plain "
+            f"{h['plain_ms']:.1f} ms); bound {b[0]:.4f} ms ({b[1]})")
+        check(n_l == 4 and sum(counts.values()) == 4,
+              f"phase 23 {what}: launches {nonzero(counts)}, expected 4 K1")
+        check(h["same"], f"phase 23 {what}: K1 differs from its plain "
+              "version")
+        check(0.0 < frac < 1.0, f"phase 23 {what}: hit fraction {frac}")
+        k1_shape(f"phase 23 {what}, {R} rays over {len(f)} tris (best of 3)",
+                 min(times), b)
+        return s16, hits
+
+    # ---- the heightmap: a 1024^2 terrain, 2,093,058 tris
+    rng = np.random.default_rng(23)
+    yy, xx = np.mgrid[0:hres, 0:hres] / hres
+    hgt = (0.12 * np.sin(9.0 * xx) * np.cos(7.0 * yy)
+           + 0.05 * np.sin(31.0 * (xx + yy))
+           + 0.004 * rng.standard_normal((hres, hres))).astype(np.float32)
+    t0 = time.perf_counter()
+    hv, hf = heightmap.heightmap_to_mesh(hgt, scale_xy=2.0 / (hres - 1))
+    mesh_s = time.perf_counter() - t0
+    phi = math.radians(55.0)  # the trackball tilted down 55 degrees
+    q = np.array([-math.sin(phi / 2), 0.0, 0.0, math.cos(phi / 2)])
+    cam = camera_from_quat(q, (1.0, 0.0, 1.0), 2.6, res, res, 50.0,
+                           device=dev)
+    say(f"# phase 23: heightmap_to_mesh {hres}^2 -> {len(hf)} tris in "
+        f"{mesh_s:.2f} s; camera_from_quat (55 degrees down) at {res}^2")
+    check(len(hf) == 2 * (hres - 1) ** 2, "phase 23: heightmap tris")
+    hrays = pinhole_rays(cam)
+    _, hh = k1_frame("heightmap", hv, hf, hrays)
+
+    # per-face textures on the heightmap's hits: one 1x1-2x2 RGB grid a
+    # triangle, on the card against the same textures on the CPU
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_f = len(hf)
+    tex = ptex.FaceTextures(
+        texels=torch.rand((n_f, 2, 2, 3), generator=gen, device=dev),
+        ures=torch.randint(1, 3, (n_f,), generator=gen, device=dev,
+                           dtype=torch.int32),
+        vres=torch.randint(1, 3, (n_f,), generator=gen, device=dev,
+                           dtype=torch.int32))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    col = ptex.sample_tri_hits(tex, hh, quad_faces=False)
+    torch.cuda.synchronize()
+    tex_s = time.perf_counter() - t0
+    R = hh.t.numel()
+    pick = torch.arange(0, R, R // 4096, device=dev)[:4096]
+    sub_h = nt.Hits(*(x.reshape(R)[pick].cpu() for x in hh))
+    want = ptex.sample_tri_hits(ptex.FaceTextures(*(x.cpu() for x in tex)),
+                                sub_h, quad_faces=False)
+    same_tex = torch.equal(col.reshape(R, 3)[pick].cpu(), want)
+    say(f"phase 23 sample_tri_hits on {R} heightmap hits ({n_f} face "
+        f"textures): {tex_s * 1e3:.1f} ms host wall; card == CPU on "
+        f"{pick.numel()} spread pixels bit for bit: {same_tex}")
+    check(same_tex and sum(launch_counts().values()) == 0
+          and float(col.mean()) > 0, "phase 23: sample_tri_hits differs "
+          "between card and CPU")
+    del hh, col, tex, hrays
+
+    # ---- a vector-displaced 512^2 grid
+    g = np.linspace(0.0, 2.0, dres, dtype=np.float32)
+    gv, gf = heightmap.heightmap_to_mesh(np.zeros((dres, dres), np.float32),
+                                         scale_xy=2.0 / (dres - 1))
+    uvg = np.stack(np.meshgrid(g / 2.0, 1.0 - g / 2.0, indexing="xy"),
+                   -1).reshape(-1, 2)
+    # a sculpted vector field: 8 cm bumps along the normal, 1 cm of
+    # tangent swirl, 2 mm of grain (the grid's cells are 4 mm)
+    my, mx = np.mgrid[0:256, 0:256] * (2.0 * np.pi / 256)
+    dmap = np.stack([0.01 * np.sin(3 * my), 0.01 * np.cos(5 * mx),
+                     0.08 * np.sin(4 * mx) * np.cos(3 * my)], -1)
+    dmap = (dmap + 0.002 * rng.standard_normal((256, 256, 3))).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    tri_pos = gv[gf]
+    tri_uv = uvg[gf].astype(np.float32)
+    disp = displacement.apply_vector_displacement(tri_pos, tri_uv, dmap,
+                                                  1.0, "tangent")
+    disp_s = time.perf_counter() - t0
+    dv = disp.reshape(-1, 3).astype(np.float32)
+    df = np.arange(dv.shape[0], dtype=np.int32).reshape(-1, 3)
+    say(f"phase 23 apply_vector_displacement: {len(df)} facevarying tris, "
+        f"256^2 map, tangent space, {disp_s:.2f} s")
+    check(bool(np.isfinite(dv).all()) and float(np.abs(dv - tri_pos.reshape(
+        -1, 3)).max()) > 0.01, "phase 23: the displacement did nothing")
+    dcam = camera_from_quat(q, (1.0, 0.0, 1.0), 2.6, qres, qres, 50.0,
+                            device=dev)
+    k1_frame("vector-displaced grid", dv, df, pinhole_rays(dcam))
+
+    # ---- a version-10 QR code, looking straight down
+    text = "nanort on the card: " + "q" * 251  # 271 bytes: version 10, L
+    m = qrcode.generate_qr(text, "L")
+    n_mod = m.shape[0]
+    qv, qf = voxels.grid2d_to_boxes(m, box_height=0.5, cell_size=1.0)
+    xs = (torch.arange(qres, device=dev, dtype=torch.float32) + 0.5) * (
+        n_mod / qres)
+    ox, oz = torch.meshgrid(xs, xs, indexing="ij")
+    qorg = torch.stack([ox, torch.full_like(ox, 3.0), oz], -1).contiguous()
+    qdir = torch.zeros_like(qorg)
+    qdir[..., 1] = -1.0
+    qrays = nt.make_rays(qorg, qdir)
+    _, qh = k1_frame(f"QR version {(n_mod - 17) // 4} ({n_mod}^2 modules), "
+                     "top-down", qv, qf, qrays)
+    centre = ((torch.arange(n_mod, device=dev) + 0.5) * qres / n_mod).long()
+    read = qh.hit[centre][:, centre].cpu().numpy()
+    try:
+        payload = qrcode.verify_qr(read)
+    except ValueError as e:
+        payload = repr(e).encode()
+    say(f"phase 23 QR read back from the K1 hit mask at the {n_mod}^2 module "
+        f"centres: equal to the symbol {bool((read == m).all())}; verify_qr "
+        f"returns the payload: {payload == text.encode()}")
+    check(n_mod == 57 and payload == text.encode(), "phase 23: the QR symbol "
+          "does not read back from the traced image")
+
+    # ---- a Minecraft region of 8x8 full-height chunks, written here
+    t0 = time.perf_counter()
+    data, n_solid = region_bytes()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "r.0.0.mca")
+        with open(path, "wb") as fh:
+            fh.write(data)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mv, mf = minecraft.load_region_mesh(path)
+        load_s = time.perf_counter() - t0
+    occ, _ = minecraft.region_to_voxels(data)
+    say(f"phase 23 Minecraft: region of 64 chunks x 16 sections "
+        f"({len(data) / 1e6:.2f} MB, {n_solid} solid blocks) written in "
+        f"{write_s:.2f} s; load_region_mesh {load_s:.2f} s -> {len(mf)} "
+        f"tris")
+    check(occ.shape == (128, 256, 128) and int(occ.sum()) == n_solid,
+          "phase 23: the region's voxels differ from the blocks written")
+    mcam = look_at((-40.0, 160.0, -40.0), (64.0, 60.0, 64.0), width=mres,
+                   height=mres, fov=60.0, device=dev)
+    k1_frame("Minecraft region", mv, mf, pinhole_rays(mcam))
+
+    # ---- a 1,000,000-point LAS round trip, drawn as spheres
+    pts = np.stack([rng.uniform(1000.0, 1400.0, n_las),
+                    rng.uniform(2000.0, 2400.0, n_las),
+                    np.zeros(n_las)], 1)
+    pts[:, 2] = 110.0 + 6.0 * np.sin(pts[:, 0] / 23.0) * np.cos(
+        pts[:, 1] / 17.0) + rng.normal(0.0, 0.05, n_las)
+    pts = pts.astype(np.float32).astype(np.float64)
+    with tempfile.TemporaryDirectory() as d:
+        a, b = os.path.join(d, "a.las"), os.path.join(d, "b.las")
+        t0 = time.perf_counter()
+        las.save_las(a, pts)
+        cloud = las.load_las(a)
+        las.save_las(b, cloud.points)
+        las_s = time.perf_counter() - t0
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            same_file = fa.read() == fb.read()
+    same_pts = bool((cloud.points == pts.astype(np.float32)).all())
+    say(f"phase 23 LAS: {n_las} points saved, loaded and saved again in "
+        f"{las_s:.2f} s: files byte-equal {same_file}, points equal "
+        f"{same_pts}")
+    check(same_file and same_pts, "phase 23: the LAS round trip changed "
+          "the records")
+    t0 = time.perf_counter()
+    sp = las.to_spheres(cloud, device=dev)
+    sbvh, _ = sphere.build_sphere_bvh(sp)
+    sb_s = time.perf_counter() - t0
+    srays = pinhole_rays(look_at((1200.0, 1700.0, 400.0),
+                                 (1200.0, 2200.0, 110.0), (0.0, 0.0, 1.0),
+                                 width=sres, height=sres, fov=45.0,
+                                 device=dev))
+    srays = nt.Rays(*(x.reshape(sres * sres, *x.shape[2:]).contiguous()
+                      for x in srays))
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = sphere.traverse_spheres(sbvh, sp, srays)
+    torch.cuda.synchronize()
+    s_s = time.perf_counter() - t0
+    cpu_sp = las.to_spheres(cloud, device="cpu")
+    pick = slice(None, None, every)
+    want = sphere.traverse_spheres(sbvh, cpu_sp, nt.Rays(
+        *(x[pick].cpu() for x in srays)))
+    c = compare_hits(nt.Hits(*(x[pick].cpu() for x in sh)), want,
+                     uv_atol=1e-6)
+    same_sp = all(torch.equal(x.cpu(), y) for x, y in zip(sp, cpu_sp))
+    say(f"phase 23 to_spheres(device=cuda) + build_sphere_bvh {sb_s:.2f} s; "
+        f"traverse_spheres on {sres}^2 rays: {s_s:.3f} s = "
+        f"{sres * sres / s_s / 1e6:.3f} Mrays/s, hit fraction "
+        f"{float(sh.hit.float().mean()):.5f}; card vs CPU on "
+        f"{want.t.numel()} spread rays: {c}; spheres equal {same_sp}")
+    check(sp.centers.is_cuda and same_sp and c["ok"] and c["hits"] > 0
+          and sum(launch_counts().values()) == 0,
+          "phase 23: the LAS spheres differ between card and CPU")
+    say(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+def multidevice_phases(dev, v, f, s8_unsplit, res: int = 2048,
+                       ares: int = 512, every: int = 64) -> tuple:
+    """Phase 24: the multi-device layer on one card, through a one-rank
+    NCCL group, and the chunk-sharded scene's K1 path. ``v``/``f``: phase
+    4's sphere; ``s8_unsplit``: its BVH8 (leaf 8) on the card (phase
+    16's). Returns (K1 launches on the phase's paths, K1's largest error
+    against its plain version)."""
+    import datetime
+    import tempfile
+
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.io.procedural import (
+        make_cornell_box, make_uv_sphere, merge_meshes)
+    from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
+    from nanort_tpu_torch.ops.triangle import TriangleMesh
+    from nanort_tpu_torch.parallel import mesh as pm
+    from nanort_tpu_torch.parallel import sharded_scene as pss
+    from nanort_tpu_torch.testing import compare_hits
+    from nanort_tpu_torch.traverse import packet
+    from nanort_tpu_torch.traverse.packed import pack_scene
+    from nanort_tpu_torch.traverse.ray_sort import traverse_bvh8_sorted
+
+    t_phase = time.perf_counter()
+    dist = torch.distributed
+    launches, err = 0, 0.0
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(d, "store"),
+            world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = pm.ray_mesh(1, device=dev.type)
+            init_s = time.perf_counter() - t0
+            say(f"# phase 24: one-rank {dist.get_backend()} group through a "
+                f"file store ({init_s:.2f} s); ray_mesh(1): rank "
+                f"{mesh.rank} of {mesh.size} on {mesh.device}")
+            check(mesh.device.type == dev.type and mesh.group is not None,
+                  "phase 24: the mesh is not on the card")
+
+            # ---- config A's scene at 512^2: the three mesh engines
+            av, af = merge_meshes(make_cornell_box(2.0),
+                                  make_uv_sphere(64, 128, 0.6))
+            abvh, _ = nt.build_triangle_bvh(TriangleMesh(av, af))
+            geom = TriangleMesh(av, af)
+            arays = pinhole_rays(look_at((0, 0.0, 5.0), (0, 0, 0), width=ares,
+                                         height=ares, fov=45.0, device=dev))
+            arays = nt.Rays(*(x.reshape(ares * ares, *x.shape[2:])
+                              .contiguous() for x in arays))
+            stats, secs = {}, {}
+            zero_launch_counts()
+            for name, fn in (
+                    ("stack", lambda: pm.sharded_traverse_triangles(
+                        abvh, geom, arays, mesh)),
+                    ("wavefront", lambda: pm.sharded_traverse_wavefront(
+                        pack_scene(abvh, av, af), arays, mesh)),
+                    ("render_step", lambda: pm.sharded_render_step(
+                        abvh, geom, arays, mesh, seed=3))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats[name] = fn()
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+            counts = launch_counts()
+            n_hits = {k: int(s[1]) for k, s in stats.items()}
+            ao, _, mean_ao = stats["render_step"]
+            agree = compare_hits(stats["stack"][0], stats["wavefront"][0])
+            say(f"phase 24 mesh engines, config A ({len(af)} tris) at "
+                f"{ares}^2 through all_reduce/all_gather: hit counts "
+                f"{n_hits}, seconds "
+                f"{ {k: round(s, 3) for k, s in secs.items()} }; mean AO "
+                f"{float(mean_ao):.5f}; AO image {tuple(ao.shape)}; stack "
+                f"against wavefront records: {agree}")
+            check(len(set(n_hits.values())) == 1 and agree["ok"]
+                  and 0 < n_hits["stack"]
+                  < ares * ares and 0.0 <= float(mean_ao) <= 1.0
+                  and ao.is_cuda == (dev.type == "cuda")
+                  and tuple(ao.shape) == (ares * ares,)
+                  and sum(counts.values()) == 0,
+                  f"phase 24: the mesh engines disagree ({n_hits}, mean AO "
+                  f"{float(mean_ao)}, launches {nonzero(counts)})")
+
+            # ---- phase 4's sphere in 4 packet chunks, traced in turn
+            t0 = time.perf_counter()
+            sc = pss.build_scene_chunks(TriangleMesh(v, f), 4,
+                                        nt.BVHBuildOptions(8, 8), packet=True)
+            chunk_s = time.perf_counter() - t0
+            sc_d = sc.to(dev)
+            say(f"phase 24 build_scene_chunks(4, packet=True) over {len(f)} "
+                f"tris: {chunk_s:.2f} s; BVH8 rows {sc.nodes8.shape[1]} a "
+                f"chunk (padded), chunk depths {sc.depths8} (JAX's one "
+                f"depth: {sc.depth8})")
+            cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=res,
+                          height=res, fov=60.0, device=dev)
+            rays = pinhole_rays(cam)
+            kept = []
+            real = packet.traverse_bvh8
+
+            def keep(scene8, r, *a, **k):
+                out = real(scene8, r, *a, **k)
+                kept.append((scene8, r, a, dict(k), out))
+                return out
+
+            zero_launch_counts()
+            with patched(packet, "traverse_bvh8", keep):
+                got = pss.sequential_chunk_traverse(sc_d, rays)
+            counts = launch_counts()
+            n_l = counts["packet_traverse"]
+            launches += n_l
+            same_all = True
+            for c_i, (s8c, r, a, k, out) in enumerate(kept):
+                sub = nt.Rays(*(x[::every].contiguous() for x in r))
+                h = hold_k1_trace(s8c, sub, a, k,
+                                  nt.Hits(*(x[::every] for x in out)))
+                same_all &= h["same"]
+                err = max(err, h["err"])
+                say(f"phase 24 chunk {c_i}: K1 on {r.org.shape[0]} sorted "
+                    f"rays ({int(out.hit.sum())} hits in the chunk), every "
+                    f"{every}th == plain bit for bit: {h['same']} (max abs "
+                    f"err {h['err']}); kernel on the sample {h['ms']:.3f} "
+                    f"ms, plain {h['plain_ms']:.1f} ms")
+            check(n_l == 4 and len(kept) == 4 and sum(counts.values()) == 4
+                  and same_all, f"phase 24: chunk launches "
+                  f"{nonzero(counts)}, == plain {same_all}")
+            del kept
+            want = traverse_bvh8_sorted(s8_unsplit, rays)
+            c = compare_hits(got, want, t_ulps=0)
+            say(f"phase 24 the 4 chunks against one K1 trace of the unsplit "
+                f"sphere ({res}^2 rays): {c}")
+            check(c["ok"], "phase 24: the chunked records differ from the "
+                  "unsplit trace")
+            ms = {"unsplit": [], "chunks": []}
+            for name in ("unsplit", "chunks", "chunks", "unsplit"):
+                fn = (lambda: traverse_bvh8_sorted(s8_unsplit, rays)) \
+                    if name == "unsplit" else \
+                    (lambda: pss.sequential_chunk_traverse(sc_d, rays))
+                ms[name].append(cuda_ms(fn, 1)[0])
+            say(f"phase 24 in turns (unsplit, chunks, chunks, unsplit), "
+                f"{res}^2 rays, sort + K1 + unsort: unsplit "
+                f"{[round(t, 3) for t in ms['unsplit']]} ms, 4 chunks "
+                f"{[round(t, 3) for t in ms['chunks']]} ms")
+            del got, want, sc_d
+
+            # ---- the packet ring on a one-chunk scene, through the group
+            sc1 = pss.build_scene_chunks(geom, 1, nt.BVHBuildOptions(8, 8),
+                                         packet=True)
+            zero_launch_counts()
+            ring = pss.sharded_scene_traverse(sc1, arays, mesh,
+                                              engine="packet")
+            counts = launch_counts()
+            launches += counts["packet_traverse"]
+            from nanort_tpu_torch.build.bvh8 import collapse_bvh8
+
+            ab8, _ = nt.build_triangle_bvh(geom, nt.BVHBuildOptions(8, 8))
+            u8 = collapse_bvh8(ab8, av, af).to(dev)
+            c = compare_hits(ring, traverse_bvh8_sorted(u8, arays), t_ulps=0)
+            say(f"phase 24 sharded_scene_traverse(engine='packet') on one "
+                f"chunk of config A, {ares}^2 rays through the group: "
+                f"launches {nonzero(counts)}; against the unsplit BVH8 "
+                f"trace: {c}")
+            check(counts["packet_traverse"] == 1 and sum(counts.values()) == 1
+                  and c["ok"], "phase 24: the packet ring differs from the "
+                  "unsplit trace")
+        finally:
+            dist.destroy_process_group()
+    say(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
 def time_calls(fn):
     """``fn()`` once to warm up and 3 times timed with CUDA events, the
     launch counts zeroed first. Returns the 3 times in ms, the device's
@@ -3970,7 +4477,7 @@ def main() -> int:
     entries_18, frame_bound_18 = k1_mode_phases(dev, scene, sub, s8i, rays_i,
                                                 usage_k1)
     pool.shutdown()
-    del s8i, rays_i, sub
+    del rays_i, sub  # phase 16's BVH8 stays for phase 24
     torch.cuda.empty_cache()
     launches_19, err_19, woop_19, woop_err_19 = device_build_phases(
         dev, v, f, scene)
@@ -3979,6 +4486,11 @@ def main() -> int:
     launches_21, err_21, rtc_entry = api_phases(dev)
     torch.cuda.empty_cache()
     launches_22, err_22, woop_22, woop_err_22 = renderer_phases(dev)
+    torch.cuda.empty_cache()
+    launches_23, err_23 = loader_phases(dev)
+    torch.cuda.empty_cache()
+    launches_24, err_24 = multidevice_phases(dev, v, f, s8i)
+    del s8i
     for e in k2k5:  # K1-woop's entry gains phase 19's and 22's woop paths
         if e["name"] == "packet_traverse_woop":
             e["launches"] += woop_19 + woop_22
@@ -3991,7 +4503,9 @@ def main() -> int:
         f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13) + "
         f"{launches_17} (phase 17) + {launches_19} (phase 19, device-built "
         f"tables) + {launches_21} (phase 21, rtc) + {launches_22} (phase 22, "
-        f"render_pbr and trace_bdpt); packet_traverse_woop gains {woop_19} "
+        f"render_pbr and trace_bdpt) + {launches_23} (phase 23, the "
+        f"loaders' frames) + {launches_24} (phase 24, the chunk-sharded "
+        f"scene); packet_traverse_woop gains {woop_19} "
         f"(phase 19) + {woop_22} (phase 22, trace_bdpt on the Woop scene); "
         f"the 8192^2 frame's bound from its "
         f"counters {frame_bound_18[0]:.4f} ms ({frame_bound_18[1]})")
@@ -4004,9 +4518,10 @@ def main() -> int:
         "source": "nanort_tpu_torch/csrc/packet_traverse.cu",
         "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
         "launches": (launches + launches_pt + launches_a + launches_17
-                     + launches_19 + launches_21 + launches_22),
+                     + launches_19 + launches_21 + launches_22 + launches_23
+                     + launches_24),
         "max_abs_err": max(max_abs, err_pt, err_a, err_17, err_19, err_21,
-                           err_22),
+                           err_22, err_23, err_24),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound[0],

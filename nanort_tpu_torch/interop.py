@@ -1,9 +1,10 @@
 """Carry the JAX package's objects into the port, through NumPy.
 
 The tests feed both packages one identical binary BVH, one identical
-BVH8/BVH16 table set, one identical ray batch and one identical
-path-tracer scene: take the JAX objects' fields with ``np.asarray`` and
-rebuild the port's objects here. Nothing in this module imports jax.
+BVH8/BVH16 table set, one identical ray batch, one identical
+path-tracer scene, chunk-sharded scene, per-face texture set or particle
+set: take the JAX objects' fields with ``np.asarray`` and rebuild the
+port's objects here. Nothing in this module imports jax.
 """
 
 from __future__ import annotations
@@ -90,7 +91,6 @@ def rays_from_numpy(org, dir, min_t, max_t, device="cuda") -> Rays:
     return Rays(t(org), t(dir), t(min_t), t(max_t))
 
 
-
 def _prim_tensor(x, device):
     a = np.array(x, order="C")
     if a.dtype.kind != "f":
@@ -118,3 +118,30 @@ def curves_from_numpy(points, radii, device="cuda"):
     from .ops.curve import Curves
 
     return Curves(_prim_tensor(points, device), _prim_tensor(radii, device))
+
+
+def sharded_scene_from_numpy(nodes, soups, perms, num_nodes, num_chunks,
+                             nodes8=None, leafs8=None, depth8=0,
+                             max_leaf8=0):
+    """A port ``ShardedScene`` (host tables) from a JAX ``ShardedScene``'s
+    fields; each chunk's own depth is read from its BVH8 table."""
+    from .parallel.sharded_scene import ShardedScene
+
+    def a(x, dtype):
+        return None if x is None else np.ascontiguousarray(x, dtype)
+
+    return ShardedScene(
+        a(nodes, np.float32), a(soups, np.float32), a(perms, np.int32),
+        int(num_nodes), int(num_chunks), nodes8=a(nodes8, np.float32),
+        leafs8=a(leafs8, np.float32), depth8=int(depth8),
+        max_leaf8=int(max_leaf8))
+
+
+def face_textures_from_numpy(texels, ures, vres, device="cuda"):
+    """A port ``FaceTextures`` on ``device`` (the card unless the caller
+    asks for another device) from a JAX ``FaceTextures``' three arrays.
+    (A JAX ``Spheres``, as ``to_spheres`` makes it, comes over through
+    ``spheres_from_numpy``.)"""
+    from .io.ptex import _on
+
+    return _on(texels, ures, vres, device)

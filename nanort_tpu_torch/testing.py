@@ -20,6 +20,9 @@ interpret mode round every product separately, as the port's kernels
 against ``CUDA_MOCK``, a small host stand-in for what the sources use of
 the CUDA API, so that a test can run a kernel's per-thread functions one
 thread at a time on a machine without a card.
+
+``mesh_checks`` is the rank body that the multi-device tests spawn on
+each rank of a gloo group (``parallel.dryrun.spawn_ranks``).
 """
 
 from __future__ import annotations
@@ -329,3 +332,64 @@ def build_with_cuda_mock(source: str, harness: str, directory) -> ctypes.CDLL:
     if r.returncode != 0:
         raise RuntimeError(f"g++ build of {source} failed:\n{r.stderr[-6000:]}")
     return ctypes.CDLL(so)
+
+
+def mesh_checks(mesh, inputs: dict) -> dict:
+    """The rank body of the multi-device tests (``parallel.dryrun.
+    spawn_ranks("nanort_tpu_torch.testing:mesh_checks", n, inputs)``):
+    the mesh engines, the render step and, when the mesh has one rank a
+    chunk, the chunk rings, on the state the test passes in. Returns the
+    whole batch's records (the same on every rank) and the statistics.
+
+    ``inputs``: the mesh ``v``/``f``, its BVH's six fields ``bvh_*``, the
+    rays ``org``/``dir``/``min_t``/``max_t``, the JAX draws of an
+    ``n``-rank mesh ``draws<n>``, and the fields of two JAX
+    ``ShardedScene``s with both table sets, ``sc_*`` (leaves of at most 4
+    triangles) and ``wide_*`` (at most 8)."""
+    from .core.bvh import BVH
+    from .core.ray import Rays
+    from .interop import (bvh_from_numpy, rays_from_numpy,
+                          sharded_scene_from_numpy)
+    from .ops.triangle import TriangleMesh
+    from .parallel import mesh as pm
+    from .parallel.sharded_scene import sharded_scene_traverse
+    from .traverse.packed import pack_scene
+
+    z = inputs
+    bvh = bvh_from_numpy(*(z[f"bvh_{k}"] for k in BVH._fields))
+    geom = TriangleMesh(z["v"], z["f"])
+    rays = rays_from_numpy(z["org"], z["dir"], z["min_t"], z["max_t"],
+                           device=mesh.device)
+    out = {}
+
+    def put(name, hits, n_hit=None):
+        for k, x in zip(("t", "u", "v", "prim_id"), hits):
+            out[f"{name}_{k}"] = x.cpu().numpy()
+        if n_hit is not None:
+            out[f"{name}_n"] = np.int64(int(n_hit))
+
+    put("stack", *pm.sharded_traverse_triangles(bvh, geom, rays, mesh))
+    put("wavefront", *pm.sharded_traverse_wavefront(
+        pack_scene(bvh, z["v"], z["f"]), rays, mesh, tile=64))
+    ao, n_hit, mean_ao = pm.sharded_render_step(
+        bvh, geom, rays, mesh, draws=z[f"draws{mesh.size}"])
+    out.update(ao=ao.cpu().numpy(), ao_n=np.int64(int(n_hit)),
+               ao_mean=np.float32(float(mean_ao)))
+    _, _, seeded = pm.sharded_render_step(bvh, geom, rays, mesh, seed=5)
+    out["seeded_mean"] = np.float32(float(seeded))
+    scenes = {p: sharded_scene_from_numpy(
+        *(z[f"{p}_{k}"] for k in ("nodes", "soups", "perms", "num_nodes",
+                                  "num_chunks", "nodes8", "leafs8", "depth8",
+                                  "max_leaf8"))) for p in ("sc", "wide")}
+    if mesh.size == scenes["sc"].num_chunks:
+        for p, sc in scenes.items():
+            put(f"{p}_ring", sharded_scene_traverse(sc, rays, mesh, tile=64))
+            put(f"{p}_packet", sharded_scene_traverse(sc, rays, mesh,
+                                                      engine="packet"))
+    if mesh.size > 1:
+        cut = Rays(*(x[:-1] for x in rays))
+        try:
+            pm.sharded_traverse_triangles(bvh, geom, cut, mesh)
+        except ValueError:
+            out["indivisible_raises"] = np.int64(1)
+    return out

@@ -162,7 +162,7 @@ def test_root_reexports_like_jax(name):
 # (the port may add trailing keyword parameters, such as ``device``). A
 # NamedTuple has the JAX fields, an enum the JAX members, a class the
 # JAX public methods with their parameters, a dict the JAX keys, a number
-# the JAX value.
+# or a string the JAX value.
 PORTED_MODULES = {
     "build.lbvh": ["build_lbvh", "morton_codes", "hybrid_deltas",
                    "MAX_DEPTH", "D_FLOOR"],
@@ -206,11 +206,40 @@ PORTED_MODULES = {
     "models.uv_raster": ["make_uv_mesh", "rasterize_uv_atlas"],
     "models.progressive": ["ProgressiveRenderer"],
     "models.bdpt": ["K_EPS", "K_INF", "trace_bdpt", "render_bdpt"],
+    "io.eson": ["NULL_T", "FLOAT64_T", "INT64_T", "STRING_T", "ARRAY_T",
+                "BINARY_T", "OBJECT_T", "dumps", "dump", "loads", "load",
+                "save_mesh", "load_mesh"],
+    "io.minecraft": ["TAG_END", "TAG_BYTE", "TAG_SHORT", "TAG_INT",
+                     "TAG_LONG", "TAG_FLOAT", "TAG_DOUBLE", "TAG_BYTE_ARRAY",
+                     "TAG_STRING", "TAG_LIST", "TAG_COMPOUND",
+                     "TAG_INT_ARRAY", "TAG_LONG_ARRAY", "parse_nbt",
+                     "read_region", "chunk_to_voxels", "region_to_voxels",
+                     "load_region_mesh"],
+    "io.heightmap": ["heightmap_to_mesh"],
+    "io.displacement": ["compute_tangent_frames", "sample_map",
+                        "apply_vector_displacement", "weld_vertices"],
+    "io.qrcode": ["generate_qr", "verify_qr"],
+    "io.las": ["LasCloud", "load_las", "save_las", "to_spheres"],
+    "io.partio": ["ParticleCloud", "save_pda", "load_pda", "save_pdb",
+                  "load_pdb", "load_particles", "to_spheres"],
+    "io.ptex": ["FaceTextures", "build_face_textures", "sample",
+                "sample_tri_hits", "save_ptex_npz", "load_ptex_npz"],
+    "utils.config": ["RenderConfig"],
+    "utils.trackball": ["TRACKBALL_SIZE", "trackball", "add_quats",
+                        "build_rotmatrix", "camera_from_quat"],
+    "utils.debug": ["trap_nans", "validate_rays", "assert_finite_image"],
+    "parallel.mesh": ["RAY_AXIS", "ray_mesh", "shard_rays", "replicate",
+                      "sharded_traverse_triangles",
+                      "sharded_traverse_wavefront", "sharded_render_step"],
+    "parallel.sharded_scene": ["ShardedScene", "build_scene_chunks",
+                               "sequential_chunk_traverse",
+                               "sharded_scene_traverse"],
 }
 # Parameters renamed on purpose (CHANGES.md): a JAX threefry ``key``
 # becomes a ``seed`` (an int or a torch.Generator).
 RENAMED = {("models.bdpt", "trace_bdpt"): {"key": "seed"},
-           ("models.bdpt", "render_bdpt"): {"key": "seed"}}
+           ("models.bdpt", "render_bdpt"): {"key": "seed"},
+           ("parallel.mesh", "sharded_render_step"): {"key": "seed"}}
 
 
 def _params(fn, renamed=None):
@@ -224,7 +253,7 @@ def _same_api(j, t, where, renamed=None):
     import enum
     import inspect
 
-    if isinstance(j, (int, float)):
+    if isinstance(j, (int, float, str)):
         assert t == j, where
     elif isinstance(j, dict):
         assert list(t) == list(j), where
@@ -273,15 +302,20 @@ def test_ray_sort_shares_the_morton_spread():
 
 
 def test_slice_modules_import_without_jax():
-    """The scene graph, API, loader and renderer modules import with jax
-    blocked, and pull in nothing of the JAX package."""
+    """The scene graph, API, loader, renderer, utility and multi-device
+    modules import with jax blocked, and pull in nothing of the JAX
+    package."""
     import os
     import subprocess
     import sys
 
     mods = ["scene.matrix", "scene.graph", "io.voxels", "io.gltf", "api.rtc",
             "api.embree3", "models.cameras", "models.pbr", "models.uv_raster",
-            "models.progressive", "models.bdpt"]
+            "models.progressive", "models.bdpt", "io.eson", "io.minecraft",
+            "io.heightmap", "io.displacement", "io.qrcode", "io.las",
+            "io.partio", "io.ptex", "utils.config", "utils.trackball",
+            "utils.debug", "parallel.mesh", "parallel.sharded_scene",
+            "parallel.dryrun"]
     code = ("import sys, importlib; sys.modules['jax'] = None; "
             + "; ".join(f"importlib.import_module('nanort_tpu_torch.{m}')"
                         for m in mods)

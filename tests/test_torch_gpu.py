@@ -34,7 +34,13 @@ once per ``intersect`` and ``occluded`` call, its captured launches equal
 the plain version bit for bit, and its records, like the graph walk's
 (which launches nothing), equal the CPU's in hit mask and ids with t
 within 4 ulp; ``render_pbr`` launches K1 twice and gives the CPU's
-records, its image within 1e-5.
+records, its image within 1e-5. The chunk-sharded scene's K1 path
+(``sequential_chunk_traverse``: one launch a chunk) gives the CPU's
+records bit for bit; ``to_spheres`` and ``sample_tri_hits`` on the card
+give the CPU's values (spheres bit for bit, their hits under
+``compare_hits``); and a one-rank NCCL group runs the mesh engines and
+``sharded_render_step`` with the records, counts and AO of the
+group-less CPU mesh.
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where only torch is installed:
@@ -65,6 +71,11 @@ from nanort_tpu_torch.io import gltf, voxels  # noqa: F401
 from nanort_tpu_torch.models import (bdpt, pbr, progressive,  # noqa: F401
                                      uv_raster)
 from nanort_tpu_torch.scene import graph, matrix  # noqa: F401
+# the loaders, utils and the multi-device layer
+from nanort_tpu_torch.io import las, ptex  # noqa: F401
+from nanort_tpu_torch.parallel import mesh as pmesh  # noqa: F401
+from nanort_tpu_torch.parallel import sharded_scene  # noqa: F401
+from nanort_tpu_torch.utils import debug, trackball  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -1545,3 +1556,106 @@ def test_render_pbr_on_card_equals_cpu(dev):
     assert torch.equal(got["prim_id"].cpu(), want["prim_id"])
     for k in ("rgb", "normal", "position", "depth"):
         assert float((got[k].cpu() - want[k]).abs().max()) <= 1e-5, k
+
+
+def test_sequential_chunks_on_card_equal_cpu(dev):
+    """Four packet chunks traced in turn: one K1 launch a chunk, and the
+    CPU's plain-K1 records bit for bit (the merge is plain torch)."""
+    v, f = make_uv_sphere(32, 64, 1.0)
+    sc = sharded_scene.build_scene_chunks(
+        TriangleMesh(v, f), 4, nt.BVHBuildOptions(8, 8), packet=True)
+    rays = _rays(8192, 31, broken=False)
+    before = packet.LAUNCHES["packet_traverse"]
+    got = sharded_scene.sequential_chunk_traverse(
+        sc.to(dev), nt.Rays(*(x.to(dev) for x in rays)))
+    assert packet.LAUNCHES["packet_traverse"] == before + 4
+    want = sharded_scene.sequential_chunk_traverse(sc, rays)
+    assert bool(want.hit.any())
+    _same_records(got, want)
+
+
+def test_to_spheres_on_card(dev, tmp_path):
+    rng = np.random.default_rng(41)
+    pts = rng.normal(size=(3000, 3)) * [2.0, 2.0, 0.3] + [100.0, 50.0, 8.0]
+    path = str(tmp_path / "c.las")
+    las.save_las(path, pts)
+    cloud = las.load_las(path)
+    card = las.to_spheres(cloud, 0.05, device=dev)
+    cpu = las.to_spheres(cloud, 0.05, device="cpu")
+    assert card.centers.is_cuda and card.radii.is_cuda
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    from nanort_tpu_torch.ops import sphere
+    from nanort_tpu_torch.testing import compare_hits
+
+    bvh, _ = sphere.build_sphere_bvh(cpu)
+    org = np.tile([[100.0, 50.0, 20.0]], (2048, 1)).astype(np.float32)
+    d = np.concatenate([rng.normal(0, 0.2, (2048, 2)),
+                        -np.ones((2048, 1))], 1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    rays = nt.make_rays(torch.from_numpy(org), torch.from_numpy(d))
+    got = sphere.traverse_spheres(bvh, card,
+                                  nt.Rays(*(x.to(dev) for x in rays)))
+    want = sphere.traverse_spheres(bvh, cpu, rays)
+    res = compare_hits(got, want, uv_atol=1e-6)
+    assert res["ok"] and res["hits"] > 100, res
+
+
+def test_sample_tri_hits_on_card_equals_cpu(dev):
+    rng = np.random.default_rng(42)
+    faces = [rng.random((2 ** rng.integers(0, 4), 2 ** rng.integers(0, 4),
+                         3)).astype(np.float32) for _ in range(300)]
+    n = 20000
+    pid = rng.integers(0, 600, n).astype(np.int64)
+    pid[::9] = 0xFFFFFFFF
+    u = rng.random(n).astype(np.float32)
+    v = (rng.random(n) * (1 - u)).astype(np.float32)
+    hits = nt.Hits(*(torch.from_numpy(x) for x in (
+        rng.random(n).astype(np.float32), u, v, pid)))
+    for quad in (True, False):
+        got = ptex.sample_tri_hits(ptex.build_face_textures(faces, device=dev),
+                                   nt.Hits(*(x.to(dev) for x in hits)), quad)
+        want = ptex.sample_tri_hits(
+            ptex.build_face_textures(faces, device="cpu"), hits, quad)
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_one_rank_nccl_render_step(dev, tmp_path):
+    """A one-rank NCCL group through a file store: the mesh engines and
+    the render step (with fixed draws) give the group-less CPU mesh's
+    records, counts and AO; the collectives run through NCCL."""
+    import datetime
+
+    from nanort_tpu_torch.traverse.packed import pack_scene
+
+    dist = torch.distributed
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f))
+    geom = TriangleMesh(v, f)
+    rays = _rays(4096, 43, broken=False)
+    draws = np.random.default_rng(44).random((4096, 3)).astype(np.float32)
+    cpu_mesh = pmesh.ray_mesh(1, device="cpu")
+    want = [pmesh.sharded_traverse_triangles(bvh, geom, rays, cpu_mesh),
+            pmesh.sharded_traverse_wavefront(pack_scene(bvh, v, f), rays,
+                                             cpu_mesh),
+            pmesh.sharded_render_step(bvh, geom, rays, cpu_mesh,
+                                      draws=draws)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = pmesh.ray_mesh(1)
+        assert mesh.device.type == "cuda" and mesh.group is not None
+        assert dist.get_backend() == "nccl"
+        crays = nt.Rays(*(x.to(dev) for x in rays))
+        got = [pmesh.sharded_traverse_triangles(bvh, geom, crays, mesh),
+               pmesh.sharded_traverse_wavefront(pack_scene(bvh, v, f), crays,
+                                                mesh),
+               pmesh.sharded_render_step(bvh, geom, crays, mesh, draws=draws)]
+    finally:
+        dist.destroy_process_group()
+    for (gh, gn), (wh, wn) in zip(got[:2], want[:2]):
+        _same_records(gh, wh)
+        assert int(gn) == int(wn) > 0
+    (gao, gn, gm), (wao, wn, wm) = got[2], want[2]
+    assert gao.is_cuda and torch.equal(gao.cpu(), wao)
+    assert int(gn) == int(wn) and float(gm) == float(wm)
