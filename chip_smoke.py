@@ -214,6 +214,19 @@ nothing of JAX. Phases, one line or more each:
     both timed in turns; and ``sharded_scene_traverse(engine="packet")``
     on a one-chunk scene of config A through the group (1 K1 launch)
     against the unsplit trace; the group is destroyed after;
+25. the example programs (``nanort_tpu_torch/examples``) through their
+    ``main(argv)`` at their own defaults: objrender on the procedural
+    scene at 512^2 and on phase 4's sphere written as an OBJ at 1024^2
+    (load, build, tables and render seconds; K1's launches, each held to
+    the plain version on every 64th ray bit for bit), path_tracer at
+    256^2 x 64 spp x 8 bounces (K3; Msamples/s), bidir_path_tracer at
+    128^2 x 16 spp (no kernel: the Cornell box sweeps brute force),
+    gltfrender on a ``.glb`` of 8 spheres on a ring at 512^2 (commit and
+    walk seconds), the viewer's terminal surface for ~3 s a route with
+    stdout captured (the BVH16 route, 2 K1 launches a pass, and the graph
+    route; passes and passes/s) and its HTTP surface on 127.0.0.1:0
+    (page, PNG, a gizmo nudge that re-commits, status, quit), and the
+    graft entry's step, whose rgb must equal the CPU run's bit for bit;
 
 then one line per
     K1 shape (phases 5, 6, 11, 13, 16-19, 21, 23) and K1b shape (phase 18)
@@ -4124,6 +4137,211 @@ def multidevice_phases(dev, v, f, s8_unsplit, res: int = 2048,
     return launches, err
 
 
+def example_phases(dev, v, f, every: int = 64) -> tuple:
+    """Phase 25: the example programs through their ``main(argv)`` on the
+    card at their own defaults, and the graft entry. ``v``/``f``: phase
+    4's sphere, written as an OBJ for objrender. Runs in a temporary
+    directory (the programs write their PNGs to the working directory).
+    Returns (K1 launches on the phase's paths, K1's largest error against
+    its plain version, K3 launches)."""
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch import graft_entry
+    from nanort_tpu_torch.examples import (bidir_path_tracer, gltfrender,
+                                           objrender, path_tracer, viewer)
+    from nanort_tpu_torch.io.obj import save_obj
+    from nanort_tpu_torch.io.procedural import make_uv_sphere
+
+    t_phase = time.perf_counter()
+    k1 = k3 = 0
+    err = 0.0
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # ---- objrender: the procedural scene at 512^2, then phase
+            # 4's sphere loaded from an OBJ at 1024^2
+            t0 = time.perf_counter()
+            save_obj("sphere.obj", v, f)
+            say(f"# phase 25 objrender: wrote phase 4's {len(f)}-tri sphere "
+                f"as an OBJ in {time.perf_counter() - t0:.2f} s")
+            for what, argv in (("procedural scene, 512^2", []),
+                               ("OBJ sphere, 1024^2",
+                                ["sphere.obj", "objrender_obj.png", "1024"])):
+                out = {}
+                zero_launch_counts()
+                kept = capture_traces(
+                    lambda: out.update(objrender.main(argv)))
+                counts = nonzero(launch_counts())
+                k1 += counts.get("packet_traverse", 0)
+                sec = out["seconds"]
+                holds = []
+                for rays, a, kw, hits in kept:
+                    sub = nt.Rays(rays.org.reshape(-1, 3)[::every],
+                                  rays.dir.reshape(-1, 3)[::every],
+                                  rays.min_t.reshape(-1)[::every],
+                                  rays.max_t.reshape(-1)[::every])
+                    got = [x.reshape(-1)[::every] for x in hits]
+                    holds.append(hold_k1_trace(out["scene8"], sub, a, kw,
+                                               got))
+                err = max([err] + [h["err"] for h in holds])
+                hit = float(out["hits"].hit.float().mean())
+                say(f"phase 25 objrender, {what}: load "
+                    f"{sec.get('load', 0.0):.3f} s, build {sec['build']:.3f} "
+                    f"s, tables {sec['tables']:.3f} s, render "
+                    f"{sec['render'] * 1e3:.3f} ms (host clock, the image "
+                    f"copied back), hit {hit:.4f}; launches {counts}; every "
+                    f"{every}th ray == plain: "
+                    + ", ".join(f"{h['rays']} rays same={h['same']} "
+                                f"err={h['err']}" for h in holds))
+                check(counts.get("packet_traverse", 0) >= 1
+                      and set(counts) == {"packet_traverse"}
+                      and len(holds) == counts["packet_traverse"],
+                      f"phase 25 objrender ({what}): launches {counts}")
+                check(all(h["same"] for h in holds) and hit > 0.05,
+                      f"phase 25 objrender ({what}): K1 != plain or no hit")
+                del out, kept, holds
+                torch.cuda.empty_cache()
+
+            # ---- path_tracer: 256^2 x 64 spp x 8 bounces (K3)
+            zero_launch_counts()
+            out = path_tracer.main([])
+            counts = nonzero(launch_counts())
+            k3 += counts.get("pt_fused_brute", 0)
+            img = out["img"]
+            say(f"phase 25 path_tracer, 256^2 x 64 spp x 8 bounces: "
+                f"{out['seconds']:.4f} s (host clock, the image copied "
+                f"back) = {256 * 256 * 64 / out['seconds'] / 1e6:.1f} "
+                f"Msamples/s; image mean {float(img.mean())}; launches "
+                f"{counts}")
+            check(set(counts) == {"pt_fused_brute"},
+                  f"phase 25 path_tracer: launches {counts}")
+            check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+                  "phase 25 path_tracer: non-finite or black image")
+
+            # ---- bidir_path_tracer: 128^2 x 16 spp
+            zero_launch_counts()
+            out = bidir_path_tracer.main([])
+            counts = nonzero(launch_counts())
+            img = out["img"]
+            say(f"phase 25 bidir_path_tracer, 128^2 x 16 spp: "
+                f"{out['seconds']:.3f} s; image mean {float(img.mean())}; "
+                f"launches {counts} (the 32-triangle box sweeps brute "
+                f"force: at most BRUTE_MAX_TRIS triangles)")
+            check(counts == {}, f"phase 25 bidir: launches {counts}")
+            check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+                  "phase 25 bidir: non-finite or black image")
+
+            # ---- gltfrender: 8 spheres on a ring in a .glb, 512^2
+            sv, sf = make_uv_sphere(32, 64, 0.5)
+            _ring_glb("ring.glb", sv, sf, [
+                ((1.6 * np.cos(a), 0.2 * np.sin(3 * a), 1.6 * np.sin(a)),
+                 (0.3, 1.0, 0.1), a) for a in np.arange(8) * np.pi / 4])
+            zero_launch_counts()
+            out = gltfrender.main(["ring.glb"])
+            counts = nonzero(launch_counts())
+            hit = float(out["hits"].hit.float().mean())
+            say(f"phase 25 gltfrender, 8 instances of {len(sf)} tris, "
+                f"512^2: commit {out['seconds']['commit']:.3f} s, walk "
+                f"{out['seconds']['walk']:.3f} s = "
+                f"{512 * 512 / out['seconds']['walk'] / 1e6:.3f} Mrays/s; "
+                f"hit {hit:.4f}; launches {counts}")
+            check(counts == {} and hit > 0.05,
+                  f"phase 25 gltfrender: launches {counts}, hit {hit}")
+
+            # ---- viewer: the terminal surface, each route ~3 s, stdout
+            # captured
+            for route in ("bvh8", "graph"):
+                zero_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as cap:
+                    if route == "bvh8":
+                        r = viewer.main(["3"])
+                    else:
+                        r = viewer.run_terminal(3.0, "perspective", dev,
+                                                route="graph")
+                wall = time.perf_counter() - t0
+                counts = nonzero(launch_counts())
+                n = len(r.pass_times)
+                if route == "bvh8":
+                    k1 += counts.get("packet_traverse", 0)
+                say(f"phase 25 viewer terminal, route {route}, 128^2: {n} "
+                    f"passes in {wall:.2f} s = {n / wall:.1f} passes/s "
+                    f"(median pass {median(r.pass_times) * 1e3:.2f} ms; "
+                    f"{r.passes_done} since the orbit's restart); "
+                    f"{len(cap.getvalue().splitlines())} status lines; "
+                    f"launches {counts}")
+                want = ({"packet_traverse": 2 * n} if route == "bvh8"
+                        else {})
+                check(n >= 2 and counts == want,
+                      f"phase 25 viewer {route}: {n} passes, launches "
+                      f"{counts}, expected {want}")
+
+            # ---- viewer: the HTTP surface on 127.0.0.1:0
+            ports, res = [], {}
+            ready = threading.Event()
+
+            def serve():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res["r"] = viewer.run_http(
+                        0, 60, dev,
+                        ready=lambda p: (ports.append(p), ready.set()))
+
+            th = threading.Thread(target=serve, daemon=True)
+            th.start()
+            status = {}
+            if ready.wait(60):
+                def call(path, body=None):
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{ports[0]}{path}",
+                        data=None if body is None else json.dumps(
+                            body).encode(),
+                        method="GET" if body is None else "POST")
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        status[f"{req.method} {path}"] = resp.status
+                        return resp.read()
+
+                call("/")
+                png = call("/frame.png")
+                call("/node", {"name": "ball_a", "dx": 0.25})
+                commits = json.loads(call("/status"))["commits"]
+                call("/quit", {})
+            th.join(60)
+            say(f"phase 25 viewer http on 127.0.0.1:{ports[0] if ports else '-'}"
+                f": {status}; frame.png {len(png) if status else 0} bytes; "
+                f"commits after the nudge "
+                f"{commits if status else '-'}; stopped "
+                f"{not th.is_alive()}")
+            check(len(status) == 5 and set(status.values()) == {200}
+                  and commits == 2 and not th.is_alive(),
+                  f"phase 25 viewer http: {status}")
+
+            # ---- the graft entry: card == CPU (K1's plain version)
+            zero_launch_counts()
+            fn, args = graft_entry.entry()
+            got = fn(*args)
+            counts = nonzero(launch_counts())
+            k1 += counts.get("packet_traverse", 0)
+            cfn, cargs = graft_entry.entry(device="cpu")
+            want = cfn(*cargs)
+            same = torch.equal(got.cpu(), want)
+            say(f"phase 25 graft entry: rgb {tuple(got.shape)}, mean "
+                f"{float(got.mean())}; launches {counts}; card == CPU bit "
+                f"for bit: {same}")
+            check(same and counts == {"packet_traverse": 1},
+                  f"phase 25 graft entry: same={same}, launches {counts}")
+        finally:
+            os.chdir(cwd)
+    say(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return k1, err, k3
+
+
 def time_calls(fn):
     """``fn()`` once to warm up and 3 times timed with CUDA events, the
     launch counts zeroed first. Returns the 3 times in ms, the device's
@@ -4491,11 +4709,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_24, err_24 = multidevice_phases(dev, v, f, s8i)
     del s8i
+    torch.cuda.empty_cache()
+    launches_25, err_25, k3_25 = example_phases(dev, v, f)
     for e in k2k5:  # K1-woop's entry gains phase 19's and 22's woop paths
         if e["name"] == "packet_traverse_woop":
             e["launches"] += woop_19 + woop_22
             e["max_abs_err"] = max(e["max_abs_err"], woop_err_19,
                                    woop_err_22)
+        if e["name"] == "pt_fused_brute":  # K3 gains phase 25's renders
+            e["launches"] += k3_25
     k1_shape(f"phase 6: the {res}^2 frame (median of 3; bound from phase "
              f"18's counters)", frame_ms, frame_bound_18, "k1_frame_8192_ms")
     report_k1_shapes()
@@ -4505,7 +4727,9 @@ def main() -> int:
         f"tables) + {launches_21} (phase 21, rtc) + {launches_22} (phase 22, "
         f"render_pbr and trace_bdpt) + {launches_23} (phase 23, the "
         f"loaders' frames) + {launches_24} (phase 24, the chunk-sharded "
-        f"scene); packet_traverse_woop gains {woop_19} "
+        f"scene) + {launches_25} (phase 25, the example programs and the "
+        f"graft entry); pt_fused_brute gains {k3_25} (phase 25, "
+        f"path_tracer); packet_traverse_woop gains {woop_19} "
         f"(phase 19) + {woop_22} (phase 22, trace_bdpt on the Woop scene); "
         f"the 8192^2 frame's bound from its "
         f"counters {frame_bound_18[0]:.4f} ms ({frame_bound_18[1]})")
@@ -4519,9 +4743,9 @@ def main() -> int:
         "replaces": "nanort_tpu/traverse/pallas_packet.py:66",
         "launches": (launches + launches_pt + launches_a + launches_17
                      + launches_19 + launches_21 + launches_22 + launches_23
-                     + launches_24),
+                     + launches_24 + launches_25),
         "max_abs_err": max(max_abs, err_pt, err_a, err_17, err_19, err_21,
-                           err_22, err_23, err_24),
+                           err_22, err_23, err_24, err_25),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound[0],

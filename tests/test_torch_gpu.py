@@ -1659,3 +1659,160 @@ def test_one_rank_nccl_render_step(dev, tmp_path):
     (gao, gn, gm), (wao, wn, wm) = got[2], want[2]
     assert gao.is_cuda and torch.equal(gao.cpu(), wao)
     assert int(gn) == int(wn) and float(gm) == float(wm)
+
+
+# ---- the example programs and the graft entry on the card
+
+def _launches():
+    return {**packet.LAUNCHES, **pt_fused.LAUNCHES,
+            **fused_trace.LAUNCHES, "ao_fused": ao_fused.LAUNCHES}
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+
+
+def test_graft_entry_on_card_equals_cpu(dev):
+    """``entry()``'s forward step on the card launches K1, and its rgb is
+    the CPU run's (K1's plain version) bit for bit."""
+    from nanort_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert args[2].org.is_cuda and args[3].nodes.is_cuda
+    before = _launches()
+    got = fn(*args)
+    assert _moved(before) == {"packet_traverse": 1}
+    cfn, cargs = graft_entry.entry(device="cpu")
+    want = cfn(*cargs)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert float(want.mean()) > 0.1
+
+
+def test_objrender_program_on_card(dev, tmp_path):
+    """The OBJ path at 64^2: K1 launches, and the records equal the CPU
+    run's bit for bit."""
+    from nanort_tpu_torch.examples import objrender
+    from nanort_tpu_torch.io.obj import save_obj
+
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
+    save_obj(str(tmp_path / "s.obj"), v, f)
+    argv = [str(tmp_path / "s.obj"), str(tmp_path / "o.png"), "64"]
+    before = _launches()
+    got = objrender.main(argv)
+    assert _moved(before) == {"packet_traverse": 1}
+    want = objrender.main(argv[:1] + [str(tmp_path / "c.png"), "64",
+                                      "--device", "cpu"])
+    _same_records(got["hits"], want["hits"])
+    assert torch.equal(got["rgb"].cpu(), want["rgb"])
+
+
+def test_path_tracer_program_on_card(dev, tmp_path):
+    """The Cornell box at 32^2 x 4 spp: one K3 launch; the image the CPU
+    run's (K3's plain version) within 1e-5 (``trig="native"``: two
+    libms' cos and sin) on 85% of pixels, finite and not black."""
+    from nanort_tpu_torch.examples import path_tracer
+
+    argv = [str(tmp_path / "p.png"), "32", "4"]
+    before = _launches()
+    got = path_tracer.main(argv)["img"]
+    assert _moved(before) == {"pt_fused_brute": 1}
+    want = path_tracer.main([str(tmp_path / "c.png"), "32", "4", "--device",
+                             "cpu"])["img"]
+    assert bool(torch.isfinite(got).all()) and float(got.mean()) > 0.01
+    close = ((got.cpu() - want).abs().amax(-1) <= 1e-5).float().mean()
+    assert float(close) >= 0.85
+    assert abs(float(got.mean()) / float(want.mean()) - 1) < 0.02
+
+
+def test_bidir_program_on_card(dev, tmp_path):
+    """The Cornell box (32 triangles) at 16^2 x 2 spp: ``_trace`` sweeps
+    it brute force (no kernel), as the JAX package does; the image is
+    finite and not black."""
+    from nanort_tpu_torch.examples import bidir_path_tracer
+
+    before = _launches()
+    got = bidir_path_tracer.main([str(tmp_path / "b.png"), "16", "2"])["img"]
+    assert _moved(before) == {}
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    assert float(got.mean()) > 0.01
+
+
+def test_gltfrender_program_on_card(dev, tmp_path):
+    """A 4-node ring ``.glb`` at 64^2: the graph walk (no kernel) gives
+    the CPU run's hit mask and node ids."""
+    from test_torch_examples import _ring_glb
+
+    from nanort_tpu_torch.examples import gltfrender
+
+    v, f = make_uv_sphere(8, 16, 0.5)
+    _ring_glb(str(tmp_path / "r.glb"), v, f, 4)
+    before = _launches()
+    got = gltfrender.main([str(tmp_path / "r.glb"), str(tmp_path / "g.png"),
+                           "64"])["hits"]
+    assert _moved(before) == {}
+    want = gltfrender.main([str(tmp_path / "r.glb"), str(tmp_path / "c.png"),
+                            "64", "--device", "cpu"])["hits"]
+    assert bool(want.hit.any())
+    assert torch.equal(got.hit.cpu(), want.hit)
+    assert torch.equal(got.node_id.cpu(), want.node_id)
+
+
+@pytest.mark.parametrize("route", ["bvh8", "graph"])
+def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, route, capsys):
+    """The terminal surface for 2 s: the BVH16 route launches K1 twice a
+    pass (primary and any-hit occlusion with skip) and nothing else, and
+    prints its status; the graph route (about a second a pass on the
+    card) launches nothing."""
+    from nanort_tpu_torch.examples import viewer
+
+    monkeypatch.chdir(tmp_path)
+    before = _launches()
+    r = viewer.run_terminal(2.0, "perspective", dev, route=route, size=64)
+    moved = _moved(before)
+    n = len(r.pass_times)
+    assert n >= 1 and r._thread is None
+    if route == "bvh8":
+        assert "pass " in capsys.readouterr().out
+        assert moved == {"packet_traverse": 2 * n}
+    else:
+        assert moved == {}
+
+
+def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
+    """The HTTP surface on port 0 on the card: page, PNG, a gizmo nudge
+    that re-commits, quit."""
+    import json
+    import threading
+    import urllib.request
+
+    from nanort_tpu_torch.examples import viewer
+
+    monkeypatch.chdir(tmp_path)
+    ports, res = [], {}
+    ready = threading.Event()
+
+    def serve():
+        res["r"] = viewer.run_http(
+            0, 120, dev, size=64,
+            ready=lambda p: (ports.append(p), ready.set()))
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    assert ready.wait(60)
+
+    def call(path, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{ports[0]}{path}",
+            data=None if body is None else json.dumps(body).encode(),
+            method="GET" if body is None else "POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert resp.status == 200
+            return resp.read()
+
+    assert b"progressive viewer" in call("/")
+    assert call("/frame.png")[:8] == b"\x89PNG\r\n\x1a\n"
+    call("/node", {"name": "ball_b", "dx": 0.0, "dy": 0.25, "dz": 0.0})
+    assert json.loads(call("/status"))["commits"] == 2
+    call("/quit", {})
+    th.join(60)
+    assert not th.is_alive() and res["r"]._thread is None
