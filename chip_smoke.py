@@ -1355,19 +1355,29 @@ def capture_traces(render) -> list:
     """Run ``render()`` once more and keep what the K1 kernel was given
     and gave back on each of its launches: ``(rays, positional
     arguments, keyword arguments, hits)``."""
+    return [c[1:] for c in capture_k1(render)[0]]
+
+
+def capture_k1(run, only=None) -> tuple[list, int]:
+    """Run ``run()`` and keep what K1 was given and gave back on the
+    launches whose index (from 0, in launch order) is in ``only`` (all
+    when None): ``(scene8, rays, positional arguments, keyword
+    arguments, hits)``. Returns the kept launches and the count of all."""
     from nanort_tpu_torch.traverse import packet
 
-    kept = []
+    kept, n = [], [0]
     real = packet.traverse_bvh8
 
     def keep(scene8, rays, *a, **k):
         out = real(scene8, rays, *a, **k)
-        kept.append((rays, a, dict(k), out))
+        if only is None or n[0] in only:
+            kept.append((scene8, rays, a, dict(k), out))
+        n[0] += 1
         return out
 
     with patched(packet, "traverse_bvh8", keep):
-        render()
-    return kept
+        run()
+    return kept, n[0]
 
 
 def hold_k1_trace(scene8, rays, args, kw, got, m: int | None = None) -> dict:
@@ -3177,48 +3187,6 @@ def _card_vs_cpu(got, want) -> dict:
     return r
 
 
-def _ring_glb(path, v, f, xfs):
-    """An in-memory glTF: one mesh buffer (float32 positions, uint32
-    indices) instanced by one TRS node per transform, written as a
-    ``.glb``."""
-    import struct
-
-    pos, idx = v.astype(np.float32).tobytes(), f.astype(np.uint32).tobytes()
-    nodes = []
-    for k, (t, axis, ang) in enumerate(xfs):
-        a = np.asarray(axis, np.float64) / np.linalg.norm(axis)
-        q = list(a * math.sin(0.5 * ang)) + [math.cos(0.5 * ang)]  # x y z w
-        nodes.append({"mesh": 0, "name": f"ring{k}",
-                      "translation": [float(c) for c in t],
-                      "rotation": [float(c) for c in q]})
-    doc = {
-        "asset": {"version": "2.0"},
-        "buffers": [{"byteLength": len(pos) + len(idx)}],
-        "bufferViews": [
-            {"buffer": 0, "byteOffset": 0, "byteLength": len(pos)},
-            {"buffer": 0, "byteOffset": len(pos), "byteLength": len(idx)}],
-        "accessors": [
-            {"bufferView": 0, "componentType": 5126, "count": len(v),
-             "type": "VEC3"},
-            {"bufferView": 1, "componentType": 5125, "count": f.size,
-             "type": "SCALAR"}],
-        "meshes": [{"primitives": [{"attributes": {"POSITION": 0},
-                                    "indices": 1}]}],
-        "nodes": nodes,
-        "scenes": [{"nodes": list(range(len(nodes)))}],
-        "scene": 0,
-    }
-    js = json.dumps(doc).encode()
-    js += b" " * (-len(js) % 4)
-    buf = pos + idx
-    buf += b"\0" * (-len(buf) % 4)
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<III", 0x46546C67, 2,
-                             12 + 8 + len(js) + 8 + len(buf)))
-        fh.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
-        fh.write(struct.pack("<II", len(buf), 0x004E4942) + buf)
-
-
 def api_phases(dev, res: int = 2048, n_geoms: int = 10) -> tuple:
     """Phase 21: the Embree-style API and the scene graph at real size.
     Returns (K1 launches on the phase's paths, K1's largest error against
@@ -3233,6 +3201,7 @@ def api_phases(dev, res: int = 2048, n_geoms: int = 10) -> tuple:
     from nanort_tpu_torch.io.procedural import make_cornell_dense_pt_scene
     from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
     from nanort_tpu_torch.scene import matrix as mat
+    from nanort_tpu_torch.testing import ring_glb
     from nanort_tpu_torch.traverse import packet
 
     t_phase = time.perf_counter()
@@ -3400,7 +3369,7 @@ def api_phases(dev, res: int = 2048, n_geoms: int = 10) -> tuple:
     with tempfile.TemporaryDirectory() as d, \
             patched(nanort_tpu_torch, "build_triangle_bvh", counted):
         path = os.path.join(d, "ring.glb")
-        _ring_glb(path, dv, df, ring)
+        ring_glb(path, dv, df, ring)
         t0 = time.perf_counter()
         g = gltf.load_gltf(path)
         load_s = time.perf_counter() - t0
@@ -4137,13 +4106,45 @@ def multidevice_phases(dev, v, f, s8_unsplit, res: int = 2048,
     return launches, err
 
 
+def hold_k1_launch(scene8, rays, args, kw, hits, every: int) -> dict:
+    """A captured K1 launch held to the plain version on every
+    ``every``th ray (with its skip ids), as ``hold_k1_trace``; then the
+    whole launch relaunched for its card ms (``full_ms``, median of 5)
+    and its bound (``bound``: the rays, skip ids, records and tables
+    once; the plain version's work on the sample, times ``every``)."""
+    import nanort_tpu_torch as nt
+    from nanort_tpu_torch.traverse import packet
+
+    R = rays.org.numel() // 3
+    sub = nt.Rays(rays.org.reshape(-1, 3)[::every],
+                  rays.dir.reshape(-1, 3)[::every],
+                  rays.min_t.reshape(-1)[::every],
+                  rays.max_t.reshape(-1)[::every])
+    kw_sub = dict(kw)
+    skip = kw.get("skip_prim_id")
+    if skip is not None:
+        kw_sub["skip_prim_id"] = skip.reshape(-1)[::every]
+    h = hold_k1_trace(scene8, sub, args, kw_sub,
+                      [x.reshape(-1)[::every] for x in hits])
+    h["R"] = R
+    h["full_ms"] = median(cuda_ms(
+        lambda: packet.traverse_bvh8(scene8, rays, *args, **kw), 5))
+    h["bound"] = bound(R * (32 + 20) + nbytes(skip, scene8.nodes,
+                                              scene8.leafs),
+                       trace_ops(h["stats"], scene8.width, WT_OPS) * every)
+    return h
+
+
 def example_phases(dev, v, f, every: int = 64) -> tuple:
     """Phase 25: the example programs through their ``main(argv)`` on the
     card at their own defaults, and the graft entry. ``v``/``f``: phase
     4's sphere, written as an OBJ for objrender. Runs in a temporary
     directory (the programs write their PNGs to the working directory).
-    Returns (K1 launches on the phase's paths, K1's largest error against
-    its plain version, K3 launches)."""
+    Every K1 launch of objrender and the viewer's first pass before and
+    after its orbit, and path_tracer's K3 render, are held to their plain
+    versions on every ``every``th ray or pixel. Returns (K1 launches on
+    the phase's paths, K1's largest error against its plain version, K3
+    launches, K3's largest error)."""
     import io
     import tempfile
     import threading
@@ -4151,16 +4152,30 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
 
     import torch
 
-    import nanort_tpu_torch as nt
     from nanort_tpu_torch import graft_entry
     from nanort_tpu_torch.examples import (bidir_path_tracer, gltfrender,
                                            objrender, path_tracer, viewer)
     from nanort_tpu_torch.io.obj import save_obj
     from nanort_tpu_torch.io.procedural import make_uv_sphere
+    from nanort_tpu_torch.models import pt_fused
+    from nanort_tpu_torch.testing import ring_glb
 
     t_phase = time.perf_counter()
     k1 = k3 = 0
-    err = 0.0
+    err = err3 = 0.0
+
+    def held(what, holds):
+        for h in holds:
+            k1_shape(f"phase 25 {what}, {h['R']} rays"
+                     + (", any-hit with skip" if h["occlusion"] else ""),
+                     h["full_ms"], h["bound"])
+        return ", ".join(
+            f"{h['rays']} of {h['R']} rays"
+            f"{' (any-hit, skip)' if h['occlusion'] else ''}"
+            f" same={h['same']} err={h['err']} plain {h['plain_ms']:.1f} "
+            f"ms, whole launch {h['full_ms']:.3f} ms vs bound "
+            f"{h['bound'][0]:.4f} ms ({h['bound'][1]})" for h in holds)
+
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -4176,20 +4191,11 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                                 ["sphere.obj", "objrender_obj.png", "1024"])):
                 out = {}
                 zero_launch_counts()
-                kept = capture_traces(
-                    lambda: out.update(objrender.main(argv)))
+                kept, n_k1 = capture_k1(lambda: out.update(objrender.main(argv)))
                 counts = nonzero(launch_counts())
                 k1 += counts.get("packet_traverse", 0)
                 sec = out["seconds"]
-                holds = []
-                for rays, a, kw, hits in kept:
-                    sub = nt.Rays(rays.org.reshape(-1, 3)[::every],
-                                  rays.dir.reshape(-1, 3)[::every],
-                                  rays.min_t.reshape(-1)[::every],
-                                  rays.max_t.reshape(-1)[::every])
-                    got = [x.reshape(-1)[::every] for x in hits]
-                    holds.append(hold_k1_trace(out["scene8"], sub, a, kw,
-                                               got))
+                holds = [hold_k1_launch(*c, every) for c in kept]
                 err = max([err] + [h["err"] for h in holds])
                 hit = float(out["hits"].hit.float().mean())
                 say(f"phase 25 objrender, {what}: load "
@@ -4197,33 +4203,79 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                     f"s, tables {sec['tables']:.3f} s, render "
                     f"{sec['render'] * 1e3:.3f} ms (host clock, the image "
                     f"copied back), hit {hit:.4f}; launches {counts}; every "
-                    f"{every}th ray == plain: "
-                    + ", ".join(f"{h['rays']} rays same={h['same']} "
-                                f"err={h['err']}" for h in holds))
-                check(counts.get("packet_traverse", 0) >= 1
-                      and set(counts) == {"packet_traverse"}
-                      and len(holds) == counts["packet_traverse"],
+                    f"{every}th ray == plain: " + held(f"objrender {what}",
+                                                       holds))
+                check(counts == {"packet_traverse": n_k1} and n_k1 >= 1
+                      and len(holds) == n_k1,
                       f"phase 25 objrender ({what}): launches {counts}")
                 check(all(h["same"] for h in holds) and hit > 0.05,
                       f"phase 25 objrender ({what}): K1 != plain or no hit")
                 del out, kept, holds
                 torch.cuda.empty_cache()
 
-            # ---- path_tracer: 256^2 x 64 spp x 8 bounces (K3)
+            # ---- path_tracer: 256^2 x 64 spp x 8 bounces (K3), its
+            # render held on every 64th pixel to K3's plain version under
+            # those pixels' own random numbers
+            k3_kept = []
+            real_fused = pt_fused.render_fused
+
+            def keep_fused(scene, org, dirs, seed, spp, **kw):
+                img = real_fused(scene, org, dirs, seed, spp, **kw)
+                k3_kept.append((scene, org, dirs, seed, spp, kw, img))
+                return img
+
             zero_launch_counts()
-            out = path_tracer.main([])
+            with patched(pt_fused, "render_fused", keep_fused):
+                out = path_tracer.main([])
             counts = nonzero(launch_counts())
             k3 += counts.get("pt_fused_brute", 0)
             img = out["img"]
+            scene, org, dirs, seed, spp, kw, got = k3_kept[0]
+            o, d = pt_fused._flat_rays(org, dirs, dev)
+            ids = torch.arange(0, o.shape[0], every, device=dev)
+            tri, face, light = pt_fused.build_fused_tables(scene)
+            work = {"tris": 0, "shade": 0}
+            real_mt = pt_fused._brute_mt
+
+            def counting_mt(tri_, *c):
+                tmin, tmax = c[-2], c[-1]
+                live = int((tmax > tmin).sum())
+                work["tris"] += live * tri_.shape[0]
+                if tmin.numel() and float(tmin[0]) == pt_fused._EPS_T:
+                    work["shade"] += live
+                return real_mt(tri_, *c)
+
+            t0 = time.perf_counter()
+            with patched(pt_fused, "_brute_mt", counting_mt):
+                want = pt_fused._div(pt_fused._render_fused_reference(
+                    tri, face, pt_fused._lights(scene, dev), o[ids], d[ids],
+                    pt_fused._seed32(seed), spp, kw["max_bounces"],
+                    kw.get("rr_start", 3), kw.get("trig", "native"),
+                    kw["azimuth_strata"], lane_ids=ids), float(spp))
+            plain_s = time.perf_counter() - t0
+            fr, err3 = same_frac(got[ids], want), max_abs(got[ids], want)
+            k3_ms = median(cuda_ms(lambda: real_fused(
+                scene, org, dirs, seed, spp, **kw), 5))
+            b3 = bound(o.shape[0] * (24 + 12) + nbytes(tri, face, light),
+                       (work["tris"] * MT_OPS + work["shade"] * SHADE_OPS)
+                       * every)
             say(f"phase 25 path_tracer, 256^2 x 64 spp x 8 bounces: "
                 f"{out['seconds']:.4f} s (host clock, the image copied "
                 f"back) = {256 * 256 * 64 / out['seconds'] / 1e6:.1f} "
                 f"Msamples/s; image mean {float(img.mean())}; launches "
-                f"{counts}")
-            check(set(counts) == {"pt_fused_brute"},
+                f"{counts}; K3 relaunched {k3_ms:.3f} ms (CUDA events, "
+                f"median of 5) vs bound {b3[0]:.4f} ms ({b3[1]}); every "
+                f"{every}th pixel ({ids.numel()}, trig "
+                f"{kw.get('trig', 'native')}, {kw['azimuth_strata']} "
+                f"azimuth strata) == plain bit for bit: {fr} (max abs err "
+                f"{err3}, plain {plain_s:.1f} s with its work counted)")
+            check(set(counts) == {"pt_fused_brute"} and len(k3_kept) == 1,
                   f"phase 25 path_tracer: launches {counts}")
+            check(fr > 0.99, f"phase 25 path_tracer: K3 != plain on "
+                  f"{1 - fr} of the sampled pixels")
             check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
                   "phase 25 path_tracer: non-finite or black image")
+            del k3_kept, out, img, got, want
 
             # ---- bidir_path_tracer: 128^2 x 16 spp
             zero_launch_counts()
@@ -4240,7 +4292,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
 
             # ---- gltfrender: 8 spheres on a ring in a .glb, 512^2
             sv, sf = make_uv_sphere(32, 64, 0.5)
-            _ring_glb("ring.glb", sv, sf, [
+            ring_glb("ring.glb", sv, sf, [
                 ((1.6 * np.cos(a), 0.2 * np.sin(3 * a), 1.6 * np.sin(a)),
                  (0.3, 1.0, 0.1), a) for a in np.arange(8) * np.pi / 4])
             zero_launch_counts()
@@ -4255,35 +4307,47 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
             check(counts == {} and hit > 0.05,
                   f"phase 25 gltfrender: launches {counts}, hit {hit}")
 
-            # ---- viewer: the terminal surface, each route ~3 s, stdout
-            # captured
-            for route in ("bvh8", "graph"):
-                zero_launch_counts()
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(io.StringIO()) as cap:
-                    if route == "bvh8":
-                        r = viewer.main(["3"])
-                    else:
-                        r = viewer.run_terminal(3.0, "perspective", dev,
-                                                route="graph")
-                wall = time.perf_counter() - t0
-                counts = nonzero(launch_counts())
-                n = len(r.pass_times)
-                if route == "bvh8":
-                    k1 += counts.get("packet_traverse", 0)
-                say(f"phase 25 viewer terminal, route {route}, 128^2: {n} "
-                    f"passes in {wall:.2f} s = {n / wall:.1f} passes/s "
-                    f"(median pass {median(r.pass_times) * 1e3:.2f} ms; "
-                    f"{r.passes_done} since the orbit's restart); "
-                    f"{len(cap.getvalue().splitlines())} status lines; "
-                    f"launches {counts}")
-                want = ({"packet_traverse": 2 * n} if route == "bvh8"
-                        else {})
-                check(n >= 2 and counts == want,
-                      f"phase 25 viewer {route}: {n} passes, launches "
-                      f"{counts}, expected {want}")
+            # ---- viewer: the terminal surface at its default 5 s, stdout
+            # captured. Each half-run (before and after the orbit) renders
+            # up to the cap of MAX_PASSES passes and then idles, so the
+            # run is 2 x MAX_PASSES passes of 2 K1 launches each; a card
+            # that does not reach the cap in a half-run fails here. The
+            # first pass of each half is held to the plain version.
+            cap = viewer.MAX_PASSES
+            res = {}
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out_txt:
+                kept, n_k1 = capture_k1(
+                    lambda: res.update(r=viewer.main([])),
+                    only={0, 1, 2 * cap, 2 * cap + 1})
+            wall = time.perf_counter() - t0
+            counts = nonzero(launch_counts())
+            r = res["r"]
+            n = len(r.pass_times)
+            k1 += counts.get("packet_traverse", 0)
+            holds = [hold_k1_launch(*c, every) for c in kept]
+            err = max([err] + [h["err"] for h in holds])
+            say(f"phase 25 viewer terminal, 128^2, 5 s: {n} passes in "
+                f"{wall:.2f} s (median pass {median(r.pass_times) * 1e3:.2f} "
+                f"ms; {r.passes_done} since the orbit's restart); "
+                f"{len(out_txt.getvalue().splitlines())} status lines; "
+                f"launches {counts}; the first pass of each half, every "
+                f"{every}th ray == plain: "
+                + held("viewer pass (first of a half-run)", holds))
+            check(n == 2 * cap and r.passes_done == cap
+                  and counts == {"packet_traverse": 4 * cap}
+                  and n_k1 == 4 * cap,
+                  f"phase 25 viewer terminal: {n} passes, "
+                  f"{r.passes_done} since the orbit, launches {counts}; "
+                  f"expected {2 * cap} passes, {cap} since the orbit, "
+                  f"{4 * cap} K1 launches")
+            check(len(holds) == 4 and all(h["same"] for h in holds),
+                  "phase 25 viewer terminal: K1 != plain")
+            del kept, holds, r, res
 
-            # ---- viewer: the HTTP surface on 127.0.0.1:0
+            # ---- viewer: the HTTP surface on 127.0.0.1:0, its graph pass
+            # timed over ~3.5 s of serving
             ports, res = [], {}
             ready = threading.Event()
 
@@ -4293,10 +4357,14 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                         0, 60, dev,
                         ready=lambda p: (ports.append(p), ready.set()))
 
+            zero_launch_counts()
             th = threading.Thread(target=serve, daemon=True)
             th.start()
-            status = {}
+            status, png, commits = {}, b"", None
+            t0 = time.perf_counter()
             if ready.wait(60):
+                t0 = time.perf_counter()
+
                 def call(path, body=None):
                     req = urllib.request.Request(
                         f"http://127.0.0.1:{ports[0]}{path}",
@@ -4309,18 +4377,26 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
 
                 call("/")
                 png = call("/frame.png")
+                time.sleep(max(0.0, 3.5 - (time.perf_counter() - t0)))
                 call("/node", {"name": "ball_a", "dx": 0.25})
                 commits = json.loads(call("/status"))["commits"]
                 call("/quit", {})
             th.join(60)
-            say(f"phase 25 viewer http on 127.0.0.1:{ports[0] if ports else '-'}"
-                f": {status}; frame.png {len(png) if status else 0} bytes; "
-                f"commits after the nudge "
-                f"{commits if status else '-'}; stopped "
-                f"{not th.is_alive()}")
+            wall = time.perf_counter() - t0
+            counts = nonzero(launch_counts())
+            times = res["r"].pass_times if "r" in res else []
+            say(f"phase 25 viewer http on 127.0.0.1:"
+                f"{ports[0] if ports else '-'}: {status}; frame.png "
+                f"{len(png)} bytes; commits after the nudge {commits}; "
+                f"stopped {not th.is_alive()}; the graph pass, 128^2: "
+                f"{len(times)} passes in {wall:.2f} s of serving (median "
+                f"pass {median(times) * 1e3 if times else float('nan'):.2f}"
+                f" ms); launches {counts}")
             check(len(status) == 5 and set(status.values()) == {200}
-                  and commits == 2 and not th.is_alive(),
-                  f"phase 25 viewer http: {status}")
+                  and commits == 2 and not th.is_alive()
+                  and len(times) >= 1 and counts == {},
+                  f"phase 25 viewer http: {status}, {len(times)} passes, "
+                  f"launches {counts}")
 
             # ---- the graft entry: card == CPU (K1's plain version)
             zero_launch_counts()
@@ -4339,7 +4415,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
         finally:
             os.chdir(cwd)
     say(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
-    return k1, err, k3
+    return k1, err, k3, err3
 
 
 def time_calls(fn):
@@ -4710,14 +4786,15 @@ def main() -> int:
     launches_24, err_24 = multidevice_phases(dev, v, f, s8i)
     del s8i
     torch.cuda.empty_cache()
-    launches_25, err_25, k3_25 = example_phases(dev, v, f)
+    launches_25, err_25, k3_25, k3_err_25 = example_phases(dev, v, f)
     for e in k2k5:  # K1-woop's entry gains phase 19's and 22's woop paths
         if e["name"] == "packet_traverse_woop":
             e["launches"] += woop_19 + woop_22
             e["max_abs_err"] = max(e["max_abs_err"], woop_err_19,
                                    woop_err_22)
-        if e["name"] == "pt_fused_brute":  # K3 gains phase 25's renders
+        if e["name"] == "pt_fused_brute":  # K3 gains phase 25's render
             e["launches"] += k3_25
+            e["max_abs_err"] = max(e["max_abs_err"], k3_err_25)
     k1_shape(f"phase 6: the {res}^2 frame (median of 3; bound from phase "
              f"18's counters)", frame_ms, frame_bound_18, "k1_frame_8192_ms")
     report_k1_shapes()

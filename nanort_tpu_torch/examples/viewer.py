@@ -136,23 +136,24 @@ def graph_pass(cs, rays, uniforms) -> dict:
     return {"rgb": rgb.reshape(*rays.batch_shape, 3)}
 
 
-def make_render_pass(bvh, mesh, scene8, state, cam_type="perspective",
-                     size=SIZE):
-    """The terminal surface's pass function for ``ProgressiveRenderer``."""
+def make_render_pass(bvh, mesh, scene8, state, cam_type="perspective"):
+    """The terminal surface's pass function for ``ProgressiveRenderer``,
+    at ``SIZE``^2."""
     def render_pass(p, gen):
-        rays = orbit_rays(state, 2.4, cam_type, size, gen.device)
+        rays = orbit_rays(state, 2.4, cam_type, SIZE, gen.device)
         return bvh8_pass(bvh, mesh, scene8, rays,
                          ao_hemisphere_draws(gen, 2, rays.batch_shape))
 
     return render_pass
 
 
-def make_render_pass_sg(state, cam_type="perspective", size=SIZE):
-    """The graph pass function: it reads the committed scene from
-    ``state["cs"]``, so a re-commit takes effect at the next pass."""
+def make_render_pass_sg(state, cam_type="perspective"):
+    """The HTTP surface's pass function, at ``SIZE``^2: it reads the
+    committed scene from ``state["cs"]``, so a re-commit takes effect at
+    the next pass."""
     def render_pass(p, gen):
-        rays = orbit_rays(state, 3.4, cam_type, size, gen.device)
-        u = torch.rand((2, size * size, 3), generator=gen, device=gen.device)
+        rays = orbit_rays(state, 3.4, cam_type, SIZE, gen.device)
+        u = torch.rand((2, SIZE * SIZE, 3), generator=gen, device=gen.device)
         return graph_pass(state["cs"], rays, u.cpu().numpy())
 
     return render_pass
@@ -177,23 +178,14 @@ def ansi_frame(rgb, status):
     return "\n".join(rows) + f"\n\x1b[0m{status}\n"
 
 
-def run_terminal(seconds, cam_type, device, route="bvh8",
-                 size=SIZE) -> ProgressiveRenderer:
-    """The terminal surface for ``seconds``: ``route`` ``"bvh8"`` (the
-    JAX program's: AO on the BVH16 tables) or ``"graph"`` (the HTTP
-    surface's graph pass). Writes ``viewer.png`` and returns the stopped
-    renderer (``passes_done`` since the orbit's restart, ``pass_times``
-    of every pass)."""
-    if route == "bvh8":
-        bvh, mesh, scene8 = build_scene(device)
-        state = {"azimuth": 0.0}
-        fn = make_render_pass(bvh, mesh, scene8, state, cam_type, size)
-    elif route == "graph":
-        state = {"azimuth": 0.0, "elevation": 0.0,
-                 "cs": build_scene_graph(device).committed}
-        fn = make_render_pass_sg(state, cam_type, size)
-    else:
-        raise ValueError(f"route must be 'bvh8' or 'graph': {route!r}")
+def run_terminal(seconds, cam_type, device) -> ProgressiveRenderer:
+    """The terminal surface for ``seconds``: AO on the BVH16 tables.
+    Writes ``viewer.png`` and returns the stopped renderer
+    (``passes_done`` since the orbit's restart, ``pass_times`` of every
+    pass)."""
+    bvh, mesh, scene8 = build_scene(device)
+    state = {"azimuth": 0.0}
+    fn = make_render_pass(bvh, mesh, scene8, state, cam_type)
     r = ProgressiveRenderer(fn, max_passes=MAX_PASSES,
                             device=device).start()
     t0 = time.perf_counter()
@@ -287,8 +279,7 @@ img.addEventListener('pointermove',e=>{
 </script>"""
 
 
-def run_http(port, seconds, device, size=SIZE,
-             ready=None) -> ProgressiveRenderer:
+def run_http(port, seconds, device, ready=None) -> ProgressiveRenderer:
     """The HTTP surface on 127.0.0.1:``port`` (0: a free port) until
     ``seconds`` pass or a client posts ``/quit``. ``ready(port)`` is
     called with the bound port before the first request is served.
@@ -299,7 +290,7 @@ def run_http(port, seconds, device, size=SIZE,
     state = {"azimuth": 0.0, "elevation": 0.0, "cs": sc.committed,
              "commits": 1}
     stop = threading.Event()
-    r = ProgressiveRenderer(make_render_pass_sg(state, size=size),
+    r = ProgressiveRenderer(make_render_pass_sg(state),
                             max_passes=MAX_PASSES, device=device).start()
 
     class Handler(BaseHTTPRequestHandler):
@@ -322,7 +313,7 @@ def run_http(port, seconds, device, size=SIZE,
                 snap = r.snapshot()
                 img = snap.get("rgb") if snap else None
                 if img is None:
-                    img = np.zeros((size, size, 3), np.float32)
+                    img = np.zeros((SIZE, SIZE, 3), np.float32)
                 self._send(200, "image/png", encode_png(np.clip(img, 0, 1)))
             elif self.path.startswith("/status"):
                 body = json.dumps({

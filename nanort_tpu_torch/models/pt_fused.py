@@ -433,8 +433,11 @@ def _brute_mt(tri, px, py, pz, dx, dy, dz, tmin, tmax):
 
 
 def _render_fused_reference(tri, face, lights, org, dirs, seed, spp,
-                            max_bounces, rr_start, trig, az_strata):
-    """Plain torch version of K3: radiance sums (R, 3)."""
+                            max_bounces, rr_start, trig, az_strata,
+                            lane_ids=None):
+    """Plain torch version of K3: radiance sums (R, 3). ``lane_ids``
+    (R,): the pixels of a launch that ``org``/``dirs`` hold (default
+    all), each traced under its own pixel's random numbers."""
     F, C = tri.shape[0], face.shape[1]
     ar_f = torch.arange(F, device=org.device)
 
@@ -469,7 +472,7 @@ def _render_fused_reference(tri, face, lights, org, dirs, seed, spp,
 
     return _render_lanes_reference(org, dirs, seed, spp, max_bounces,
                                    rr_start, trig, az_strata, 1, lights,
-                                   closest, shadow)
+                                   closest, shadow, lane_ids)
 
 
 # ------------------------------------------------------------- K4

@@ -21,6 +21,9 @@ against ``CUDA_MOCK``, a small host stand-in for what the sources use of
 the CUDA API, so that a test can run a kernel's per-thread functions one
 thread at a time on a machine without a card.
 
+``ring_glb`` writes a ``.glb`` of one mesh instanced by TRS nodes, the
+glTF input of the loader tests and of ``chip_smoke.py``.
+
 ``mesh_checks`` is the rank body that the multi-device tests spawn on
 each rank of a gloo group (``parallel.dryrun.spawn_ranks``).
 """
@@ -28,9 +31,12 @@ each rank of a gloo group (``parallel.dryrun.spawn_ranks``).
 from __future__ import annotations
 
 import ctypes
+import json
+import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -332,6 +338,46 @@ def build_with_cuda_mock(source: str, harness: str, directory) -> ctypes.CDLL:
     if r.returncode != 0:
         raise RuntimeError(f"g++ build of {source} failed:\n{r.stderr[-6000:]}")
     return ctypes.CDLL(so)
+
+
+def ring_glb(path, v, f, xfs):
+    """A glTF of one mesh buffer (float32 positions, uint32 indices)
+    instanced by one TRS node per ``(translation, axis, angle)`` of
+    ``xfs``, written to ``path`` as a ``.glb``."""
+    pos, idx = v.astype(np.float32).tobytes(), f.astype(np.uint32).tobytes()
+    nodes = []
+    for k, (t, axis, ang) in enumerate(xfs):
+        a = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+        q = list(a * math.sin(0.5 * ang)) + [math.cos(0.5 * ang)]  # x y z w
+        nodes.append({"mesh": 0, "name": f"ring{k}",
+                      "translation": [float(c) for c in t],
+                      "rotation": [float(c) for c in q]})
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"byteLength": len(pos) + len(idx)}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": len(pos)},
+            {"buffer": 0, "byteOffset": len(pos), "byteLength": len(idx)}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(v),
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5125, "count": f.size,
+             "type": "SCALAR"}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0},
+                                    "indices": 1}]}],
+        "nodes": nodes,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "scene": 0,
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    buf = pos + idx
+    buf += b"\0" * (-len(buf) % 4)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<III", 0x46546C67, 2,
+                             12 + 8 + len(js) + 8 + len(buf)))
+        fh.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        fh.write(struct.pack("<II", len(buf), 0x004E4942) + buf)
 
 
 def mesh_checks(mesh, inputs: dict) -> dict:

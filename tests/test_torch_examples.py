@@ -32,9 +32,9 @@ Tolerances:
 
 Port only: each program imports with JAX and the JAX package blocked,
 and ``objrender`` runs at its defaults so; ``--device cuda`` raises when
-``torch.cuda.is_available()`` is false; the viewer's two terminal
-routes and its HTTP surface on port 0 (page, PNG, status, a gizmo nudge
-that re-commits, orbit, quit).
+``torch.cuda.is_available()`` is false; the viewer's terminal surface
+under two cameras and its HTTP surface on port 0 (page, PNG, status, a
+gizmo nudge that re-commits, orbit, quit).
 """
 
 import concurrent.futures
@@ -65,7 +65,7 @@ from nanort_tpu_torch.io.obj import load_obj, save_obj
 from nanort_tpu_torch.io.procedural import (make_cornell_box, make_uv_sphere,
                                             merge_meshes)
 from nanort_tpu_torch.models.objrender import render_ao, render_aovs
-from nanort_tpu_torch.testing import run_without_fma
+from nanort_tpu_torch.testing import ring_glb, run_without_fma
 
 torch.set_num_threads(1)
 
@@ -83,45 +83,6 @@ CHILDREN = (("objrender", "path_tracer", "gltfrender", "graft", "viewer"),
             ("bidir_path_tracer",))
 PROGRAMS = ("objrender", "path_tracer", "bidir_path_tracer", "gltfrender",
             "viewer")
-
-
-def _ring_glb(path, v, f, n):
-    """One mesh buffer (float32 positions, uint32 indices) instanced by
-    ``n`` nodes on a ring, each turned about y, written as a ``.glb``."""
-    pos, idx = v.astype(np.float32).tobytes(), f.astype(np.uint32).tobytes()
-    nodes = []
-    for k in range(n):
-        a = 2 * math.pi * k / n
-        nodes.append({"mesh": 0, "name": f"ring{k}",
-                      "translation": [1.5 * math.cos(a), 0.0,
-                                      1.5 * math.sin(a)],
-                      "rotation": [0.0, math.sin(0.5 * a), 0.0,
-                                   math.cos(0.5 * a)]})
-    doc = {
-        "asset": {"version": "2.0"},
-        "buffers": [{"byteLength": len(pos) + len(idx)}],
-        "bufferViews": [
-            {"buffer": 0, "byteOffset": 0, "byteLength": len(pos)},
-            {"buffer": 0, "byteOffset": len(pos), "byteLength": len(idx)}],
-        "accessors": [
-            {"bufferView": 0, "componentType": 5126, "count": len(v),
-             "type": "VEC3"},
-            {"bufferView": 1, "componentType": 5125, "count": f.size,
-             "type": "SCALAR"}],
-        "meshes": [{"primitives": [{"attributes": {"POSITION": 0},
-                                    "indices": 1}]}],
-        "nodes": nodes,
-        "scenes": [{"nodes": list(range(n))}],
-        "scene": 0,
-    }
-    js = json.dumps(doc).encode()
-    js += b" " * (-len(js) % 4)
-    buf = pos + idx + b"\0" * (-(len(pos) + len(idx)) % 4)
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<III", 0x46546C67, 2,
-                             12 + 8 + len(js) + 8 + len(buf)))
-        fh.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
-        fh.write(struct.pack("<II", len(buf), 0x004E4942) + buf)
 
 
 def decode_png(path) -> np.ndarray:
@@ -228,7 +189,9 @@ def workdir(tmp_path_factory):
     v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
     save_obj(str(d / "scene.obj"), v, f)
     sv, sf = make_uv_sphere(8, 16, 0.5)
-    _ring_glb(str(d / "ring.glb"), sv, sf, 4)
+    ring_glb(str(d / "ring.glb"), sv, sf, [  # 4 nodes turned about y
+        ((1.5 * math.cos(a), 0.0, 1.5 * math.sin(a)), (0.0, 1.0, 0.0), a)
+        for a in np.arange(4) * np.pi / 2])
     return d
 
 
@@ -255,12 +218,12 @@ def jax_side(workdir):
     ex.shutdown()
 
 
-@pytest.mark.parametrize("route", ["bvh8", "graph"])
-def test_viewer_terminal_surface(tmp_path, monkeypatch, route, capsys):
+@pytest.mark.parametrize("cam_type", ["perspective", "orthographic"])
+def test_viewer_terminal_surface(tmp_path, monkeypatch, cam_type, capsys):
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(viewer, "SIZE", 16)
     png = tmp_path / "viewer.png"
-    r = viewer.run_terminal(1.5, "perspective", torch.device("cpu"),
-                            route=route, size=16)
+    r = viewer.run_terminal(1.5, cam_type, torch.device("cpu"))
     printed = capsys.readouterr().out
     assert r._thread is None and len(r.pass_times) >= 1
     assert "pass " in printed and "[orbited: accumulation restarted]" in printed
@@ -270,12 +233,13 @@ def test_viewer_terminal_surface(tmp_path, monkeypatch, route, capsys):
 
 def test_viewer_http_surface(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(viewer, "SIZE", 16)
     ports, res = [], {}
     ready = threading.Event()
 
     def serve():
         res["r"] = viewer.run_http(
-            0, 120, torch.device("cpu"), size=16,
+            0, 120, torch.device("cpu"),
             ready=lambda p: (ports.append(p), ready.set()))
 
     th = threading.Thread(target=serve, daemon=True)

@@ -1740,12 +1740,13 @@ def test_bidir_program_on_card(dev, tmp_path):
 def test_gltfrender_program_on_card(dev, tmp_path):
     """A 4-node ring ``.glb`` at 64^2: the graph walk (no kernel) gives
     the CPU run's hit mask and node ids."""
-    from test_torch_examples import _ring_glb
-
     from nanort_tpu_torch.examples import gltfrender
+    from nanort_tpu_torch.testing import ring_glb
 
     v, f = make_uv_sphere(8, 16, 0.5)
-    _ring_glb(str(tmp_path / "r.glb"), v, f, 4)
+    ring_glb(str(tmp_path / "r.glb"), v, f, [
+        ((1.5 * np.cos(a), 0.0, 1.5 * np.sin(a)), (0.0, 1.0, 0.0), a)
+        for a in np.arange(4) * np.pi / 2])
     before = _launches()
     got = gltfrender.main([str(tmp_path / "r.glb"), str(tmp_path / "g.png"),
                            "64"])["hits"]
@@ -1757,30 +1758,28 @@ def test_gltfrender_program_on_card(dev, tmp_path):
     assert torch.equal(got.node_id.cpu(), want.node_id)
 
 
-@pytest.mark.parametrize("route", ["bvh8", "graph"])
-def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, route, capsys):
-    """The terminal surface for 2 s: the BVH16 route launches K1 twice a
-    pass (primary and any-hit occlusion with skip) and nothing else, and
-    prints its status; the graph route (about a second a pass on the
-    card) launches nothing."""
+@pytest.mark.parametrize("cam_type", ["perspective", "orthographic"])
+def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, cam_type,
+                                 capsys):
+    """The terminal surface at 64^2 for 2 s launches K1 twice a pass
+    (primary and any-hit occlusion with skip) and nothing else, and
+    prints its status."""
     from nanort_tpu_torch.examples import viewer
 
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(viewer, "SIZE", 64)
     before = _launches()
-    r = viewer.run_terminal(2.0, "perspective", dev, route=route, size=64)
+    r = viewer.run_terminal(2.0, cam_type, dev)
     moved = _moved(before)
     n = len(r.pass_times)
     assert n >= 1 and r._thread is None
-    if route == "bvh8":
-        assert "pass " in capsys.readouterr().out
-        assert moved == {"packet_traverse": 2 * n}
-    else:
-        assert moved == {}
+    assert "pass " in capsys.readouterr().out
+    assert moved == {"packet_traverse": 2 * n}
 
 
 def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
-    """The HTTP surface on port 0 on the card: page, PNG, a gizmo nudge
-    that re-commits, quit."""
+    """The HTTP surface on port 0 on the card at 64^2: page, PNG, a gizmo
+    nudge that re-commits, quit; its graph pass launches no kernel."""
     import json
     import threading
     import urllib.request
@@ -1788,13 +1787,14 @@ def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
     from nanort_tpu_torch.examples import viewer
 
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(viewer, "SIZE", 64)
     ports, res = [], {}
     ready = threading.Event()
+    before = _launches()
 
     def serve():
         res["r"] = viewer.run_http(
-            0, 120, dev, size=64,
-            ready=lambda p: (ports.append(p), ready.set()))
+            0, 120, dev, ready=lambda p: (ports.append(p), ready.set()))
 
     th = threading.Thread(target=serve, daemon=True)
     th.start()
@@ -1816,3 +1816,4 @@ def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
     call("/quit", {})
     th.join(60)
     assert not th.is_alive() and res["r"]._thread is None
+    assert _moved(before) == {}
