@@ -1,0 +1,10 @@
+"""The share of the traced window in which no kernel, copy or set ran on
+the device (torch.profiler's CUDA activity), in %. It reads every
+``device_idle_pct.<suffix>``: the cells they list differ in the
+end-to-end metric the share moves."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
