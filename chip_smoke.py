@@ -4434,13 +4434,15 @@ def time_calls(fn):
     return ms, busy, launch_counts()
 
 
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
-    from nanort_tpu_torch.models import ao_fused, pt_fused
-    from nanort_tpu_torch.traverse import fused_trace, packet
+_LAUNCH_BASE: dict = {}
 
-    return {**packet.LAUNCHES, **fused_trace.LAUNCHES, **pt_fused.LAUNCHES,
-            "ao_fused": ao_fused.LAUNCHES}
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count since ``zero_launch_counts``,
+    by kernel name."""
+    from nanort_tpu_torch.utils import trace
+
+    return trace.launches(_LAUNCH_BASE)
 
 
 def nonzero(counts: dict) -> dict:
@@ -4449,13 +4451,10 @@ def nonzero(counts: dict) -> dict:
 
 
 def zero_launch_counts():
-    from nanort_tpu_torch.models import ao_fused, pt_fused
-    from nanort_tpu_torch.traverse import fused_trace, packet
+    global _LAUNCH_BASE
+    from nanort_tpu_torch.utils import trace
 
-    ao_fused.LAUNCHES = 0
-    for counts in (packet.LAUNCHES, fused_trace.LAUNCHES, pt_fused.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    _LAUNCH_BASE = trace.counts()
 
 
 def time_render(scene, rays, **kw):
@@ -4737,7 +4736,7 @@ def main() -> int:
     say(f"# phase 6: {n_rays} rays, specialization {spec}; traverse_bvh8 "
         f"ms {[round(t, 3) for t in ms]} -> Mrays/s best {max(mrays):.1f} "
         f"median {sorted(mrays)[1]:.1f}; hit fraction {frac:.5f} (disc "
-        f"coverage {expect:.5f}); LAUNCHES {launches}; plain version on the "
+        f"coverage {expect:.5f}); launches {launches}; plain version on the "
         f"{2 * m}-ray subset {plain_ms:.1f} ms vs kernel {kernel_ms:.3f} ms")
     h = hits.hit
     check(tuple(hits.t.shape) == (res, res), "frame hits have the wrong shape")

@@ -49,6 +49,7 @@ from .core.ray import (
     no_hits,
 )
 from .build.sah import build_sah
+from .utils import trace as _trace
 from .ops.triangle import (
     TriangleMesh,
     intersect_triangles,
@@ -66,6 +67,7 @@ from .traverse.stack import (
 __version__ = "0.1.0"
 
 
+@_trace.span("build.sah")
 def build_triangle_bvh(mesh, options: BVHBuildOptions = BVHBuildOptions(),
                        use_native: bool = True):
     """Per-face bounds -> binned-SAH linear BVH (reference

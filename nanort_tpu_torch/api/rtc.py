@@ -47,6 +47,7 @@ from ..core.ray import Rays
 from ..ops.triangle import TriangleMesh
 from ..scene import matrix as mat
 from ..scene.graph import Node, Scene as _SG, SceneHits
+from ..utils import trace
 
 # The fast route's largest world-space mesh (JAX rtc.py:128)
 FAST_MAX_TRIS = 1 << 24
@@ -109,6 +110,7 @@ class RTCScene:
         self._committed = False
 
     # -- commit & query --
+    @trace.span("rtc.commit")
     def commit(
         self,
         options: BVHBuildOptions = BVHBuildOptions(),
@@ -124,15 +126,16 @@ class RTCScene:
         if not self._geoms:
             raise ValueError("rtcCommit on empty scene")
         dev = self._device.device
-        sg = _SG(device=dev)
-        self._node_of = {}
-        for gid in sorted(self._geoms):
-            g = self._geoms[gid]
-            mesh = TriangleMesh(vertices=g.vertices.copy(),
-                                faces=g.indices.copy())
-            sg.add_node(Node(f"geom{gid}", mesh, g.xform))
-            self._node_of[len(self._node_of)] = gid
-        sg.commit(options)
+        with trace.span("commit.graph"):
+            sg = _SG(device=dev)
+            self._node_of = {}
+            for gid in sorted(self._geoms):
+                g = self._geoms[gid]
+                mesh = TriangleMesh(vertices=g.vertices.copy(),
+                                    faces=g.indices.copy())
+                sg.add_node(Node(f"geom{gid}", mesh, g.xform))
+                self._node_of[len(self._node_of)] = gid
+            sg.commit(options)
         self._sg = sg
         self._scene8 = None
         self._flat_pack = None
@@ -146,33 +149,35 @@ class RTCScene:
             # flatten all geometries into one world-space mesh, baking
             # each geometry's transform into its vertices: one BVH over
             # the transformed union is the committed scene
-            v_parts, f_parts, v_off = [], [], 0
-            for gid in sorted(self._geoms):
-                g = self._geoms[gid]
-                vg = np.asarray(g.vertices, np.float32)
-                x = np.asarray(g.xform, np.float32)
-                if not np.allclose(x, mat.identity()):
-                    vg = vg @ x[:3, :3].T + x[:3, 3]
-                v_parts.append(vg)
-                f_parts.append(np.asarray(g.indices, np.int64) + v_off)
-                v_off += len(g.vertices)
-            flat_v = np.concatenate(v_parts)
-            flat_f = np.concatenate(f_parts)
+            with trace.span("commit.flatten"):
+                v_parts, f_parts, v_off = [], [], 0
+                for gid in sorted(self._geoms):
+                    g = self._geoms[gid]
+                    vg = np.asarray(g.vertices, np.float32)
+                    x = np.asarray(g.xform, np.float32)
+                    if not np.allclose(x, mat.identity()):
+                        vg = vg @ x[:3, :3].T + x[:3, 3]
+                    v_parts.append(vg)
+                    f_parts.append(np.asarray(g.indices, np.int64) + v_off)
+                    v_off += len(g.vertices)
+                flat_v = np.concatenate(v_parts)
+                flat_f = np.concatenate(f_parts)
+                # flat-prim-id -> (geom id, local prim) remap tables + the
+                # world-space mesh, for the fast closest-hit path
+                gids = sorted(self._geoms)
+                tri_counts = [len(self._geoms[g].indices) for g in gids]
+                offs = np.zeros(len(gids), np.int64)
+                np.cumsum(tri_counts[:-1], out=offs[1:])
             opt8 = BVHBuildOptions(
                 min_leaf_primitives=8, max_leaf_primitives=8
             )
             bvh8_src, _ = build_triangle_bvh(TriangleMesh(flat_v, flat_f),
                                              opt8)
             self._scene8 = collapse_bvh8(bvh8_src, flat_v, flat_f).to(dev)
-            # flat-prim-id -> (geom id, local prim) remap tables + the
-            # world-space mesh, for the fast closest-hit path
-            gids = sorted(self._geoms)
-            tri_counts = [len(self._geoms[g].indices) for g in gids]
-            offs = np.zeros(len(gids), np.int64)
-            np.cumsum(tri_counts[:-1], out=offs[1:])
-            self._flat_pack = tuple(
-                torch.from_numpy(x).to(dev) for x in (
-                    flat_v, flat_f, offs, np.asarray(gids, np.int64)))
+            with trace.span("build.upload"):
+                self._flat_pack = tuple(
+                    torch.from_numpy(x).to(dev) for x in (
+                        flat_v, flat_f, offs, np.asarray(gids, np.int64)))
         self._committed = True
 
     def bounds(self):
@@ -180,6 +185,7 @@ class RTCScene:
         self._check()
         return self._sg.bounding_box()
 
+    @trace.span("rtc.intersect")
     def intersect(self, rays: Rays, cull_back_face: bool = False):
         """rtcIntersect over a ray batch. Returns a SceneHits whose
         node_id holds geometry ids.
@@ -207,29 +213,31 @@ class RTCScene:
         from ..traverse.ray_sort import traverse_bvh8_sorted
 
         h = traverse_bvh8_sorted(self._scene8, rays, opt)
-        flat_v, flat_f, offs, gid_arr = self._flat_pack
-        hit = h.prim_id != INVALID_PRIM_ID
-        pid = torch.where(hit, h.prim_id, 0)
-        gi = torch.searchsorted(offs, pid, right=True) - 1
-        geom = torch.where(hit, gid_arr[gi], INVALID_PRIM_ID)
-        local = torch.where(hit, pid - offs[gi], INVALID_PRIM_ID)
-        pos = rays.org + h.t[..., None] * rays.dir
-        tri = flat_v[flat_f[pid]]
-        ng = normalize(cross(tri[..., 1, :] - tri[..., 0, :],
-                             tri[..., 2, :] - tri[..., 0, :]))
-        h3 = hit[..., None]
-        zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
-        return SceneHits(
-            t=h.t,
-            u=h.u,
-            v=h.v,
-            prim_id=local,
-            node_id=geom,
-            position=torch.where(h3, pos, zero),
-            normal_g=torch.where(h3, ng, zero),
-            normal_s=torch.where(h3, ng, zero),
-        )
+        with trace.span("rtc.remap"):
+            flat_v, flat_f, offs, gid_arr = self._flat_pack
+            hit = h.prim_id != INVALID_PRIM_ID
+            pid = torch.where(hit, h.prim_id, 0)
+            gi = torch.searchsorted(offs, pid, right=True) - 1
+            geom = torch.where(hit, gid_arr[gi], INVALID_PRIM_ID)
+            local = torch.where(hit, pid - offs[gi], INVALID_PRIM_ID)
+            pos = rays.org + h.t[..., None] * rays.dir
+            tri = flat_v[flat_f[pid]]
+            ng = normalize(cross(tri[..., 1, :] - tri[..., 0, :],
+                                 tri[..., 2, :] - tri[..., 0, :]))
+            h3 = hit[..., None]
+            zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+            return SceneHits(
+                t=h.t,
+                u=h.u,
+                v=h.v,
+                prim_id=local,
+                node_id=geom,
+                position=torch.where(h3, pos, zero),
+                normal_g=torch.where(h3, ng, zero),
+                normal_s=torch.where(h3, ng, zero),
+            )
 
+    @trace.span("rtc.occluded")
     def occluded(self, rays: Rays) -> torch.Tensor:
         """rtcOccluded: boolean any-hit per ray. With the fast tables, the
         packet traversal's occlusion mode (rays end at their first

@@ -53,6 +53,7 @@ import dataclasses
 import numpy as np
 
 from ..core.bvh import BVH
+from ..utils import trace
 
 MAX_LEAF_TRIS = 10
 EMPTY_BIG = 3.0e38
@@ -82,6 +83,7 @@ class BVH8Scene:
     def _replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
+    @trace.span("build.upload")
     def to(self, device) -> "BVH8Scene":
         """Copy of the scene whose tables are contiguous float32 torch
         tensors on ``device``.
@@ -221,6 +223,7 @@ def _woop_transforms_from(vertices, faces, indices) -> np.ndarray:
     return flat
 
 
+@trace.span("build.collapse")
 def collapse_bvh8(
     bvh: BVH,
     vertices,

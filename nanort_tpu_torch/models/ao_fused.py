@@ -39,18 +39,21 @@ import torch
 from ..core.options import INVALID_PRIM_ID
 from ..core.ray import PRIM_ID_DTYPE, Hits
 from ..traverse import _ext, fused_trace
+from ..utils import trace
 from .objrender import (AO_EPS, _mesh_on, aovs_from_hits, face_normals,
                         resolve_draws)
 
-# Kernel launches by ao_fused_outputs (never by the plain version); each
-# also runs K2 and counts in traverse.fused_trace.LAUNCHES.
-LAUNCHES = 0
+# Kernel launches by ao_fused_outputs (never by the plain version),
+# counted in utils.trace as "ao_fused"; each also runs K2 and counts as
+# "bvh16_trace_watertight".
+trace.declare_launches("ao_fused")
 # The last launch's occlusion items, hit pixels x S (a 0-d int64 tensor on
 # the card, read without a synchronisation); None before the first.
 LAST_ITEMS = None
 THREADS = 128  # a block of K5: four warps, each claiming 32-pixel tiles
 
 
+@trace.span("build.aux")
 def build_ao_aux(mesh, s8) -> torch.Tensor:
     """Aux rows (``fused_trace.build_aux_rows``) whose normals are
     ``objrender.face_normals``, the normals ``render_ao`` shades with; on
@@ -126,7 +129,7 @@ def ao_fused_outputs(nodes, leafs, aux, org, dir, tmin, tmax, draws,
     the kernel writes them (prim id int32, -1 on a miss; hit bool). On
     CUDA tensors it launches ``csrc/ao_fused.cu``, on CPU tensors it runs
     ``_ao_fused_reference``."""
-    global LAUNCHES, LAST_ITEMS
+    global LAST_ITEMS
     dev = org.device
     if dev.type == "cpu":
         return _ao_fused_reference(nodes, leafs, aux, org, dir, tmin, tmax,
@@ -154,9 +157,9 @@ def ao_fused_outputs(nodes, leafs, aux, org, dir, tmin, tmax, draws,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"ao_fused kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    trace.count("ao_fused")
     LAST_ITEMS = scratch[1]
-    fused_trace.LAUNCHES["bvh16_trace_watertight"] += 1  # K2 runs inside
+    trace.count("bvh16_trace_watertight")  # K2 runs inside
     fused_trace.check_overflow(err, slots)
     return ao, t, u, v, pid, hit != 0
 
@@ -178,6 +181,7 @@ def ao_occupancy(device=None) -> dict:
          "shared_bytes"), device)
 
 
+@trace.span("k5")
 def render_ao_fused(mesh, rays, seed: int | None, s8, aux,
                     n_samples: int = 8, ao_radius: float = 1e30,
                     stratified: bool = True, attrs=None, draws=None):

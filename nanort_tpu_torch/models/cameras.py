@@ -33,6 +33,7 @@ import torch
 
 from ..core.math import normalize, sqrt
 from ..core.ray import Rays, make_rays
+from ..utils import trace
 
 
 class Camera(NamedTuple):
@@ -48,6 +49,7 @@ class Camera(NamedTuple):
     fov: float
 
 
+@trace.span("camera")
 def look_at(eye, center, up=(0.0, 1.0, 0.0), width=512, height=512,
             fov=45.0, dtype=torch.float32, device="cuda") -> Camera:
     """Camera basis from eye/center/up, computed in float64 on the host
@@ -84,6 +86,7 @@ def _flen(cam: Camera) -> float:
     return 0.5 * cam.height / math.tan(0.5 * math.radians(cam.fov))
 
 
+@trace.span("camera")
 def pinhole_rays(cam: Camera, xy=None) -> Rays:
     """Standard perspective camera (camera.cc:89-126): an (H, W) batch
     on the camera's device, all rays sharing the eye as origin."""

@@ -38,6 +38,7 @@ from ..core.options import BVHTraceOptions, INVALID_PRIM_ID
 from ..core.ray import Rays, make_rays
 from ..ops.triangle import TriangleMesh
 from ..traverse.stack import traverse_triangles
+from ..utils import trace
 
 AO_EPS = 1e-4  # hit-point offset along the normal (JAX objrender.py:248)
 
@@ -110,6 +111,7 @@ def _traverse_primary(bvh, mesh, rays, options, max_leaf, scene8,
     return traverse_bvh8_sorted(scene8, rays, options)
 
 
+@trace.span("render_aovs")
 def render_aovs(bvh, mesh: TriangleMesh, rays: Rays,
                 attrs: MeshAttributes | None = None,
                 options: BVHTraceOptions = BVHTraceOptions(),
@@ -123,6 +125,7 @@ def render_aovs(bvh, mesh: TriangleMesh, rays: Rays,
     return aovs_from_hits(mesh, attrs, rays, hits), hits
 
 
+@trace.span("aovs")
 def aovs_from_hits(mesh, attrs, rays, hits) -> dict:
     """AOV dict from primary-hit records (shared with the fused AO pass,
     so both emit identical AOVs for identical records)."""
@@ -192,6 +195,7 @@ def build_onb(n: torch.Tensor):
     return t, bt
 
 
+@trace.span("ao.draws")
 def resolve_draws(rays: Rays, seed, n_samples: int, stratified: bool,
                   draws=None) -> torch.Tensor:
     """The hemisphere draws of an AO pass over ``rays``: ``draws`` if
@@ -213,6 +217,7 @@ def resolve_draws(rays: Rays, seed, n_samples: int, stratified: bool,
     return ao_hemisphere_draws(gen, S, bs, dt, stratified)
 
 
+@trace.span("render_ao")
 def render_ao(bvh, mesh: TriangleMesh, rays: Rays, seed: int | None = None,
               n_samples: int = 8, ao_radius: float = 1e30,
               options: BVHTraceOptions = BVHTraceOptions(),
@@ -245,46 +250,48 @@ def render_ao(bvh, mesh: TriangleMesh, rays: Rays, seed: int | None = None,
     d_local = resolve_draws(rays, seed, S, stratified, draws)
     aovs, hits = render_aovs(bvh, mesh, rays, None, options, max_leaf,
                              scene8, specialize)
-    hit = hits.hit
-    dt, dev = rays.dtype, rays.org.device
-    n = aovs["normal"]
-    # face the normal toward the incoming ray; the sum over xyz is
-    # (x + y) + z, the JAX package's reduction order
-    nd = n * rays.dir
-    n = torch.where(((nd[..., 0] + nd[..., 1]) + nd[..., 2])[..., None] > 0,
-                    -n, n)
-    p = aovs["position"]
-    t, bt = build_onb(n)
-    eps = torch.tensor(AO_EPS, dtype=dt, device=dev)
+    with trace.span("ao.rays"):
+        hit = hits.hit
+        dt, dev = rays.dtype, rays.org.device
+        n = aovs["normal"]
+        # face the normal toward the incoming ray; the sum over xyz is
+        # (x + y) + z, the JAX package's reduction order
+        nd = n * rays.dir
+        n = torch.where(
+            ((nd[..., 0] + nd[..., 1]) + nd[..., 2])[..., None] > 0, -n, n)
+        p = aovs["position"]
+        t, bt = build_onb(n)
+        eps = torch.tensor(AO_EPS, dtype=dt, device=dev)
 
-    d = (d_local[..., 0:1] * t[None] + d_local[..., 1:2] * bt[None]
-         + d_local[..., 2:3] * n[None])
-    org = (p + eps * n)[None].expand(d.shape)
-    # pixels whose primary ray missed launch DEAD occlusion rays
-    far = torch.where(hit, torch.tensor(ao_radius, dtype=dt, device=dev),
-                      torch.tensor(-1.0, dtype=dt, device=dev))
-    far = far[None].expand(d.shape[:-1])
-    skip = hits.prim_id[None].expand((S,) + tuple(hit.shape))
+        d = (d_local[..., 0:1] * t[None] + d_local[..., 1:2] * bt[None]
+             + d_local[..., 2:3] * n[None])
+        org = (p + eps * n)[None].expand(d.shape)
+        # pixels whose primary ray missed launch DEAD occlusion rays
+        far = torch.where(hit, torch.tensor(ao_radius, dtype=dt, device=dev),
+                          torch.tensor(-1.0, dtype=dt, device=dev))
+        far = far[None].expand(d.shape[:-1])
+        skip = hits.prim_id[None].expand((S,) + tuple(hit.shape))
 
-    # 32x32 pixel tiling of the occlusion megabatch, inverted after the
-    # occlusion sum
-    tile_pix = None
-    if (scene8 is not None and hit.ndim == 2 and hit.shape[0] % 32 == 0
-            and hit.shape[1] % 32 == 0):
-        H, W = hit.shape
-        tp = np.arange(H * W).reshape(H // 32, 32, W // 32, 32)
-        tile_pix = torch.as_tensor(np.swapaxes(tp, 1, 2).reshape(-1),
-                                   device=dev)
+        # 32x32 pixel tiling of the occlusion megabatch, inverted after the
+        # occlusion sum
+        tile_pix = None
+        if (scene8 is not None and hit.ndim == 2 and hit.shape[0] % 32 == 0
+                and hit.shape[1] % 32 == 0):
+            H, W = hit.shape
+            tp = np.arange(H * W).reshape(H // 32, 32, W // 32, 32)
+            tile_pix = torch.as_tensor(np.swapaxes(tp, 1, 2).reshape(-1),
+                                       device=dev)
 
-    def occ_layout(x):
-        # (S,) + image dims (+ trailing comps) -> flat megabatch order
-        flat = x.reshape((S, -1) + tuple(x.shape[1 + hit.ndim:]))
-        if tile_pix is not None:
-            flat = flat[:, tile_pix]
-        return flat.reshape((-1,) + tuple(flat.shape[2:]))
+        def occ_layout(x):
+            # (S,) + image dims (+ trailing comps) -> flat megabatch order
+            flat = x.reshape((S, -1) + tuple(x.shape[1 + hit.ndim:]))
+            if tile_pix is not None:
+                flat = flat[:, tile_pix]
+            return flat.reshape((-1,) + tuple(flat.shape[2:]))
 
-    sec = make_rays(occ_layout(org), occ_layout(d), min_t=0.0,
-                    max_t=occ_layout(far))
+        sec = make_rays(occ_layout(org), occ_layout(d), min_t=0.0,
+                        max_t=occ_layout(far))
+        sec_skip = occ_layout(skip)
     if scene8 is not None:
         from ..traverse.packet import traverse_bvh8
 
@@ -292,23 +299,24 @@ def render_ao(bvh, mesh: TriangleMesh, rays: Rays, seed: int | None = None,
             from ..traverse.ray_sort import traverse_bvh8_sorted
 
             occ = traverse_bvh8_sorted(
-                scene8, sec, options, skip_prim_id=occ_layout(skip),
+                scene8, sec, options, skip_prim_id=sec_skip,
                 occlusion=True, octant_major=True)
         else:
             occ = traverse_bvh8(scene8, sec, options,
-                                skip_prim_id=occ_layout(skip), occlusion=True)
+                                skip_prim_id=sec_skip, occlusion=True)
     else:
         occ = traverse_triangles(bvh, mesh, sec, options,
-                                 skip_prim_id=occ_layout(skip),
+                                 skip_prim_id=sec_skip,
                                  max_leaf=max_leaf)
-    unocc = (~occ.hit).reshape(S, -1).to(dt)
-    # the mean over samples as XLA computes x / S: x * (1 / S)
-    open_tiled = unocc.sum(0) * (torch.ones((), dtype=dt, device=dev) / S)
-    if tile_pix is not None:
-        back = torch.empty_like(open_tiled)
-        back[tile_pix] = open_tiled
-        open_tiled = back
-    ao = torch.where(hit, open_tiled.reshape(hit.shape),
-                     torch.zeros((), dtype=dt, device=dev))
-    rgb = ao[..., None].expand(tuple(ao.shape) + (3,)).contiguous()
+    with trace.span("ao.reduce"):
+        unocc = (~occ.hit).reshape(S, -1).to(dt)
+        # the mean over samples as XLA computes x / S: x * (1 / S)
+        open_tiled = unocc.sum(0) * (torch.ones((), dtype=dt, device=dev) / S)
+        if tile_pix is not None:
+            back = torch.empty_like(open_tiled)
+            back[tile_pix] = open_tiled
+            open_tiled = back
+        ao = torch.where(hit, open_tiled.reshape(hit.shape),
+                         torch.zeros((), dtype=dt, device=dev))
+        rgb = ao[..., None].expand(tuple(ao.shape) + (3,)).contiguous()
     return {**aovs, "ao": ao, "rgb": rgb}, hits

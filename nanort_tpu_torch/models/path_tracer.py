@@ -34,6 +34,7 @@ import torch
 from ..core.ray import Hits, Rays
 from ..ops.triangle import TriangleMesh
 from ..traverse.packed import PackedScene
+from ..utils import trace
 from .pt_fused import _div, _f, _max, _sqrt
 
 # Scenes at or below this many triangles build no BVH16 tables and trace
@@ -78,6 +79,7 @@ class PTScene(NamedTuple):
     # per-leaf-row aux table (traverse/fused_trace.build_aux_rows)
     fused_aux: torch.Tensor | None = None
 
+    @trace.span("build.upload")
     def to(self, device) -> "PTScene":
         """Copy of the scene with every table on ``device``."""
         def mv(x):
@@ -150,33 +152,36 @@ def make_pt_scene(vertices, faces, material_ids, materials: dict,
             min_leaf_primitives=leaf, max_leaf_primitives=leaf))
     else:
         bvh, _ = build_triangle_bvh(mesh_np)
-    packed = pack_scene(bvh, v_np, f_np)
-    mats = Materials(*(torch.as_tensor(np.asarray(materials[k], np.float32))
-                       for k in Materials._fields))
-    lf = collect_light_faces(mid_np, mats)
+    with trace.span("build.aux"):
+        packed = pack_scene(bvh, v_np, f_np)
+        mats = Materials(*(torch.as_tensor(np.asarray(materials[k],
+                                                      np.float32))
+                           for k in Materials._fields))
+        lf = collect_light_faces(mid_np, mats)
 
-    # ---- per-face shading table + per-light table (see PTScene) ----
-    v = torch.from_numpy(v_np)
-    f = torch.from_numpy(f_np).long()
-    mid = torch.from_numpy(mid_np).long()
-    v0, v1, v2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
-    gn_unit = _unit(torch.linalg.cross(v1 - v0, v2 - v0))
-    fvn = (torch.as_tensor(np.asarray(facevarying_normals, np.float32))
-           if facevarying_normals is not None else None)
-    face_table = light_table = None
-    if n_faces <= FACE_TABLE_MAX_TRIS:
-        cols = [gn_unit, mats.diffuse[mid], mats.emission[mid],
-                mats.specular[mid], mats.transmittance[mid],
-                mats.ior[mid][:, None], mats.dissolve[mid][:, None]]
-        if fvn is not None:
-            cols.append(fvn.reshape(n_faces, 9))
-        face_table = torch.cat(cols, 1)
-        lfi = torch.from_numpy(lf).long()
-        lv0, lv1, lv2 = v0[lfi], v1[lfi], v2[lfi]
-        lcr = torch.linalg.cross(lv1 - lv0, lv2 - lv0)
-        larea = 0.5 * torch.linalg.norm(lcr, dim=-1)
-        light_table = torch.cat([lv0, lv1, lv2, _unit(lcr), larea[:, None],
-                                 mats.emission[mid[lfi]]], 1)
+        # ---- per-face shading table + per-light table (see PTScene) ----
+        v = torch.from_numpy(v_np)
+        f = torch.from_numpy(f_np).long()
+        mid = torch.from_numpy(mid_np).long()
+        v0, v1, v2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+        gn_unit = _unit(torch.linalg.cross(v1 - v0, v2 - v0))
+        fvn = (torch.as_tensor(np.asarray(facevarying_normals, np.float32))
+               if facevarying_normals is not None else None)
+        face_table = light_table = None
+        if n_faces <= FACE_TABLE_MAX_TRIS:
+            cols = [gn_unit, mats.diffuse[mid], mats.emission[mid],
+                    mats.specular[mid], mats.transmittance[mid],
+                    mats.ior[mid][:, None], mats.dissolve[mid][:, None]]
+            if fvn is not None:
+                cols.append(fvn.reshape(n_faces, 9))
+            face_table = torch.cat(cols, 1)
+            lfi = torch.from_numpy(lf).long()
+            lv0, lv1, lv2 = v0[lfi], v1[lfi], v2[lfi]
+            lcr = torch.linalg.cross(lv1 - lv0, lv2 - lv0)
+            larea = 0.5 * torch.linalg.norm(lcr, dim=-1)
+            light_table = torch.cat([lv0, lv1, lv2, _unit(lcr),
+                                     larea[:, None],
+                                     mats.emission[mid[lfi]]], 1)
 
     scene8 = fused_aux = None
     if engine != "wavefront":
@@ -561,6 +566,7 @@ def default_spp_lanes(spp: int, azimuth_strata: int) -> int:
                  if spp % k == 0 and (spp // k) % azimuth_strata == 0), 1)
 
 
+@trace.span("render_path_traced")
 def render_path_traced(scene: PTScene, cam_rays: Rays, seed: int,
                        spp: int = 8, max_bounces: int = 10,
                        fused: bool | None = None,
@@ -615,14 +621,16 @@ def render_path_traced(scene: PTScene, cam_rays: Rays, seed: int,
     perm = None
     if len(bs) == 2 and bs[0] % sub_b == 0 and bs[1] % 128 == 0:
         H, W = bs
-        perm = torch.arange(H * W, device=org.device).reshape(
-            H // sub_b, sub_b, W // 128, 128).transpose(1, 2).reshape(-1)
-        org, d = org[perm], d[perm]
+        with trace.span("pt.tiles"):
+            perm = torch.arange(H * W, device=org.device).reshape(
+                H // sub_b, sub_b, W // 128, 128).transpose(1, 2).reshape(-1)
+            org, d = org[perm], d[perm]
     if spp_lanes is None:
         spp_lanes = default_spp_lanes(spp, azimuth_strata)
     img = render_fused_bvh(scene, org, d, seed, spp, max_bounces=max_bounces,
                            azimuth_strata=azimuth_strata,
                            spp_lanes=spp_lanes)
     if perm is not None:
-        img = torch.zeros_like(img).index_copy_(0, perm, img)
+        with trace.span("pt.untile"):
+            img = torch.zeros_like(img).index_copy_(0, perm, img)
     return img.reshape(*bs, 3)

@@ -49,15 +49,17 @@ import torch
 from ..traverse import _ext
 from ..traverse import fused_trace
 from ..traverse.packet import stack_slots
+from ..utils import trace
 
 PT_FUSED_MAX_TRIS = 256  # csrc/pt_fused.cu kMaxTris (shared-memory table)
 BRUTE_THREADS = 128      # K3's threads a block (csrc/pt_fused.cu kBlock)
 
-# Kernel launches by the wrappers below (never by the plain versions).
-# "pt_fused_bvh" is K4's pooled schedule (the default), "pt_fused_bvh[lane]"
-# its one-lane-a-thread yardstick; each launch of either also runs K2 and
-# counts in traverse.fused_trace.LAUNCHES["bvh16_trace"].
-LAUNCHES = {"pt_fused_brute": 0, "pt_fused_bvh": 0, "pt_fused_bvh[lane]": 0}
+# Kernel launches by the wrappers below (never by the plain versions),
+# counted in utils.trace. "pt_fused_bvh" is K4's pooled schedule (the
+# default), "pt_fused_bvh[lane]" its one-lane-a-thread yardstick; each
+# launch of either also runs K2 and counts as "bvh16_trace".
+LAUNCH_KEYS = ("pt_fused_brute", "pt_fused_bvh", "pt_fused_bvh[lane]")
+trace.declare_launches(*LAUNCH_KEYS)
 
 # The pooled kernel's per-sample radiance buffer holds at most this many
 # bytes (at least one sample iteration, RL x 12 bytes): a render with more
@@ -662,6 +664,7 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+@trace.span("k3")
 def render_fused(scene, org, dirs, seed: int, spp: int, max_bounces: int = 8,
                  rr_start: int = 3, trig: str = "native",
                  azimuth_strata: int = 1) -> torch.Tensor:
@@ -712,7 +715,7 @@ def _launch_fused(tri, face, light, lights, org, dirs, seed, spp,
     if rc != 0:
         raise RuntimeError(f"pt_fused_brute kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES["pt_fused_brute"] += 1
+    trace.count("pt_fused_brute")
     LAST_BRUTE_STATS = scratch[1:]
     return sums
 
@@ -733,6 +736,7 @@ def brute_occupancy(device=None) -> dict:
         ("blocks_per_sm", "registers", "local_bytes", "threads"), device)
 
 
+@trace.span("k4")
 def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
                      max_bounces: int = 8, rr_start: int = 3,
                      trig: str = "native", azimuth_strata: int = 1,
@@ -834,8 +838,8 @@ def _count_k4(rc: int, key: str) -> None:
     if rc != 0:
         raise RuntimeError(f"pt_fused_bvh kernel launch failed: CUDA error "
                            f"{rc}")
-    LAUNCHES[key] += 1
-    fused_trace.LAUNCHES["bvh16_trace"] += 1
+    trace.count(key)
+    trace.count("bvh16_trace")
 
 
 def pool_occupancy() -> dict:

@@ -35,6 +35,7 @@ import torch
 from ..core.math import safe_inverse
 from ..core.ray import Rays
 from ..ops.triangle import _exact_prod_diff, ray_coeffs
+from ..utils import trace
 from . import _ext
 from .packet import _table, stack_slots
 
@@ -43,12 +44,13 @@ STACK_CAP = 512  # bvh16::kStackCap in csrc/bvh16_trace.cuh
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier
 
-# Launches that run K2, by leaf test: trace_bvh16's own kernel, every
-# launch of the BVH path-tracing megakernel (models/pt_fused.
-# render_fused_bvh, "mt") and of the fused AO pass (models/ao_fused.
-# render_ao_fused, "watertight"), which run K2 inside. The plain versions
-# never count.
-LAUNCHES = {"bvh16_trace": 0, "bvh16_trace_watertight": 0}
+# Launches that run K2, by leaf test, counted in utils.trace:
+# trace_bvh16's own kernel, every launch of the BVH path-tracing
+# megakernel (models/pt_fused.render_fused_bvh, "mt") and of the fused AO
+# pass (models/ao_fused.render_ao_fused, "watertight"), which run K2
+# inside. The plain versions never count.
+LAUNCH_KEYS = ("bvh16_trace", "bvh16_trace_watertight")
+trace.declare_launches(*LAUNCH_KEYS)
 INTERSECTORS = ("mt", "watertight")
 
 
@@ -59,6 +61,7 @@ def required_stack_slots(depth: int, width: int = 16) -> int:
     return max(64, width * depth + 64)
 
 
+@trace.span("build.aux")
 def build_aux_rows(leafs: np.ndarray, material_ids, faces, vertices,
                    max_leaf: int, gn_unit=None) -> np.ndarray:
     """Per-leaf-row aux table, parallel to the watertight leaf rows
@@ -203,8 +206,8 @@ def trace_bvh16(scene, rays: Rays, aux=None, occlusion: bool = False,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"bvh16_trace kernel launch failed: CUDA error {rc}")
-    LAUNCHES["bvh16_trace_watertight" if intersector == "watertight"
-             else "bvh16_trace"] += 1
+    trace.count("bvh16_trace_watertight" if intersector == "watertight"
+                else "bvh16_trace")
     check_overflow(err, slots)
     if occlusion:
         return hit.bool()

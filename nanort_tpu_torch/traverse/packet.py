@@ -42,6 +42,7 @@ from ..core.options import BVHTraceOptions, INVALID_PRIM_ID, PRIM_RANGE_MAX
 from ..core.ray import PRIM_ID_DTYPE, Hits, Rays
 from ..ops.triangle import (RayCoeffs, TriangleMesh, intersect_triangles,
                             ray_coeffs)
+from ..utils import trace
 from . import _ext
 
 LANES = 128
@@ -51,14 +52,17 @@ IL_MAX_RAYS = 2**31 - 1  # K1b indexes rays with 32-bit ints
 BIG = 3.0e38  # degenerate-ray threshold
 MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
 
-# Kernel launches made by traverse_bvh8 (never by the plain version), one
-# key a launch: the mode it ran in ("[interleave=K]", "[counts]",
-# "[flags]", else "[roots]" when it had packet roots), or else its leaf
-# test: "packet_traverse" (watertight), "packet_traverse_woop".
-LAUNCHES = {"packet_traverse": 0, "packet_traverse_woop": 0,
-            "packet_traverse[roots]": 0, "packet_traverse[counts]": 0,
-            "packet_traverse[flags]": 0, "packet_traverse[interleave=2]": 0,
-            "packet_traverse[interleave=4]": 0}
+# Kernel launches made by traverse_bvh8 (never by the plain version),
+# counted in utils.trace, one key a launch: the mode it ran in
+# ("[interleave=K]", "[counts]", "[flags]", else "[roots]" when it had
+# packet roots), or else its leaf test: "packet_traverse" (watertight),
+# "packet_traverse_woop"; "k1.rays" adds each launch's rays.
+LAUNCH_KEYS = ("packet_traverse", "packet_traverse_woop",
+               "packet_traverse[roots]", "packet_traverse[counts]",
+               "packet_traverse[flags]", "packet_traverse[interleave=2]",
+               "packet_traverse[interleave=4]")
+trace.declare_launches(*LAUNCH_KEYS)
+trace.count("k1.rays", 0)
 INTERSECTORS = ("watertight", "woop")
 # K1's launch (csrc/packet_traverse.cu: kThreads, kClaim): blocks of
 # K1_THREADS threads, each warp claiming K1_CLAIM consecutive rays at a
@@ -199,6 +203,7 @@ def _flat(x: torch.Tensor, trailing: tuple, name: str) -> torch.Tensor:
     return x.view((-1,) + trailing)
 
 
+@trace.span("k1")
 def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                   options: BVHTraceOptions = BVHTraceOptions(),
                   skip_prim_id=None, occlusion: bool = False,
@@ -396,8 +401,9 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                 plan.grid, plan.claim // K1_CLAIM, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
-        LAUNCHES[_launch_key(woop, roots is not None, debug_counts,
-                             _flag_zero_edges, interleave)] += 1
+        trace.count(_launch_key(woop, roots is not None, debug_counts,
+                                _flag_zero_edges, interleave))
+        trace.count("k1.rays", n)
         _check_overflow(scratch[1], slots)
     else:
         raise ValueError(f"unsupported device {dev}")
@@ -408,7 +414,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
 
 
 def _launch_key(woop, roots, counts, flags, interleave) -> str:
-    """The ``LAUNCHES`` key of one launch."""
+    """The launch counter of one launch."""
     if interleave > 1:
         return f"packet_traverse[interleave={interleave}]"
     if counts:
@@ -856,6 +862,8 @@ def tile_image_rays(rays: Rays, tile_h: int = 32, tile_w: int = 32):
             x = x.reshape(H // tile_h, W // tile_w, tile_h, tile_w, *x.shape[1:])
             return x.transpose(1, 2).reshape(H, W, *x.shape[4:])
 
-        return type(tree)(*(inv(x) for x in tree))
+        with trace.span("untile"):
+            return type(tree)(*(inv(x) for x in tree))
 
-    return Rays(*(fwd(x) for x in rays)), untile
+    with trace.span("tile"):
+        return Rays(*(fwd(x) for x in rays)), untile

@@ -23,6 +23,7 @@ import torch
 
 from ..build.lbvh import _expand_bits
 from ..core.ray import Hits, Rays
+from ..utils import trace
 
 
 def ray_sort_keys(rays: Rays, scene_lo, scene_hi,
@@ -57,10 +58,11 @@ def sort_rays(rays: Rays, scene_lo, scene_hi, octant_major: bool = False):
     NamedTuple of (R, ...) results (``Hits``) back to the rays' order
     and batch shape."""
     bs = rays.batch_shape
-    flat = Rays(*(x.reshape((-1,) + x.shape[len(bs):]) for x in rays))
-    keys = ray_sort_keys(flat, scene_lo, scene_hi, octant_major)
-    order = torch.argsort(keys, stable=True)
-    sorted_rays = Rays(*(x[order] for x in flat))
+    with trace.span("ray_sort.sort"):
+        flat = Rays(*(x.reshape((-1,) + x.shape[len(bs):]) for x in rays))
+        keys = ray_sort_keys(flat, scene_lo, scene_hi, octant_major)
+        order = torch.argsort(keys, stable=True)
+        sorted_rays = Rays(*(x[order] for x in flat))
 
     def unsort(tree):
         def back(x):
@@ -68,7 +70,8 @@ def sort_rays(rays: Rays, scene_lo, scene_hi, octant_major: bool = False):
             out[order] = x
             return out.reshape(bs + x.shape[1:])
 
-        return type(tree)(*(back(x) for x in tree))
+        with trace.span("ray_sort.unsort"):
+            return type(tree)(*(back(x) for x in tree))
 
     return sorted_rays, order, unsort
 
@@ -88,7 +91,9 @@ def traverse_bvh8_sorted(scene8, rays: Rays, *args, **kwargs) -> Hits:
     octant_major = kwargs.pop("octant_major", False)
     sorted_rays, order, unsort = sort_rays(rays, lo, hi, octant_major)
     if skip is not None:
-        skip = torch.as_tensor(skip, device=order.device).reshape(-1)[order]
+        with trace.span("ray_sort.sort"):
+            skip = torch.as_tensor(skip, device=order.device).reshape(-1)[
+                order]
     hits = traverse_bvh8(scene8, sorted_rays, *args, skip_prim_id=skip,
                          **kwargs)
     return unsort(hits)

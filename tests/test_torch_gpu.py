@@ -40,7 +40,10 @@ records bit for bit; ``to_spheres`` and ``sample_tri_hits`` on the card
 give the CPU's values (spheres bit for bit, their hits under
 ``compare_hits``); and a one-rank NCCL group runs the mesh engines and
 ``sharded_render_step`` with the records, counts and AO of the
-group-less CPU mesh.
+group-less CPU mesh. The program's spans (``utils.trace``): K1's
+kernels start inside the ``nanort.k1`` ranges that launched them, and a
+``k1`` or ``k4`` span's stream ms (its CUDA events) is its kernel's
+device time within 10%; launches are counted in ``utils.trace.counts()``.
 
 Every test here is marked ``gpu`` and skips without a CUDA device. This
 file imports no JAX, so it also runs where only torch is installed:
@@ -65,6 +68,7 @@ from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
 from nanort_tpu_torch.testing import overlap_soup, zero_edge_rays
 from nanort_tpu_torch.traverse import fused_trace, packet
+from nanort_tpu_torch.utils import trace
 # this slice's modules: importable where only torch is installed
 from nanort_tpu_torch.api import embree3, rtc  # noqa: F401
 from nanort_tpu_torch.io import gltf, voxels  # noqa: F401
@@ -78,6 +82,12 @@ from nanort_tpu_torch.parallel import sharded_scene  # noqa: F401
 from nanort_tpu_torch.utils import debug, trackball  # noqa: F401
 
 pytestmark = pytest.mark.gpu
+
+
+def _launched(before: dict) -> dict:
+    """The kernel launches since the counters' snapshot ``before``
+    (``trace.counts()``), by launch key."""
+    return {k: v for k, v in trace.launches(before).items() if v}
 
 
 @pytest.fixture
@@ -230,12 +240,11 @@ def _cam(w, h, eye_z):
 def test_bvh16_trace_matches_plain(dev, dense_pt, mode):
     rays = _incoherent(4099, 3)
     kw = dict(occlusion=mode == "occlusion", want_aux=mode == "closest_aux")
-    before = dict(fused_trace.LAUNCHES)
+    before = trace.counts()
     got = fused_trace.trace_bvh16(dense_pt.scene8.to(dev),
                                   nt.Rays(*(x.to(dev) for x in rays)),
                                   dense_pt.fused_aux.to(dev), **kw)
-    assert fused_trace.LAUNCHES == {**before,
-                                    "bvh16_trace": before["bvh16_trace"] + 1}
+    assert _launched(before) == {"bvh16_trace": 1}
     want = fused_trace.trace_bvh16(dense_pt.scene8, rays,
                                    dense_pt.fused_aux, **kw)
     if mode == "occlusion":
@@ -254,10 +263,10 @@ def test_pt_fused_brute_matches_plain(dev, cornell_pt, trig, lights):
                                light_faces=scene.light_faces[:0])
     org, d = _cam(24, 20, 5.0)
     kw = dict(max_bounces=5, trig=trig, azimuth_strata=2)
-    before = pt_fused.LAUNCHES["pt_fused_brute"]
+    before = trace.counts()
     got = pt_fused.render_fused(scene.to(dev), org.to(dev), d.to(dev), 7, 4,
                                 **kw)
-    assert pt_fused.LAUNCHES["pt_fused_brute"] == before + 1
+    assert _launched(before) == {"pt_fused_brute": 1}
     want = pt_fused.render_fused(scene, org, d, 7, 4, **kw)
     _same_image(got, want, trig)
 
@@ -338,12 +347,10 @@ def test_pt_fused_brute_edge_shapes(dev, cornell_pt, cornell_256, case,
                                light_faces=scene.light_faces[:0])
     org, d = _cam(w, h, 5.0)
     kw = dict(trig="poly", **kw)
-    before = dict(pt_fused.LAUNCHES)
+    before = trace.counts()
     got = pt_fused.render_fused(scene.to(dev), org.to(dev), d.to(dev), 4,
                                 spp, **kw)
-    assert pt_fused.LAUNCHES == {**before,
-                                 "pt_fused_brute": before["pt_fused_brute"]
-                                 + 1}
+    assert _launched(before) == {"pt_fused_brute": 1}
     sweeps = pt_fused.LAST_BRUTE_STATS.cpu().tolist()
     count = _brute_live_sweeps(monkeypatch)
     want = pt_fused.render_fused(scene, org, d, 4, spp, **kw)
@@ -413,13 +420,11 @@ def test_pt_fused_bvh_matches_plain(dev, dense_pt, spp_lanes, strata):
     org, d = _cam(16, 12, 2.6)
     kw = dict(max_bounces=5, trig="poly", azimuth_strata=strata,
               spp_lanes=spp_lanes)
-    before = (pt_fused.LAUNCHES["pt_fused_bvh"],
-              fused_trace.LAUNCHES["bvh16_trace"])
+    before = trace.counts()
     got = pt_fused.render_fused_bvh(dense_pt.to(dev), org.to(dev), d.to(dev),
                                     9, 8, **kw)
-    assert (pt_fused.LAUNCHES["pt_fused_bvh"],
-            fused_trace.LAUNCHES["bvh16_trace"]) == (before[0] + 1,
-                                                     before[1] + 1)
+    # K2 runs inside K4
+    assert trace.since(before) == {"pt_fused_bvh": 1, "bvh16_trace": 1}
     want = pt_fused.render_fused_bvh(dense_pt, org, d, 9, 8, **kw)
     _same_image(got, want, "poly")
 
@@ -434,16 +439,15 @@ def test_render_path_traced_launches_kernels_only(dev, dense_pt, cornell_pt,
     monkeypatch.setattr(fused_trace, "trace_bvh16_reference", plain)
     cam = look_at(eye=(0, 0.0, 2.6), center=(0, 0, 0), width=128, height=32,
                   fov=45.0, device=dev)
-    before = dict(pt_fused.LAUNCHES)
+    before = trace.counts()
     for scene in (cornell_pt, dense_pt):
         img = path_tracer.render_path_traced(scene.to(dev), pinhole_rays(cam),
                                              3, spp=4, max_bounces=4)
         assert img.shape == (32, 128, 3) and img.is_cuda
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
     # both routes launch their kernel once; K4 on its pooled schedule
-    assert pt_fused.LAUNCHES == {
-        **before, "pt_fused_brute": before["pt_fused_brute"] + 1,
-        "pt_fused_bvh": before["pt_fused_bvh"] + 1}
+    assert _launched(before) == {"pt_fused_brute": 1, "pt_fused_bvh": 1,
+                                 "bvh16_trace": 1}
 
 
 POOL_CASES = {
@@ -468,11 +472,10 @@ def test_pt_fused_bvh_pool_edge_shapes(dev, dense_pt, case):
                                light_faces=scene.light_faces[:0])
     org, d = _cam(w, h, 2.6)
     kw = dict(trig="poly", **kw)
-    before = dict(pt_fused.LAUNCHES)
+    before = trace.counts()
     got = pt_fused.render_fused_bvh(scene.to(dev), org.to(dev), d.to(dev), 4,
                                     spp, **kw)
-    assert pt_fused.LAUNCHES == {**before,
-                                 "pt_fused_bvh": before["pt_fused_bvh"] + 1}
+    assert _launched(before) == {"pt_fused_bvh": 1, "bvh16_trace": 1}
     want = pt_fused.render_fused_bvh(scene, org, d, 4, spp, **kw)
     _same_image(got, want, "poly")
     if case == "mb0":
@@ -491,14 +494,13 @@ def test_pt_fused_bvh_pool_matches_lane(dev, dense_pt, trig):
     org, d = _cam(64, 64, 2.6)
     scene = dense_pt.to(dev)
     kw = dict(max_bounces=6, trig=trig, azimuth_strata=2, spp_lanes=4)
-    before = dict(pt_fused.LAUNCHES)
+    before = trace.counts()
     pool = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 5, 8,
                                      **kw)
     lane = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 5, 8,
                                      _schedule="lane", **kw)
-    assert pt_fused.LAUNCHES == {
-        **before, "pt_fused_bvh": before["pt_fused_bvh"] + 1,
-        "pt_fused_bvh[lane]": before["pt_fused_bvh[lane]"] + 1}
+    assert trace.since(before) == {
+        "pt_fused_bvh": 1, "pt_fused_bvh[lane]": 1, "bvh16_trace": 2}
     assert torch.equal(pool, lane)
     assert bool(torch.isfinite(pool).all()) and float(pool.mean()) > 0
 
@@ -573,13 +575,11 @@ def test_pt_fused_bvh_pool_slices_match_lane(dev, dense_pt, iters_a_slice,
     monkeypatch.setattr(pt_fused, "POOL_SLICE_BYTES",
                         iters_a_slice * rl * 12)
     slices = -(-spp_iters // iters_a_slice)
-    before = dict(pt_fused.LAUNCHES)
-    k2 = fused_trace.LAUNCHES["bvh16_trace"]
+    before = trace.counts()
     got = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 8,
                                     **kw)
-    assert pt_fused.LAUNCHES == {
-        **before, "pt_fused_bvh": before["pt_fused_bvh"] + slices}
-    assert fused_trace.LAUNCHES["bvh16_trace"] == k2 + slices
+    assert trace.since(before) == {"pt_fused_bvh": slices,
+                                   "bvh16_trace": slices}
     assert torch.equal(got, want)
     stats = dict(zip(pt_fused.POOL_STATS, pt_fused.LAST_POOL_STATS.tolist()))
     assert stats["paths"] == rl * spp_iters
@@ -616,16 +616,14 @@ def test_megabatch_route_launches_kernels_only(dev, dense_pt, dense_turbo,
                   fov=45.0, device=dev)
     for scene, key in ((dense_pt, "packet_traverse"),
                        (dense_turbo, "packet_traverse_woop")):
-        before = dict(packet.LAUNCHES)
-        fused = dict(pt_fused.LAUNCHES)
+        before = trace.counts()
         img = path_tracer.render_path_traced(
             scene.to(dev), pinhole_rays(cam), 3, spp=4, max_bounces=5,
             fused=False, spp_batch=2)
         assert img.shape == (16, 32, 3) and img.is_cuda
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-        # 2 megabatches x 5 bounces x (closest + shadow)
-        assert packet.LAUNCHES == {**before, key: before[key] + 20}
-        assert pt_fused.LAUNCHES == fused
+        # 2 megabatches x 5 bounces x (closest + shadow), no fused kernel
+        assert _launched(before) == {key: 20}
 
 
 @pytest.mark.parametrize("engine", ["turbo", "wavefront", "brute"])
@@ -663,14 +661,13 @@ def test_bvh16_trace_watertight_matches_plain(dev, dense_pt, mode, skip):
                                         intersector="watertight")
         kw["skip"] = torch.where(torch.arange(4099) % 2 == 0,
                                  first.prim_id, -1)
-    before = dict(fused_trace.LAUNCHES)
+    before = trace.counts()
     got = fused_trace.trace_bvh16(
         dense_pt.scene8.to(dev), nt.Rays(*(x.to(dev) for x in rays)),
         dense_pt.fused_aux.to(dev),
         **{k: (x.to(dev) if isinstance(x, torch.Tensor) else x)
            for k, x in kw.items()})
-    key = "bvh16_trace_watertight"
-    assert fused_trace.LAUNCHES == {**before, key: before[key] + 1}
+    assert _launched(before) == {"bvh16_trace_watertight": 1}
     want = fused_trace.trace_bvh16(dense_pt.scene8, rays, dense_pt.fused_aux,
                                    **kw)
     if mode == "occlusion":
@@ -699,13 +696,11 @@ def test_ao_fused_matches_plain(dev, config_a_small, n_samples):
     rays = pinhole_rays(cam)
     draws = objrender.ao_hemisphere_draws(torch.Generator().manual_seed(2),
                                           n_samples, (24, 40))
-    before = (ao_fused.LAUNCHES,
-              fused_trace.LAUNCHES["bvh16_trace_watertight"])
+    before = trace.counts()
     got, got_h = ao_fused.render_ao_fused(
         mesh, nt.Rays(*(x.to(dev) for x in rays)), None, s16.to(dev),
         aux.to(dev), n_samples=n_samples, draws=draws.to(dev))
-    assert (ao_fused.LAUNCHES, fused_trace.LAUNCHES[
-        "bvh16_trace_watertight"]) == (before[0] + 1, before[1] + 1)
+    assert _launched(before) == {"ao_fused": 1, "bvh16_trace_watertight": 1}
     want, want_h = ao_fused.render_ao_fused(
         mesh, rays, None, s16.to("cpu"), aux, n_samples=n_samples,
         draws=draws)
@@ -737,11 +732,10 @@ def _ao_on_both(dev, tabs, flat, draws, radius=1e30, launches=1):
                                         radius, slots, stats=stats)
     on = [x.to(dev) for x in (nodes, leafs, aux, *flat, draws)]
     for _ in range(launches):
-        before = (ao_fused.LAUNCHES,
-                  fused_trace.LAUNCHES["bvh16_trace_watertight"])
+        before = trace.counts()
         got = ao_fused.ao_fused_outputs(*on, radius, slots)
-        assert (ao_fused.LAUNCHES, fused_trace.LAUNCHES[
-            "bvh16_trace_watertight"]) == (before[0] + 1, before[1] + 1)
+        assert _launched(before) == {"ao_fused": 1,
+                                     "bvh16_trace_watertight": 1}
         for a, b in zip(got, want):
             assert a.is_cuda and torch.equal(a.cpu(), b)
         assert int(ao_fused.LAST_ITEMS) == stats["samples"]
@@ -835,14 +829,14 @@ def test_render_ao_launches_k1_only(dev, config_a_small, monkeypatch):
     monkeypatch.setattr(packet, "_traverse_reference", plain)
     cam = look_at(eye=(0, 0.0, 5.0), center=(0, 0, 0), width=64, height=64,
                   fov=45.0, device=dev)
-    before = dict(packet.LAUNCHES)
+    before = trace.counts()
     aovs, _ = objrender.render_ao(bvh, mesh, pinhole_rays(cam), seed=7,
                                   max_leaf=8, scene8=s16.to(dev))
     assert aovs["ao"].is_cuda and aovs["ao"].shape == (64, 64)
     assert 0.0 < float(aovs["ao"].mean()) < 1.0
-    # the primary pass and one occlusion megabatch
-    assert packet.LAUNCHES == {**before, "packet_traverse":
-                               before["packet_traverse"] + 2}
+    # the primary pass and one occlusion megabatch of 8 samples a pixel
+    assert trace.since(before) == {"packet_traverse": 2,
+                                   "k1.rays": 64 * 64 * 9}
 
 
 def test_stack_engine_on_card_matches_cpu(dev, config_a_small):
@@ -892,12 +886,13 @@ def _same_records(got, want):
 def _mode_on_both(scene, rays, dev, key, *args, **kw):
     """The kernel on the card (one launch, counted under ``key``) and the
     plain version on the CPU give the same records bit for bit."""
-    before = dict(packet.LAUNCHES)
+    before = trace.counts()
     got = packet.traverse_bvh8(
         scene.to(dev), nt.Rays(*(x.to(dev) for x in rays)), *args,
         **{k: (x.to(dev) if isinstance(x, torch.Tensor) else x)
            for k, x in kw.items()})
-    assert packet.LAUNCHES == {**before, key: before[key] + 1}
+    assert trace.since(before) == {key: 1,
+                                   "k1.rays": rays.org.numel() // 3}
     want = packet.traverse_bvh8(scene, rays, *args, **kw)
     if isinstance(want, tuple) and not isinstance(want, nt.Hits):
         _same_records(got[0], want[0])
@@ -965,14 +960,12 @@ def test_binned_engine_launches_kernels_only(dev, monkeypatch):
         raise AssertionError("a plain version ran on CUDA tensors")
 
     monkeypatch.setattr(packet, "_traverse_reference", plain)
-    before = dict(packet.LAUNCHES)
+    before = trace.counts()
     got = treelet.traverse_bvh8_binned(
         scene, nt.Rays(*(x.to(dev) for x in rays)), treelets=tl, K=4, sub=1)
-    sweeps = packet.LAUNCHES["packet_traverse[roots]"] - before[
-        "packet_traverse[roots]"]
+    sweeps = _launched(before).get("packet_traverse[roots]", 0)
     assert 2 <= sweeps <= 3
-    assert packet.LAUNCHES == {**before, "packet_traverse[roots]":
-                               before["packet_traverse[roots]"] + sweeps}
+    assert _launched(before) == {"packet_traverse[roots]": sweeps}
     _same_records(got, want)
     assert torch.equal(got.t.cpu(), glob.t)
 
@@ -985,9 +978,9 @@ def test_two_pass_exact_on_card_matches_cpu(dev):
     # sub=1: 4 of 16 packets flag, so the whole batch is retraced; sub=16:
     # its one packet flags and is retraced
     for sub in (1, 16):
-        before = packet.LAUNCHES["packet_traverse[flags]"]
+        before = trace.counts()
         _same_records(packet.traverse_bvh8_exact(sd, rd, sub=sub), single)
-        assert packet.LAUNCHES["packet_traverse[flags]"] == before + 1
+        assert _launched(before)["packet_traverse[flags]"] == 1
     got, overflow = packet.traverse_bvh8_exact_fused(sd, rd)
     assert overflow.is_cuda and not bool(overflow)
     _same_records(got, single)
@@ -1461,10 +1454,10 @@ def test_rtc_on_card_equals_cpu(dev, fast):
     assert (card._scene8 is not None) == fast
     rays = _ring_rays()
     crays = nt.Rays(*(x.to(dev) for x in rays))
-    before = dict(packet.LAUNCHES)
+    before = trace.counts()
     got = card.intersect(crays)
     occ = card.occluded(crays)
-    n = packet.LAUNCHES["packet_traverse"] - before["packet_traverse"]
+    n = _launched(before).get("packet_traverse", 0)
     assert n == (2 if fast else 0)
     want = cpu.intersect(rays)
     assert bool(want.hit.any())
@@ -1517,9 +1510,9 @@ def test_scene_graph_walk_on_card_equals_cpu(dev):
         return sc
 
     rays = _ring_rays(2048, 18)
-    before = dict(packet.LAUNCHES)
+    before = trace.counts()
     got = build(dev).traverse(nt.Rays(*(x.to(dev) for x in rays)))
-    assert packet.LAUNCHES == before  # the graph walks the plain engine
+    assert trace.since(before) == {}  # the graph walks the plain engine
     want = build("cpu").traverse(rays)
     assert bool(want.hit.any())
     _close_scene_hits(got, want)
@@ -1546,10 +1539,9 @@ def test_render_pbr_on_card_equals_cpu(dev):
                               pbr.PBRMaterial(*(x.to(device) for x in mat)),
                               scene8=s8.to(device))
 
-    before = dict(packet.LAUNCHES)
+    before = trace.counts()
     got, gh = render(dev)
-    assert packet.LAUNCHES["packet_traverse"] == \
-        before["packet_traverse"] + 2
+    assert _launched(before).get("packet_traverse", 0) == 2
     want, wh = render("cpu")
     assert float(want["rgb"].mean()) > 0.01
     _same_records(gh, wh)
@@ -1565,10 +1557,10 @@ def test_sequential_chunks_on_card_equal_cpu(dev):
     sc = sharded_scene.build_scene_chunks(
         TriangleMesh(v, f), 4, nt.BVHBuildOptions(8, 8), packet=True)
     rays = _rays(8192, 31, broken=False)
-    before = packet.LAUNCHES["packet_traverse"]
+    before = trace.counts()
     got = sharded_scene.sequential_chunk_traverse(
         sc.to(dev), nt.Rays(*(x.to(dev) for x in rays)))
-    assert packet.LAUNCHES["packet_traverse"] == before + 4
+    assert _launched(before).get("packet_traverse", 0) == 4
     want = sharded_scene.sequential_chunk_traverse(sc, rays)
     assert bool(want.hit.any())
     _same_records(got, want)
@@ -1663,13 +1655,6 @@ def test_one_rank_nccl_render_step(dev, tmp_path):
 
 # ---- the example programs and the graft entry on the card
 
-def _launches():
-    return {**packet.LAUNCHES, **pt_fused.LAUNCHES,
-            **fused_trace.LAUNCHES, "ao_fused": ao_fused.LAUNCHES}
-
-
-def _moved(before):
-    return {k: v - before[k] for k, v in _launches().items() if v != before[k]}
 
 
 def test_graft_entry_on_card_equals_cpu(dev):
@@ -1679,9 +1664,9 @@ def test_graft_entry_on_card_equals_cpu(dev):
 
     fn, args = graft_entry.entry()
     assert args[2].org.is_cuda and args[3].nodes.is_cuda
-    before = _launches()
+    before = trace.counts()
     got = fn(*args)
-    assert _moved(before) == {"packet_traverse": 1}
+    assert _launched(before) == {"packet_traverse": 1}
     cfn, cargs = graft_entry.entry(device="cpu")
     want = cfn(*cargs)
     assert got.is_cuda and torch.equal(got.cpu(), want)
@@ -1697,9 +1682,9 @@ def test_objrender_program_on_card(dev, tmp_path):
     v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(16, 32, 0.5))
     save_obj(str(tmp_path / "s.obj"), v, f)
     argv = [str(tmp_path / "s.obj"), str(tmp_path / "o.png"), "64"]
-    before = _launches()
+    before = trace.counts()
     got = objrender.main(argv)
-    assert _moved(before) == {"packet_traverse": 1}
+    assert _launched(before) == {"packet_traverse": 1}
     want = objrender.main(argv[:1] + [str(tmp_path / "c.png"), "64",
                                       "--device", "cpu"])
     _same_records(got["hits"], want["hits"])
@@ -1713,9 +1698,9 @@ def test_path_tracer_program_on_card(dev, tmp_path):
     from nanort_tpu_torch.examples import path_tracer
 
     argv = [str(tmp_path / "p.png"), "32", "4"]
-    before = _launches()
+    before = trace.counts()
     got = path_tracer.main(argv)["img"]
-    assert _moved(before) == {"pt_fused_brute": 1}
+    assert _launched(before) == {"pt_fused_brute": 1}
     want = path_tracer.main([str(tmp_path / "c.png"), "32", "4", "--device",
                              "cpu"])["img"]
     assert bool(torch.isfinite(got).all()) and float(got.mean()) > 0.01
@@ -1730,9 +1715,9 @@ def test_bidir_program_on_card(dev, tmp_path):
     finite and not black."""
     from nanort_tpu_torch.examples import bidir_path_tracer
 
-    before = _launches()
+    before = trace.counts()
     got = bidir_path_tracer.main([str(tmp_path / "b.png"), "16", "2"])["img"]
-    assert _moved(before) == {}
+    assert _launched(before) == {}
     assert got.is_cuda and bool(torch.isfinite(got).all())
     assert float(got.mean()) > 0.01
 
@@ -1747,10 +1732,10 @@ def test_gltfrender_program_on_card(dev, tmp_path):
     ring_glb(str(tmp_path / "r.glb"), v, f, [
         ((1.5 * np.cos(a), 0.0, 1.5 * np.sin(a)), (0.0, 1.0, 0.0), a)
         for a in np.arange(4) * np.pi / 2])
-    before = _launches()
+    before = trace.counts()
     got = gltfrender.main([str(tmp_path / "r.glb"), str(tmp_path / "g.png"),
                            "64"])["hits"]
-    assert _moved(before) == {}
+    assert _launched(before) == {}
     want = gltfrender.main([str(tmp_path / "r.glb"), str(tmp_path / "c.png"),
                             "64", "--device", "cpu"])["hits"]
     assert bool(want.hit.any())
@@ -1768,9 +1753,9 @@ def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, cam_type,
 
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(viewer, "SIZE", 64)
-    before = _launches()
+    before = trace.counts()
     r = viewer.run_terminal(2.0, cam_type, dev)
-    moved = _moved(before)
+    moved = _launched(before)
     n = len(r.pass_times)
     assert n >= 1 and r._thread is None
     assert "pass " in capsys.readouterr().out
@@ -1790,7 +1775,7 @@ def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(viewer, "SIZE", 64)
     ports, res = [], {}
     ready = threading.Event()
-    before = _launches()
+    before = trace.counts()
 
     def serve():
         res["r"] = viewer.run_http(
@@ -1816,4 +1801,108 @@ def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
     call("/quit", {})
     th.join(60)
     assert not th.is_alive() and res["r"]._thread is None
-    assert _moved(before) == {}
+    assert _launched(before) == {}
+
+
+# ---- the program's spans on the card (utils.trace)
+
+def _traced_on_card(fn):
+    """``fn()`` under a profiler of CPU and CUDA activity: ``(the host
+    ranges named nanort.*, the kernels, the program's span records)``,
+    each range and kernel as ``(name, start ns, end ns)`` on the
+    profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trace.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges, kernels = [], []
+    for ev in prof.profiler.kineto_results.events():
+        item = (ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        if str(ev.device_type()).endswith("CUDA"):
+            if not ev.name().startswith(trace.PREFIX):
+                kernels.append(item)
+        elif ev.name().startswith(trace.PREFIX):
+            ranges.append(item)
+    records = trace.records()
+    trace.reset()
+    return sorted(ranges, key=lambda r: r[1]), sorted(
+        kernels, key=lambda k: k[1]), records
+
+
+def _kernel_ms(kernels, pattern):
+    return sum(e - s for n, s, e in kernels if pattern in n) / 1e6
+
+
+def test_k1_kernels_start_inside_their_spans(dev, monkeypatch):
+    """Every K1 kernel of a traced ``rtc.intersect`` starts after the start
+    of the ``nanort.k1`` range that launched it, on the profiler's
+    timeline, and each call's phases are ranges in their order."""
+    monkeypatch.setattr(trace, "STREAM_SHARE", 1.0)  # time every call
+    card = _rtc_scene(dev, True)
+    rays = nt.Rays(*(x.to(dev) for x in _ring_rays(65536, 5)))
+    card.intersect(rays)  # warm
+    ranges, kernels, records = _traced_on_card(
+        lambda: [card.intersect(rays) for _ in range(3)])
+    k1 = [r for r in ranges if r[0] == "nanort.k1"]
+    launched = [k for k in kernels if "traverse_kernel" in k[0]]
+    assert len(k1) == len(launched) == 3
+    for (_, rs, re_), (_, ks, _) in zip(k1, launched):
+        assert rs <= ks
+    assert [r.name for r in records] == 3 * [
+        "ray_sort.sort", "k1", "ray_sort.unsort", "rtc.remap",
+        "rtc.intersect"]
+    # device time only where a reader takes it
+    for r in records:
+        assert (r.stream_ms is not None and r.stream_ms > 0) \
+            == (r.name in trace.STREAMED), r
+
+
+def _busy_then(fn):
+    """``fn()`` queued behind 20 ms of device work, so that the span's
+    host work runs while the device is busy and its first event waits
+    for that work."""
+    def run():
+        torch.cuda._sleep(int(20e-3 * 2e9))
+        fn()
+    return run
+
+
+def test_k1_stream_ms_is_its_kernel_time(dev, monkeypatch):
+    """A ``k1`` span's stream ms (its CUDA events) is within 10% of its
+    kernel's device time on a 4,194,304-ray incoherent batch."""
+    monkeypatch.setattr(trace, "STREAMED", trace.STREAMED | {"k1"})
+    monkeypatch.setattr(trace, "STREAM_SHARE", 1.0)
+    sv, sf, _, _ = make_cornell_dense_pt_scene(100_000)
+    scene = _scene(sv, sf, 16).to(dev)
+    rays = nt.Rays(*(x.to(dev) for x in _rays(4_194_304, 23, broken=False)))
+    packet.traverse_bvh8(scene, rays)  # warm
+    _, kernels, records = _traced_on_card(
+        _busy_then(lambda: packet.traverse_bvh8(scene, rays)))
+    kernel = _kernel_ms(kernels, "traverse_kernel")
+    (span,) = [r.stream_ms for r in records if r.name == "k1"]
+    assert kernel > 0.5
+    assert abs(span - kernel) <= 0.1 * kernel, (span, kernel)
+
+
+def test_k4_stream_ms_is_its_kernel_time(dev, dense_pt, monkeypatch):
+    """A ``k4`` span's stream ms is within 10% of K4's device time."""
+    monkeypatch.setattr(trace, "STREAMED", trace.STREAMED | {"k4"})
+    monkeypatch.setattr(trace, "STREAM_SHARE", 1.0)
+    org, d = _cam(256, 256, 2.6)
+    scene = dense_pt.to(dev)
+    org, d = org.to(dev), d.to(dev)
+
+    def render():
+        pt_fused.render_fused_bvh(scene, org, d, 5, 16, max_bounces=5,
+                                  spp_lanes=4)
+
+    render()  # warm
+    _, kernels, records = _traced_on_card(_busy_then(render))
+    kernel = _kernel_ms(kernels, "pt_bvh_pool_kernel")
+    (span,) = [r.stream_ms for r in records if r.name == "k4"]
+    assert kernel > 0.5
+    assert abs(span - kernel) <= 0.1 * kernel, (span, kernel)

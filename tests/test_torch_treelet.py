@@ -32,6 +32,7 @@ from nanort_tpu_torch import interop
 from nanort_tpu_torch.build.bvh8 import table_depth
 from nanort_tpu_torch.testing import compare_hits, same_bits
 from nanort_tpu_torch.traverse import packet, treelet
+from nanort_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -223,10 +224,10 @@ def test_binned_matches_global_and_brute(world, flat, K, octant_major):
     tl, aug = treelet.make_treelets(world["s8"], 32, flat=flat)
     org, d, min_t, max_t = _rays(2000, 11)
     rays = interop.rays_from_numpy(org, d, min_t, max_t, device="cpu")
-    before = dict(packet.LAUNCHES)
+    before = trace.counts()
     got = treelet.traverse_bvh8_binned(aug, rays, treelets=tl, K=K, sub=1,
                                        octant_major=octant_major)
-    assert packet.LAUNCHES == before  # the CPU runs the plain version
+    assert trace.since(before) == {}  # the CPU runs the plain version
     glob = packet.traverse_bvh8(world["s8"], rays)
     c = compare_hits(got, glob, t_ulps=0)
     assert c["ok"] and c["hits"] > 500, c
