@@ -8,9 +8,10 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a),
 nothing of JAX. Phases, one line or more each:
 
 1. the card (``nvidia-smi`` name and power limit);
-2. the builds: the four CUDA sources (one nvcc each, started together)
+2. the builds: the five CUDA sources (one nvcc each, started together)
    and the native SAH builder (g++), with their seconds (and, beside
-   them, a ``ptxas -v`` report of K5 and K2, printed in phase 14);
+   them, ``ptxas -v`` reports of the AOV kernel, printed in phase 6, and
+   of K5 and K2, printed in phase 14);
 3. small-scene parity: cornell box + UV sphere, 3,000 seeded rays, the
    kernel at widths 16 and 8 against the brute-force oracle on the card,
    for closest-hit, skip_prim_id, cull_back_face, prim_ids_range,
@@ -24,7 +25,9 @@ nothing of JAX. Phases, one line or more each:
    tile_image_rays(128, 64), detect_specialization, traverse_bvh8 — one
    warm-up and 3 timed repetitions with CUDA events; the hit fraction is
    held to the analytic disc coverage, and 1,024 sampled pixels to the
-   brute-force oracle;
+   brute-force oracle; the frame's AOVs (csrc/aovs.cu, one launch) ==
+   their plain version bit for bit, the kernel's device ms beside its
+   bound (phase 13 does the same at 512^2);
 7. K2, K3 and K4 against their plain torch versions on the card:
    K2 (``trace_bvh16``) on the 99,236-triangle dense Cornell scene with
    65,536 seeded incoherent rays, closest-hit with aux rows and
@@ -76,8 +79,8 @@ nothing of JAX. Phases, one line or more each:
     at 512^2 x 16 spp;
 13. config A on the K1 route: ``render_ao`` at 512^2 x 8 AO samples on
     the Cornell box + UV sphere (16,138 triangles, leaf 8, BVH16), one
-    warm-up and 3 renders timed with CUDA events; 2 K1 launches a render
-    and no other kernel; both traces of one render (the 262,144 tiled
+    warm-up and 3 renders timed with CUDA events; 2 K1 launches and one
+    of the AOV kernel a render, and no other kernel; both traces of one render (the 262,144 tiled
     primary rays and the 2,097,152 tile-ordered occlusion rays, skipping
     the hit prim, dead where the pixel missed) held to the plain version
     on the same tensors, bit for bit;
@@ -93,7 +96,8 @@ nothing of JAX. Phases, one line or more each:
     only, 1 and 32 samples, a one-block grid launched twice, more tiles
     than resident warps); K5's registers, spills, shared bytes and
     resident blocks (``ptxas -v``, the occupancy API);
-15. the stack engine (plain torch, no kernel): ``render_aovs`` at 512^2
+15. the stack engine (plain torch, no traversal kernel; the AOVs launch
+    their kernel): ``render_aovs`` at 512^2
     on config A's scene against phase 13's primary records, ``render_ao``
     at 128^2 against the K1 route, and the graft entry's shape (16^2
     rays, 234 triangles) against brute force;
@@ -176,7 +180,8 @@ nothing of JAX. Phases, one line or more each:
     ``to_scene_graph``, ``commit`` (one build), ``traverse`` of 256^2
     rays, and a re-commit after one ``translate`` that builds nothing;
 22. the renderers: ``render_pbr`` on config A's scene with BVH16 tables
-    at 1024^2 (2 K1 launches a render, finite and not black, card ==
+    at 1024^2 (2 K1 launches and one AOV launch a render, finite and
+    not black, card ==
     CPU on 4,096 spread pixels), ``trace_bdpt`` on the midscale
     ``PTScene`` with BVH16 tables at 256^2 x 1 sample (K1) and on its
     Woop twin at 128^2 (K1-woop), every launch counted and each
@@ -1441,7 +1446,8 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
     K5, and the stack engine. ``k2_inputs``: phase 7's dense BVH16 scene,
     aux rows, incoherent rays and mesh; ``usage``: a future of the
     ``ptxas -v`` reports. Returns the ``kernels`` entries of K2-watertight
-    and K5, and K1's launches and largest error in phase 13."""
+    and K5, K1's launches and largest error in phase 13, and the AOV
+    kernel's launches in phases 13-15."""
     import torch
 
     import nanort_tpu_torch as nt
@@ -1493,11 +1499,17 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
         f"fraction {float(aovs_k1['hit'].float().mean()):.5f}, AO mean over "
         f"hits {float(aovs_k1['ao'][aovs_k1['hit']].mean()):.5f}; launches "
         f"{counts}")
-    check(counts == {**{k: 0 for k in counts}, "packet_traverse": 8},
-          f"config A on K1: launches {counts}, expected 2 K1 a render")
+    check(counts == {**{k: 0 for k in counts}, "packet_traverse": 8,
+                     "aovs_fused": 4},
+          f"config A on K1: launches {counts}, expected 2 K1 and 1 AOV "
+          "kernel a render")
+    aov_launches = counts["aovs_fused"]
     ao = aovs_k1["ao"]
     check(tuple(ao.shape) == (res, res) and bool(torch.isfinite(ao).all())
           and 0.0 < float(ao.mean()) < 1.0, "config A: bad AO image")
+    aov = hold_aovs(mesh, rays, hits_k1, 200)
+    say_aovs(f"phase 13: config A's {res}^2", aov, 200)
+    aov_launches += aov["total"]
     held = {}
     for kind, (r, a, kw, got) in zip(("primary", "occlusion"),
                                      capture_traces(render_k1)):
@@ -1611,8 +1623,10 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
         f"busy {busy_k5:.4f} of the host wall; K5/K1 render time "
         f"{best5 / best:.3f}; launches {counts}")
     check(counts == {**{k: 0 for k in counts}, "ao_fused": 4,
-                     "bvh16_trace_watertight": 4},
-          f"config A on K5: launches {counts}, expected 1 K5 a render")
+                     "bvh16_trace_watertight": 4, "aovs_fused": 4},
+          f"config A on K5: launches {counts}, expected 1 K5 and 1 AOV "
+          "kernel a render")
+    aov_launches += counts["aovs_fused"]
     # the kernel against its plain version on the full input
     flat = [x.reshape(-1, *x.shape[2:]).contiguous() for x in rays]
     draws = objrender.resolve_draws(rays, 7, S, True).reshape(
@@ -1700,7 +1714,10 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
         f"(cut from {res}^2): {s_ao:.3f} s; against the K1 route: {c}, "
         f"identical AO pixels {same_ao:.5f}")
     check(c["ok"] and same_ao >= 0.97, "stack render_ao disagrees with K1")
-    check(sum(counts.values()) == 0, f"the stack engine launched {counts}")
+    # the AOVs of the 512^2 render_aovs and of the 128^2 render_ao
+    check(nonzero(counts) == {"aovs_fused": 2},
+          f"the stack engine launched {nonzero(counts)}")
+    aov_launches += counts["aovs_fused"]
     # the graft entry's shape: 16^2 rays, 234 triangles, default build
     gv, gf = merge_meshes(make_cornell_box(2.0), make_uv_sphere(8, 16, 0.5))
     gmesh = TriangleMesh(torch.from_numpy(gv).to(dev),
@@ -1721,7 +1738,9 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
     check(len(gf) == 234 and tuple(gaovs["rgb"].shape) == (16, 16, 3)
           and bool(torch.isfinite(gaovs["rgb"]).all()) and c["ok"],
           "graft-shape render_aovs failed")
-    check(sum(counts.values()) == 0, f"the stack engine launched {counts}")
+    check(nonzero(counts) == {"aovs_fused": 1},
+          f"the stack engine launched {nonzero(counts)}")
+    aov_launches += counts["aovs_fused"]
 
     k1_err = max(h["err"] for h in held.values())
     return [{
@@ -1748,7 +1767,7 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
         "bound_ms": k5_bound[0],
         "bound_by": k5_bound[1],
         "library_ms": None,
-    }], launches_k1, k1_err
+    }], launches_k1, k1_err, aov_launches
 
 
 def k5_edge_shapes(dev, s16, aux, nodes, leafs, aux_t, slots):
@@ -3416,7 +3435,7 @@ def api_phases(dev, res: int = 2048, n_geoms: int = 10) -> tuple:
 def renderer_phases(dev, res: int = 1024, sphere=(64, 128)) -> tuple:
     """Phase 22: PBR, BDPT, the UV atlas, the cameras and the progressive
     loop on the card. Returns (K1 launches, K1's largest error, K1-woop
-    launches, K1-woop's largest error)."""
+    launches, K1-woop's largest error, the AOV kernel's launches)."""
     import threading
 
     import torch
@@ -3456,8 +3475,10 @@ def renderer_phases(dev, res: int = 1024, sphere=(64, 128)) -> tuple:
         f"at {res}^2 with shadows: ms {[round(x, 3) for x in ms]} (CUDA "
         f"events, after a warm-up; device busy {busy:.3f}), launches over "
         f"4 renders {nonzero(counts)}; image mean {float(rgb.mean()):.5f}")
-    check(k1 == 8 and sum(counts.values()) == 8,
-          f"phase 22 render_pbr launches {nonzero(counts)}, expected 2 a render")
+    check(nonzero(counts) == {"packet_traverse": 8, "aovs_fused": 4},
+          f"phase 22 render_pbr launches {nonzero(counts)}, expected 2 K1 "
+          "and 1 AOV kernel a render")
+    aov_launches = counts.get("aovs_fused", 0)
     check(bool(torch.isfinite(rgb).all()) and float(rgb.mean()) > 0.01,
           "phase 22: the PBR image is not finite or black")
     pick = torch.arange(0, res * res, 256, device=dev)  # 4,096 spread pixels
@@ -3625,7 +3646,7 @@ def renderer_phases(dev, res: int = 1024, sphere=(64, 128)) -> tuple:
     check(bool(ok), "phase 22: the progressive loop averaged a discarded "
           "pass or lost one")
     say(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
-    return launches, err, woop_launches, woop_err
+    return launches, err, woop_launches, woop_err, aov_launches
 
 
 def region_bytes(cols: int = 8, seed: int = 31) -> tuple[bytes, int]:
@@ -4135,6 +4156,55 @@ def hold_k1_launch(scene8, rays, args, kw, hits, every: int) -> dict:
     return h
 
 
+def hold_aovs(mesh, rays, hits, reps: int) -> dict:
+    """objrender's AOVs of ``hits``: ``aovs_from_hits`` (one launch of
+    csrc/aovs.cu) against ``_aovs_plain`` on the same card tensors, bit
+    for bit; the kernel's device ms (``reps`` calls queued behind a 50-ms
+    sleep that outlasts their enqueueing, between two CUDA events: a
+    call's mean), its bound (each pixel's record and ray read once, 44 B,
+    its AOVs written once, 49 B, the mesh read once; 39 operations a
+    pixel), the plain version's ms (CUDA events, best of 2) and the AOV
+    kernel's launches in all (``total``: the held call and the timed
+    ones)."""
+    import torch
+
+    from nanort_tpu_torch.models import objrender
+
+    zero_launch_counts()
+    got = objrender.aovs_from_hits(mesh, None, rays, hits)
+    launches = nonzero(launch_counts())
+    want = objrender._aovs_plain(mesh, None, rays, hits)
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    del got, want
+    plain_ms = min(cuda_ms(
+        lambda: objrender._aovs_plain(mesh, None, rays, hits), 2))
+    holder = {}
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(50e-3 * 2e9))
+    e0.record()
+    for _ in range(reps):
+        holder["aovs"] = objrender.aovs_from_hits(mesh, None, rays, hits)
+    e1.record()
+    torch.cuda.synchronize()
+    total = launch_counts()["aovs_fused"]
+    n = hits.t.numel()
+    return {"same": same, "launches": launches, "total": total,
+            "ms": e0.elapsed_time(e1) / reps, "plain_ms": plain_ms,
+            "bound": bound(n * 93 + nbytes(mesh.vertices, mesh.faces),
+                           n * 39)}
+
+
+def say_aovs(what: str, h: dict, reps: int):
+    say(f"{what} AOVs (csrc/aovs.cu; launches {h['launches']}): == plain "
+        f"bit for bit {h['same']}; kernel {h['ms']:.4f} ms a call (device, "
+        f"mean of {reps}) vs bound {h['bound'][0]:.4f} ms "
+        f"({h['bound'][1]}); plain {h['plain_ms']:.3f} ms")
+    check(h["same"] and h["launches"] == {"aovs_fused": 1},
+          f"{what}: the AOV kernel differs from its plain version or did "
+          f"not launch once ({h['launches']})")
+
+
 def example_phases(dev, v, f, every: int = 64) -> tuple:
     """Phase 25: the example programs through their ``main(argv)`` on the
     card at their own defaults, and the graft entry. ``v``/``f``: phase
@@ -4144,7 +4214,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
     after its orbit, and path_tracer's K3 render, are held to their plain
     versions on every ``every``th ray or pixel. Returns (K1 launches on
     the phase's paths, K1's largest error against its plain version, K3
-    launches, K3's largest error)."""
+    launches, K3's largest error, the AOV kernel's launches)."""
     import io
     import tempfile
     import threading
@@ -4161,7 +4231,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
     from nanort_tpu_torch.testing import ring_glb
 
     t_phase = time.perf_counter()
-    k1 = k3 = 0
+    k1 = k3 = aov = 0
     err = err3 = 0.0
 
     def held(what, holds):
@@ -4194,6 +4264,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                 kept, n_k1 = capture_k1(lambda: out.update(objrender.main(argv)))
                 counts = nonzero(launch_counts())
                 k1 += counts.get("packet_traverse", 0)
+                aov += counts.get("aovs_fused", 0)
                 sec = out["seconds"]
                 holds = [hold_k1_launch(*c, every) for c in kept]
                 err = max([err] + [h["err"] for h in holds])
@@ -4205,8 +4276,8 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                     f"copied back), hit {hit:.4f}; launches {counts}; every "
                     f"{every}th ray == plain: " + held(f"objrender {what}",
                                                        holds))
-                check(counts == {"packet_traverse": n_k1} and n_k1 >= 1
-                      and len(holds) == n_k1,
+                check(counts == {"packet_traverse": n_k1, "aovs_fused": 1}
+                      and n_k1 >= 1 and len(holds) == n_k1,
                       f"phase 25 objrender ({what}): launches {counts}")
                 check(all(h["same"] for h in holds) and hit > 0.05,
                       f"phase 25 objrender ({what}): K1 != plain or no hit")
@@ -4326,6 +4397,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
             r = res["r"]
             n = len(r.pass_times)
             k1 += counts.get("packet_traverse", 0)
+            aov += counts.get("aovs_fused", 0)
             holds = [hold_k1_launch(*c, every) for c in kept]
             err = max([err] + [h["err"] for h in holds])
             say(f"phase 25 viewer terminal, 128^2, 5 s: {n} passes in "
@@ -4336,12 +4408,13 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                 f"{every}th ray == plain: "
                 + held("viewer pass (first of a half-run)", holds))
             check(n == 2 * cap and r.passes_done == cap
-                  and counts == {"packet_traverse": 4 * cap}
+                  and counts == {"packet_traverse": 4 * cap,
+                                 "aovs_fused": 2 * cap}
                   and n_k1 == 4 * cap,
                   f"phase 25 viewer terminal: {n} passes, "
                   f"{r.passes_done} since the orbit, launches {counts}; "
                   f"expected {2 * cap} passes, {cap} since the orbit, "
-                  f"{4 * cap} K1 launches")
+                  f"{4 * cap} K1 and {2 * cap} AOV launches")
             check(len(holds) == 4 and all(h["same"] for h in holds),
                   "phase 25 viewer terminal: K1 != plain")
             del kept, holds, r, res
@@ -4404,18 +4477,20 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
             got = fn(*args)
             counts = nonzero(launch_counts())
             k1 += counts.get("packet_traverse", 0)
+            aov += counts.get("aovs_fused", 0)
             cfn, cargs = graft_entry.entry(device="cpu")
             want = cfn(*cargs)
             same = torch.equal(got.cpu(), want)
             say(f"phase 25 graft entry: rgb {tuple(got.shape)}, mean "
                 f"{float(got.mean())}; launches {counts}; card == CPU bit "
                 f"for bit: {same}")
-            check(same and counts == {"packet_traverse": 1},
+            check(same and counts == {"packet_traverse": 1,
+                                      "aovs_fused": 1},
                   f"phase 25 graft entry: same={same}, launches {counts}")
         finally:
             os.chdir(cwd)
     say(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
-    return k1, err, k3, err3
+    return k1, err, k3, err3, aov
 
 
 def time_calls(fn):
@@ -4526,9 +4601,11 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     say(smi)
 
-    # ---- 2. builds (and, beside them, the ptxas reports of K5 and K2)
+    # ---- 2. builds (and, beside them, the ptxas reports of the kernels)
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    # first the report that phase 7 prints, the others by phases 14, 18
+    # first the reports that phases 6 and 7 print, the others by phases
+    # 14, 18
+    usage_aovs = pool.submit(lambda: _ext.resource_usage("aovs"))
     usage_pt = pool.submit(lambda: _ext.resource_usage("pt_fused"))
     usage = pool.submit(lambda: _ext.resource_usage("ao_fused")
                         + _ext.resource_usage("bvh16_trace"))
@@ -4757,13 +4834,20 @@ def main() -> int:
         fr, chunk_size=8192))
     say(f"frame sample vs brute force (1024 pixels): {c}")
     check(c["ok"], "full-frame sample disagrees with brute force")
+    aov = hold_aovs(TriangleMesh(torch.from_numpy(v).to(dev),
+                                 torch.from_numpy(f).to(dev)), rays, hits, 10)
+    say_aovs(f"phase 6: the {res}^2 frame's", aov, 10)
+    say("phase 6 AOV kernel, ptxas -v: " + " | ".join(
+        " ".join(ln.split()) for ln in usage_aovs.result().splitlines()
+        if "Used" in ln or "spill" in ln))
 
     # phase 4's scene and phase 5's rays stay for phase 18
     del rays, rays_t, untile, hits, holder, scene_h, bvh, fr, fh
     torch.cuda.empty_cache()
     k2k5, launches_pt, err_pt, k2_inputs = path_tracer_phases(dev, usage_pt)
     torch.cuda.empty_cache()
-    entries_a, launches_a, err_a = config_a_phases(dev, k2_inputs, usage)
+    entries_a, launches_a, err_a, aov_a = config_a_phases(dev, k2_inputs,
+                                                          usage)
     del k2_inputs
     torch.cuda.empty_cache()
     roots_entry, s8i, rays_i, launches_17, err_17 = incoherent_phases(dev)
@@ -4778,14 +4862,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_21, err_21, rtc_entry = api_phases(dev)
     torch.cuda.empty_cache()
-    launches_22, err_22, woop_22, woop_err_22 = renderer_phases(dev)
+    launches_22, err_22, woop_22, woop_err_22, aov_22 = renderer_phases(dev)
     torch.cuda.empty_cache()
     launches_23, err_23 = loader_phases(dev)
     torch.cuda.empty_cache()
     launches_24, err_24 = multidevice_phases(dev, v, f, s8i)
     del s8i
     torch.cuda.empty_cache()
-    launches_25, err_25, k3_25, k3_err_25 = example_phases(dev, v, f)
+    launches_25, err_25, k3_25, k3_err_25, aov_25 = example_phases(dev, v, f)
     for e in k2k5:  # K1-woop's entry gains phase 19's and 22's woop paths
         if e["name"] == "packet_traverse_woop":
             e["launches"] += woop_19 + woop_22
@@ -4808,7 +4892,12 @@ def main() -> int:
         f"path_tracer); packet_traverse_woop gains {woop_19} "
         f"(phase 19) + {woop_22} (phase 22, trace_bdpt on the Woop scene); "
         f"the 8192^2 frame's bound from its "
-        f"counters {frame_bound_18[0]:.4f} ms ({frame_bound_18[1]})")
+        f"counters {frame_bound_18[0]:.4f} ms ({frame_bound_18[1]}); "
+        f"aovs_fused launches: {aov['total']} (phase 6, the held call and "
+        f"the timed ones) + {aov_a} (phases 13-15, config A's renders and "
+        f"the held and timed 512^2 calls) + {aov_22} (phase 22, "
+        f"render_pbr) + {aov_25} (phase 25, the example programs and the "
+        f"graft entry)")
     say(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from its start "
         "to the kernels line")
 
@@ -4827,7 +4916,19 @@ def main() -> int:
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
         "library_ms": None,
-    }, rtc_entry] + k2k5 + entries_a + [roots_entry] + entries_18}))
+    }, rtc_entry, {
+        "name": "aovs",
+        "route": "cuda",
+        "source": "nanort_tpu_torch/csrc/aovs.cu",
+        "replaces": None,
+        "launches": aov["total"] + aov_a + aov_22 + aov_25,
+        "max_abs_err": 0.0 if aov["same"] else None,
+        "ms": aov["ms"],
+        "plain_ms": aov["plain_ms"],
+        "bound_ms": aov["bound"][0],
+        "bound_by": aov["bound"][1],
+        "library_ms": None,
+    }] + k2k5 + entries_a + [roots_entry] + entries_18}))
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed: {FAILURES}",
               file=sys.stderr)

@@ -12,7 +12,8 @@ tables on the rays' device) the primary pass and the occlusion megabatch
 go through ``traverse.packet.traverse_bvh8`` (the K1 kernel on the card,
 its plain version on the CPU); without it, through the reference-exact
 stack engine ``traverse.stack.traverse_triangles`` (plain torch). The
-fused one-launch AO pass is ``models/ao_fused.py``.
+fused one-launch AO pass is ``models/ao_fused.py``. On the card the AOVs
+of the records are one launch of ``csrc/aovs.cu`` (``aovs_from_hits``).
 
 Random draws: the JAX package draws the hemisphere directions from
 threefry keys; here they come from a ``torch.Generator`` on the rays'
@@ -27,6 +28,7 @@ is the JAX package's bit for bit (tests/test_torch_objrender.py).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -35,12 +37,15 @@ import torch
 
 from ..core.math import cross, normalize
 from ..core.options import BVHTraceOptions, INVALID_PRIM_ID
-from ..core.ray import Rays, make_rays
+from ..core.ray import Hits, Rays, make_rays
 from ..ops.triangle import TriangleMesh
+from ..traverse import _ext
 from ..traverse.stack import traverse_triangles
 from ..utils import trace
 
 AO_EPS = 1e-4  # hit-point offset along the normal (JAX objrender.py:248)
+
+trace.declare_launches("aovs_fused")
 
 
 class MeshAttributes(NamedTuple):
@@ -128,7 +133,77 @@ def render_aovs(bvh, mesh: TriangleMesh, rays: Rays,
 @trace.span("aovs")
 def aovs_from_hits(mesh, attrs, rays, hits) -> dict:
     """AOV dict from primary-hit records (shared with the fused AO pass,
-    so both emit identical AOVs for identical records)."""
+    so both emit identical AOVs for identical records). Float32 rays and
+    ``Hits`` on a CUDA device, with a float32 mesh (moved there if it is
+    elsewhere) of int32 or int64 faces and float32 facevarying normals if
+    any, take one launch of ``csrc/aovs.cu`` (counted as ``aovs_fused``);
+    every other input, the CPU's and float64 among them, takes
+    ``_aovs_plain``. Both give the same bits; a hit's prim id that names
+    no face (or a face's vertex id that names no vertex) fails the launch,
+    as the plain version's gather fails."""
+    dev = rays.org.device
+    if dev.type == "cuda":
+        verts = torch.as_tensor(mesh.vertices, device=dev)
+        faces = torch.as_tensor(mesh.faces, device=dev)
+        fnrm = None if attrs is None or attrs.normals is None else \
+            torch.as_tensor(attrs.normals, device=dev)
+        if _fused_takes(verts, faces, fnrm, rays, hits):
+            return _aovs_fused(verts, faces, fnrm, rays, hits)
+        mesh = TriangleMesh(verts, faces)
+    return _aovs_plain(mesh, attrs, rays, hits)
+
+
+def _fused_takes(verts, faces, fnrm, rays, hits) -> bool:
+    """Whether ``_aovs_fused`` takes these inputs."""
+    if not isinstance(hits, Hits):
+        return False
+    bs = rays.batch_shape
+    f32 = [rays.org, rays.dir, hits.t, hits.u, hits.v, verts]
+    if fnrm is not None:
+        if fnrm.ndim != 3 or tuple(fnrm.shape[1:]) != (3, 3):
+            return False
+        f32.append(fnrm)
+    return (all(x.dtype == torch.float32 for x in f32)
+            and hits.prim_id.dtype == torch.int64
+            and faces.dtype in (torch.int32, torch.int64)
+            and all(x.device == rays.org.device
+                    for x in f32 + [hits.prim_id])
+            and tuple(rays.dir.shape) == tuple(rays.org.shape)
+            and all(tuple(x.shape) == bs for x in hits)
+            and verts.ndim == 2 and verts.shape[1] == 3
+            and faces.ndim == 2 and faces.shape[1] == 3)
+
+
+def _aovs_fused(verts, faces, fnrm, rays, hits) -> dict:
+    """``_aovs_plain``'s dict from one launch of ``csrc/aovs.cu``."""
+    dev = rays.org.device
+    bs = rays.batch_shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    rgb, nrm, pos = (torch.empty(bs + (3,), **f32) for _ in range(3))
+    depth = torch.empty(bs, **f32)
+    uv = torch.empty(bs + (2,), **f32)
+    hit = torch.empty(bs, dtype=torch.bool, device=dev)
+    t, u, v, pid, org, dir, faces, verts = (
+        x.contiguous() for x in (*hits, rays.org, rays.dir, faces, verts))
+    fnrm = None if fnrm is None else fnrm.contiguous()
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+    lib = _ext.load("aovs")
+    with torch.cuda.device(dev):
+        rc = lib.nrt_aovs(
+            ptr(t), ptr(u), ptr(v), ptr(pid), ptr(org), ptr(dir), ptr(faces),
+            faces.element_size(), ptr(verts), ptr(fnrm), ptr(rgb), ptr(nrm),
+            ptr(pos), ptr(depth), ptr(uv), ptr(hit), t.numel(),
+            (faces if fnrm is None else fnrm).shape[0], verts.shape[0],
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"aovs kernel launch failed: CUDA error {rc}")
+    trace.count("aovs_fused")
+    return {"rgb": rgb, "normal": nrm, "position": pos, "depth": depth,
+            "texcoord": uv, "prim_id": hits.prim_id, "hit": hit}
+
+
+def _aovs_plain(mesh, attrs, rays, hits) -> dict:
+    """The AOVs in plain torch, the kernel's reference."""
     dev = rays.org.device
     mesh = _mesh_on(mesh, dev)
     hit = hits.hit

@@ -24,6 +24,9 @@ thread at a time on a machine without a card.
 ``ring_glb`` writes a ``.glb`` of one mesh instanced by TRS nodes, the
 glTF input of the loader tests and of ``chip_smoke.py``.
 
+``aov_case`` makes the inputs that the AOV kernel's tests hold it to its
+plain version on: degenerate triangles, hits and misses.
+
 ``mesh_checks`` is the rank body that the multi-device tests spawn on
 each rank of a gloo group (``parallel.dryrun.spawn_ranks``).
 """
@@ -262,6 +265,7 @@ using std::max;
 using std::min;
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct longlong2 { long long x, y; };
 struct uint3 { unsigned x, y, z; };
 struct dim3 {
   unsigned x, y, z;
@@ -286,6 +290,8 @@ inline int __all_sync(unsigned, int p) { return p; }
 template <class T> unsigned __match_any_sync(unsigned, T) { return 1u; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+struct cuda_mock_trap {};  // __trap() ends the launch: a harness catches it
+[[noreturn]] inline void __trap() { throw cuda_mock_trap{}; }
 inline void __syncthreads() {}
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 template <class T> T atomicOr(T* p, T v) { const T o = *p; *p |= v; return o; }
@@ -338,6 +344,61 @@ def build_with_cuda_mock(source: str, harness: str, directory) -> ctypes.CDLL:
     if r.returncode != 0:
         raise RuntimeError(f"g++ build of {source} failed:\n{r.stderr[-6000:]}")
     return ctypes.CDLL(so)
+
+
+def aov_case(bs, seed: int, face_dtype=np.int64, facevarying=False,
+             dtype="float32", device="cpu"):
+    """``(mesh, attrs, rays, hits)`` for ``objrender.aovs_from_hits`` over
+    the batch shape ``bs``. The mesh: config A's box and sphere, then a
+    zero-area triangle (three equal corners), a collinear one, one whose
+    normal's length (1e-20) falls under normalize's 1e-17 guard and one
+    whose (1e-16) does not. Random rays; a third of the records miss (t =
+    the largest float, as ``no_hits`` starts them), a tenth name the four
+    degenerate faces. ``facevarying``: random normals (F, 3, 3), one
+    face's all zero, in ``attrs``; else ``attrs`` is None."""
+    import torch
+
+    from .core.ray import Hits, make_rays
+    from .io.procedural import make_cornell_box, make_uv_sphere, merge_meshes
+    from .models.objrender import MeshAttributes
+    from .ops.triangle import TriangleMesh
+
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(8, 16, 0.5))
+    extra = np.array([[0.1, 0.2, 0.3]] * 3
+                     + [[0, 0, 0], [1, 1, 1], [2, 2, 2]]
+                     + [[0, 0, 0], [1e-10, 0, 0], [0, 1e-10, 0]]
+                     + [[0, 0, 0], [1e-8, 0, 0], [0, 1e-8, 0]], np.float32)
+    f = np.concatenate([f, np.arange(len(v), len(v) + len(extra)).reshape(
+        -1, 3)]).astype(face_dtype)
+    v = np.concatenate([v, extra]).astype(np.float32)
+    F = len(f)
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(bs))
+    prim = rng.integers(0, F, n)
+    prim[rng.random(n) < 0.1] = F - 1 - rng.integers(0, 4)
+    miss = rng.random(n) < 0.3
+    prim[miss] = INVALID_PRIM_ID
+    t = rng.uniform(0.1, 10.0, n).astype(np.float32)
+    t[miss] = np.finfo(np.float32).max
+    u = rng.uniform(0, 1, n).astype(np.float32)
+    w = (rng.uniform(0, 1, n) * (1 - u)).astype(np.float32)
+    org = rng.normal(size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    dt = getattr(torch, dtype)
+
+    def on(x, *s):
+        return torch.from_numpy(x).reshape(tuple(bs) + s).to(device, dt)
+
+    attrs = None
+    if facevarying:
+        fn = rng.normal(size=(F, 3, 3))
+        fn[F - 2] = 0.0
+        attrs = MeshAttributes(normals=torch.from_numpy(fn).to(device, dt))
+    mesh = TriangleMesh(torch.from_numpy(v).to(device, dt),
+                        torch.from_numpy(f).to(device))
+    hits = Hits(on(t), on(u), on(w),
+                torch.from_numpy(prim).reshape(tuple(bs)).to(device))
+    return mesh, attrs, make_rays(on(org, 3), on(d, 3)), hits
 
 
 def ring_glb(path, v, f, xfs):

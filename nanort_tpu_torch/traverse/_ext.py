@@ -15,6 +15,8 @@ module is imported.
     pt_fused.cu         K3 and K4, pooled and lane schedules (K4 runs K2),
                         models/pt_fused.py
     ao_fused.cu         K5 (runs K2 watertight), models/ao_fused.py
+    aovs.cu             objrender's AOVs from primary-hit records,
+                        models/objrender.py::aovs_from_hits
 """
 
 from __future__ import annotations
@@ -61,6 +63,9 @@ KERNELS = {
     "ao_fused": ("ao_fused.cu", ("bvh16_trace.cuh",), {
         "nrt_ao_fused": [_P] * 16 + [_L, _I, _F, _F, _I, _I, _P],
         "nrt_ao_fused_occupancy": [_P],
+    }),
+    "aovs": ("aovs.cu", (), {
+        "nrt_aovs": [_P] * 7 + [_I] + [_P] * 8 + [_L, _L, _L, _P],
     }),
 }
 

@@ -13,7 +13,11 @@ against its lane kernel, with each schedule option, and with a stack too
 small for the tree), K5 (csrc/ao_fused.cu vs
 models/ao_fused.py::_ao_fused_reference; also at its persistent schedule's
 edge shapes, with warps that claim many tiles, and with its launch and
-item counters). K1b (``interleave`` 2 and 4) also at ray counts that are
+item counters). The AOV kernel (csrc/aovs.cu vs
+models/objrender.py::_aovs_plain on the same card tensors, image and
+flat batches, int32 and int64 faces, geometric and facevarying normals,
+degenerate triangles, and a K1 frame; one ``aovs_fused`` launch a float32
+call, none for float64; a prim id past the faces fails the launch). K1b (``interleave`` 2 and 4) also at ray counts that are
 not a multiple of its claims, on grids of 1 to 3 blocks, with dead rays,
 roots across claims and both of its stacks. Config A's render_ao must
 launch K1 and never a plain version, and the stack engine (plain torch)
@@ -66,7 +70,7 @@ from nanort_tpu_torch.io.procedural import (
 from nanort_tpu_torch.models import ao_fused, objrender, path_tracer, pt_fused
 from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
-from nanort_tpu_torch.testing import overlap_soup, zero_edge_rays
+from nanort_tpu_torch.testing import aov_case, overlap_soup, zero_edge_rays
 from nanort_tpu_torch.traverse import fused_trace, packet
 from nanort_tpu_torch.utils import trace
 # this slice's modules: importable where only torch is installed
@@ -700,7 +704,8 @@ def test_ao_fused_matches_plain(dev, config_a_small, n_samples):
     got, got_h = ao_fused.render_ao_fused(
         mesh, nt.Rays(*(x.to(dev) for x in rays)), None, s16.to(dev),
         aux.to(dev), n_samples=n_samples, draws=draws.to(dev))
-    assert _launched(before) == {"ao_fused": 1, "bvh16_trace_watertight": 1}
+    assert _launched(before) == {"ao_fused": 1, "bvh16_trace_watertight": 1,
+                                 "aovs_fused": 1}
     want, want_h = ao_fused.render_ao_fused(
         mesh, rays, None, s16.to("cpu"), aux, n_samples=n_samples,
         draws=draws)
@@ -834,9 +839,10 @@ def test_render_ao_launches_k1_only(dev, config_a_small, monkeypatch):
                                   max_leaf=8, scene8=s16.to(dev))
     assert aovs["ao"].is_cuda and aovs["ao"].shape == (64, 64)
     assert 0.0 < float(aovs["ao"].mean()) < 1.0
-    # the primary pass and one occlusion megabatch of 8 samples a pixel
+    # the primary pass and one occlusion megabatch of 8 samples a pixel,
+    # and the AOVs of the primary pass
     assert trace.since(before) == {"packet_traverse": 2,
-                                   "k1.rays": 64 * 64 * 9}
+                                   "k1.rays": 64 * 64 * 9, "aovs_fused": 1}
 
 
 def test_stack_engine_on_card_matches_cpu(dev, config_a_small):
@@ -854,6 +860,89 @@ def test_stack_engine_on_card_matches_cpu(dev, config_a_small):
     for a, b in zip(got_h, want_h):
         assert a.is_cuda and torch.equal(a.cpu(), b)
     assert torch.equal(got["ao"].cpu(), want["ao"])
+
+
+# ---- objrender's AOVs (csrc/aovs.cu)
+
+AOV_KEYS = ("rgb", "normal", "position", "depth", "texcoord", "prim_id",
+            "hit")
+
+
+@pytest.mark.parametrize("bs", [(96, 160), (100_003,)],
+                         ids=["image", "flat"])
+@pytest.mark.parametrize("face_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("facevarying", [False, True],
+                         ids=["geometric", "facevarying"])
+def test_aovs_kernel_equals_plain(dev, bs, face_dtype, facevarying):
+    """One launch a call, and every AOV the plain version's bit for bit
+    on the same card tensors: hits and misses, degenerate triangles
+    (``testing.aov_case``)."""
+    case = aov_case(bs, 9, face_dtype, facevarying, device=dev)
+    before = trace.counts()
+    got = objrender.aovs_from_hits(*case)
+    assert trace.since(before) == {"aovs_fused": 1}
+    want = objrender._aovs_plain(*case)
+    for k in AOV_KEYS:
+        assert got[k].is_cuda and got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    assert got["rgb"].is_contiguous() and got["texcoord"].shape == bs + (2,)
+
+
+def test_aovs_float64_on_card_take_the_plain_version(dev):
+    case = aov_case((64, 48), 3, np.int32, True, "float64", device=dev)
+    before = trace.counts()
+    got = objrender.aovs_from_hits(*case)
+    assert trace.since(before) == {}
+    assert got["rgb"].is_cuda and got["rgb"].dtype == torch.float64
+
+
+def test_aovs_id_past_the_faces_fails_on_card(dev):
+    """A hit whose prim id names no face fails the launch, where the plain
+    version's gather fails too. The trap poisons the process's CUDA
+    context: run it in a child."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import numpy as np, torch
+from nanort_tpu_torch.models import objrender
+from nanort_tpu_torch.testing import aov_case
+mesh, attrs, rays, hits = aov_case((4096,), 9, np.int32, device="cuda")
+prim = hits.prim_id.clone()
+prim[77] = len(mesh.faces)
+torch.cuda.synchronize()
+try:
+    objrender.aovs_from_hits(mesh, None, rays, hits._replace(prim_id=prim))
+    torch.cuda.synchronize()
+    print("NO ERROR")
+except RuntimeError as e:
+    print("RAISED", "CUDA" in str(e))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=root, timeout=300)
+    assert "RAISED True" in r.stdout, (r.stdout, r.stderr[-2000:])
+
+
+def test_render_aovs_frame_on_card(dev):
+    """A 256 x 192 frame through K1 (image-tiled): one K1 and one AOV
+    launch, and the AOVs equal the plain version's on the same records;
+    the mesh is handed over on the host, as the examples may."""
+    v, f = merge_meshes(make_cornell_box(2.0), make_uv_sphere(24, 48, 0.5))
+    bvh, _ = nt.build_triangle_bvh(TriangleMesh(v, f), nt.BVHBuildOptions(
+        min_leaf_primitives=8, max_leaf_primitives=8))
+    s16 = collapse_bvh8(bvh, v, f, width=16).to(dev)
+    rays = pinhole_rays(look_at((0.4, 0.3, 3.2), (0, 0, 0), width=256,
+                                height=192, fov=50.0, device=dev))
+    mesh = TriangleMesh(v, f)
+    before = trace.counts()
+    got, hits = objrender.render_aovs(bvh, mesh, rays, scene8=s16)
+    assert _launched(before) == {"packet_traverse": 1, "aovs_fused": 1}
+    want = objrender._aovs_plain(mesh, None, rays, hits)
+    for k in AOV_KEYS:
+        assert got[k].is_cuda and torch.equal(got[k], want[k]), k
+    assert 0.3 < float(got["hit"].float().mean()) < 1.0
 
 
 # --------------------------------- K1's modes, K1b and the treelet engine
@@ -1658,15 +1747,16 @@ def test_one_rank_nccl_render_step(dev, tmp_path):
 
 
 def test_graft_entry_on_card_equals_cpu(dev):
-    """``entry()``'s forward step on the card launches K1, and its rgb is
-    the CPU run's (K1's plain version) bit for bit."""
+    """``entry()``'s forward step on the card launches K1 and the AOV
+    kernel, and its rgb is the CPU run's (their plain versions) bit for
+    bit."""
     from nanort_tpu_torch import graft_entry
 
     fn, args = graft_entry.entry()
     assert args[2].org.is_cuda and args[3].nodes.is_cuda
     before = trace.counts()
     got = fn(*args)
-    assert _launched(before) == {"packet_traverse": 1}
+    assert _launched(before) == {"packet_traverse": 1, "aovs_fused": 1}
     cfn, cargs = graft_entry.entry(device="cpu")
     want = cfn(*cargs)
     assert got.is_cuda and torch.equal(got.cpu(), want)
@@ -1674,8 +1764,8 @@ def test_graft_entry_on_card_equals_cpu(dev):
 
 
 def test_objrender_program_on_card(dev, tmp_path):
-    """The OBJ path at 64^2: K1 launches, and the records equal the CPU
-    run's bit for bit."""
+    """The OBJ path at 64^2: K1 and the AOV kernel launch, and the records
+    and the image equal the CPU run's bit for bit."""
     from nanort_tpu_torch.examples import objrender
     from nanort_tpu_torch.io.obj import save_obj
 
@@ -1684,7 +1774,7 @@ def test_objrender_program_on_card(dev, tmp_path):
     argv = [str(tmp_path / "s.obj"), str(tmp_path / "o.png"), "64"]
     before = trace.counts()
     got = objrender.main(argv)
-    assert _launched(before) == {"packet_traverse": 1}
+    assert _launched(before) == {"packet_traverse": 1, "aovs_fused": 1}
     want = objrender.main(argv[:1] + [str(tmp_path / "c.png"), "64",
                                       "--device", "cpu"])
     _same_records(got["hits"], want["hits"])
@@ -1747,8 +1837,8 @@ def test_gltfrender_program_on_card(dev, tmp_path):
 def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, cam_type,
                                  capsys):
     """The terminal surface at 64^2 for 2 s launches K1 twice a pass
-    (primary and any-hit occlusion with skip) and nothing else, and
-    prints its status."""
+    (primary and any-hit occlusion with skip) and the AOV kernel once,
+    and nothing else, and prints its status."""
     from nanort_tpu_torch.examples import viewer
 
     monkeypatch.chdir(tmp_path)
@@ -1759,7 +1849,7 @@ def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, cam_type,
     n = len(r.pass_times)
     assert n >= 1 and r._thread is None
     assert "pass " in capsys.readouterr().out
-    assert moved == {"packet_traverse": 2 * n}
+    assert moved == {"packet_traverse": 2 * n, "aovs_fused": n}
 
 
 def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
