@@ -204,8 +204,16 @@ nothing of JAX. Phases, one line or more each:
     full-height chunks written here (``load_region_mesh``) at 1024^2;
     and a 1,000,000-point LAS round trip (``save_las`` / ``load_las`` /
     ``save_las``: files byte-equal) drawn as spheres
-    (``to_spheres(device="cuda")``, ``traverse_spheres`` at 256^2, card
-    == CPU on spread rays);
+    (``to_spheres(device="cuda")``, ``traverse_spheres`` at 256^2 on the
+    stack engine, card == CPU on spread rays; and beside it through K1's
+    sphere leaf test, ``traverse_spheres(..., scene8=)`` over the
+    ``collapse_bvh8(..., spheres=)`` tables: 4 launches timed, every 64th
+    ray == plain bit for bit, the stack engine's precise test on it
+    record for record, both rates printed); and the benchmark's
+    10M-point LiDAR tile at its own shape, the tables its ``las_view``
+    entry builds (width 8, the builder's default leaves), one 3840x2160
+    frame through ``traverse_image``: one padded tiled launch, every 64th
+    ray == plain bit for bit on t and prim id;
 24. the multi-device layer on one card: a one-rank NCCL group through a
     ``file://`` store in a temporary directory, ``ray_mesh(1)``;
     ``sharded_traverse_triangles``, ``sharded_traverse_wavefront`` and
@@ -3952,6 +3960,101 @@ def loader_phases(dev, hres: int = 1024, res: int = 2048, dres: int = 512,
     check(sp.centers.is_cuda and same_sp and c["ok"] and c["hits"] > 0
           and sum(launch_counts().values()) == 0,
           "phase 23: the LAS spheres differ between card and CPU")
+
+    # ---- the same cloud, tree and rays through K1's sphere leaf test
+    t0 = time.perf_counter()
+    s8k = collapse_bvh8(sbvh, width=8, spheres=cpu_sp).to(dev)
+    k_build = time.perf_counter() - t0
+    holder = {}
+    zero_launch_counts()
+    k_times = [cuda_ms(lambda: holder.__setitem__(
+        "h", sphere.traverse_spheres(None, sp, srays, scene8=s8k)), 1)[0]
+        for _ in range(4)][1:]
+    counts = launch_counts()
+    n_l = counts["packet_traverse[sphere]"]
+    launches += n_l
+    kh = holder["h"]
+    sub = nt.Rays(*(x[pick].contiguous() for x in srays))
+    want_k = packet._traverse_reference(
+        s8k.nodes, s8k.leafs, 8, sub.org, sub.dir, sub.min_t, sub.max_t,
+        None, None, False, False, False, packet.stack_slots(s8k),
+        sphere=True)
+    got_k = [x[pick] for x in packet.traverse_bvh8(s8k, srays)]
+    same_k = all(torch.equal(a, b) for a, b in zip(got_k, want_k))
+    err = max(err, record_err(got_k, want_k))
+    precise = sphere.traverse_spheres(sbvh, sp, sub, max_leaf=None,
+                                      precise=True)
+    c_k = compare_hits(nt.Hits(*(x[pick] for x in kh)), precise, t_ulps=0,
+                       uv_atol=1e-6)
+    c_q = compare_hits(nt.Hits(*(x[pick] for x in kh)),
+                       nt.Hits(*(x[pick] for x in sh)), uv_atol=1e-6)
+    say(f"phase 23 LAS through K1's sphere leaf (the stack engine's tree, "
+        f"BVH8 collapsed and moved in {k_build:.2f} s, {s8k.num_nodes} "
+        f"nodes): ms "
+        f"{[round(t, 3) for t in k_times]} = "
+        f"{sres * sres / min(k_times) / 1e3:.1f} Mrays/s best, against the "
+        f"stack engine's {sres * sres / s_s / 1e6:.3f} Mrays/s; launches "
+        f"{nonzero(counts)}; every {every}th ray == plain bit for bit: "
+        f"{same_k}; against the stack engine's precise test: {c_k}; "
+        f"against its b^2 - 4ac (the JAX package's): {c_q}")
+    check(n_l == 4 and sum(counts.values()) == 4 and same_k and c_k["ok"]
+          and c_k["hits"] > 0, "phase 23: K1's spheres differ from the "
+          "plain version or the stack engine")
+
+    # ---- the benchmark's LiDAR tile at its own shape: the 10M points and
+    # the tables that its las_view entry builds (width 8, the builder's
+    # default leaves), one 3840x2160 frame through traverse_image
+    import json
+    from types import SimpleNamespace
+
+    from rtbench import scenes
+    from rtbench.entries import las_view
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "rtbench/configs/las_tile_10m.json")) as fh:
+        recipe = json.load(fh)["scene"]
+    with open(os.path.join(root, "rtbench/traffic/view_4k.json")) as fh:
+        traffic = json.load(fh)
+    t0 = time.perf_counter()
+    run = SimpleNamespace(cell=SimpleNamespace(traffic=traffic),
+                          scene=scenes.make_scene(recipe), device=dev,
+                          seed=2**31 + 23, spans={})
+    st = las_view.setup(run)
+    tile_s = time.perf_counter() - t0
+    rays = pinhole_rays(look_at(
+        las_view.eye_of(st.cam, st.center, st.a0, 0), st.center,
+        width=st.W, height=st.H, fov=float(st.cam["fov"]), device=dev))
+    holder = {}
+    zero_launch_counts()
+    t_ms = cuda_ms(lambda: holder.__setitem__(
+        "h", packet.traverse_image(st.s8, rays)), 1)[0]
+    counts = launch_counts()
+    launches += counts["packet_traverse[sphere]"]
+    n = st.W * st.H
+    flat = nt.Rays(*(x.reshape(n, *x.shape[2:])[::every].contiguous()
+                     for x in rays))
+    t0 = time.perf_counter()
+    want_t = packet._traverse_reference(
+        st.s8.nodes, st.s8.leafs, las_view.WIDTH, flat.org, flat.dir,
+        flat.min_t, flat.max_t, None, None, False, False, False,
+        packet.stack_slots(st.s8), sphere=True)
+    ref_s = time.perf_counter() - t0
+    got_t = [x.reshape(n)[::every] for x in holder["h"]]
+    same_t = (torch.equal(got_t[0], want_t[0])
+              and torch.equal(got_t[3], want_t[3]))
+    hit_t = float(got_t[3].ne(nt.INVALID_PRIM_ID).float().mean())
+    say(f"phase 23 the benchmark's LiDAR tile ({len(st.pts)} points, "
+        f"generated, built and moved with las_view's set-up in "
+        f"{tile_s:.1f} s: {st.s8.num_nodes} nodes at width "
+        f"{las_view.WIDTH}): one {st.W}x{st.H} frame through traverse_image "
+        f"in {t_ms:.3f} ms, launches {nonzero(counts)}; every {every}th ray "
+        f"({want_t[0].numel()}, plain version {ref_s:.1f} s) == plain bit "
+        f"for bit on t and prim id: {same_t}; hit fraction {hit_t:.4f}")
+    check(counts["packet_traverse[sphere]"] == 1
+          and sum(counts.values()) == 1 and same_t and 0.3 < hit_t < 1.0,
+          "phase 23: K1's spheres on the benchmark's tile differ from the "
+          "plain version or did not take one padded tiled launch")
+    del st, run, rays, holder, flat
     say(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
     return launches, err
 

@@ -40,6 +40,13 @@ slots as per-triangle unit-triangle transforms
   lanes [12t+9, 12t+12): triangle t anchor vertex p0
   lane  108 + t:         triangle t original prim id (exact float integer)
 
+A sphere scene (``spheres=``, the particle primitive of
+``ops/sphere.py``; ``leaf_kind == "sphere"``) has sphere leaf rows in
+place of the triangle ones, the same slots of the same binary leaves:
+
+  lanes [4s, 4s+4):      sphere s centre xyz and radius (one 16-byte load)
+  lane  108 + s:         sphere s original prim id (exact float integer)
+
 The collapse walks the binary tree (build.sah output, reference layout
 nanort.h:1759-1890) and repeatedly expands the largest-surface-area member
 of the cut until 8 slots fill — the standard greedy BVH2->BVH8 conversion.
@@ -79,6 +86,9 @@ class BVH8Scene:
     # row for row beside ``leafs``: the input of the turbo intersector
     # (traverse_bvh8(..., intersector="woop"))
     leafs_woop: np.ndarray | None = None
+    # what the leaf rows hold: "triangle" or "sphere" (collapse_bvh8's
+    # ``spheres=``); traverse_bvh8 launches the leaf test of the kind
+    leaf_kind: str = "triangle"
 
     def _replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -226,10 +236,11 @@ def _woop_transforms_from(vertices, faces, indices) -> np.ndarray:
 @trace.span("build.collapse")
 def collapse_bvh8(
     bvh: BVH,
-    vertices,
-    faces,
+    vertices=None,
+    faces=None,
     width: int = 8,
     woop: bool = False,
+    spheres=None,
 ) -> BVH8Scene:
     """Collapse the binary BVH into width-wide packet-kernel tables.
 
@@ -245,9 +256,18 @@ def collapse_bvh8(
     ``woop=True`` also bakes the Woop unit-triangle table with the SAME
     row layout (12 lanes a triangle and the prim ids at lane 108, so
     rows hold at most 9 triangles).
+
+    ``spheres`` (an ``ops.sphere.Spheres`` or ``(centers, radii)``, with
+    no ``vertices`` or ``faces``) collapses ``build_sphere_bvh``'s tree
+    into sphere leaf rows (``leaf_kind="sphere"``).
     """
     if width not in (8, 16):
         raise ValueError(f"width must be 8 or 16: {width}")
+    if (spheres is None) == (vertices is None or faces is None):
+        raise ValueError("collapse_bvh8 takes vertices and faces, or "
+                         "spheres")
+    if spheres is not None and woop:
+        raise ValueError("woop rows hold triangles, not spheres")
     # 16-wide nodes use the DENSE single-row layout: 16 children in ONE
     # fully-occupied (1, 128) f32 row — child w's exact slab bounds
     # (lo.xyz, hi.xyz) at lanes [6w, 6w+6), metas at 96+w, leaf counts
@@ -259,8 +279,9 @@ def collapse_bvh8(
     packed16 = width == 16
     W = width
     NR = 1 if packed16 else W // 8  # rows per node
-    vertices = np.asarray(vertices, np.float32)
-    faces = np.asarray(faces)
+    if spheres is None:
+        vertices = np.asarray(vertices, np.float32)
+        faces = np.asarray(faces)
     bmin = np.asarray(bvh.bmin, np.float32)
     bmax = np.asarray(bvh.bmax, np.float32)
     flag = np.asarray(bvh.flag)
@@ -593,12 +614,18 @@ def collapse_bvh8(
     seg_len = np.concatenate(seg_len_l) if seg_len_l else np.zeros(0, np.int64)
     seg_src = np.concatenate(seg_src_l) if seg_src_l else np.zeros(0, np.int64)
     leafs = np.zeros((max(m_rows, 1), 128), np.float32)
-    tri_all = vertices[faces[indices]].reshape(-1, 9)  # leaf-ordered
     pid_all = indices.astype(np.int32).astype(np.float32)
-    _fill_leaf_segments(
-        leafs, seg_row, seg_slot, seg_len, seg_src, tri_all, 9, 0, 90,
-        pid_all,
-    )
+    if spheres is not None:
+        _fill_leaf_segments(
+            leafs, seg_row, seg_slot, seg_len, seg_src,
+            _sphere_rows_from(spheres, indices), 4, 0, 108, pid_all,
+        )
+    else:
+        tri_all = vertices[faces[indices]].reshape(-1, 9)  # leaf-ordered
+        _fill_leaf_segments(
+            leafs, seg_row, seg_slot, seg_len, seg_src, tri_all, 9, 0, 90,
+            pid_all,
+        )
     leafs_woop = None
     if woop:
         leafs_woop = np.zeros((max(m_rows, 1), 128), np.float32)
@@ -616,7 +643,23 @@ def collapse_bvh8(
         max_leaf=max_leaf_out,
         width=W,
         leafs_woop=leafs_woop,
+        leaf_kind="triangle" if spheres is None else "sphere",
     )
+
+
+def _sphere_rows_from(spheres, indices) -> np.ndarray:
+    """(L, 4) float32 [centre xyz | radius] of the leaf-ordered sphere
+    stream ``indices``."""
+    centers, radii = spheres
+    if hasattr(centers, "detach"):
+        centers, radii = centers.detach().cpu().numpy(), \
+            radii.detach().cpu().numpy()
+    c = np.asarray(centers, np.float32)
+    r = np.asarray(radii, np.float32).reshape(-1)
+    out = np.empty((indices.shape[0], 4), np.float32)
+    out[:, :3] = c[indices]
+    out[:, 3] = r[indices]
+    return out
 
 
 def collapse_bvh16(bvh: BVH, vertices, faces) -> BVH8Scene:

@@ -1,6 +1,7 @@
 // Wide-BVH ray traversal for NVIDIA Hopper (sm_90a): closest-hit or
 // any-hit, watertight triangle test with the Dekker exact-edge fallback,
-// or the Woop unit-triangle test (the "turbo" intersector).
+// the Woop unit-triangle test (the "turbo" intersector), or the sphere
+// test of the particle primitive (ops/sphere.py::sphere_hit).
 //
 // Replaces nanort_tpu/traverse/pallas_packet.py::_kernel_body (the TPU
 // kernel behind traverse_bvh8), with its intersector="woop" leaf test
@@ -48,8 +49,19 @@
 // the triangle's plane it is +-inf, and the inf or NaN t that follows
 // fails every comparison, so the triangle is missed.
 //
-// The leaf test is a template parameter, so the watertight instantiation
-// is the same code, with the same registers, as without the Woop test.
+// The leaf test is a template parameter (kLeaf: kTriangle, kWoop or
+// kSphere), so the watertight instantiation is the same code, with the
+// same registers, as without the Woop and sphere tests. The sphere test
+// is ops/sphere.py::sphere_hit operation for operation (sphere_intersect's
+// q-form of the quadratic with a precise discriminant, the |disc| < eps
+// double root, the near root in [min_t, t_cur] or else the far one, an
+// equal t accepted); with IEEE sqrtf and division and no FMA its t is the
+// plain version's bit for bit. A sphere is one 16-byte load (centre,
+// radius); u and v stay 0 (ops/sphere.py::sphere_post fills them for the
+// final hit). The sphere instantiations are bound as the triangle ones
+// are, by dependent row fetches, and more of them a ray: a LiDAR tile's
+// spheres overlap (points closer than their radii), so a ray that grazes
+// the canopy pops many leaf rows before the nearest hit prunes the rest.
 //
 // The TPU kernel's other modes, each a template parameter, so the
 // instantiations above keep their code when a mode is off:
@@ -111,6 +123,10 @@ constexpr float kMaxMult = 1.00000024f;  // 4-ulp exit-plane inflation
 constexpr float kSplit = 4097.0f;  // Veltkamp split constant for f32
 constexpr long long kInvalidPrim = 0xFFFFFFFFLL;
 constexpr int kNone = 0x7fffffff;  // no entry to run (no node row has it)
+// leaf tests (the kLeaf template parameter and the launch's ``leaf``)
+constexpr int kTriangle = 0;       // watertight, leafs rows
+constexpr int kWoop = 1;           // Woop unit triangles, leafs_woop rows
+constexpr int kSphere = 2;         // spheres, sphere leaf rows
 
 struct Params {
   const float* nodes;   // (N+1, 128) node rows
@@ -142,7 +158,9 @@ struct Params {
 // With the Woop test, ``leafs`` is the scene's leafs_woop table: one row
 // for each watertight leaf row, triangle t at lanes [12t, 12t+12) as its
 // row-major unit-triangle transform M (9 lanes) and anchor vertex p0 (3),
-// its prim id at lane 108 + t.
+// its prim id at lane 108 + t. With the sphere test, ``leafs`` is a
+// sphere scene's table: sphere s at lanes [4s, 4s+4) as its centre and
+// radius, its prim id at lane 108 + s.
 
 __device__ __forceinline__ float sel3(int k, float x, float y, float z) {
   return k == 0 ? x : (k == 1 ? y : z);
@@ -288,6 +306,39 @@ __device__ __forceinline__ bool hit_triangle_woop(const RayState& r,
        tt * (m10 * r.dx + m11 * r.dy + m12 * r.dz);
   return uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt <= t_cur &&
          tt >= r.min_t && (!cull || dpz < 0.0f);
+}
+
+// Sphere test of one sphere (centre c, radius in c.w) of a sphere row
+// (ops/sphere.py::sphere_hit, same operations in the same order; ``a`` is
+// d . d): sphere_intersect's q-form with the discriminant 4 a (r^2 -
+// |l|^2), l the centre's offset from the ray's closest approach, whose
+// rounding stays of the order of r^2 ulps where b^2 - 4ac loses the
+// sphere ~10^3 radii away. Returns true on acceptance.
+__device__ __forceinline__ bool hit_sphere(const RayState& r, float a,
+                                           float4 c, float t_cur,
+                                           float& tt) {
+  const float ocx = r.ox - c.x, ocy = r.oy - c.y, ocz = r.oz - c.z;
+  const float beta = r.dx * ocx + r.dy * ocy + r.dz * ocz;
+  const float k = beta / a;
+  const float lx = ocx - k * r.dx, ly = ocy - k * r.dy, lz = ocz - k * r.dz;
+  const float disc = 4.0f * (a * (c.w * c.w - (lx * lx + ly * ly + lz * lz)));
+  const float b = 2.0f * beta;
+  const float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - c.w * c.w;
+  const bool double_root = fabsf(disc) < FLT_EPSILON;
+  // sqrt(max(disc, 0)) as the plain version takes it: a NaN stays NaN
+  const float ds = sqrtf(disc < 0.0f ? 0.0f : disc);
+  const float q = b < 0.0f ? (-b - ds) / 2.0f : (-b + ds) / 2.0f;
+  const float sa = a != 0.0f ? a : 1.0f;
+  const float sq = q != 0.0f ? q : 1.0f;
+  const float r0 = double_root ? -0.5f * b / sa : q / sa;
+  const float r1 = double_root ? r0 : cc / sq;
+  // the roots' min and max: NaN if either is, else (equal roots) the
+  // second
+  const bool nan = r0 != r0 || r1 != r1;
+  const float t0 = nan ? NAN : (r0 < r1 ? r0 : r1);
+  const float t1 = nan ? NAN : (r0 > r1 ? r0 : r1);
+  tt = t0 >= r.min_t ? t0 : t1;
+  return !(disc < 0.0f) && a != 0.0f && tt >= r.min_t && tt <= t_cur;
 }
 
 // One ray's walk: its set-up, its best record, the entry it runs next
@@ -469,9 +520,10 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
   pop(w, stack);
 }
 
-// Runs the leaf entry ``w.e`` of a live ray: its row's triangle tests in
-// slot order, then the top of the stack (any-hit: retire on a hit).
-template <bool kWoop, bool kCounts, bool kFlags>
+// Runs the leaf entry ``w.e`` of a live ray: its row's triangle (or
+// sphere) tests in slot order, then the top of the stack (any-hit: retire
+// on a hit).
+template <int kLeaf, bool kCounts, bool kFlags>
 __device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
                                           int* stack) {
   const RayState& r = w.r;
@@ -479,6 +531,30 @@ __device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
   const int packed = -1 - w.e;
   const float* row = p.leafs + (size_t)(packed >> 4) * 128;
   const int cnt = packed & 15;
+  if constexpr (kLeaf == kSphere) {
+    const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    for (int s = 0; s < cnt; ++s) {
+      float tt;
+      if (!hit_sphere(r, a, ld4(row + 4 * s), w.t_best, tt)) continue;
+      const int pid = (int)__ldg(row + 108 + s);
+      if (pid == w.skip) continue;
+      if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
+      w.t_best = tt;
+      w.u_best = 0.0f;
+      w.v_best = 0.0f;
+      w.pid_best = pid;
+      w.found = true;
+      if (p.occlusion) break;
+    }
+    if (p.occlusion && w.found) {  // any-hit: retire
+      w.sp = 0;
+      w.e = kNone;
+    } else {
+      pop(w, stack);
+    }
+    return;
+  }
+  constexpr bool kWoopTest = kLeaf == kWoop;
   // triangle ti's lanes: [12 ti, 12 ti + 12) (Woop), else [9 ti, 9 ti +
   // 9), which sit at offset ti % 4 of the three float4s from lane
   // 36 (ti / 4) + 8 ((ti % 4) * 9 / 8): groups of four, slot k static
@@ -490,7 +566,7 @@ __device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
       if (ti >= cnt) break;
       float tt, uu, vv;
       bool ok;
-      if (kWoop) {
+      if (kWoopTest) {
         const float* m = row + 12 * ti;
         ok = hit_triangle_woop(r, ld4(m), ld4(m + 4), ld4(m + 8), w.t_best,
                                p.cull_back_face, tt, uu, vv);
@@ -505,7 +581,7 @@ __device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
             p.exact_edge, tt, uu, vv, w.zero);
       }
       if (!ok) continue;
-      const int pid = (int)__ldg(row + (kWoop ? 108 : 90) + ti);
+      const int pid = (int)__ldg(row + (kWoopTest ? 108 : 90) + ti);
       if (pid == w.skip) continue;
       if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
       w.t_best = tt;
@@ -528,12 +604,12 @@ __device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
 }
 
 // Runs the entry ``w.e`` of a live ray and sets the next one.
-template <int W, bool kWoop, bool kCounts, bool kFlags>
+template <int W, int kLeaf, bool kCounts, bool kFlags>
 __device__ __forceinline__ void step(const Params& p, Walk& w, int* stack) {
   if (w.e >= 0) {
     node_step<W, kCounts>(p, w, stack);
   } else {
-    leaf_step<kWoop, kCounts, kFlags>(p, w, stack);
+    leaf_step<kLeaf, kCounts, kFlags>(p, w, stack);
   }
 }
 
@@ -559,7 +635,7 @@ __device__ __forceinline__ void finish(const Params& p, long long i,
 // until the counter passes n_rays. The grid is what stays resident.
 // kRoots is a template parameter so that the instantiations without
 // modes keep the code they had before roots.
-template <int W, bool kWoop, bool kCounts, bool kFlags, bool kRoots>
+template <int W, int kLeaf, bool kCounts, bool kFlags, bool kRoots>
 __global__ void __launch_bounds__(kThreads) traverse_kernel(Params p) {
   int stack[kStackCap];
   const unsigned lane = threadIdx.x & 31u;
@@ -573,7 +649,7 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(Params p) {
     if (i < n) {
       Walk w;
       begin<kRoots>(p, (long long)i, w);
-      while (w.e != kNone) step<W, kWoop, kCounts, kFlags>(p, w, stack);
+      while (w.e != kNone) step<W, kLeaf, kCounts, kFlags>(p, w, stack);
       finish<kCounts, kFlags>(p, (long long)i, w);
     }
   }
@@ -677,7 +753,7 @@ __device__ __forceinline__ int slot_end(const Params& p, int ray,
 // lane takes its next ray as soon as enough lanes idle, where K1 waits
 // for the longest walk of its 32. The warp retires when the counter has
 // passed the claims and no walk is live.
-template <int W, bool kWoop>
+template <int W, int kLeaf>
 __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
   const unsigned kRun = claim_rays(p);  // rays a claim
   int stack[kStackCap];
@@ -712,7 +788,7 @@ __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
 #pragma unroll 1
       for (unsigned k = 0; k < kRun; k += 32u) {
         ray = slot_fill(p, ~0u, lane, q, k, -1, w);
-        while (w.e != kNone) step<W, kWoop, false, false>(p, w, stack);
+        while (w.e != kNone) step<W, kLeaf, false, false>(p, w, stack);
         ray = slot_end(p, ray, w);
       }
       r = kRun;
@@ -738,7 +814,7 @@ __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
     // refill them)
     const bool refill = !lock && !drained;
     for (;;) {
-      if (w.e != kNone) step<W, kWoop, false, false>(p, w, stack);
+      if (w.e != kNone) step<W, kLeaf, false, false>(p, w, stack);
       const unsigned done = __ballot_sync(0xffffffffu, w.e == kNone);
       if (done == 0xffffffffu) break;
       if (refill && __popc(done) >= kRefill) break;
@@ -748,42 +824,48 @@ __global__ void __launch_bounds__(kThreads, 8) traverse_kernel_il(Params p) {
 
 // The K1 instantiation of a mode: counts, flags (watertight only), roots
 // or none. Null for a combination the launcher refuses.
-template <int W, bool kWoop>
+template <int W, int kLeaf>
 const void* k1_kernel(int counts, int flags, int roots) {
-  if (counts) return (const void*)traverse_kernel<W, kWoop, true, false, true>;
+  if (counts) return (const void*)traverse_kernel<W, kLeaf, true, false, true>;
   if (flags) {
-    if constexpr (!kWoop) {
-      return (const void*)traverse_kernel<W, false, false, true, true>;
+    if constexpr (kLeaf == kTriangle) {
+      return (const void*)traverse_kernel<W, kTriangle, false, true, true>;
     }
     return nullptr;
   }
-  if (roots) return (const void*)traverse_kernel<W, kWoop, false, false, true>;
-  return (const void*)traverse_kernel<W, kWoop, false, false, false>;
+  if (roots) return (const void*)traverse_kernel<W, kLeaf, false, false, true>;
+  return (const void*)traverse_kernel<W, kLeaf, false, false, false>;
 }
 
-const void* k1_pick(int width, int woop, int counts, int flags, int roots) {
-  if (width == 16) {
-    return woop ? k1_kernel<16, true>(counts, flags, roots)
-                : k1_kernel<16, false>(counts, flags, roots);
-  }
-  return woop ? k1_kernel<8, true>(counts, flags, roots)
-              : k1_kernel<8, false>(counts, flags, roots);
+template <int W>
+const void* k1_width(int leaf, int counts, int flags, int roots) {
+  if (leaf == kSphere) return k1_kernel<W, kSphere>(counts, flags, roots);
+  return leaf == kWoop ? k1_kernel<W, kWoop>(counts, flags, roots)
+                       : k1_kernel<W, kTriangle>(counts, flags, roots);
 }
 
-// The K1b instantiation (K is the launch's packets a claim).
-const void* il_pick(int width, int woop) {
+const void* k1_pick(int width, int leaf, int counts, int flags, int roots) {
+  return width == 16 ? k1_width<16>(leaf, counts, flags, roots)
+                     : k1_width<8>(leaf, counts, flags, roots);
+}
+
+// The K1b instantiation (K is the launch's packets a claim): triangle
+// leaves only.
+const void* il_pick(int width, int leaf) {
+  if (leaf == kSphere) return nullptr;
   if (width == 16) {
-    return woop ? (const void*)traverse_kernel_il<16, true>
-                : (const void*)traverse_kernel_il<16, false>;
+    return leaf == kWoop ? (const void*)traverse_kernel_il<16, kWoop>
+                         : (const void*)traverse_kernel_il<16, kTriangle>;
   }
-  return woop ? (const void*)traverse_kernel_il<8, true>
-              : (const void*)traverse_kernel_il<8, false>;
+  return leaf == kWoop ? (const void*)traverse_kernel_il<8, kWoop>
+                       : (const void*)traverse_kernel_il<8, kTriangle>;
 }
 
 }  // namespace
 
 // counts, flags and interleave > 1 are exclusive modes; flags need the
-// watertight test; roots (with packet > 0) combine with any mode.
+// watertight test and interleave > 1 a triangle test; roots (with packet
+// > 0) combine with any mode. ``leaf``: kTriangle, kWoop or kSphere.
 // ``scratch``: two zeroed uint64, the claim counter and the overflow
 // word. ``grid`` and, for K1b, ``packets`` (packets of 32 rays a claim:
 // interleave, or 1) are traverse/packet.py::launch_plan's.
@@ -793,7 +875,7 @@ extern "C" int nrt_packet_traverse(
     float* t_out, float* u_out, float* v_out, long long* pid_out, int* flags,
     unsigned long long* scratch, long long n_rays, long long packet,
     int width, int stack_size, int occlusion, int cull_back_face,
-    int exact_edge, int use_range, int range_lo, int range_hi, int woop,
+    int exact_edge, int use_range, int range_lo, int range_hi, int leaf,
     int counts, int zero_flags, int interleave, int grid, int packets,
     void* stream) {
   if (stack_size < 1 || stack_size > kStackCap) return (int)cudaErrorInvalidValue;
@@ -802,7 +884,10 @@ extern "C" int nrt_packet_traverse(
     return (int)cudaErrorInvalidValue;
   if ((counts != 0) + (zero_flags != 0) + (interleave > 1) > 1)
     return (int)cudaErrorInvalidValue;
-  if (zero_flags && (woop || flags == nullptr)) return (int)cudaErrorInvalidValue;
+  if (leaf != kTriangle && leaf != kWoop && leaf != kSphere)
+    return (int)cudaErrorInvalidValue;
+  if (zero_flags && (leaf != kTriangle || flags == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (roots && packet < 1) return (int)cudaErrorInvalidValue;
   if (grid < 1) return (int)cudaErrorInvalidValue;
   if (interleave > 1 && n_rays > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -817,8 +902,8 @@ extern "C" int nrt_packet_traverse(
            packets};
   const void* fn =
       interleave > 1
-          ? il_pick(width, woop)
-          : k1_pick(width, woop, counts, zero_flags, roots != nullptr);
+          ? il_pick(width, leaf)
+          : k1_pick(width, leaf, counts, zero_flags, roots != nullptr);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)grid),
@@ -833,14 +918,16 @@ extern "C" int nrt_packet_traverse(
 // blocks per SM (occupancy API), out[1] registers a thread, out[2] local
 // bytes a thread (the stack frame), out[3] shared bytes a block, out[4]
 // threads a block, out[5] rays a claim.
-extern "C" int nrt_packet_traverse_occupancy(int width, int woop, int counts,
+extern "C" int nrt_packet_traverse_occupancy(int width, int leaf, int counts,
                                              int flags, int roots,
                                              int interleave, int* out) {
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
   if (interleave != 1 && interleave != 2 && interleave != 4)
     return (int)cudaErrorInvalidValue;
-  const void* fn = interleave > 1 ? il_pick(width, woop)
-                                  : k1_pick(width, woop, counts, flags, roots);
+  if (leaf != kTriangle && leaf != kWoop && leaf != kSphere)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = interleave > 1 ? il_pick(width, leaf)
+                                  : k1_pick(width, leaf, counts, flags, roots);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fn);

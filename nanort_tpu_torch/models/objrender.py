@@ -95,25 +95,16 @@ def shading_normals(mesh: TriangleMesh, attrs: MeshAttributes | None,
 
 def _traverse_primary(bvh, mesh, rays, options, max_leaf, scene8,
                       specialize=None):
-    """Primary-visibility traversal. Image-shaped batches go through the
-    packet kernel in pixel tiles (each warp covers a compact frustum);
-    other shapes through ``traverse_bvh8_sorted``. Without ``scene8``,
-    the stack engine."""
+    """Primary-visibility traversal. With ``scene8``, image-shaped
+    batches go through the packet kernel in pixel tiles (each warp covers
+    a compact frustum; the tile grid padded to whole tiles), other shapes
+    through ``traverse_bvh8_sorted`` (``packet.traverse_image``). Without
+    ``scene8``, the stack engine."""
     if scene8 is None:
         return traverse_triangles(bvh, mesh, rays, options, max_leaf=max_leaf)
-    from ..traverse.packet import tile_image_rays, traverse_bvh8
+    from ..traverse.packet import traverse_image
 
-    bs = rays.batch_shape
-    if len(bs) == 2:
-        h, w = bs
-        th, tw = min(128, h), min(64, w)
-        if h % th == 0 and w % tw == 0:
-            rays_t, untile = tile_image_rays(rays, th, tw)
-            return untile(traverse_bvh8(scene8, rays_t, options,
-                                        specialize=specialize))
-    from ..traverse.ray_sort import traverse_bvh8_sorted
-
-    return traverse_bvh8_sorted(scene8, rays, options)
+    return traverse_image(scene8, rays, options, specialize)
 
 
 @trace.span("render_aovs")

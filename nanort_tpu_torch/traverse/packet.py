@@ -5,7 +5,9 @@ of ``nanort_tpu.traverse.pallas_packet``).
 ``build.bvh8.collapse_bvh8``: closest-hit or any-hit (``occlusion``),
 the watertight intersector with the Dekker exact-edge fallback or the
 Woop unit-triangle test (``intersector="woop"``, over ``leafs_woop``),
-and the skip / prim-range / back-face filters. On CUDA tensors it
+or, for a scene of sphere leaf rows (``scene.leaf_kind == "sphere"``),
+the sphere test of ``ops/sphere.py``, and the skip / prim-range /
+back-face filters. On CUDA tensors it
 launches the hand-written kernel ``csrc/packet_traverse.cu``: persistent
 warps that claim 32 consecutive rays at a time from a counter, one ray a
 lane, each with its own stack in local memory (``launch_plan`` sizes the
@@ -40,6 +42,7 @@ from ..build.bvh8 import BVH8Scene
 from ..core.math import safe_inverse
 from ..core.options import BVHTraceOptions, INVALID_PRIM_ID, PRIM_RANGE_MAX
 from ..core.ray import PRIM_ID_DTYPE, Hits, Rays
+from ..ops.sphere import sphere_hit
 from ..ops.triangle import (RayCoeffs, TriangleMesh, intersect_triangles,
                             ray_coeffs)
 from ..utils import trace
@@ -56,11 +59,12 @@ MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
 # counted in utils.trace, one key a launch: the mode it ran in
 # ("[interleave=K]", "[counts]", "[flags]", else "[roots]" when it had
 # packet roots), or else its leaf test: "packet_traverse" (watertight),
-# "packet_traverse_woop"; "k1.rays" adds each launch's rays.
+# "packet_traverse_woop", "packet_traverse[sphere]"; "k1.rays" adds each
+# launch's rays.
 LAUNCH_KEYS = ("packet_traverse", "packet_traverse_woop",
                "packet_traverse[roots]", "packet_traverse[counts]",
                "packet_traverse[flags]", "packet_traverse[interleave=2]",
-               "packet_traverse[interleave=4]")
+               "packet_traverse[interleave=4]", "packet_traverse[sphere]")
 trace.declare_launches(*LAUNCH_KEYS)
 trace.count("k1.rays", 0)
 INTERSECTORS = ("watertight", "woop")
@@ -71,6 +75,13 @@ K1_THREADS = 128
 K1_CLAIM = 32
 INTERLEAVES = (1, 2, 4)
 WOOP_MAX_LEAF = 9  # 12 lanes a triangle + the prim-id block at lane 108
+SPHERE_MAX_LEAF = 10  # 4 lanes a sphere + the prim-id block at lane 108
+# the kernel's leaf tests (kTriangle, kWoop, kSphere in the source)
+LEAF_TRIANGLE, LEAF_WOOP, LEAF_SPHERE = 0, 1, 2
+
+
+def _leaf(woop: bool, sphere: bool) -> int:
+    return LEAF_SPHERE if sphere else (LEAF_WOOP if woop else LEAF_TRIANGLE)
 
 
 def stack_slots(scene: BVH8Scene) -> int:
@@ -128,24 +139,27 @@ _OCCUPANCY: dict = {}
 
 def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
                  flags: bool = False, roots: bool = False,
-                 device=None, interleave: int = 1) -> dict:
+                 device=None, interleave: int = 1,
+                 sphere: bool = False) -> dict:
     """What the card's occupancy API and the compiled kernel say of one K1
-    instantiation, or with ``interleave`` 2 or 4 of the K1b one: resident
-    ``blocks_per_sm``, ``registers`` and ``local_bytes`` (the stack
-    frame) a thread, ``shared_bytes`` a block, ``threads`` a block and
-    rays a ``claim``. Cached per device."""
+    instantiation (``sphere``: the sphere leaf test), or with
+    ``interleave`` 2 or 4 of the K1b one: resident ``blocks_per_sm``,
+    ``registers`` and ``local_bytes`` (the stack frame) a thread,
+    ``shared_bytes`` a block, ``threads`` a block and rays a ``claim``.
+    Cached per device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if interleave not in INTERLEAVES:
         raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
-    key = (dev.index, width, bool(woop), bool(counts), bool(flags),
-           bool(roots), interleave)
+    leaf = _leaf(woop, sphere)
+    key = (dev.index, width, leaf, bool(counts), bool(flags), bool(roots),
+           interleave)
     if key not in _OCCUPANCY:
         out = (ctypes.c_int * 6)()
         with torch.cuda.device(dev):
             rc = _ext.load("packet_traverse").nrt_packet_traverse_occupancy(
-                width, int(woop), int(counts), int(flags), int(roots),
+                width, leaf, int(counts), int(flags), int(roots),
                 interleave, out)
         if rc != 0:
             raise RuntimeError(f"K1 occupancy query failed: CUDA error {rc}")
@@ -264,12 +278,25 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
       1).
 
     ``sub`` only groups rays into packets for ``packet_roots``.
+
+    A sphere scene (``collapse_bvh8(..., spheres=)``, ``scene.leaf_kind
+    == "sphere"``) takes the sphere test of ``ops/sphere.py``, its t bit
+    for bit, with u = v = 0 (``ops.sphere.sphere_post`` fills them), the
+    skip and range filters and the modes above but ``_flag_zero_edges``
+    and ``interleave`` > 1; spheres have no back face and no edges, so
+    ``cull_back_face`` and ``exact_edge_fallback`` do not apply, and the
+    intersector stays "watertight".
     """
     _check_specialize(specialize)
     if intersector not in INTERSECTORS:
         raise ValueError(f"unknown intersector {intersector!r}")
     woop = intersector == "woop"
-    exact_edge = options.exact_edge_fallback and not woop
+    sphere = scene.leaf_kind == "sphere"
+    if sphere and (woop or _flag_zero_edges or interleave > 1):
+        raise ValueError("a sphere scene takes the sphere test without "
+                         "intersector='woop', _flag_zero_edges and "
+                         "interleave")
+    exact_edge = options.exact_edge_fallback and not woop and not sphere
     if interleave not in INTERLEAVES:
         raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
     if interleave > 1 and rays.org.numel() // 3 > IL_MAX_RAYS:
@@ -354,7 +381,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             nodes, leafs, scene.width, org, dir, min_t, max_t, skip,
             prim_range, options.cull_back_face, exact_edge, occlusion,
             slots, woop, start=start, debug_counts=debug_counts,
-            flag_zero_edges=_flag_zero_edges)
+            flag_zero_edges=_flag_zero_edges, sphere=sphere)
         t, u, v, pid = out[:4]
         if _flag_zero_edges:
             flags = out[4]
@@ -380,7 +407,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
         scratch = torch.zeros(2, dtype=torch.int64, device=dev)
         occ = k1_occupancy(scene.width, woop, debug_counts,
                            _flag_zero_edges, roots is not None, dev,
-                           interleave)
+                           interleave, sphere)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = launch_plan(n, occ["blocks_per_sm"], sms, interleave,
                            occlusion)
@@ -396,13 +423,13 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
                 int(options.cull_back_face), int(exact_edge),
                 int(prim_range is not None),
                 prim_range[0] if prim_range else 0,
-                prim_range[1] if prim_range else 0, int(woop),
+                prim_range[1] if prim_range else 0, _leaf(woop, sphere),
                 int(debug_counts), int(_flag_zero_edges), int(interleave),
                 plan.grid, plan.claim // K1_CLAIM, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
         trace.count(_launch_key(woop, roots is not None, debug_counts,
-                                _flag_zero_edges, interleave))
+                                _flag_zero_edges, interleave, sphere))
         trace.count("k1.rays", n)
         _check_overflow(scratch[1], slots)
     else:
@@ -413,7 +440,8 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     return hits
 
 
-def _launch_key(woop, roots, counts, flags, interleave) -> str:
+def _launch_key(woop, roots, counts, flags, interleave,
+                sphere=False) -> str:
     """The launch counter of one launch."""
     if interleave > 1:
         return f"packet_traverse[interleave={interleave}]"
@@ -423,6 +451,8 @@ def _launch_key(woop, roots, counts, flags, interleave) -> str:
         return "packet_traverse[flags]"
     if roots:
         return "packet_traverse[roots]"
+    if sphere:
+        return "packet_traverse[sphere]"
     return "packet_traverse_woop" if woop else "packet_traverse"
 
 
@@ -459,16 +489,29 @@ def _woop_test(rows, o, d, min_t, t_cur, cull_back_face):
     return valid, tt, uu, vv, rows[:, 108:117].long()
 
 
+def _sphere_test(rows, o, d, min_t, t_cur):
+    """Sphere test of the (m, 10) spheres of sphere leaf rows against m
+    rays (``ops.sphere.sphere_hit``, the kernel's ``hit_sphere``).
+    Returns ``(valid, tt, prim_ids)``."""
+    m = rows.shape[0]
+    sp = rows[:, :4 * SPHERE_MAX_LEAF].view(m, SPHERE_MAX_LEAF, 4)
+    valid, tt = sphere_hit(o[:, None, :], d[:, None, :], sp[..., :3],
+                           sp[..., 3], min_t[:, None], t_cur[:, None])
+    return valid, tt, rows[:, 108:108 + SPHERE_MAX_LEAF].long()
+
+
 def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
                         prim_range, cull_back_face, exact_edge_fallback,
                         occlusion, slots, woop=False, stats=None, start=None,
-                        debug_counts=False, flag_zero_edges=False):
+                        debug_counts=False, flag_zero_edges=False,
+                        sphere=False):
     """Plain torch version of the kernel: a batched per-ray stack
     traversal over the same tables, in the same child order, with the
-    same arithmetic (``ops/triangle.py``, or ``_woop_test`` when
-    ``woop``). Every loop step pops one entry for every live ray: node
-    entries run ``width`` slab tests and push their hit children
-    far-first; leaf entries test their <= 10 (woop: <= 9) triangles.
+    same arithmetic (``ops/triangle.py``, ``_woop_test`` when ``woop``,
+    ``_sphere_test`` over sphere leaf rows when ``sphere``). Every loop
+    step pops one entry for every live ray: node entries run ``width``
+    slab tests and push their hit children far-first; leaf entries test
+    their <= 10 (woop: <= 9) triangles or <= 10 spheres.
     ``start`` is each ray's first node row (default row 0).
 
     Returns flat ``(t, u, v, prim_id)``; with ``debug_counts`` u and v
@@ -516,6 +559,7 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
     ar_w = torch.arange(width, device=dev)
     n_slots = 9 if woop else 10
     ar_l = torch.arange(n_slots, device=dev)
+    zeros_l = torch.zeros(n_slots, device=dev)
     if width == 16:
         meta_lane, count_lane = 96, 112
     else:
@@ -595,7 +639,11 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
             cnt = packed & 15
             m = li.shape[0]
             tc = t_best[li]
-            if woop:
+            if sphere:
+                valid, tt, pids = _sphere_test(rows, o[li], d[li], mint[li],
+                                               tc)
+                uu = vv = zeros_l.expand(m, n_slots)
+            elif woop:
                 valid, tt, uu, vv, pids = _woop_test(
                     rows, o[li], d[li], mint[li], tc, cull_back_face)
             else:
@@ -623,7 +671,7 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
             else:
                 sel = torch.where(valid & (t_m == t_min[:, None]), ar_l,
                                   -1).amax(1)
-            if flag_zero_edges and not woop:
+            if flag_zero_edges and not woop and not sphere:
                 # the kernel's any-hit loop stops after the accepted slot
                 tested = in_row & (ar_l <= sel[:, None]) if occlusion else in_row
                 zflag[li] |= (zmask & tested).any(1).int()
@@ -842,28 +890,62 @@ def detect_specialization(rays: Rays, sub: int | None = None) -> tuple | None:
     return (kz_val, shared, usign)
 
 
-def tile_image_rays(rays: Rays, tile_h: int = 32, tile_w: int = 32):
+def tile_image_rays(rays: Rays, tile_h: int = 32, tile_w: int = 32,
+                    pad: bool = False):
     """Reorder (H, W) image rays into ``tile_h x tile_w`` pixel tiles so
     each group of neighbouring rays covers a compact frustum (a warp's 32
     rays are neighbouring pixels). Returns ``(flat_rays, untile)`` where
     ``untile`` restores the image shape of any NamedTuple of (H*W, ...)
-    tensors, e.g. ``Hits``."""
+    tensors, e.g. ``Hits``. An image whose sides are not multiples of the
+    tile raises, unless ``pad``: then the tile grid is padded to whole
+    tiles with rays of an empty interval (``max_t < min_t``: they retire
+    before their first node), and ``untile`` drops the padding."""
     H, W = rays.org.shape[:2]
-    if H % tile_h or W % tile_w:
+    if (H % tile_h or W % tile_w) and not pad:
         raise ValueError(f"image {H}x{W} is not a multiple of the "
                          f"{tile_h}x{tile_w} tile")
+    Hp, Wp = -(-H // tile_h) * tile_h, -(-W // tile_w) * tile_w
 
-    def fwd(x):
-        x = x.reshape(H // tile_h, tile_h, W // tile_w, tile_w, *x.shape[2:])
-        return x.transpose(1, 2).reshape(H * W, *x.shape[4:])
+    def fwd(x, fill):
+        if (Hp, Wp) != (H, W):
+            trail = (0, 0) * (x.ndim - 2)
+            x = torch.nn.functional.pad(x, trail + (0, Wp - W, 0, Hp - H),
+                                        value=fill)
+        x = x.reshape(Hp // tile_h, tile_h, Wp // tile_w, tile_w,
+                      *x.shape[2:])
+        return x.transpose(1, 2).reshape(Hp * Wp, *x.shape[4:])
 
     def untile(tree):
         def inv(x):
-            x = x.reshape(H // tile_h, W // tile_w, tile_h, tile_w, *x.shape[1:])
-            return x.transpose(1, 2).reshape(H, W, *x.shape[4:])
+            x = x.reshape(Hp // tile_h, Wp // tile_w, tile_h, tile_w,
+                          *x.shape[1:])
+            x = x.transpose(1, 2).reshape(Hp, Wp, *x.shape[4:])
+            return x if (Hp, Wp) == (H, W) else x[:H, :W].contiguous()
 
         with trace.span("untile"):
             return type(tree)(*(inv(x) for x in tree))
 
     with trace.span("tile"):
-        return Rays(*(fwd(x) for x in rays)), untile
+        # padding: origin 0, direction (1, 1, 1), the interval [0, -1]
+        return Rays(*(fwd(x, fill) for x, fill in
+                      zip(rays, (0.0, 1.0, 0.0, -1.0)))), untile
+
+
+def traverse_image(scene: BVH8Scene, rays: Rays,
+                   options: BVHTraceOptions = BVHTraceOptions(),
+                   specialize: tuple | None = None) -> Hits:
+    """A camera's batch through K1: an (H, W) batch in pixel tiles of
+    ``min(128, H) x min(64, W)`` (each warp covers a compact frustum),
+    the tile grid padded to whole tiles where the sides are not
+    multiples of the tile; any other shape through
+    ``ray_sort.traverse_bvh8_sorted``. Records in the rays' shape."""
+    bs = rays.batch_shape
+    if len(bs) == 2:
+        h, w = bs
+        rays_t, untile = tile_image_rays(rays, min(128, h), min(64, w),
+                                         pad=True)
+        return untile(traverse_bvh8(scene, rays_t, options,
+                                    specialize=specialize))
+    from .ray_sort import traverse_bvh8_sorted
+
+    return traverse_bvh8_sorted(scene, rays, options)

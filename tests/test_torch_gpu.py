@@ -70,7 +70,8 @@ from nanort_tpu_torch.io.procedural import (
 from nanort_tpu_torch.models import ao_fused, objrender, path_tracer, pt_fused
 from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
-from nanort_tpu_torch.testing import aov_case, overlap_soup, zero_edge_rays
+from nanort_tpu_torch.testing import (aov_case, compare_hits, overlap_soup,
+                                      zero_edge_rays)
 from nanort_tpu_torch.traverse import fused_trace, packet
 from nanort_tpu_torch.utils import trace
 # this slice's modules: importable where only torch is installed
@@ -1996,3 +1997,118 @@ def test_k4_stream_ms_is_its_kernel_time(dev, dense_pt, monkeypatch):
     (span,) = [r.stream_ms for r in records if r.name == "k4"]
     assert kernel > 0.5
     assert abs(span - kernel) <= 0.1 * kernel, (span, kernel)
+
+
+# ---- K1's sphere leaf (the LAS viewer's spheres)
+
+def _cloud(n, size, seed):
+    """``n`` LiDAR-like points over a ``size`` m tile: rolling terrain,
+    a fifth of them in crowns 3-20 m up, one radius by the LAS loader's
+    rule (``io/las.py::to_spheres``). Returns (Spheres on the CPU, its
+    binary tree, the points' mean height)."""
+    from nanort_tpu_torch.ops import sphere
+
+    rng = np.random.default_rng(seed)
+    xz = rng.uniform(-size / 2, size / 2, (n, 2))
+    y = 8.0 * np.sin(xz[:, 0] / 37.0) * np.cos(xz[:, 1] / 29.0)
+    crown = rng.random(n) < 0.2
+    y[crown] += rng.uniform(3.0, 20.0, int(crown.sum()))
+    pts = np.stack([xz[:, 0], y, xz[:, 1]], 1).astype(np.float32)
+    ext = pts.max(0).astype(np.float64) - pts.min(0)
+    r = float(np.linalg.norm(ext)) / n ** (1 / 3) * 0.05
+    s = sphere.Spheres(torch.from_numpy(pts), torch.full((n,), r))
+    bvh, _ = sphere.build_sphere_bvh(s, nt.BVHBuildOptions(
+        min_leaf_primitives=10, max_leaf_primitives=10))
+    return s, bvh, float(pts[:, 1].mean())
+
+
+@pytest.fixture(scope="module")
+def small_cloud():
+    return _cloud(3000, 20.0, 31)
+
+
+SPHERE_MODES = {
+    "closest": ("packet_traverse[sphere]", {}),
+    "any_hit": ("packet_traverse[sphere]", dict(occlusion=True)),
+    "range": ("packet_traverse[sphere]", dict(
+        options=nt.BVHTraceOptions(prim_ids_range=(100, 2000)))),
+    "counts": ("packet_traverse[counts]", dict(debug_counts=True)),
+}
+
+
+@pytest.mark.parametrize("mode", list(SPHERE_MODES) + ["skip"])
+@pytest.mark.parametrize("width", [8, 16])
+def test_sphere_kernel_matches_plain_small_cloud(dev, small_cloud, width,
+                                                 mode):
+    s, bvh, _ = small_cloud
+    scene = collapse_bvh8(bvh, width=width, spheres=s)
+    rng = np.random.default_rng(5)
+    org = rng.uniform(-12, 12, (3001, 3)).astype(np.float32)
+    d = rng.uniform(-8, 8, (3001, 3)) - org
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    org[0::10, 0] = np.nan  # degenerate rays among them
+    d[2::10] = 0.0
+    rays = nt.make_rays(torch.from_numpy(org), torch.from_numpy(d))
+    key, kw = SPHERE_MODES.get(mode, ("packet_traverse[sphere]", {}))
+    if mode == "skip":
+        first = packet.traverse_bvh8(scene, rays).prim_id.clone()
+        first[1::2] = nt.INVALID_PRIM_ID
+        kw = dict(skip_prim_id=first)
+    _mode_on_both(scene, rays, dev, key, **kw)
+
+
+def test_sphere_kernel_matches_plain_on_a_4k_frame(dev):
+    """The sphere kernel on a 3840 x 2160 frame of a 1M-point tile (the
+    padded tiled route: one launch) equals the plain version bit for bit
+    on t and prim id on every 64th ray, and the stack engine's records
+    (t bit for bit, the sphere but at exactly equal t) on every 1024th."""
+    from nanort_tpu_torch.ops import sphere
+
+    s, bvh, mean_y = _cloud(1_000_000, 316.0, 32)
+    s8 = collapse_bvh8(bvh, width=16, spheres=s).to(dev)
+    cam = look_at((0.0, mean_y + 80.0, 234.0), (0.0, mean_y, 0.0),
+                  width=3840, height=2160, fov=45.0, device=dev)
+    rays = pinhole_rays(cam)
+    before = trace.counts()
+    hits = packet.traverse_image(s8, rays)
+    moved = trace.since(before)
+    assert moved["packet_traverse[sphere]"] == 1
+    assert moved["k1.rays"] == 2176 * 3840  # the grid padded to tiles
+    n = 3840 * 2160
+    flat = nt.Rays(*(x.reshape(n, *x.shape[2:])[::64].contiguous()
+                     for x in rays))
+    want = packet._traverse_reference(
+        s8.nodes, s8.leafs, 16, flat.org, flat.dir, flat.min_t, flat.max_t,
+        None, None, False, False, False, packet.stack_slots(s8), sphere=True)
+    got = [x.reshape(n)[::64] for x in hits]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    hit = float(got[3].ne(nt.INVALID_PRIM_ID).float().mean())
+    assert 0.3 < hit < 1.0
+    sub = nt.Rays(*(x[::16].contiguous() for x in flat))
+    spd = sphere.Spheres(s.centers.to(dev), s.radii.to(dev))
+    stack = sphere.traverse_spheres(bvh, spd, sub, max_leaf=None,
+                                    precise=True, post=False)
+    c = compare_hits(nt.Hits(*(x[::16] for x in got)), stack, t_ulps=0)
+    assert c["ok"], c
+
+
+def test_render_sphere_aovs_on_card_matches_cpu(dev, small_cloud):
+    from nanort_tpu_torch.models.pointcloud import render_sphere_aovs
+    from nanort_tpu_torch.ops import sphere
+
+    s, bvh, mean_y = small_cloud
+    s8 = collapse_bvh8(bvh, width=16, spheres=s)
+    cam = look_at((0.0, mean_y + 12.0, 26.0), (0.0, mean_y, 0.0), width=100,
+                  height=70, fov=45.0, device="cpu")
+    rays = pinhole_rays(cam)
+    want, want_h = render_sphere_aovs(s, rays, scene8=s8)
+    spd = sphere.Spheres(s.centers.to(dev), s.radii.to(dev))
+    got, got_h = render_sphere_aovs(spd, nt.Rays(*(x.to(dev) for x in rays)),
+                                    scene8=s8.to(dev))
+    _same_records((got_h.t, got_h.prim_id), (want_h.t, want_h.prim_id))
+    for k in want:
+        a, b = got[k].cpu(), want[k]
+        if a.dtype.is_floating_point:
+            assert float((a - b).abs().max()) <= 1e-6, k
+        else:
+            assert torch.equal(a, b), k
