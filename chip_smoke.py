@@ -8,10 +8,10 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a),
 nothing of JAX. Phases, one line or more each:
 
 1. the card (``nvidia-smi`` name and power limit);
-2. the builds: the five CUDA sources (one nvcc each, started together)
+2. the builds: the six CUDA sources (one nvcc each, started together)
    and the native SAH builder (g++), with their seconds (and, beside
-   them, ``ptxas -v`` reports of the AOV kernel, printed in phase 6, and
-   of K5 and K2, printed in phase 14);
+   them, ``ptxas -v`` reports of the AOV and camera kernels, printed in
+   phase 6, and of K5 and K2, printed in phase 14);
 3. small-scene parity: cornell box + UV sphere, 3,000 seeded rays, the
    kernel at widths 16 and 8 against the brute-force oracle on the card,
    for closest-hit, skip_prim_id, cull_back_face, prim_ids_range,
@@ -21,7 +21,10 @@ nothing of JAX. Phases, one line or more each:
 5. kernel against its plain torch version on the card at full scene
    size: 65,536 tiled camera rays + 65,536 seeded incoherent rays, which
    must agree bit for bit;
-6. the main path: look_at at 8192^2 (67M rays, the bench.py frame),
+6. the camera kernel (csrc/camera.cu, one launch) == its plain version
+   bit for bit at 8192^2 and 3840 x 2160, its device ms beside its byte
+   bound and the plain version's; the main path: look_at at 8192^2
+   (67M rays, the bench.py frame, one camera launch),
    tile_image_rays(128, 64), detect_specialization, traverse_bvh8 — one
    warm-up and 3 timed repetitions with CUDA events; the hit fraction is
    held to the analytic disc coverage, and 1,024 sampled pixels to the
@@ -1335,7 +1338,9 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
               f"phase 12 {what}: bad image")
         check(rel < 0.03, f"phase 12 {what}: image mean far from the "
               "fused route's")
-        check(sum(counts.values()) == 0, f"phase 12 {what} launched a kernel")
+        check(nonzero(counts) == {"pinhole_fused": 1},
+              f"phase 12 {what} launched {nonzero(counts)}: the camera "
+              "kernel alone expected")
     turbo_tables = (turbo.scene8.nodes, turbo.scene8.leafs_woop)
     del wf, turbo
     torch.cuda.empty_cache()
@@ -1722,8 +1727,9 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
         f"(cut from {res}^2): {s_ao:.3f} s; against the K1 route: {c}, "
         f"identical AO pixels {same_ao:.5f}")
     check(c["ok"] and same_ao >= 0.97, "stack render_ao disagrees with K1")
-    # the AOVs of the 512^2 render_aovs and of the 128^2 render_ao
-    check(nonzero(counts) == {"aovs_fused": 2},
+    # the AOVs of the 512^2 render_aovs and of the 128^2 render_ao, and
+    # the latter's camera
+    check(nonzero(counts) == {"aovs_fused": 2, "pinhole_fused": 1},
           f"the stack engine launched {nonzero(counts)}")
     aov_launches += counts["aovs_fused"]
     # the graft entry's shape: 16^2 rays, 234 triangles, default build
@@ -4308,6 +4314,55 @@ def say_aovs(what: str, h: dict, reps: int):
           f"not launch once ({h['launches']})")
 
 
+def hold_camera(dev, w: int, h: int, reps: int) -> dict:
+    """The perspective camera's w x h batch: ``pinhole_rays`` (one launch
+    of csrc/camera.cu) against ``_pinhole_plain`` on the same card, bit
+    for bit; the kernel's device ms (``reps`` calls queued behind a 50-ms
+    sleep that outlasts their enqueueing, between two CUDA events: a
+    call's mean), its bound (32 B written a ray, nothing read but the
+    basis) and the plain version's ms (CUDA events, best of 2)."""
+    import torch
+
+    from nanort_tpu_torch.models import cameras
+
+    cam = cameras.look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=w,
+                          height=h, fov=60.0, device=dev)
+    zero_launch_counts()
+    got = cameras.pinhole_rays(cam)
+    launches = nonzero(launch_counts())
+    want = cameras._pinhole_plain(cam)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+    del got, want
+    plain_ms = min(cuda_ms(lambda: cameras._pinhole_plain(cam), 2))
+    holder = {}
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(50e-3 * 2e9))
+    e0.record()
+    for _ in range(reps):
+        holder["rays"] = cameras.pinhole_rays(cam)
+    e1.record()
+    torch.cuda.synchronize()
+    del holder
+    return {"shape": (w, h), "same": same, "launches": launches,
+            "ms": e0.elapsed_time(e1) / reps, "plain_ms": plain_ms,
+            "bound": bound(w * h * 32, 0)}
+
+
+def say_camera(what: str, h: dict, reps: int):
+    w, ht = h["shape"]
+    say(f"{what} camera {w}x{ht} (csrc/camera.cu; launches "
+        f"{h['launches']}): == plain bit for bit {h['same']}; kernel "
+        f"{h['ms']:.4f} ms a call (device, mean of {reps}) vs bound "
+        f"{h['bound'][0]:.4f} ms ({h['bound'][1]}), "
+        f"{100 * h['bound'][0] / h['ms']:.1f}% of it; plain "
+        f"{h['plain_ms']:.3f} ms")
+    check(h["same"] and h["launches"] == {"pinhole_fused": 1},
+          f"{what}: the camera kernel at {w}x{ht} differs from its plain "
+          f"version or did not launch once ({h['launches']})")
+
+
 def example_phases(dev, v, f, every: int = 64) -> tuple:
     """Phase 25: the example programs through their ``main(argv)`` on the
     card at their own defaults, and the graft entry. ``v``/``f``: phase
@@ -4379,7 +4434,8 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                     f"copied back), hit {hit:.4f}; launches {counts}; every "
                     f"{every}th ray == plain: " + held(f"objrender {what}",
                                                        holds))
-                check(counts == {"packet_traverse": n_k1, "aovs_fused": 1}
+                check(counts == {"packet_traverse": n_k1, "aovs_fused": 1,
+                                 "pinhole_fused": 1}
                       and n_k1 >= 1 and len(holds) == n_k1,
                       f"phase 25 objrender ({what}): launches {counts}")
                 check(all(h["same"] for h in holds) and hit > 0.05,
@@ -4443,7 +4499,8 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                 f"{kw.get('trig', 'native')}, {kw['azimuth_strata']} "
                 f"azimuth strata) == plain bit for bit: {fr} (max abs err "
                 f"{err3}, plain {plain_s:.1f} s with its work counted)")
-            check(set(counts) == {"pt_fused_brute"} and len(k3_kept) == 1,
+            check(set(counts) == {"pt_fused_brute", "pinhole_fused"}
+                  and counts["pinhole_fused"] == 1 and len(k3_kept) == 1,
                   f"phase 25 path_tracer: launches {counts}")
             check(fr > 0.99, f"phase 25 path_tracer: K3 != plain on "
                   f"{1 - fr} of the sampled pixels")
@@ -4459,8 +4516,10 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
             say(f"phase 25 bidir_path_tracer, 128^2 x 16 spp: "
                 f"{out['seconds']:.3f} s; image mean {float(img.mean())}; "
                 f"launches {counts} (the 32-triangle box sweeps brute "
-                f"force: at most BRUTE_MAX_TRIS triangles)")
-            check(counts == {}, f"phase 25 bidir: launches {counts}")
+                f"force: at most BRUTE_MAX_TRIS triangles; the camera "
+                f"kernel makes its rays)")
+            check(counts == {"pinhole_fused": 1},
+                  f"phase 25 bidir: launches {counts}")
             check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
                   "phase 25 bidir: non-finite or black image")
 
@@ -4478,7 +4537,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                 f"{out['seconds']['walk']:.3f} s = "
                 f"{512 * 512 / out['seconds']['walk'] / 1e6:.3f} Mrays/s; "
                 f"hit {hit:.4f}; launches {counts}")
-            check(counts == {} and hit > 0.05,
+            check(counts == {"pinhole_fused": 1} and hit > 0.05,
                   f"phase 25 gltfrender: launches {counts}, hit {hit}")
 
             # ---- viewer: the terminal surface at its default 5 s, stdout
@@ -4512,7 +4571,8 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                 + held("viewer pass (first of a half-run)", holds))
             check(n == 2 * cap and r.passes_done == cap
                   and counts == {"packet_traverse": 4 * cap,
-                                 "aovs_fused": 2 * cap}
+                                 "aovs_fused": 2 * cap,
+                                 "pinhole_fused": 2 * cap}
                   and n_k1 == 4 * cap,
                   f"phase 25 viewer terminal: {n} passes, "
                   f"{r.passes_done} since the orbit, launches {counts}; "
@@ -4570,7 +4630,8 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                 f" ms); launches {counts}")
             check(len(status) == 5 and set(status.values()) == {200}
                   and commits == 2 and not th.is_alive()
-                  and len(times) >= 1 and counts == {},
+                  and len(times) >= 1
+                  and counts == {"pinhole_fused": len(times)},
                   f"phase 25 viewer http: {status}, {len(times)} passes, "
                   f"launches {counts}")
 
@@ -4588,7 +4649,7 @@ def example_phases(dev, v, f, every: int = 64) -> tuple:
                 f"{float(got.mean())}; launches {counts}; card == CPU bit "
                 f"for bit: {same}")
             check(same and counts == {"packet_traverse": 1,
-                                      "aovs_fused": 1},
+                                      "aovs_fused": 1, "pinhole_fused": 1},
                   f"phase 25 graft entry: same={same}, launches {counts}")
         finally:
             os.chdir(cwd)
@@ -4692,6 +4753,7 @@ def main() -> int:
         ray_coeffs)
     from nanort_tpu_torch.testing import compare_hits
     from nanort_tpu_torch.traverse import _ext, packet
+    from nanort_tpu_torch.utils import trace
 
     dev = torch.device("cuda", 0)
 
@@ -4707,8 +4769,9 @@ def main() -> int:
     # ---- 2. builds (and, beside them, the ptxas reports of the kernels)
     pool = concurrent.futures.ThreadPoolExecutor(1)
     # first the reports that phases 6 and 7 print, the others by phases
-    # 14, 18
+    # 14, 18 (phase 6 prints the AOV and camera kernels')
     usage_aovs = pool.submit(lambda: _ext.resource_usage("aovs"))
+    usage_camera = pool.submit(lambda: _ext.resource_usage("camera"))
     usage_pt = pool.submit(lambda: _ext.resource_usage("pt_fused"))
     usage = pool.submit(lambda: _ext.resource_usage("ao_fused")
                         + _ext.resource_usage("bvh16_trace"))
@@ -4882,6 +4945,14 @@ def main() -> int:
         stage_ms[name] = cuda_ms(lambda: holder.__setitem__(name, fn()), 1)[0]
         return holder[name]
 
+    cams = [hold_camera(dev, w, h, 10) for w, h in ((res, res),
+                                                    (3840, 2160))]
+    for h in cams:
+        say_camera("phase 6", h, 10)
+    say("phase 6 camera kernel, ptxas -v: " + " | ".join(
+        " ".join(ln.split()) for ln in usage_camera.result().splitlines()
+        if "Used" in ln or "spill" in ln))
+    torch.cuda.empty_cache()
     holder = {}
     zero_launch_counts()
     cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=res, height=res,
@@ -4920,8 +4991,9 @@ def main() -> int:
         f"{2 * m}-ray subset {plain_ms:.1f} ms vs kernel {kernel_ms:.3f} ms")
     h = hits.hit
     check(tuple(hits.t.shape) == (res, res), "frame hits have the wrong shape")
-    check(launches >= 4 and sum(counts.values()) == launches,
-          f"main path launches {counts}")
+    check(launches >= 4 and counts["pinhole_fused"] == 1
+          and sum(counts.values()) == launches + 1,
+          f"main path launches {counts}: K1 and one camera expected")
     check(abs(frac - expect) < 5e-3, "hit fraction far from disc coverage")
     check(bool(torch.isfinite(hits.t[h]).all() and (hits.t[h] > 0).all()),
           "non-finite or non-positive t on a hit")
@@ -5030,6 +5102,18 @@ def main() -> int:
         "plain_ms": aov["plain_ms"],
         "bound_ms": aov["bound"][0],
         "bound_by": aov["bound"][1],
+        "library_ms": None,
+    }, {
+        "name": "camera",
+        "route": "cuda",
+        "source": "nanort_tpu_torch/csrc/camera.cu",
+        "replaces": None,
+        "launches": trace.counts()["pinhole_fused"],
+        "max_abs_err": 0.0 if all(h["same"] for h in cams) else None,
+        "ms": cams[0]["ms"],
+        "plain_ms": cams[0]["plain_ms"],
+        "bound_ms": cams[0]["bound"][0],
+        "bound_by": cams[0]["bound"][1],
         "library_ms": None,
     }] + k2k5 + entries_a + [roots_entry] + entries_18}))
     if FAILURES:

@@ -21,10 +21,15 @@ ulp on a few inputs; so the trig models (spherical, panorama,
 cylindrical, both fisheyes, VR) agree with the JAX package to a few ulp
 of their directions, and the others bit for bit
 (tests/test_torch_cameras.py states the bounds).
+
+The perspective camera's default pixel grid on a float32 camera on a
+CUDA device takes one launch of ``csrc/camera.cu`` (counted as
+``pinhole_fused``), which gives ``_pinhole_plain``'s bits.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Callable, NamedTuple
 
@@ -33,7 +38,10 @@ import torch
 
 from ..core.math import normalize, sqrt
 from ..core.ray import Rays, make_rays
+from ..traverse import _ext
 from ..utils import trace
+
+trace.declare_launches("pinhole_fused")
 
 
 class Camera(NamedTuple):
@@ -52,23 +60,32 @@ class Camera(NamedTuple):
 @trace.span("camera")
 def look_at(eye, center, up=(0.0, 1.0, 0.0), width=512, height=512,
             fov=45.0, dtype=torch.float32, device="cuda") -> Camera:
-    """Camera basis from eye/center/up, computed in float64 on the host
-    and stored as ``dtype`` tensors on ``device`` (the card unless the
-    caller asks for another device)."""
+    """Camera basis from eye/center/up, computed in float64 on the host,
+    rounded to ``dtype`` there and handed to ``device`` (the card unless
+    the caller asks for another device) in one copy that the host does
+    not wait for: ``eye``, ``u``, ``v`` and ``w`` are the rows of one
+    (4, 3) tensor."""
     eye = np.asarray(eye, np.float64)
     center = np.asarray(center, np.float64)
     up = np.asarray(up, np.float64)
     w = eye - center
     w = w / np.linalg.norm(w)
-    u = np.cross(up, w)
+    u = _cross(up, w)
     u = u / np.linalg.norm(u)
-    v = np.cross(w, u)
+    v = _cross(w, u)
+    basis = torch.from_numpy(np.stack([eye, u, v, w])).to(dtype).to(
+        device, non_blocking=True)
+    return Camera(eye=basis[0], u=basis[1], v=basis[2], w=basis[3],
+                  width=int(width), height=int(height), fov=float(fov))
 
-    def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
 
-    return Camera(eye=t(eye), u=t(u), v=t(v), w=t(w), width=int(width),
-                  height=int(height), fov=float(fov))
+def _cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``np.cross`` of two float64 3-vectors, the same values (each
+    component p - q of two products rounded on their own) in a tenth of
+    its time."""
+    a0, a1, a2 = a.tolist()
+    b0, b1, b2 = b.tolist()
+    return np.array([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0])
 
 
 def pixel_grid(cam: Camera, dtype=torch.float32):
@@ -89,7 +106,50 @@ def _flen(cam: Camera) -> float:
 @trace.span("camera")
 def pinhole_rays(cam: Camera, xy=None) -> Rays:
     """Standard perspective camera (camera.cc:89-126): an (H, W) batch
-    on the camera's device, all rays sharing the eye as origin."""
+    on the camera's device, all rays sharing the eye as origin. A float32
+    camera on a CUDA device with the default pixel grid (``xy`` None)
+    takes one launch of ``csrc/camera.cu`` (counted as
+    ``pinhole_fused``); every other camera, the CPU's, float64 and an
+    explicit ``xy`` among them, takes ``_pinhole_plain``. Both give the
+    same bits."""
+    if xy is None and _fused_takes(cam):
+        return _pinhole_fused(cam)
+    return _pinhole_plain(cam, xy)
+
+
+def _fused_takes(cam: Camera) -> bool:
+    """Whether ``_pinhole_fused`` takes this camera."""
+    dev = cam.eye.device
+    return (dev.type == "cuda"
+            and all(x.dtype == torch.float32 and x.device == dev
+                    and tuple(x.shape) == (3,)
+                    for x in (cam.eye, cam.u, cam.v, cam.w))
+            and 0 < cam.width < 2**24 and 0 < cam.height < 2**24)
+
+
+def _pinhole_fused(cam: Camera) -> Rays:
+    """``_pinhole_plain``'s batch from one launch of ``csrc/camera.cu``."""
+    dev = cam.eye.device
+    H, W = cam.height, cam.width
+    f32 = dict(dtype=torch.float32, device=dev)
+    org, d = (torch.empty((H, W, 3), **f32) for _ in range(2))
+    min_t, max_t = (torch.empty((H, W), **f32) for _ in range(2))
+    basis = [x.contiguous() for x in (cam.eye, cam.u, cam.v, cam.w)]
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    lib = _ext.load("camera")
+    with torch.cuda.device(dev):
+        rc = lib.nrt_pinhole(
+            *map(ptr, basis), ptr(org), ptr(d), ptr(min_t), ptr(max_t), W, H,
+            _flen(cam), float(W), float(H),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"camera kernel launch failed: CUDA error {rc}")
+    trace.count("pinhole_fused")
+    return Rays(org, d, min_t, max_t)
+
+
+def _pinhole_plain(cam: Camera, xy=None) -> Rays:
+    """The perspective camera in plain torch, the kernel's reference."""
     x, y = pixel_grid(cam) if xy is None else xy
     flen = _flen(cam)
     corner = -cam.w * flen - 0.5 * (cam.width * cam.u + cam.height * cam.v)

@@ -17,6 +17,8 @@ module is imported.
     ao_fused.cu         K5 (runs K2 watertight), models/ao_fused.py
     aovs.cu             objrender's AOVs from primary-hit records,
                         models/objrender.py::aovs_from_hits
+    camera.cu           the perspective camera's rays,
+                        models/cameras.py::pinhole_rays
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ KERNELS = {
     }),
     "aovs": ("aovs.cu", (), {
         "nrt_aovs": [_P] * 7 + [_I] + [_P] * 8 + [_L, _L, _L, _P],
+    }),
+    "camera": ("camera.cu", (), {
+        "nrt_pinhole": [_P] * 8 + [_L, _L, _F, _F, _F, _P],
     }),
 }
 

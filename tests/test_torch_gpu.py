@@ -17,7 +17,11 @@ item counters). The AOV kernel (csrc/aovs.cu vs
 models/objrender.py::_aovs_plain on the same card tensors, image and
 flat batches, int32 and int64 faces, geometric and facevarying normals,
 degenerate triangles, and a K1 frame; one ``aovs_fused`` launch a float32
-call, none for float64; a prim id past the faces fails the launch). K1b (``interleave`` 2 and 4) also at ray counts that are
+call, none for float64; a prim id past the faces fails the launch). The
+camera kernel (csrc/camera.cu vs models/cameras.py::_pinhole_plain at
+8192^2, 3840 x 2160 and two widths that are not a multiple of 4; one
+``pinhole_fused`` launch a float32 camera, none for float64 or an
+explicit pixel grid). K1b (``interleave`` 2 and 4) also at ray counts that are
 not a multiple of its claims, on grids of 1 to 3 blocks, with dead rays,
 roots across claims and both of its stacks. Config A's render_ao must
 launch K1 and never a plain version, and the stack engine (plain torch)
@@ -450,9 +454,10 @@ def test_render_path_traced_launches_kernels_only(dev, dense_pt, cornell_pt,
                                              3, spp=4, max_bounces=4)
         assert img.shape == (32, 128, 3) and img.is_cuda
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-    # both routes launch their kernel once; K4 on its pooled schedule
+    # both routes launch their kernel once; K4 on its pooled schedule; the
+    # camera kernel once a render
     assert _launched(before) == {"pt_fused_brute": 1, "pt_fused_bvh": 1,
-                                 "bvh16_trace": 1}
+                                 "bvh16_trace": 1, "pinhole_fused": 2}
 
 
 POOL_CASES = {
@@ -627,8 +632,9 @@ def test_megabatch_route_launches_kernels_only(dev, dense_pt, dense_turbo,
             fused=False, spp_batch=2)
         assert img.shape == (16, 32, 3) and img.is_cuda
         assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-        # 2 megabatches x 5 bounces x (closest + shadow), no fused kernel
-        assert _launched(before) == {key: 20}
+        # 2 megabatches x 5 bounces x (closest + shadow), no fused kernel;
+        # the camera kernel once
+        assert _launched(before) == {key: 20, "pinhole_fused": 1}
 
 
 @pytest.mark.parametrize("engine", ["turbo", "wavefront", "brute"])
@@ -841,9 +847,10 @@ def test_render_ao_launches_k1_only(dev, config_a_small, monkeypatch):
     assert aovs["ao"].is_cuda and aovs["ao"].shape == (64, 64)
     assert 0.0 < float(aovs["ao"].mean()) < 1.0
     # the primary pass and one occlusion megabatch of 8 samples a pixel,
-    # and the AOVs of the primary pass
+    # the AOVs of the primary pass, and the camera
     assert trace.since(before) == {"packet_traverse": 2,
-                                   "k1.rays": 64 * 64 * 9, "aovs_fused": 1}
+                                   "k1.rays": 64 * 64 * 9, "aovs_fused": 1,
+                                   "pinhole_fused": 1}
 
 
 def test_stack_engine_on_card_matches_cpu(dev, config_a_small):
@@ -861,6 +868,60 @@ def test_stack_engine_on_card_matches_cpu(dev, config_a_small):
     for a, b in zip(got_h, want_h):
         assert a.is_cuda and torch.equal(a.cpu(), b)
     assert torch.equal(got["ao"].cpu(), want["ao"])
+
+
+# ---- the perspective camera (csrc/camera.cu)
+
+CAMERA_CASES = {
+    "8192sq": (8192, 8192, (0.0, 0.0, 2.2), (0.0, 0.0, 0.0), 60.0),
+    "4k_lidar": (3840, 2160, (500.0, 262.0, 547.0), (0.0, 12.0, 0.0), 45.0),
+    "odd": (37, 23, (0.3, 0.2, 4.0), (0.0, 0.1, 0.0), 120.0),
+    "ragged_rows": (4099, 3, (-0.7, 0.4, -2.5), (0.0, 0.0, 0.0), 20.0),
+}
+
+
+@pytest.mark.parametrize("case", list(CAMERA_CASES))
+def test_camera_kernel_equals_plain(dev, case):
+    """One ``pinhole_fused`` launch a call, and every field of the batch
+    the plain version's bit for bit on the same card: the 8K frame, the
+    LiDAR viewer's 4K frame 740 m out, and widths that are not a multiple
+    of 4."""
+    from nanort_tpu_torch.models import cameras
+
+    w, h, eye, center, fov = CAMERA_CASES[case]
+    cam = look_at(eye, center, width=w, height=h, fov=fov, device=dev)
+    before = trace.counts()
+    got = pinhole_rays(cam)
+    assert trace.since(before) == {"pinhole_fused": 1}
+    want = cameras._pinhole_plain(cam)
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == torch.float32 and a.is_contiguous()
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def test_camera_plain_routes_on_card(dev):
+    """A float64 camera and an explicit pixel grid on the card take the
+    plain version and launch nothing; ``look_at``'s basis on the card is
+    the CPU's bit for bit."""
+    from nanort_tpu_torch.models import cameras
+
+    kw = dict(eye=(0.3, 0.2, 2.4), center=(0, 0.1, 0), width=24, height=16,
+              fov=70.0)
+    c64 = look_at(dtype=torch.float64, device=dev, **kw)
+    c32 = look_at(device=dev, **kw)
+    before = trace.counts()
+    got = pinhole_rays(c64)
+    x, y = cameras.pixel_grid(c32)
+    grid = pinhole_rays(c32, (x + 0.25, y))
+    assert trace.since(before) == {}
+    assert got.dir.dtype == torch.float64 and got.dir.is_cuda
+    assert torch.equal(grid.dir, cameras._pinhole_plain(c32, (x + 0.25, y)).dir)
+    cpu = look_at(device="cpu", **kw)
+    for a, b in zip(c32[:4], cpu[:4]):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
 
 
 # ---- objrender's AOVs (csrc/aovs.cu)
@@ -1748,16 +1809,18 @@ def test_one_rank_nccl_render_step(dev, tmp_path):
 
 
 def test_graft_entry_on_card_equals_cpu(dev):
-    """``entry()``'s forward step on the card launches K1 and the AOV
-    kernel, and its rgb is the CPU run's (their plain versions) bit for
-    bit."""
+    """``entry()`` makes its rays with the camera kernel, its forward step
+    on the card launches K1 and the AOV kernel, and its rgb is the CPU
+    run's (their plain versions) bit for bit."""
     from nanort_tpu_torch import graft_entry
 
+    before = trace.counts()
     fn, args = graft_entry.entry()
     assert args[2].org.is_cuda and args[3].nodes.is_cuda
-    before = trace.counts()
+    assert _launched(before) == {"pinhole_fused": 1}
     got = fn(*args)
-    assert _launched(before) == {"packet_traverse": 1, "aovs_fused": 1}
+    assert _launched(before) == {"packet_traverse": 1, "aovs_fused": 1,
+                                 "pinhole_fused": 1}
     cfn, cargs = graft_entry.entry(device="cpu")
     want = cfn(*cargs)
     assert got.is_cuda and torch.equal(got.cpu(), want)
@@ -1765,8 +1828,9 @@ def test_graft_entry_on_card_equals_cpu(dev):
 
 
 def test_objrender_program_on_card(dev, tmp_path):
-    """The OBJ path at 64^2: K1 and the AOV kernel launch, and the records
-    and the image equal the CPU run's bit for bit."""
+    """The OBJ path at 64^2: the camera kernel, K1 and the AOV kernel
+    launch, and the records and the image equal the CPU run's bit for
+    bit."""
     from nanort_tpu_torch.examples import objrender
     from nanort_tpu_torch.io.obj import save_obj
 
@@ -1775,7 +1839,8 @@ def test_objrender_program_on_card(dev, tmp_path):
     argv = [str(tmp_path / "s.obj"), str(tmp_path / "o.png"), "64"]
     before = trace.counts()
     got = objrender.main(argv)
-    assert _launched(before) == {"packet_traverse": 1, "aovs_fused": 1}
+    assert _launched(before) == {"packet_traverse": 1, "aovs_fused": 1,
+                                 "pinhole_fused": 1}
     want = objrender.main(argv[:1] + [str(tmp_path / "c.png"), "64",
                                       "--device", "cpu"])
     _same_records(got["hits"], want["hits"])
@@ -1783,7 +1848,8 @@ def test_objrender_program_on_card(dev, tmp_path):
 
 
 def test_path_tracer_program_on_card(dev, tmp_path):
-    """The Cornell box at 32^2 x 4 spp: one K3 launch; the image the CPU
+    """The Cornell box at 32^2 x 4 spp: one camera and one K3 launch; the
+    image the CPU
     run's (K3's plain version) within 1e-5 (``trig="native"``: two
     libms' cos and sin) on 85% of pixels, finite and not black."""
     from nanort_tpu_torch.examples import path_tracer
@@ -1791,7 +1857,7 @@ def test_path_tracer_program_on_card(dev, tmp_path):
     argv = [str(tmp_path / "p.png"), "32", "4"]
     before = trace.counts()
     got = path_tracer.main(argv)["img"]
-    assert _launched(before) == {"pt_fused_brute": 1}
+    assert _launched(before) == {"pt_fused_brute": 1, "pinhole_fused": 1}
     want = path_tracer.main([str(tmp_path / "c.png"), "32", "4", "--device",
                              "cpu"])["img"]
     assert bool(torch.isfinite(got).all()) and float(got.mean()) > 0.01
@@ -1802,20 +1868,21 @@ def test_path_tracer_program_on_card(dev, tmp_path):
 
 def test_bidir_program_on_card(dev, tmp_path):
     """The Cornell box (32 triangles) at 16^2 x 2 spp: ``_trace`` sweeps
-    it brute force (no kernel), as the JAX package does; the image is
-    finite and not black."""
+    it brute force (no traversal kernel), as the JAX package does, and
+    the camera kernel makes the rays; the image is finite and not
+    black."""
     from nanort_tpu_torch.examples import bidir_path_tracer
 
     before = trace.counts()
     got = bidir_path_tracer.main([str(tmp_path / "b.png"), "16", "2"])["img"]
-    assert _launched(before) == {}
+    assert _launched(before) == {"pinhole_fused": 1}
     assert got.is_cuda and bool(torch.isfinite(got).all())
     assert float(got.mean()) > 0.01
 
 
 def test_gltfrender_program_on_card(dev, tmp_path):
-    """A 4-node ring ``.glb`` at 64^2: the graph walk (no kernel) gives
-    the CPU run's hit mask and node ids."""
+    """A 4-node ring ``.glb`` at 64^2: the graph walk (no kernel) on the
+    camera kernel's rays gives the CPU run's hit mask and node ids."""
     from nanort_tpu_torch.examples import gltfrender
     from nanort_tpu_torch.testing import ring_glb
 
@@ -1826,7 +1893,7 @@ def test_gltfrender_program_on_card(dev, tmp_path):
     before = trace.counts()
     got = gltfrender.main([str(tmp_path / "r.glb"), str(tmp_path / "g.png"),
                            "64"])["hits"]
-    assert _launched(before) == {}
+    assert _launched(before) == {"pinhole_fused": 1}
     want = gltfrender.main([str(tmp_path / "r.glb"), str(tmp_path / "c.png"),
                             "64", "--device", "cpu"])["hits"]
     assert bool(want.hit.any())
@@ -1838,8 +1905,9 @@ def test_gltfrender_program_on_card(dev, tmp_path):
 def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, cam_type,
                                  capsys):
     """The terminal surface at 64^2 for 2 s launches K1 twice a pass
-    (primary and any-hit occlusion with skip) and the AOV kernel once,
-    and nothing else, and prints its status."""
+    (primary and any-hit occlusion with skip), the AOV kernel once and,
+    for the perspective camera, the camera kernel once, and nothing else,
+    and prints its status."""
     from nanort_tpu_torch.examples import viewer
 
     monkeypatch.chdir(tmp_path)
@@ -1850,12 +1918,14 @@ def test_viewer_terminal_on_card(dev, tmp_path, monkeypatch, cam_type,
     n = len(r.pass_times)
     assert n >= 1 and r._thread is None
     assert "pass " in capsys.readouterr().out
-    assert moved == {"packet_traverse": 2 * n, "aovs_fused": n}
+    cams = {"pinhole_fused": n} if cam_type == "perspective" else {}
+    assert moved == {"packet_traverse": 2 * n, "aovs_fused": n, **cams}
 
 
 def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
     """The HTTP surface on port 0 on the card at 64^2: page, PNG, a gizmo
-    nudge that re-commits, quit; its graph pass launches no kernel."""
+    nudge that re-commits, quit; its graph pass launches no kernel, its
+    perspective camera one a pass."""
     import json
     import threading
     import urllib.request
@@ -1892,7 +1962,8 @@ def test_viewer_http_on_card(dev, tmp_path, monkeypatch):
     call("/quit", {})
     th.join(60)
     assert not th.is_alive() and res["r"]._thread is None
-    assert _launched(before) == {}
+    n = len(res["r"].pass_times)
+    assert _launched(before) == ({"pinhole_fused": n} if n else {})
 
 
 # ---- the program's spans on the card (utils.trace)
