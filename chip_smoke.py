@@ -36,9 +36,8 @@ nothing of JAX. Phases, one line or more each:
    65,536 seeded incoherent rays, closest-hit with aux rows and
    occlusion, and 1,024 of them against a brute-force Moller-Trumbore
    sweep; K3 (``render_fused``) on the 32-triangle Cornell box and K4
-   (``render_fused_bvh``, spp_lanes 1 and 4; its pooled kernel and its
-   lane kernel, ``_schedule="lane"``) on the dense scene, each at 4,096
-   rays x 4 spp x 10 bounces; K4 against K3 on the Cornell box with
+   (``render_fused_bvh``, spp_lanes 1 and 4) on the dense scene, each at
+   4,096 rays x 4 spp x 10 bounces; K4 against K3 on the Cornell box with
    BVH16 tables attached. ``trig="poly"`` must agree bit for bit,
    ``"native"`` to 99% of pixels; K3's sweeps against the plain
    version's live bounces (equal), its live-bounce fraction and bounces a
@@ -46,20 +45,17 @@ nothing of JAX. Phases, one line or more each:
    for bit) at its persistent schedule's edge shapes (7 and 45 pixels,
    one sample and one bounce, no bounce, 256 triangles, no lights,
    face-varying normals, a one-block grid launched twice, more pixels
-   than resident lanes); ``ptxas -v`` of K3 and K4's two kernels, and
-   their resident blocks per SM; K4's two kernels in turns
-   at 16,384 to 1,048,576 paths (4,096 rays x 4 to 256 spp);
+   than resident lanes); ``ptxas -v`` of K3 and K4, and their resident
+   blocks per SM;
 8. config B: ``render_path_traced`` on the Cornell box at 512^2 x 100
    spp x 10 bounces (K3), one warm-up and 3 timed repetitions, and the
    kernel's bounces and shadow rays a sample;
 9. midscale: the same on the dense scene (K4's pooled kernel on K2, 25
    sample-major lanes, 4 azimuth strata, 32 x 128 pixel tiles), with the
-   pool's waves and regenerations; then the lane and pooled kernels in
-   turns (lane, pooled, pooled, lane) on the same render, whose images
-   must be equal bit for bit, one more pooled render in two launches of
-   2 sample iterations each (equal bit for bit), both kernels' lane sums
-   with ``trig="poly"`` (equal bit for bit) and 4,096 sampled lanes of
-   them against the plain version (``lane_ids=``), bit for bit;
+   pool's waves and regenerations; then one more render in two launches
+   of 2 sample iterations each (equal to the first bit for bit), and the
+   kernel's lane sums with ``trig="poly"`` on 4,096 sampled lanes
+   against the plain version (``lane_ids=``), bit for bit;
 10. K1-woop against its plain version on the card: the dense scene built
     with ``engine="turbo"`` (leaf 9, Woop table) and phase 7's 65,536
     incoherent rays, closest-hit and any-hit, which must agree bit for
@@ -246,19 +242,17 @@ nothing of JAX. Phases, one line or more each:
 
 then one line per
     K1 shape (phases 5, 6, 11, 13, 16-19, 21, 23) and K1b shape (phase 18)
-    with its time, its bound and,
-    where ``tools/ab_port_kernels.py ... --out
-    chiprun_out/ab_port_kernels.json`` ran before it in the same
-    command, the parent's and this tree's times from its turns.
+    with its time and its bound.
 
 It then prints one JSON line with every kernel (its launches on the main
 path, its error against its plain version, its time, its plain
 version's time, and its bound: the larger of the bytes it must move over
-3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s,
-counted by the plain version; ``packet_traverse[rtc]`` is K1 at the
-API's shape, on phase 21's sorted rays, its launches counted in
-``packet_traverse``'s too) and, last, the ok line. Any failed phase
-exits non-zero without the ok line; so does a machine without CUDA.
+3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s
+(``rtbench/roofline.py``'s peaks), counted by the plain version;
+``packet_traverse[rtc]`` is K1 at the API's shape, on phase 21's sorted
+rays, its launches counted in ``packet_traverse``'s too) and, last, the
+ok line. Any failed phase exits non-zero without the ok line; so does a
+machine without CUDA.
 """
 
 from __future__ import annotations
@@ -274,29 +268,26 @@ import time
 
 import numpy as np
 
+from rtbench.roofline import F32_OPS_S, HBM_BYTES_S, SHADE_OPS, SLAB_OPS
+
 FAILURES: list[str] = []
 # K1's and K1b's shapes for the summary lines: (kernel, what, card ms,
-# bound, A/B key)
+# bound)
 K1_SHAPES: list[tuple] = []
 # traces that phases 11 and 17 capture for phase 18's K1b shapes:
 # {shape: (scene8, sorted rays, positional, keyword arguments)}
 K1B_TRACES: dict = {}
 
-# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s
-# and float32 operations/s outside the tensor cores.
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
 # float32 operations of one unit of work, counted from the kernels'
-# source: one child's slab test (6 sub, 9 mul, 7 compare/select), one
-# watertight triangle test (9 sub, 12 shear, 9 edge, 2 det, 8 t, 1 div,
-# 3 mul, 6 compare), one Woop test (3 sub, 10 for o'z and d'z, 1 div,
-# 1 mul, 24 for u and v, 5 compare), one Moller-Trumbore test, and one
-# path vertex's shading (fresnel, lobe pick, light sample, ONB, next
-# direction; about 200), and one AO sample's share of the fused AO pass
-# (15 for its world direction, plus an eighth of the pixel's ~40 for the
-# normal flip, the offset point and the basis: about 20)
-SLAB_OPS, WT_OPS, WOOP_OPS, MT_OPS, SHADE_OPS = 22, 50, 44, 51, 200
-AO_OPS = 20
+# source, beside the benchmark's one child's slab test (6 sub, 9 mul, 7
+# compare/select) and one path vertex's shading (``SLAB_OPS``,
+# ``SHADE_OPS``): one watertight triangle test (9 sub, 12 shear, 9 edge,
+# 2 det, 8 t, 1 div, 3 mul, 6 compare), one Woop test (3 sub, 10 for o'z
+# and d'z, 1 div, 1 mul, 24 for u and v, 5 compare), one Moller-Trumbore
+# test, and one AO sample's share of the fused AO pass (15 for its world
+# direction, plus an eighth of the pixel's ~40 for the normal flip, the
+# offset point and the basis: about 20)
+WT_OPS, WOOP_OPS, MT_OPS, AO_OPS = 50, 44, 51, 20
 
 
 def check(cond: bool, what: str):
@@ -346,36 +337,17 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def k1_shape(what: str, ms: float, b: tuple, ab_key: str | None = None,
-             kernel: str = "K1"):
-    """Record one K1 (or K1b) shape for the summary lines: its card ms,
-    its bound and, where ``tools/ab_port_kernels.py`` times the same
-    shape, that tool's key."""
-    K1_SHAPES.append((kernel, what, ms, b, ab_key))
+def k1_shape(what: str, ms: float, b: tuple, kernel: str = "K1"):
+    """Record one K1 (or K1b) shape for the summary lines: its card ms
+    and its bound."""
+    K1_SHAPES.append((kernel, what, ms, b))
 
 
 def report_k1_shapes():
-    """One line per K1 shape: card ms beside its bound, and the parent's
-    and this tree's ms in an A/B call's turns where a call of
-    ``tools/ab_port_kernels.py ... --out chiprun_out/ab_port_kernels.json``
-    in the same command left them."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "chiprun_out", "ab_port_kernels.json")
-    ab = None
-    if os.path.exists(path):
-        with open(path) as fh:
-            ab = json.load(fh)
-    for kernel, what, ms, b, key in K1_SHAPES:
-        line = (f"{kernel} shape {what}: {ms:.3f} ms on the card, bound "
-                f"{b[0]:.4f} ms ({b[1]}), {ms / b[0]:.1f}x the bound")
-        if key and ab and all(key in r for r in ab["turns_ms"]["A"]):
-            line += (f"; A/B {key} ({ab['card']}): parent "
-                     f"{[round(r[key], 3) for r in ab['turns_ms']['A']]} ms, "
-                     f"this tree "
-                     f"{[round(r[key], 3) for r in ab['turns_ms']['B']]} ms")
-        elif key:
-            line += "; parent: not measured in this call"
-        say(line)
+    """One line per K1 shape: card ms beside its bound."""
+    for kernel, what, ms, b in K1_SHAPES:
+        say(f"{kernel} shape {what}: {ms:.3f} ms on the card, bound "
+            f"{b[0]:.4f} ms ({b[1]}), {ms / b[0]:.1f}x the bound")
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -724,15 +696,14 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
         return real_tr(nodes, leafs, aux, org, dir, tmin, tmax, occlusion,
                        slots, stats=k4_count)
 
-    k4_lane = {}
     for lanes in (1, 4):
         o_l = d_org.repeat_interleave(lanes, 0)
         d_l = d_dir.repeat_interleave(lanes, 0)
 
-        def k4(schedule="pool"):
+        def k4():
             return pt_fused.render_fused_bvh(
                 dense, d_org, d_dir, SEED, SPP, max_bounces=MB, trig="poly",
-                azimuth_strata=AZ, spp_lanes=lanes, _schedule=schedule)
+                azimuth_strata=AZ, spp_lanes=lanes)
 
         def k4_plain():
             sums = pt_fused._render_fused_bvh_reference(
@@ -757,16 +728,6 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
         check(fr == 1.0, f"K4 spp_lanes={lanes} disagrees with its plain "
               "version")
         check(bool(torch.isfinite(got).all()), "K4 image not finite")
-        # the lane kernel, the pooled kernel's yardstick, on the same input
-        got_l = k4("lane")
-        fr_l, err_l = same_frac(got_l, want), max_abs(got_l, want)
-        ms_l = median(cuda_ms(lambda: k4("lane"), 5))
-        k4_lane[lanes] = (fr_l, err_l, ms_l)
-        say(f"K4 lane kernel (_schedule='lane') spp_lanes={lanes}: "
-            f"bit-identical pixels {fr_l}, max abs err {err_l}; kernel "
-            f"{ms_l:.3f} ms (median of 5) vs pooled {ms:.3f} ms")
-        check(fr_l == 1.0, f"K4's lane kernel spp_lanes={lanes} disagrees "
-              "with the plain version")
 
     R4 = d_org.shape[0] * 4
     k4_bound = bound(R4 * (24 + 12) + nbytes(mat4, light4, nodes, leafs, aux),
@@ -774,27 +735,11 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
                      + k4_count.get("shade", 0) * SHADE_OPS)
     say(f"K4 work (plain version's count, spp_lanes 4): {k4_count}; bound "
         f"{k4_bound[0]:.4f} ms ({k4_bound[1]})")
-    occ = pt_fused.pool_occupancy()
-    say(f"K4 resident blocks per SM: lane kernel {occ['lane']} x 128 "
-        f"threads, pooled kernel {occ['pool']} x 512 threads "
+    occ = pt_fused.pool_occupancy(dev)
+    say(f"K4 resident blocks per SM: {occ['pool']} x 512 threads "
         f"({occ['pool_smem_bytes']} bytes of shared pool a block); ptxas "
         "-v: " + " | ".join(ptxas_lines(usage_pt.result())))
     check(occ["pool"] >= 1, "the pooled kernel does not fit an SM")
-    # where the pooled kernel starts to win: 4,096 rays at 4 sample-major
-    # lanes, more samples a step, the two kernels in turns
-    sizes = []
-    for spp in (4, 16, 64, 256):
-        ms_of = {}
-        for schedule in ("lane", "pool", "pool", "lane"):
-            ms_of.setdefault(schedule, []).extend(cuda_ms(
-                lambda: pt_fused.render_fused_bvh(
-                    dense, d_org, d_dir, SEED, spp, max_bounces=MB,
-                    azimuth_strata=AZ, spp_lanes=4, _schedule=schedule), 2))
-        sizes.append(f"{d_org.shape[0] * spp} paths: lane "
-                     f"{min(ms_of['lane']):.3f}, pooled "
-                     f"{min(ms_of['pool']):.3f}")
-    say("K4 by render size (64x64 rays x spp, 10 bounces, spp_lanes 4, "
-        "best of 4 each, ms): " + "; ".join(sizes))
 
     # K4 against K3 on the Cornell box with BVH16 tables attached (leaf 4)
     bvh, _ = nt.build_triangle_bvh(TriangleMesh(cv, cf), nt.BVHBuildOptions(
@@ -859,10 +804,9 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
         f"closest-hit and {st['shadows']} shadow traces")
     check(st["paths"] == 512 * 512 * 100,
           f"the pool ran {st['paths']} paths")
-    img_m = img
-    launches_lane = k4_schedules(dense, cam, img_m, mat4, light4, lights4,
-                                 nodes, leafs, aux, slots)
-    del img, img_m
+    k4_slices_and_lanes(dense, cam, img, mat4, light4, lights4, nodes,
+                        leafs, aux, slots)
+    del img
     torch.cuda.empty_cache()
 
     woop_entry, launches_pallas, pallas_err = megabatch_phases(
@@ -900,19 +844,6 @@ def path_tracer_phases(dev, usage_pt) -> tuple[list[dict], int, float,
         "launches": launches_m,
         "max_abs_err": max(r[1] for r in k4_res.values()),
         "ms": k4_res[4][2],
-        "plain_ms": k4_res[4][3],
-        "bound_ms": k4_bound[0],
-        "bound_by": k4_bound[1],
-        "library_ms": None,
-    }, {
-        # the yardstick: launched by phase 9's turns on the same render
-        "name": "pt_fused_bvh[lane]",
-        "route": "cuda",
-        "source": "nanort_tpu_torch/csrc/pt_fused.cu",
-        "replaces": "nanort_tpu/models/pt_fused.py:532",
-        "launches": launches_lane,
-        "max_abs_err": max(r[1] for r in k4_lane.values()),
-        "ms": k4_lane[4][2],
         "plain_ms": k4_res[4][3],
         "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1],
@@ -993,85 +924,46 @@ def ptxas_lines(text: str) -> list[str]:
     out, name = [], None
     for ln in text.splitlines():
         if "Compiling entry function" in ln:
-            name = next((k for k in ("pt_bvh_pool_kernel",
-                                     "pt_bvh_lane_kernel", "pt_brute_kernel")
+            name = next((k for k in ("pt_bvh_pool_kernel", "pt_brute_kernel")
                          if k in ln), None)
         elif name and ("Used" in ln or "spill" in ln):
             out.append(f"{name.split('I')[0]}: {' '.join(ln.split())}")
     return out
 
 
-def k4_schedules(dense, cam, img_pool, mat, light, lights, nodes, leafs, aux,
-                 slots) -> int:
-    """Phase 9's comparison of K4's two kernels on the midscale render:
-    the lane and pooled kernels in turns through ``render_path_traced``
-    (images equal bit for bit, and equal to the main path's), one pooled
-    render in two slices of sample iterations, both kernels' lane sums with
-    ``trig="poly"`` (equal bit for bit) and 4,096 sampled lanes against
-    the plain version. Returns the lane kernel's launches in the turns."""
-    import functools
-
+def k4_slices_and_lanes(dense, cam, img_m, mat, light, lights, nodes, leafs,
+                        aux, slots) -> None:
+    """Phase 9's checks of K4 on the midscale render: one more render in
+    two slices of sample iterations through ``render_path_traced``
+    (equal to the main path's image bit for bit), and the kernel's lane
+    sums with ``trig="poly"`` on 4,096 sampled lanes against the plain
+    version."""
     import torch
 
     from nanort_tpu_torch.models import path_tracer, pt_fused
     from nanort_tpu_torch.models.cameras import pinhole_rays
 
     rays = pinhole_rays(cam)
-    real = pt_fused.render_fused_bvh
-    zero_launch_counts()
-
-    def render(schedule):
-        pt_fused.render_fused_bvh = functools.partial(real,
-                                                      _schedule=schedule)
-        try:
-            holder = {}
-            ms = cuda_ms(lambda: holder.__setitem__(
-                "img", path_tracer.render_path_traced(
-                    dense, rays, 3, spp=100, max_bounces=10)), 1)[0]
-            return holder["img"], ms
-        finally:
-            pt_fused.render_fused_bvh = real
-
-    turns = []
-    for schedule in ("lane", "pool", "pool", "lane"):
-        img, ms = render(schedule)
-        turns.append((schedule, ms, torch.equal(img, img_pool)))
-    launches = launch_counts()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    lane_ms = [ms for sch, ms, _ in turns if sch == "lane"]
-    pool_ms = [ms for sch, ms, _ in turns if sch == "pool"]
-    say(f"phase 9 K4 schedules in turns on {smi} (512x512 x 100 spp x 10 "
-        "bounces, render_path_traced, ms): "
-        + ", ".join(f"{sch} {ms:.1f}" for sch, ms, _ in turns)
-        + f"; lane/pooled {min(lane_ms) / min(pool_ms):.3f}x; images equal "
-        f"to the main path's bit for bit: {[e for _, _, e in turns]}; "
-        f"launches {launches}")
-    check(all(e for _, _, e in turns),
-          "K4's lane and pooled kernels give different midscale images")
-    check(launches["pt_fused_bvh"] == 2 and launches["pt_fused_bvh[lane]"]
-          == 2, f"phase 9 turns launched {launches}")
-    check(min(pool_ms) < min(lane_ms),
-          "the pooled kernel is not faster than the lane kernel")
-
     # a render whose per-sample buffer passes the cap runs one launch a
     # slice of its sample iterations: half the 4 iterations a slice here
     K = path_tracer.default_spp_lanes(100, 4)
     rl = 512 * 512 * K
     zero_launch_counts()
+    holder = {}
     with patched(pt_fused, "POOL_SLICE_BYTES", 2 * rl * 12):
-        img, ms_s = render("pool")
+        ms_s = cuda_ms(lambda: holder.__setitem__(
+            "img", path_tracer.render_path_traced(
+                dense, rays, 3, spp=100, max_bounces=10)), 1)[0]
+    img = holder.pop("img")
     sliced = launch_counts()["pt_fused_bvh"]
     say(f"phase 9 pooled kernel in slices of 2 sample iterations "
         f"({2 * rl * 12} bytes a buffer, {sliced} launches): {ms_s:.1f} ms; "
         f"image equal to the main path's bit for bit: "
-        f"{torch.equal(img, img_pool)}")
-    check(sliced == 2 and torch.equal(img, img_pool),
+        f"{torch.equal(img, img_m)}")
+    check(sliced == 2 and torch.equal(img, img_m),
           "the sliced pooled render disagrees with the main path's")
 
-    # both kernels' lane sums with trig="poly" on the route's own input
+    # the kernel's lane sums with trig="poly" on the route's own input
     H = W = 512
     org = rays.org.reshape(-1, 3)
     d = rays.dir.reshape(-1, 3)
@@ -1079,11 +971,9 @@ def k4_schedules(dense, cam, img_pool, mat, light, lights, nodes, leafs, aux,
         H // 32, 32, W // 128, 128).transpose(1, 2).reshape(-1)
     org = org[perm].repeat_interleave(K, 0).contiguous()
     d = d[perm].repeat_interleave(K, 0).contiguous()
-    args = (mat, light, lights, nodes, leafs, aux, slots, org, d, 3,
-            100 // K, 10, 3, "poly", 4, K)
-    sums = {sch: pt_fused._launch_fused_bvh(sch, *args)
-            for sch in ("pool", "lane")}
-    same = torch.equal(sums["pool"], sums["lane"])
+    sums = pt_fused._launch_fused_bvh(mat, light, lights, nodes, leafs, aux,
+                                      slots, org, d, 3, 100 // K, 10, 3,
+                                      "poly", 4, K)
     pick = torch.from_numpy(np.sort(np.random.default_rng(13).choice(
         org.shape[0], 4096, replace=False))).to(org.device)
     t0 = time.perf_counter()
@@ -1092,14 +982,11 @@ def k4_schedules(dense, cam, img_pool, mat, light, lights, nodes, leafs, aux,
         100 // K, 10, 3, "poly", 4, K, lane_ids=pick)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    held = torch.equal(sums["pool"][pick], want)
-    say(f"phase 9 trig='poly': pooled == lane lane sums bit for bit on all "
-        f"{org.shape[0]} lanes: {same}; 4,096 sampled lanes == plain "
-        f"version (lane_ids=) bit for bit: {held} (plain {plain_s:.1f} s), "
-        f"max abs err {max_abs(sums['pool'][pick], want)}")
-    check(same and held, "K4's pooled kernel disagrees on the full-size "
-          "poly input")
-    return launches["pt_fused_bvh[lane]"]
+    held = torch.equal(sums[pick], want)
+    say(f"phase 9 trig='poly': 4,096 sampled lanes of {org.shape[0]} == "
+        f"plain version (lane_ids=) bit for bit: {held} (plain "
+        f"{plain_s:.1f} s), max abs err {max_abs(sums[pick], want)}")
+    check(held, "K4's pooled kernel disagrees on the full-size poly input")
 
 
 def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
@@ -1230,8 +1117,7 @@ def megabatch_phases(dev, dense_arrays, dense, cornell, rays, mean_b,
                      f"{h['dead']} dead)", h["ms"],
                      bound(h["rays"] * (32 + 20) + row_bytes(h["stats"]),
                            trace_ops(h["stats"], 16,
-                                     WOOP_OPS if woop else WT_OPS)),
-                     f"{'k1woop' if woop else 'k1'}_bounce2_{kind}_ms")
+                                     WOOP_OPS if woop else WT_OPS)))
 
     # for each engine, one more render split into its layers with CUDA
     # events, and one more counting the work of every trace on every
@@ -1539,8 +1425,7 @@ def config_a_phases(dev, k2_inputs, usage, res: int = 512,
         k1_shape(f"phase 13 config A {kind} trace ({h['rays']} rays)",
                  h["ms"], bound(h["rays"] * (32 + 20) + row_bytes(h["stats"])
                                 + (4 * h["rays"] if h["skip"] else 0),
-                                trace_ops(h["stats"], 16, WT_OPS)),
-                 f"k1_config_a_{kind}_ms")
+                                trace_ops(h["stats"], 16, WT_OPS)))
     check(held["primary"]["rays"] == n_px
           and held["occlusion"]["rays"] == S * n_px
           and held["occlusion"]["skip"] and held["occlusion"]["occlusion"]
@@ -2020,8 +1905,7 @@ def incoherent_phases(dev, n_tris: int = 1_000_000, R: int = 4_194_304,
                           + min(row_bytes(held["stats"]) * scale1,
                                 nbytes(s8.nodes, s8.leafs)),
                           trace_ops({k: v * scale1 for k, v in
-                                     held["stats"].items()}, 8, WT_OPS)),
-             "k1_roots_round1_ms")
+                                     held["stats"].items()}, 8, WT_OPS)))
     # the run's 3 launches: the slice's work scaled by their slots (the
     # slice is 131,072 of them), the rows read at most the whole tables
     slots = sum(r.org.shape[0] for r, _, _, _ in kept)
@@ -2100,7 +1984,7 @@ def incoherent_phases(dev, n_tris: int = 1_000_000, R: int = 4_194_304,
              bound(RB * (32 + 20) + row_bytes(st17),
                    trace_ops({k: st17.get(k, 0) * 32 for k in ("nodes",
                                                               "tris")},
-                             8, WT_OPS)), "k1_ao_bounce_ms")
+                             8, WT_OPS)))
     del smp
     launches_17 = counts["packet_traverse"]
     del brays, hb, sr, sout, rays_p, hp, mesh
@@ -2409,8 +2293,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
         f"(plain stats {st}); counts kernel {c_ms:.3f} ms vs plain K1 "
         f"{base_ms:.3f} ms (medians of 10); plain {c_plain_ms:.1f} ms; bound "
         f"{c_bound[0]:.4f} ms ({c_bound[1]})")
-    k1_shape(f"phase 18 counts on phase 5's {m2} rays", c_ms, c_bound,
-             "k1_phase5_counts_ms")
+    k1_shape(f"phase 18 counts on phase 5's {m2} rays", c_ms, c_bound)
     del got, want
     cam = look_at((0.0, 0.0, 2.2), (0.0, 0.0, 0.0), width=res, height=res,
                   fov=60.0, device=dev)
@@ -2444,20 +2327,19 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     # from the counts kernel's pops (a plain sample's triangles a leaf pop
     # and rows read, as the frame's)
     shapes = {"frame": (f"the {res}^2 frame", scene, rays_t, (),
-                        dict(specialize=spec), "frame_8192"),
-              "phase5": (f"phase 5's {m2} rays", scene, sub, (), {},
-                         "phase5"),
+                        dict(specialize=spec)),
+              "phase5": (f"phase 5's {m2} rays", scene, sub, (), {}),
               "random": (f"phase 16's {rays_i.org.shape[0]} random rays",
-                         s8i, rays_i, (), {}, "random")}
+                         s8i, rays_i, (), {})}
     for key, what in (("ao_sorted", "phase 17's sorted AO rays"),
                       ("bounce2_closest", "phase 11's pallas bounce-2 "
                                           "closest-hit trace")):
         sc8, r, a, kw = K1B_TRACES.pop(key)
         shapes[key] = (f"{what} ({r.org.shape[0]} sorted rays)", sc8, r, a,
-                       kw, key)
+                       kw)
     il_bound = {"frame": frame_bound, "phase5": c_bound}
     sampled = {}  # every 64th ray's plain records, K1b held to them
-    for key, (what, s, r, a, kw, _) in shapes.items():
+    for key, (what, s, r, a, kw) in shapes.items():
         if key in il_bound:
             continue
         cnt = packet.traverse_bvh8(s, r, *a, debug_counts=True, **kw)
@@ -2487,7 +2369,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     zero_launch_counts()
     il = {}
     il_err = {2: 0.0, 4: 0.0}
-    for key, (what, s, r, a, kw, ab) in shapes.items():
+    for key, (what, s, r, a, kw) in shapes.items():
         ref = packet.traverse_bvh8(s, r, *a, **kw)
         line = []
         for K in (1, 2, 4):
@@ -2509,10 +2391,9 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
             check(same, f"interleave={K} on {what} changes records")
             if K > 1:
                 k1_shape(f"K={K} on {what}", ms, il_bound[key],
-                         f"k1b{K}_{ab}_ms", kernel="K1b")
+                         kernel="K1b")
             elif key in ("random", "ao_sorted"):
-                k1_shape(f"K1 alone on {what}", ms, il_bound[key],
-                         f"k1_{ab}_ms")
+                k1_shape(f"K1 alone on {what}", ms, il_bound[key])
         say(f"phase 18 interleave on {what} (medians of "
             f"{10 if key == 'phase5' else 3}; bound {il_bound[key][0]:.4f} "
             f"ms, {il_bound[key][1]}): " + "; ".join(line)
@@ -2522,7 +2403,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     il_launches = launch_counts()
     # the plan's claims against the other size on every shape: one packet
     # of 32 rays (the plan's on any-hit) or K packets
-    for key, (what, s, r, a, kw, _) in shapes.items():
+    for key, (what, s, r, a, kw) in shapes.items():
         n = r.org.reshape(-1, 3).shape[0]
         ref = packet.traverse_bvh8(s, r, *a, **kw)
         line = []
@@ -2599,8 +2480,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
     check(f_same and sound, "the flags kernel is wrong on phase 5's rays")
     f_bound = bound(m2 * (32 + 24) + row_bytes(st_f),
                     trace_ops(st_f, 16, WT_OPS))
-    k1_shape(f"phase 18 flags on phase 5's {m2} rays", fl_ms, f_bound,
-             "k1_phase5_flags_ms")
+    k1_shape(f"phase 18 flags on phase 5's {m2} rays", fl_ms, f_bound)
     del fh, fl, want, exact
     box, erays = edge_rays(dev, n_edge)
     hb, fb = packet.traverse_bvh8(box, erays, fast, _flag_zero_edges=True)
@@ -2643,7 +2523,7 @@ def k1_mode_phases(dev, scene, sub, s8i, rays_i, usage_k1, res: int = 8192,
             if what == "phase 5" and name == "exact":
                 k1_shape(f"phase 18 traverse_bvh8_exact (two passes) on "
                          f"phase 5's rays (the flags pass's bound)", ms,
-                         f_bound, "k1_phase5_exact_two_pass_ms")
+                         f_bound)
             check(same or ovf, f"{name} on {what} differs from single pass")
         lines.append(f"{what} single-pass exact {median(cuda_ms(lambda: packet.traverse_bvh8(s, r), 5)):.3f} ms")
     flags_launches = launch_counts()["packet_traverse[flags]"]
@@ -4927,7 +4807,7 @@ def main() -> int:
         f"{k1_bound[0]:.4f} ms ({k1_bound[1]}); peak stack "
         f"{k1_stats['max_sp']} of {slots} slots")
     k1_shape(f"phase 5: {2 * m} rays ({m} tiled camera + {m} incoherent)",
-             kernel_ms, k1_bound, "k1_phase5_ms")
+             kernel_ms, k1_bound)
     # the frame's work, counted on every 1,024th ray of the tiled frame
     frame_stats = {}
     plain(nt.Rays(*(x[::1024].contiguous() for x in rays_t)), frame_stats)
@@ -5054,7 +4934,7 @@ def main() -> int:
             e["launches"] += k3_25
             e["max_abs_err"] = max(e["max_abs_err"], k3_err_25)
     k1_shape(f"phase 6: the {res}^2 frame (median of 3; bound from phase "
-             f"18's counters)", frame_ms, frame_bound_18, "k1_frame_8192_ms")
+             f"18's counters)", frame_ms, frame_bound_18)
     report_k1_shapes()
     say(f"packet_traverse launches on the main paths: {launches} (phase 6) "
         f"+ {launches_pt} (phase 11, pallas) + {launches_a} (phase 13) + "

@@ -6,9 +6,8 @@
 //     triangles): pt_brute_kernel below (persistent lanes, one flat
 //     (sample, bounce) loop a lane);
 //   * K4, _pt_kernel_bvh (the same loop, tracing a BVH16 with
-//     traverse/fused_trace.py::make_tracer, K2): pt_bvh_pool_kernel below
-//     (the default) or its yardstick pt_bvh_lane_kernel, both calling
-//     bvh16::trace (bvh16_trace.cuh).
+//     traverse/fused_trace.py::make_tracer, K2): pt_bvh_pool_kernel below,
+//     which calls bvh16::trace (bvh16_trace.cuh).
 // All share one __device__ bounce_shade, the counterpart of _bounce_step
 // (pt_fused.py:137-311) up to its NEE shadow ray: Russian roulette after
 // bounce rr_start, lobe pick, next-event estimation, emission, cosine /
@@ -16,17 +15,15 @@
 // counter-based lowbias32 generator, ported bit for bit in uint32
 // arithmetic (the counter base seed + (s_eff * (max_bounces + 1) + b) * 16
 // wraps mod 2^32 as the TPU's int32 does). bounce_step adds the shadow
-// ray's answer for the kernels that trace it in the same thread.
+// ray's answer for K3, which traces it in the same thread.
 //
 // Layout: K3 runs persistent lanes, one a thread, that claim pixels and
 // run each pixel's spp paths in registers, bounce by bounce, and write the
-// pixel's radiance SUM (R, 3) once (see "K3" below). The lane kernel gives
-// each thread one lane (one sample-major copy of a pixel ray) and runs its
-// spp x bounce loop in registers, as the TPU kernel runs it per (sub, 128)
-// block. The pooled kernel runs each (lane, sample) path from a pool in
-// shared memory and writes its radiance to (spp_iters, R, 3) (see "pool"
-// below). The wrapper (models/pt_fused.py) sums the samples in order and
-// divides by spp.
+// pixel's radiance SUM (R, 3) once (see "K3" below). K4 runs each (lane,
+// sample) path, a lane being one sample-major copy of a pixel ray, from a
+// pool in shared memory and writes its radiance to (spp_iters, R, 3) (see
+// "pool" below). The wrapper (models/pt_fused.py) sums the samples in
+// order and divides by spp.
 //
 // What bounds them on this card:
 //   * K3: the triangle sweeps (closest hit, then the shadow ray, ~50 flops
@@ -35,12 +32,12 @@
 //     the sweeps run at the FP32 issue rate. The design runs them for live
 //     bounces only (see "K3" below).
 //   * K4: divergent bounce rays and dependent row fetches inside K2 (see
-//     bvh16_trace.cuh). In the lane kernel a warp's lanes are neighbouring
-//     pixels and sample copies: after the first diffuse bounce the warp
-//     walks the union of 32 unrelated subtrees, and a lane whose path has
-//     ended idles until the warp's longest path ends. The pooled kernel
-//     refills ended paths and sorts its pool by origin and direction
-//     before every trace, so a warp's 32 rays are alike and all live.
+//     bvh16_trace.cuh). Were a warp's lanes neighbouring pixels and sample
+//     copies, after the first diffuse bounce the warp would walk the union
+//     of 32 unrelated subtrees, and a lane whose path had ended would idle
+//     until the warp's longest path ended. The pooled kernel refills ended
+//     paths and sorts its pool by origin and direction before every trace,
+//     so a warp's 32 rays are alike and all live.
 //
 // Numerics: compile with --fmad=false, IEEE division and sqrt, no -ftz,
 // so every value is the separately rounded f32 the plain torch version
@@ -402,8 +399,7 @@ struct BvhParams {
   const float* aux;    // aux rows, parallel to the leaf rows
   const float* org;    // (RL, 3): each pixel ray spp_lanes times in a row
   const float* dir;
-  float* out;          // lane: (RL, 3) radiance sums over the lane's
-                       // samples; pool: (spp_iters, RL, 3), one path each
+  float* out;          // (iters, RL, 3): one path's radiance each
   int* err;            // (1,) set when a trace stack overflows
   long long n;         // RL
   int stack_size;
@@ -675,52 +671,6 @@ __global__ void __launch_bounds__(kBlock, 6) pt_brute_kernel(BruteParams p) {
   }
 }
 
-// The yardstick schedule, the pooled kernel's predecessor: one thread a
-// lane, its spp_iters x bounce loop in series; reached only through
-// _schedule="lane".
-__global__ void __launch_bounds__(kBlock) pt_bvh_lane_kernel(BvhParams p) {
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= p.n) return;
-  const uint32_t ray_id = (uint32_t)i;
-  const Loop lp = p.lp;
-  const uint32_t lane_s = (uint32_t)(i % lp.spp_lanes);
-  const float ox0 = p.org[3 * i], oy0 = p.org[3 * i + 1], oz0 = p.org[3 * i + 2];
-  const float dx0 = p.dir[3 * i], dy0 = p.dir[3 * i + 1], dz0 = p.dir[3 * i + 2];
-
-  float ar = 0.0f, ag = 0.0f, ab = 0.0f;
-  for (int s = 0; s < lp.spp_iters; ++s) {
-    // sample-major lanes: the lane's true sample index seeds its stream
-    // (pt_fused.py:586-590); the wedge below stays per iteration
-    const uint32_t s_eff = (uint32_t)s * (uint32_t)lp.spp_lanes + lane_s;
-    PathState st{ox0, oy0, oz0, dx0, dy0, dz0, 0.0f, 0.0f, 0.0f,
-                 1.0f, 1.0f, 1.0f, true, true};
-    for (int b = 0; b < lp.max_bounces; ++b) {
-      const uint32_t base = counter_base(lp, s_eff, b);
-      const bool alive = roulette(ray_id, base, b, lp, st);
-      const bvh16::Record rec = bvh16::trace<false, true>(
-          p.nodes, p.leafs, p.aux, p.stack_size, p.err, st.px, st.py, st.pz,
-          st.dx, st.dy, st.dz, kEpsT, alive ? kFar : 0.0f);
-      const Material m = hit_material(p, rec);
-      const int wedge = (s + b * 3) % lp.az_strata;
-      auto shadow = [&](float hx, float hy, float hz, float ldx, float ldy,
-                        float ldz, float smax) {
-        return bvh16::trace<true, false>(p.nodes, p.leafs, nullptr,
-                                         p.stack_size, p.err, hx, hy, hz, ldx,
-                                         ldy, ldz, kRayEps, smax)
-            .hit;
-      };
-      bounce_step(ray_id, base, st, rec.t, rec.hit, alive, rec.gx, rec.gy,
-                  rec.gz, m, p.lights, lp.trig, lp.az_strata, wedge, shadow);
-    }
-    ar = ar + st.cr;
-    ag = ag + st.cg;
-    ab = ab + st.cb;
-  }
-  p.out[3 * i] = ar;
-  p.out[3 * i + 1] = ag;
-  p.out[3 * i + 2] = ab;
-}
-
 // ------------------------------------------------------------ pool
 //
 // The pooled schedule (the default). A work item is one path: (lane,
@@ -728,7 +678,7 @@ __global__ void __launch_bounds__(kBlock) pt_bvh_lane_kernel(BvhParams p) {
 // [s0, s0 + iters), so items run in lane order (the lanes of one pixel,
 // then the next pixel of its tile) and each writes its radiance once, to
 // out[s - s0][lane]; the wrapper adds out to its running sums over s in
-// order, which is the lane kernel's register sum. Every random number
+// order, as the plain version sums a lane's samples. Every random number
 // depends on (lane, s, b) alone, so the order in which paths run, and
 // how the iterations are split between launches, changes no bit.
 //
@@ -1243,27 +1193,6 @@ extern "C" int nrt_pt_fused_brute_occupancy(int* out) {
   return 0;
 }
 
-extern "C" int nrt_pt_fused_bvh_lane(
-    const float* mat, int n_mats, const float* light, int n_lights,
-    float inv_lights, const float* nodes, const float* leafs, const float* aux,
-    const float* org, const float* dir, float* out, int* err, long long n,
-    int stack_size, int seed, int spp_iters, int max_bounces, int rr_start,
-    int trig, int az_strata, int spp_lanes, void* stream) {
-  const Loop lp{(uint32_t)seed, spp_iters, max_bounces, rr_start,
-                trig,           az_strata, spp_lanes};
-  if (stack_size < 1 || stack_size > bvh16::kStackCap || n_mats < 0 ||
-      n_lights < 0 || !loop_ok(lp)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n <= 0) return 0;
-  BvhParams p{mat, n_mats, Lights{light, n_lights, inv_lights}, nodes, leafs,
-              aux, org,    dir,    out, err, n, stack_size, lp};
-  const unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
-  pt_bvh_lane_kernel<<<grid, kBlock, 0,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
 // Runs the paths of sample iterations [s0, s0 + iters) of spp_iters.
 // ``out`` (iters, n, 3): their radiance; ``stats`` (kNumStats,) int64
 // zeros (see Stat); ``box`` (6,): the root box's lo and max(hi - lo,
@@ -1290,14 +1219,11 @@ extern "C" int nrt_pt_fused_bvh_pool(
   return (int)launch_pool(q, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// Resident blocks per SM of the lane kernel (128 threads) and of the
-// pooled kernel (512 threads and its pool), and the pool's shared bytes:
-// out[0] lane, out[1] pool, out[2] bytes.
+// Resident blocks per SM of the pooled kernel (512 threads and its pool)
+// and the pool's shared bytes: out[0] blocks, out[1] bytes.
 extern "C" int nrt_pt_fused_bvh_occupancy(int* out) {
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, pt_bvh_lane_kernel, kBlock, 0);
-  if (e == cudaSuccess) e = pool_blocks_per_sm(out + 1);
+  const cudaError_t e = pool_blocks_per_sm(out);
   if (e != cudaSuccess) return (int)e;
-  out[2] = (int)sizeof(Pool);
+  out[1] = (int)sizeof(Pool);
   return 0;
 }

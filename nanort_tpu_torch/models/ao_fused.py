@@ -31,8 +31,6 @@ Draws: from a ``torch.Generator`` seeded with ``seed``, or ``draws=``
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -145,21 +143,13 @@ def ao_fused_outputs(nodes, leafs, aux, org, dir, tmin, tmax, draws,
     scratch = torch.zeros(2, dtype=torch.int64, device=dev)
     occ = ao_occupancy(dev)
     grid = ao_grid(R, occ["blocks_per_sm"], occ["sms"])
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-    lib = _ext.load("ao_fused")
-    with torch.cuda.device(dev):
-        rc = lib.nrt_ao_fused(
-            ptr(nodes), ptr(leafs), ptr(aux), ptr(org), ptr(dir), ptr(tmin),
-            ptr(tmax), ptr(draws), ptr(ao), ptr(t), ptr(u), ptr(v), ptr(pid),
-            ptr(hit), ptr(err), ptr(scratch), R, S,
-            float(np.float32(ao_radius)),
-            float(np.float32(1.0) / np.float32(S)), slots, grid,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"ao_fused kernel launch failed: CUDA error {rc}")
-    trace.count("ao_fused")
+    # counted as K2 too, which runs inside
+    _ext.launch(
+        "ao_fused", "nrt_ao_fused", nodes, leafs, aux, org, dir, tmin, tmax,
+        draws, ao, t, u, v, pid, hit, err, scratch, R, S,
+        float(np.float32(ao_radius)), float(np.float32(1.0) / np.float32(S)),
+        slots, grid, device=dev, count=("ao_fused", "bvh16_trace_watertight"))
     LAST_ITEMS = scratch[1]
-    trace.count("bvh16_trace_watertight")  # K2 runs inside
     fused_trace.check_overflow(err, slots)
     return ao, t, u, v, pid, hit != 0
 
@@ -178,7 +168,7 @@ def ao_occupancy(device=None) -> dict:
     return _ext.occupancy(
         "ao_fused", "nrt_ao_fused_occupancy",
         ("blocks_per_sm", "registers", "local_bytes", "threads",
-         "shared_bytes"), device)
+         "shared_bytes"), device=device)
 
 
 @trace.span("k5")

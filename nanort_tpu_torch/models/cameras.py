@@ -29,7 +29,6 @@ CUDA device takes one launch of ``csrc/camera.cu`` (counted as
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Callable, NamedTuple
 
@@ -135,16 +134,9 @@ def _pinhole_fused(cam: Camera) -> Rays:
     org, d = (torch.empty((H, W, 3), **f32) for _ in range(2))
     min_t, max_t = (torch.empty((H, W), **f32) for _ in range(2))
     basis = [x.contiguous() for x in (cam.eye, cam.u, cam.v, cam.w)]
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-    lib = _ext.load("camera")
-    with torch.cuda.device(dev):
-        rc = lib.nrt_pinhole(
-            *map(ptr, basis), ptr(org), ptr(d), ptr(min_t), ptr(max_t), W, H,
-            _flen(cam), float(W), float(H),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"camera kernel launch failed: CUDA error {rc}")
-    trace.count("pinhole_fused")
+    _ext.launch("camera", "nrt_pinhole", *basis, org, d, min_t, max_t, W, H,
+                _flen(cam), float(W), float(H), device=dev,
+                count="pinhole_fused")
     return Rays(org, d, min_t, max_t)
 
 

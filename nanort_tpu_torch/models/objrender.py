@@ -28,7 +28,6 @@ is the JAX package's bit for bit (tests/test_torch_objrender.py).
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
@@ -177,18 +176,11 @@ def _aovs_fused(verts, faces, fnrm, rays, hits) -> dict:
     t, u, v, pid, org, dir, faces, verts = (
         x.contiguous() for x in (*hits, rays.org, rays.dir, faces, verts))
     fnrm = None if fnrm is None else fnrm.contiguous()
-    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
-    lib = _ext.load("aovs")
-    with torch.cuda.device(dev):
-        rc = lib.nrt_aovs(
-            ptr(t), ptr(u), ptr(v), ptr(pid), ptr(org), ptr(dir), ptr(faces),
-            faces.element_size(), ptr(verts), ptr(fnrm), ptr(rgb), ptr(nrm),
-            ptr(pos), ptr(depth), ptr(uv), ptr(hit), t.numel(),
-            (faces if fnrm is None else fnrm).shape[0], verts.shape[0],
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"aovs kernel launch failed: CUDA error {rc}")
-    trace.count("aovs_fused")
+    _ext.launch(
+        "aovs", "nrt_aovs", t, u, v, pid, org, dir, faces,
+        faces.element_size(), verts, fnrm, rgb, nrm, pos, depth, uv, hit,
+        t.numel(), (faces if fnrm is None else fnrm).shape[0],
+        verts.shape[0], device=dev, count="aovs_fused")
     return {"rgb": rgb, "normal": nrm, "position": pos, "depth": depth,
             "texcoord": uv, "prim_id": hits.prim_id, "hit": hit}
 

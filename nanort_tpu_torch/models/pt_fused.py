@@ -11,9 +11,7 @@ rays, light sampling, shading and the RNG — runs in ONE kernel launch:
 * ``render_fused_bvh`` (K4) walks the scene's BVH16 with the in-kernel
   trace K2 (``traverse/fused_trace.py``): ``pt_bvh_pool_kernel`` keeps
   2,048 paths a block in shared memory, refills ended ones and sorts
-  them by origin and direction before every trace; its yardstick
-  ``pt_bvh_lane_kernel`` (``_schedule="lane"``) runs one lane a thread,
-  as K3 does. Both give the same bits.
+  them by origin and direction before every trace.
 
 Semantics are the JAX package's op for op (reference path_tracer/
 main.cc:785-1009, with its two deliberate deviations: the
@@ -41,24 +39,20 @@ because of TPU VMEM and the TPU worker's launch kill; the ``sub`` and
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from ..traverse import _ext
 from ..traverse import fused_trace
-from ..traverse.packet import stack_slots
 from ..utils import trace
 
 PT_FUSED_MAX_TRIS = 256  # csrc/pt_fused.cu kMaxTris (shared-memory table)
 BRUTE_THREADS = 128      # K3's threads a block (csrc/pt_fused.cu kBlock)
 
 # Kernel launches by the wrappers below (never by the plain versions),
-# counted in utils.trace. "pt_fused_bvh" is K4's pooled schedule (the
-# default), "pt_fused_bvh[lane]" its one-lane-a-thread yardstick; each
-# launch of either also runs K2 and counts as "bvh16_trace".
-LAUNCH_KEYS = ("pt_fused_brute", "pt_fused_bvh", "pt_fused_bvh[lane]")
+# counted in utils.trace. Each launch of K4 ("pt_fused_bvh") also runs K2
+# and counts as "bvh16_trace".
+LAUNCH_KEYS = ("pt_fused_brute", "pt_fused_bvh")
 trace.declare_launches(*LAUNCH_KEYS)
 
 # The pooled kernel's per-sample radiance buffer holds at most this many
@@ -510,10 +504,9 @@ def _bvh_tracers(mat, nodes, leafs, aux, slots):
 def _render_fused_bvh_reference(mat, lights, nodes, leafs, aux, slots, org,
                                 dirs, seed, spp_iters, max_bounces, rr_start,
                                 trig, az_strata, spp_lanes, lane_ids=None):
-    """Plain torch version of K4, of either schedule (their results are
-    the same bits): radiance sums (n, 3) of the lanes that ``org``/
-    ``dirs`` hold, ``lane_ids`` (default ``arange(n)``) of the (RL, 3)
-    sample-major lanes."""
+    """Plain torch version of K4: radiance sums (n, 3) of the lanes that
+    ``org``/``dirs`` hold, ``lane_ids`` (default ``arange(n)``) of the
+    (RL, 3) sample-major lanes."""
     closest, shadow = _bvh_tracers(mat, nodes, leafs, aux, slots)
     return _render_lanes_reference(org, dirs, seed, spp_iters, max_bounces,
                                    rr_start, trig, az_strata, spp_lanes,
@@ -524,9 +517,9 @@ def sample_sums(per_sample: torch.Tensor,
                 acc: torch.Tensor | None = None) -> torch.Tensor:
     """(spp_iters, RL, 3) per-path radiance -> (RL, 3) lane sums, added
     in sample order ``((acc + r0) + r1) + ...`` (``acc`` defaults to
-    zeros): the lane kernel's register sum and
-    ``_render_lanes_reference``'s, bit for bit, also when the samples come
-    in consecutive slices, each added to the sums of the ones before."""
+    zeros): ``_render_lanes_reference``'s sum, bit for bit, also when the
+    samples come in consecutive slices, each added to the sums of the
+    ones before."""
     if acc is None:
         acc = torch.zeros(per_sample.shape[1:], dtype=per_sample.dtype,
                           device=per_sample.device)
@@ -656,14 +649,6 @@ def _check_device(dev, *tabs):
         raise ValueError(f"unsupported device {dev}")
 
 
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _stream(dev):
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 @trace.span("k3")
 def render_fused(scene, org, dirs, seed: int, spp: int, max_bounces: int = 8,
                  rr_start: int = 3, trig: str = "native",
@@ -705,17 +690,11 @@ def _launch_fused(tri, face, light, lights, org, dirs, seed, spp,
     scratch = torch.zeros(3, dtype=torch.int64, device=dev)
     occ = brute_occupancy(dev)
     grid = brute_grid(n, occ["blocks_per_sm"], occ["sms"])
-    lib = _ext.load("pt_fused")
-    with torch.cuda.device(dev):
-        rc = lib.nrt_pt_fused_brute(
-            _ptr(tri), tri.shape[0], _ptr(face), face.shape[1], _ptr(light),
-            lights[1], lights[2], _ptr(org), _ptr(dirs), _ptr(sums),
-            _ptr(scratch), n, seed, spp, max_bounces, rr_start,
-            int(trig == "poly"), az_strata, grid, _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"pt_fused_brute kernel launch failed: CUDA "
-                           f"error {rc}")
-    trace.count("pt_fused_brute")
+    _ext.launch(
+        "pt_fused", "nrt_pt_fused_brute", tri, tri.shape[0], face,
+        face.shape[1], light, lights[1], lights[2], org, dirs, sums, scratch,
+        n, seed, spp, max_bounces, rr_start, int(trig == "poly"), az_strata,
+        grid, device=dev, count="pt_fused_brute")
     LAST_BRUTE_STATS = scratch[1:]
     return sums
 
@@ -733,15 +712,15 @@ def brute_occupancy(device=None) -> dict:
     device."""
     return _ext.occupancy(
         "pt_fused", "nrt_pt_fused_brute_occupancy",
-        ("blocks_per_sm", "registers", "local_bytes", "threads"), device)
+        ("blocks_per_sm", "registers", "local_bytes", "threads"),
+        device=device)
 
 
 @trace.span("k4")
 def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
                      max_bounces: int = 8, rr_start: int = 3,
                      trig: str = "native", azimuth_strata: int = 1,
-                     spp_lanes: int = 1, *,
-                     _schedule: str = "pool") -> torch.Tensor:
+                     spp_lanes: int = 1) -> torch.Tensor:
     """Radiance means (R, 3) through the BVH megakernel K4.
 
     ``spp_lanes`` (sample-major packing): each ray takes that many
@@ -756,11 +735,7 @@ def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
     each path's radiance to a per-sample buffer, which is summed in
     sample order (``sample_sums``); a render whose buffer would pass
     ``POOL_SLICE_BYTES`` runs one launch a slice of its sample
-    iterations, each added to the sums in order. ``_schedule="lane"`` runs
-    the one-lane-a-thread kernel instead, the yardstick it replaced; both
-    give the same bits."""
-    if _schedule not in ("pool", "lane"):
-        raise ValueError(f"_schedule must be 'pool' or 'lane': {_schedule}")
+    iterations, each added to the sums in order."""
     if not fused_bvh_eligible(scene):
         raise ValueError(
             "scene not eligible for the fused BVH kernel "
@@ -788,69 +763,49 @@ def render_fused_bvh(scene, org, dirs, seed: int, spp: int,
             int(spp) // K, int(max_bounces), int(rr_start), trig,
             int(azimuth_strata), K)
     else:
-        sums = _launch_fused_bvh(_schedule, mat, light, lights, nodes, leafs,
-                                 aux, slots, org, dirs, seed, int(spp) // K,
+        sums = _launch_fused_bvh(mat, light, lights, nodes, leafs, aux,
+                                 slots, org, dirs, seed, int(spp) // K,
                                  int(max_bounces), int(rr_start), trig,
                                  int(azimuth_strata), K)
     return _div(lane_sums(sums, K), float(spp))
 
 
-def _launch_fused_bvh(schedule, mat, light, lights, nodes, leafs, aux, slots,
-                      org, dirs, seed, spp_iters, max_bounces, rr_start, trig,
+def _launch_fused_bvh(mat, light, lights, nodes, leafs, aux, slots, org,
+                      dirs, seed, spp_iters, max_bounces, rr_start, trig,
                       az_strata, K):
-    """Launch K4 on CUDA tensors; its lane sums (RL, 3)."""
+    """Launch K4 on CUDA tensors, one launch a slice of sample iterations;
+    its lane sums (RL, 3)."""
     global LAST_POOL_STATS
     dev = org.device
     n = org.shape[0]
     err = torch.zeros(1, dtype=torch.int32, device=dev)
-    common = (_ptr(mat), mat.shape[0], _ptr(light), lights[1], lights[2],
-              _ptr(nodes), _ptr(leafs), _ptr(aux), _ptr(org), _ptr(dirs))
-    loop = (seed, spp_iters, max_bounces, rr_start, int(trig == "poly"),
-            az_strata, K)
-    lib = _ext.load("pt_fused")
-    with torch.cuda.device(dev):
-        if schedule == "lane":
-            out = torch.empty_like(org)
-            rc = lib.nrt_pt_fused_bvh_lane(*common, _ptr(out), _ptr(err), n,
-                                           slots, *loop, _stream(dev))
-            _count_k4(rc, "pt_fused_bvh[lane]")
-        else:
-            parts = pool_slices(n, spp_iters, POOL_SLICE_BYTES)
-            buf = torch.empty((max((k for _, k in parts), default=0), n, 3),
-                              dtype=torch.float32, device=dev)
-            stats = torch.zeros((max(len(parts), 1), len(POOL_STATS)),
-                                dtype=torch.int64, device=dev)
-            box = torch.cat(pool_box(nodes)).contiguous()
-            out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-            for j, (s0, k) in enumerate(parts):
-                rc = lib.nrt_pt_fused_bvh_pool(
-                    *common, _ptr(buf), _ptr(err), n, slots, *loop, s0, k,
-                    _ptr(stats[j]), _ptr(box), _stream(dev))
-                _count_k4(rc, "pt_fused_bvh")
-                out = sample_sums(buf[:k], out)
-            LAST_POOL_STATS = stats.sum(0)
+    parts = pool_slices(n, spp_iters, POOL_SLICE_BYTES)
+    buf = torch.empty((max((k for _, k in parts), default=0), n, 3),
+                      dtype=torch.float32, device=dev)
+    stats = torch.zeros((max(len(parts), 1), len(POOL_STATS)),
+                        dtype=torch.int64, device=dev)
+    box = torch.cat(pool_box(nodes)).contiguous()
+    out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for j, (s0, k) in enumerate(parts):
+        _ext.launch(
+            "pt_fused", "nrt_pt_fused_bvh_pool", mat, mat.shape[0], light,
+            lights[1], lights[2], nodes, leafs, aux, org, dirs, buf, err, n,
+            slots, seed, spp_iters, max_bounces, rr_start,
+            int(trig == "poly"), az_strata, K, s0, k, stats[j], box,
+            device=dev, count=("pt_fused_bvh", "bvh16_trace"))
+        out = sample_sums(buf[:k], out)
+    LAST_POOL_STATS = stats.sum(0)
     fused_trace.check_overflow(err, slots)
     return out
 
 
-def _count_k4(rc: int, key: str) -> None:
-    """Raise on a failed K4 launch, else count it (K2 runs inside)."""
-    if rc != 0:
-        raise RuntimeError(f"pt_fused_bvh kernel launch failed: CUDA error "
-                           f"{rc}")
-    trace.count(key)
-    trace.count("bvh16_trace")
-
-
-def pool_occupancy() -> dict:
-    """Resident blocks per SM of K4's two kernels on the current card
-    and the pool's shared bytes: ``{"lane": n, "pool": n,
-    "pool_smem_bytes": b}``."""
-    out = (ctypes.c_int * 3)()
-    rc = _ext.load("pt_fused").nrt_pt_fused_bvh_occupancy(out)
-    if rc != 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
-    return {"lane": out[0], "pool": out[1], "pool_smem_bytes": out[2]}
+def pool_occupancy(device=None) -> dict:
+    """What the card's occupancy API says of K4's pooled kernel: ``pool``,
+    its resident blocks (of 512 threads) an SM, ``pool_smem_bytes``, the
+    pool's shared bytes a block, and the card's ``sms``. Cached per
+    device."""
+    return _ext.occupancy("pt_fused", "nrt_pt_fused_bvh_occupancy",
+                          ("pool", "pool_smem_bytes"), device=device)
 
 
 def lane_sums(sums: torch.Tensor, spp_lanes: int) -> torch.Tensor:

@@ -6,14 +6,16 @@ headers: a build takes seconds, not minutes). The build happens at first
 use, into ``nanort_tpu_torch/_build/``, keyed by a hash of flags, source
 and the headers it includes. ``--fmad=false`` keeps every product
 separately rounded, as the plain torch versions compute them (see the
-note at the top of each source). Nothing is built or imported when this
-module is imported.
+note at the top of each source). Nothing is built or loaded when this
+module is imported. Every launch and occupancy query goes through
+``launch`` and ``occupancy`` below: they pass tensors as pointers, enter
+the device and append its current stream, so a kernel never runs on
+another stream than the torch ops around it.
 
     packet_traverse.cu  K1 (with its modes), K1-woop and K1b,
                         traverse/packet.py::traverse_bvh8
     bvh16_trace.cu      K2 on its own, traverse/fused_trace.py::trace_bvh16
-    pt_fused.cu         K3 and K4, pooled and lane schedules (K4 runs K2),
-                        models/pt_fused.py
+    pt_fused.cu         K3 and K4 (K4 runs K2), models/pt_fused.py
     ao_fused.cu         K5 (runs K2 watertight), models/ao_fused.py
     aovs.cu             objrender's AOVs from primary-hit records,
                         models/objrender.py::aovs_from_hits
@@ -31,7 +33,10 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 from .._toolchain import BUILD_DIR, build_shared_library
+from ..utils import trace
 
 CSRC = os.path.normpath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "csrc"))
@@ -55,8 +60,6 @@ KERNELS = {
         "nrt_pt_fused_brute": ([_P, _I, _P, _I, _P, _I, _F, _P, _P, _P, _P,
                                 _L] + [_I] * 7 + [_P]),
         "nrt_pt_fused_brute_occupancy": [_P],
-        "nrt_pt_fused_bvh_lane": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,
-                                   _P, _P, _L] + [_I] * 8 + [_P]),
         "nrt_pt_fused_bvh_pool": ([_P, _I, _P, _I, _F, _P, _P, _P, _P, _P,
                                    _P, _P, _L] + [_I] * 10
                                   + [_P, _P, _P]),
@@ -137,31 +140,59 @@ def load_all() -> dict:
     return {n: s for n, (_, s) in done.items()}
 
 
+_SCALARS = frozenset((int, float, bool))
+
+
+def launch(name: str, fn: str, *args, device, count) -> None:
+    """Launch the C function ``fn`` of library ``name`` on ``device``'s
+    current stream: a tensor passes as its data pointer, ``None`` as a
+    null pointer, ints and floats as they are (``KERNELS`` declares each
+    argument), and the stream is appended as the last argument. Raises
+    ``RuntimeError`` on a non-zero return (``cudaGetLastError()``), else
+    adds one to each launch counter in ``count`` (a key or a tuple of
+    keys)."""
+    lib = _libs.get(name) or load(name)
+    # numbers first: isinstance(n, torch.Tensor) on a number costs more
+    # than the launch's own pointer conversions used to
+    args = [a if a is None or a.__class__ in _SCALARS
+            else a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(*args,
+                              torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {rc}")
+    if count.__class__ is str:
+        trace.count(count)
+    else:
+        for key in count:
+            trace.count(key)
+
+
 _OCCUPANCY: dict = {}
 
 
-def occupancy(name: str, fn: str, fields, device=None) -> dict:
+def occupancy(name: str, fn: str, fields, *args, device=None) -> dict:
     """What the card's occupancy API and a compiled kernel say of it: the
-    C function ``fn`` of library ``name`` fills one int per name in
-    ``fields`` (resident ``blocks_per_sm`` first); the card's ``sms`` is
-    added. Cached per function and device."""
-    import torch
-
+    C function ``fn`` of library ``name``, given the leading ``args``
+    (ints), fills one int per name in ``fields``; the card's ``sms`` is
+    added. Cached per function, arguments and device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    key = (fn, dev.index)
-    if key not in _OCCUPANCY:
+    key = (fn, args, dev.index)
+    occ = _OCCUPANCY.get(key)
+    if occ is None:
         out = (ctypes.c_int * len(fields))()
         with torch.cuda.device(dev):
-            rc = getattr(load(name), fn)(out)
+            rc = getattr(load(name), fn)(*args, out)
         if rc != 0:
             raise RuntimeError(f"{fn} failed: CUDA error {rc}")
         occ = dict(zip(fields, out))
         occ["sms"] = torch.cuda.get_device_properties(
             dev).multi_processor_count
         _OCCUPANCY[key] = occ
-    return _OCCUPANCY[key]
+    return occ
 
 
 def resident_grid(n: int, blocks_per_sm: int, sms: int, threads: int) -> int:

@@ -26,7 +26,6 @@ exactly equal t.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -194,20 +193,12 @@ def trace_bvh16(scene, rays: Rays, aux=None, occlusion: bool = False,
         pid = torch.empty(n, **i32)
         mid = torch.empty(n, **i32) if want_aux else None
         gn = torch.empty((n, 3), **f32) if want_aux else None
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
-    lib = _ext.load("bvh16_trace")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nrt_bvh16_trace(
-            ptr(nodes), ptr(leafs), ptr(aux_t), ptr(org), ptr(dir),
-            ptr(tmin), ptr(tmax), ptr(skip), ptr(t), ptr(u), ptr(v),
-            ptr(pid), ptr(hit), ptr(mid), ptr(gn), ptr(err), n, slots,
-            int(occlusion), int(want_aux), int(intersector == "watertight"),
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"bvh16_trace kernel launch failed: CUDA error {rc}")
-    trace.count("bvh16_trace_watertight" if intersector == "watertight"
-                else "bvh16_trace")
+    _ext.launch(
+        "bvh16_trace", "nrt_bvh16_trace", nodes, leafs, aux_t, org, dir, tmin,
+        tmax, skip, t, u, v, pid, hit, mid, gn, err, n, slots, int(occlusion),
+        int(want_aux), int(intersector == "watertight"), device=dev,
+        count=("bvh16_trace_watertight" if intersector == "watertight"
+               else "bvh16_trace"))
     check_overflow(err, slots)
     if occlusion:
         return hit.bool()

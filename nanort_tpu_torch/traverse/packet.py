@@ -33,7 +33,6 @@ memory and scheduling knobs (``scene_space``, ``vmem_mb``, ``node_split``/``leaf
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -134,9 +133,6 @@ def launch_plan(n_rays: int, blocks_per_sm: int, sms: int,
                       K1_CLAIM * packets)
 
 
-_OCCUPANCY: dict = {}
-
-
 def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
                  flags: bool = False, roots: bool = False,
                  device=None, interleave: int = 1,
@@ -145,28 +141,15 @@ def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
     instantiation (``sphere``: the sphere leaf test), or with
     ``interleave`` 2 or 4 of the K1b one: resident ``blocks_per_sm``,
     ``registers`` and ``local_bytes`` (the stack frame) a thread,
-    ``shared_bytes`` a block, ``threads`` a block and rays a ``claim``.
-    Cached per device."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    ``shared_bytes`` a block, ``threads`` a block and rays a ``claim``,
+    and the card's ``sms``. Cached per device."""
     if interleave not in INTERLEAVES:
         raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
-    leaf = _leaf(woop, sphere)
-    key = (dev.index, width, leaf, bool(counts), bool(flags), bool(roots),
-           interleave)
-    if key not in _OCCUPANCY:
-        out = (ctypes.c_int * 6)()
-        with torch.cuda.device(dev):
-            rc = _ext.load("packet_traverse").nrt_packet_traverse_occupancy(
-                width, leaf, int(counts), int(flags), int(roots),
-                interleave, out)
-        if rc != 0:
-            raise RuntimeError(f"K1 occupancy query failed: CUDA error {rc}")
-        _OCCUPANCY[key] = dict(zip(
-            ("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
-             "threads", "claim"), out))
-    return _OCCUPANCY[key]
+    return _ext.occupancy(
+        "packet_traverse", "nrt_packet_traverse_occupancy",
+        ("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
+         "threads", "claim"), width, _leaf(woop, sphere), int(counts),
+        int(flags), int(roots), interleave, device=device)
 
 
 def _check_overflow(err: torch.Tensor, slots: int) -> None:
@@ -408,28 +391,19 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
         occ = k1_occupancy(scene.width, woop, debug_counts,
                            _flag_zero_edges, roots is not None, dev,
                            interleave, sphere)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = launch_plan(n, occ["blocks_per_sm"], sms, interleave,
+        plan = launch_plan(n, occ["blocks_per_sm"], occ["sms"], interleave,
                            occlusion)
-        lib = _ext.load("packet_traverse")
-        ptr = lambda x: ctypes.c_void_p(x.data_ptr()) if x is not None else None
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.nrt_packet_traverse(
-                ptr(nodes), ptr(leafs), ptr(org), ptr(dir), ptr(min_t),
-                ptr(max_t), ptr(skip32), ptr(roots), ptr(t), ptr(u),
-                ptr(v), ptr(pid), ptr(flags), ptr(scratch), n, packet,
-                scene.width, slots, int(occlusion),
-                int(options.cull_back_face), int(exact_edge),
-                int(prim_range is not None),
-                prim_range[0] if prim_range else 0,
-                prim_range[1] if prim_range else 0, _leaf(woop, sphere),
-                int(debug_counts), int(_flag_zero_edges), int(interleave),
-                plan.grid, plan.claim // K1_CLAIM, ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError(f"traversal kernel launch failed: CUDA error {rc}")
-        trace.count(_launch_key(woop, roots is not None, debug_counts,
-                                _flag_zero_edges, interleave, sphere))
+        _ext.launch(
+            "packet_traverse", "nrt_packet_traverse", nodes, leafs, org, dir,
+            min_t, max_t, skip32, roots, t, u, v, pid, flags, scratch, n,
+            packet, scene.width, slots, int(occlusion),
+            int(options.cull_back_face), int(exact_edge),
+            int(prim_range is not None), prim_range[0] if prim_range else 0,
+            prim_range[1] if prim_range else 0, _leaf(woop, sphere),
+            int(debug_counts), int(_flag_zero_edges), int(interleave),
+            plan.grid, plan.claim // K1_CLAIM, device=dev,
+            count=_launch_key(woop, roots is not None, debug_counts,
+                              _flag_zero_edges, interleave, sphere))
         trace.count("k1.rays", n)
         _check_overflow(scratch[1], slots)
     else:

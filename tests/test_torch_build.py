@@ -2,9 +2,13 @@
 native SAH builders, the BVH8/BVH16 collapse and the interop helpers —
 each against the JAX package on the same inputs. Tolerance:
 bit-identical arrays (the port copies these modules; the native builder
-compiles the same source with the same flags)."""
+compiles the same source with the same flags). Also the seam to the CUDA
+libraries: ``_ext.KERNELS`` against the sources' C signatures, and
+``_ext.launch`` on a stand-in library."""
 
+import ctypes
 import os
+import re
 
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from nanort_tpu_torch.core.bvh import validate
 from nanort_tpu_torch.io import procedural as t_proc
 from nanort_tpu_torch.ops.triangle import TriangleMesh
 from nanort_tpu_torch.testing import same_bits as _same_arrays
+from nanort_tpu_torch.traverse import _ext
 
 torch.set_num_threads(1)
 
@@ -229,3 +234,82 @@ def _ctypes_one(path):
     import ctypes
 
     return ctypes.CDLL(path).one()
+
+
+def test_launch_passes_pointers_and_stream(monkeypatch):
+    """``_ext.launch`` on a stand-in library: tensors pass as their data
+    pointers, ``None`` as a null pointer, numbers (NumPy's too) as they
+    are, the device's current stream last; a zero return counts each
+    key, a non-zero one raises and counts nothing."""
+    import contextlib
+    import types
+
+    from nanort_tpu_torch.utils import trace
+
+    calls, rc = [], [0]
+
+    class Lib:
+        def nrt_stub(self, *args):
+            calls.append(args)
+            return rc[0]
+
+    monkeypatch.setitem(_ext._libs, "stub", Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=1234))
+    x = torch.zeros(3)
+    before = trace.counts()
+    _ext.launch("stub", "nrt_stub", x, None, 7, 0.5, np.int64(9),
+                device="cuda:0", count=("test.launch_a", "test.launch_b"))
+    assert calls == [(x.data_ptr(), None, 7, 0.5, 9, 1234)]
+    _ext.launch("stub", "nrt_stub", device="cuda:0", count="test.launch_a")
+    assert calls[1] == (1234,)
+    assert trace.since(before) == {"test.launch_a": 2, "test.launch_b": 1}
+    rc[0] = 3
+    with pytest.raises(RuntimeError, match="nrt_stub failed: CUDA error 3"):
+        _ext.launch("stub", "nrt_stub", x, device="cuda:0",
+                    count="test.launch_a")
+    assert trace.since(before) == {"test.launch_a": 2, "test.launch_b": 1}
+
+
+# C parameter types -> the ctypes argtypes that pass them (any pointer:
+# c_void_p, as a tensor's data pointer or None)
+_C_SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_int64,
+              "float": ctypes.c_float}
+
+
+def _argtype(param: str):
+    """The ctypes type of one C parameter (``const float* nodes``,
+    ``long long n``); None for a type the table cannot declare."""
+    m = re.fullmatch(r"(?:const\s+)?([a-z ]+?)\s*(\*?)\s*\w+", param.strip())
+    if m is None:
+        return None
+    return ctypes.c_void_p if m.group(2) else _C_SCALARS.get(
+        " ".join(m.group(1).split()))
+
+
+@pytest.mark.parametrize("lib", sorted(_ext.KERNELS))
+def test_kernel_argtypes_match_sources(lib):
+    """``_ext.KERNELS`` declares each library's C functions as its source
+    defines them: every ``extern "C"`` function and no other, each with
+    its parameters' types in order, so ``_ext.launch`` passes every
+    argument at its width."""
+    src, _, table = _ext.KERNELS[lib]
+    with open(os.path.join(_ext.CSRC, src)) as fh:
+        sigs = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', fh.read()))
+    assert sorted(sigs) == sorted(table)
+    for fn, params in sigs.items():
+        assert [_argtype(p) for p in params.split(",")] == table[fn], fn
+
+
+def test_every_cuda_source_is_a_library():
+    """Each ``csrc/*.cu`` is one library of ``_ext.KERNELS`` (a source
+    left out would never be built), and each header a source includes is
+    among its ``deps``."""
+    cu = sorted(f for f in os.listdir(_ext.CSRC) if f.endswith(".cu"))
+    assert cu == sorted(src for src, _, _ in _ext.KERNELS.values())
+    for src, deps, _ in _ext.KERNELS.values():
+        with open(os.path.join(_ext.CSRC, src)) as fh:
+            included = re.findall(r'#include "([^"]+)"', fh.read())
+        assert sorted(included) == sorted(deps), src

@@ -8,9 +8,8 @@ watertight, with and without a per-ray skip), K3 and K4
 _render_fused_bvh_reference; K3 also at edge shapes, with lanes that
 claim many pixels, with more pixels than resident lanes, and with its
 sweep counters against the plain version's live sweeps; K4's pooled
-kernel also at edge shapes,
-against its lane kernel, with each schedule option, and with a stack too
-small for the tree), K5 (csrc/ao_fused.cu vs
+kernel also at edge shapes, in slices of sample iterations against one
+launch, and with a stack too small for the tree), K5 (csrc/ao_fused.cu vs
 models/ao_fused.py::_ao_fused_reference; also at its persistent schedule's
 edge shapes, with warps that claim many tiles, and with its launch and
 item counters). The AOV kernel (csrc/aovs.cu vs
@@ -499,24 +498,7 @@ def test_pt_fused_bvh_pool_edge_shapes(dev, dense_pt, case):
     assert stats[3] >= (items if kw["max_bounces"] else 0)
 
 
-@pytest.mark.parametrize("trig", ["poly", "native"])
-def test_pt_fused_bvh_pool_matches_lane(dev, dense_pt, trig):
-    org, d = _cam(64, 64, 2.6)
-    scene = dense_pt.to(dev)
-    kw = dict(max_bounces=6, trig=trig, azimuth_strata=2, spp_lanes=4)
-    before = trace.counts()
-    pool = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 5, 8,
-                                     **kw)
-    lane = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 5, 8,
-                                     _schedule="lane", **kw)
-    assert trace.since(before) == {
-        "pt_fused_bvh": 1, "pt_fused_bvh[lane]": 1, "bvh16_trace": 2}
-    assert torch.equal(pool, lane)
-    assert bool(torch.isfinite(pool).all()) and float(pool.mean()) > 0
-
-
-@pytest.mark.parametrize("schedule", ["pool", "lane"])
-def test_pt_fused_bvh_small_stack_sets_error_word(dev, dense_pt, schedule,
+def test_pt_fused_bvh_small_stack_sets_error_word(dev, dense_pt,
                                                   monkeypatch):
     real = fused_trace._check_tables
     words = []
@@ -526,7 +508,7 @@ def test_pt_fused_bvh_small_stack_sets_error_word(dev, dense_pt, schedule,
                         lambda err, slots: words.append((err, slots)))
     org, d = _cam(16, 12, 2.6)
     pt_fused.render_fused_bvh(dense_pt.to(dev), org.to(dev), d.to(dev), 4, 2,
-                              max_bounces=3, _schedule=schedule)
+                              max_bounces=3)
     (err, slots), = words
     assert slots == 2 and err.is_cuda and int(err.item()) != 0
 
@@ -561,27 +543,28 @@ except RuntimeError as e:
     assert "RAISED True" in r.stdout, (r.stdout, r.stderr[-2000:])
 
 
-def test_pt_fused_bvh_schedule_keyword(dev, dense_pt):
-    org, d = _cam(4, 4, 2.6)
-    with pytest.raises(ValueError, match="_schedule"):
-        pt_fused.render_fused_bvh(dense_pt.to(dev), org.to(dev), d.to(dev),
-                                  4, 2, _schedule="warp")
-    occ = pt_fused.pool_occupancy()
-    assert occ["lane"] >= 1 and occ["pool"] >= 1
+def test_pt_fused_bvh_schedule_keyword(dev):
+    # K4's one schedule: the pooled kernel's resident blocks and pool
+    occ = pt_fused.pool_occupancy(dev)
+    assert occ["pool"] >= 1
     assert 0 < occ["pool_smem_bytes"] <= 227 * 1024
+    assert occ["sms"] == torch.cuda.get_device_properties(
+        dev).multi_processor_count
 
 
 @pytest.mark.parametrize("iters_a_slice", [1, 3])
 def test_pt_fused_bvh_pool_slices_match_lane(dev, dense_pt, iters_a_slice,
                                             monkeypatch):
     # a render whose per-sample buffer passes the cap runs one launch a
-    # slice of sample iterations and keeps the lane kernel's bits
+    # slice of sample iterations and keeps the bits of one launch
     org, d = _cam(32, 24, 2.6)
     scene = dense_pt.to(dev)
     kw = dict(max_bounces=5, trig="poly", azimuth_strata=2, spp_lanes=2)
     rl, spp_iters = 32 * 24 * 2, 8 // 2
+    before = trace.counts()
     want = pt_fused.render_fused_bvh(scene, org.to(dev), d.to(dev), 6, 8,
-                                     _schedule="lane", **kw)
+                                     **kw)
+    assert trace.since(before) == {"pt_fused_bvh": 1, "bvh16_trace": 1}
     monkeypatch.setattr(pt_fused, "POOL_SLICE_BYTES",
                         iters_a_slice * rl * 12)
     slices = -(-spp_iters // iters_a_slice)

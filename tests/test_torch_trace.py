@@ -472,8 +472,7 @@ def test_span_names_hold_no_kernel_name():
         names |= set(re.findall(r'span\("([^"]+)"\)', path.read_text()))
     assert {"k1", "k4", "rtc.intersect", "build.sah"} <= names
     for kernel in ("traverse_kernel", "pt_bvh_pool_kernel",
-                   "pt_bvh_lane_kernel", "pt_brute_kernel", "ao_kernel",
-                   "bvh16_kernel"):
+                   "pt_brute_kernel", "ao_kernel", "bvh16_kernel"):
         assert not any(kernel in n for n in names), kernel
 
 
