@@ -211,8 +211,9 @@ nothing of JAX. Phases, one line or more each:
     record for record, both rates printed); and the benchmark's
     10M-point LiDAR tile at its own shape, the tables its ``las_view``
     entry builds (width 8, the builder's default leaves), one 3840x2160
-    frame through ``traverse_image``: one padded tiled launch, every 64th
-    ray == plain bit for bit on t and prim id;
+    frame through ``traverse_image``: one launch over the rays in raster
+    order, every 64th ray == plain bit for bit on t and prim id, and its
+    records == the tiled route's, timed beside it;
 24. the multi-device layer on one card: a one-rank NCCL group through a
     ``file://`` store in a temporary directory, ``ray_mesh(1)``;
     ``sharded_traverse_triangles``, ``sharded_traverse_wavefront`` and
@@ -3939,8 +3940,12 @@ def loader_phases(dev, hres: int = 1024, res: int = 2048, dres: int = 512,
     check(counts["packet_traverse[sphere]"] == 1
           and sum(counts.values()) == 1 and same_t and 0.3 < hit_t < 1.0,
           "phase 23: K1's spheres on the benchmark's tile differ from the "
-          "plain version or did not take one padded tiled launch")
-    del st, run, rays, holder, flat
+          "plain version or did not take one launch")
+    del holder, flat
+    torch.cuda.empty_cache()
+    say_route("phase 23 the benchmark's LiDAR tile",
+              route_split(st.s8, rays), st.H, st.W, 5)
+    del st, run, rays
     say(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
     return launches, err
 
@@ -4192,6 +4197,56 @@ def say_aovs(what: str, h: dict, reps: int):
     check(h["same"] and h["launches"] == {"aovs_fused": 1},
           f"{what}: the AOV kernel differs from its plain version or did "
           f"not launch once ({h['launches']})")
+
+
+def route_split(scene, rays, reps: int = 5) -> dict:
+    """``traverse_image``'s launch over a camera's (H, W) rays as they
+    lie (raster order) against the route it replaced: device ms, the
+    median of ``reps`` turns, of K1 in raster order (``raster``), of the
+    copy into padded pixel tiles of ``min(128, H) x min(64, W)``
+    (``tile``), of K1 over that copy (``tiled``) and of the copy back
+    (``untile``); and whether the two routes' records are equal bit for
+    bit."""
+    import torch
+
+    from nanort_tpu_torch.traverse import packet
+
+    h, w = rays.batch_shape
+    tile = (min(128, h), min(64, w))
+    held = {}
+
+    def put(name, fn):
+        held.pop(name, None)  # the last turn's result goes back first
+        held[name] = fn()
+
+    steps = {
+        "raster": lambda: packet.traverse_image(scene, rays),
+        "tile": lambda: packet.tile_image_rays(rays, *tile, pad=True),
+        "tiled": lambda: packet.traverse_bvh8(scene, held["tile"][0]),
+        "untile": lambda: held["tile"][1](held["tiled"]),
+    }
+    ms = {k: [] for k in steps}
+    for _ in range(reps):
+        for k, fn in steps.items():
+            ms[k] += cuda_ms(lambda: put(k, fn), 1)
+    out = {"tile": tile, "ms": {k: median(v) for k, v in ms.items()},
+           "same": all(torch.equal(a, b) for a, b in
+                       zip(held["raster"], held["untile"]))}
+    out["copies"] = out["ms"]["tile"] + out["ms"]["untile"]
+    return out
+
+
+def say_route(what: str, s: dict, h: int, w: int, reps: int):
+    m = s["ms"]
+    say(f"{what}: a {w}x{h} camera batch through K1, device ms (median of "
+        f"{reps}, in turns): K1 over the rays in raster order "
+        f"{m['raster']:.3f}; the tiled route (tiles {s['tile'][0]}x"
+        f"{s['tile'][1]}): tile copy {m['tile']:.3f} + K1 over the copy "
+        f"{m['tiled']:.3f} + untile copy {m['untile']:.3f} = "
+        f"{m['tile'] + m['tiled'] + m['untile']:.3f} (copies "
+        f"{s['copies']:.3f}); records equal bit for bit: {s['same']}")
+    check(s["same"], f"{what}: K1 in raster order differs from the tiled "
+          "route")
 
 
 def hold_camera(dev, w: int, h: int, reps: int) -> dict:
@@ -4895,6 +4950,10 @@ def main() -> int:
     say("phase 6 AOV kernel, ptxas -v: " + " | ".join(
         " ".join(ln.split()) for ln in usage_aovs.result().splitlines()
         if "Used" in ln or "spill" in ln))
+    del holder
+    torch.cuda.empty_cache()
+    say_route("phase 6", route_split(scene, rays), res, res, 5)
+    holder = {}
 
     # phase 4's scene and phase 5's rays stay for phase 18
     del rays, rays_t, untile, hits, holder, scene_h, bvh, fr, fh

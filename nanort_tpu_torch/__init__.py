@@ -7,8 +7,7 @@ kernels rewritten by hand for NVIDIA Hopper. The main path:
     bvh, stats = build_triangle_bvh(mesh, BVHBuildOptions(9, ..., 9))
     scene = collapse_bvh8(bvh, v, f, width=16).to("cuda")
     rays = pinhole_rays(look_at(eye, center, ..., device="cuda"))
-    rays_t, untile = tile_image_rays(rays, 128, 64)
-    hits = untile(traverse_bvh8(scene, rays_t))
+    hits = traverse_image(scene, rays)  # one K1 launch, (H, W) records
 
 Config A (``models.objrender``): ``render_aovs`` / ``render_ao`` on K1
 with ``scene8``, or on the reference-exact stack engine

@@ -95,9 +95,9 @@ def shading_normals(mesh: TriangleMesh, attrs: MeshAttributes | None,
 def _traverse_primary(bvh, mesh, rays, options, max_leaf, scene8,
                       specialize=None):
     """Primary-visibility traversal. With ``scene8``, image-shaped
-    batches go through the packet kernel in pixel tiles (each warp covers
-    a compact frustum; the tile grid padded to whole tiles), other shapes
-    through ``traverse_bvh8_sorted`` (``packet.traverse_image``). Without
+    batches go through the packet kernel in one launch over the rays as
+    they lie (raster order, no tiled copy), other shapes through
+    ``traverse_bvh8_sorted`` (``packet.traverse_image``). Without
     ``scene8``, the stack engine."""
     if scene8 is None:
         return traverse_triangles(bvh, mesh, rays, options, max_leaf=max_leaf)

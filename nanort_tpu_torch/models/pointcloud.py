@@ -5,12 +5,13 @@ particle primitive of examples/particle_primitive/main.cc:82-291).
 ``render_sphere_aovs`` is ``objrender.render_aovs`` for a sphere scene:
 with ``scene8`` (``build.bvh8.collapse_bvh8(bvh, width=..., spheres=s)``
 on the rays' device) an image-shaped frame goes through K1's sphere leaf
-test in pixel tiles (``traverse.packet.traverse_image``: the tile grid
-padded to whole tiles, never the ray sort), on the CPU through K1's plain
-version; without it, through the stack engine over the binary tree. The
-AOVs follow in plain torch from the records, in one span ``sphere.post``:
-PostTraversal's UV (``ops.sphere.sphere_post``) and the normal, colour,
-position and depth of each hit, from one hit point and one normal.
+test in one launch over the rays in raster order
+(``traverse.packet.traverse_image``: no tiled copy, never the ray sort),
+on the CPU through K1's plain version; without it, through the stack
+engine over the binary tree. The AOVs follow in plain torch from the
+records, in one span ``sphere.post``: PostTraversal's UV
+(``ops.sphere.sphere_post``) and the normal, colour, position and depth
+of each hit, from one hit point and one normal.
 """
 
 from __future__ import annotations

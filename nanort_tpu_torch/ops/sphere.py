@@ -213,7 +213,7 @@ def traverse_spheres(bvh, s: Spheres, rays: Rays, options=None,
 
     With ``scene8`` (``collapse_bvh8(..., spheres=s)`` on the rays'
     device) the rays go through K1's sphere leaf test, whose arithmetic
-    is ``sphere_hit``'s: an image-shaped batch in pixel tiles
+    is ``sphere_hit``'s: an image-shaped batch in raster order
     (``packet.traverse_image``, which takes no ``skip_prim_id``), any
     other shape as it comes (``traverse_bvh8``). Without it the stack
     engine walks ``bvh`` with the JAX package's ``sphere_intersect``, or,

@@ -873,7 +873,9 @@ def tile_image_rays(rays: Rays, tile_h: int = 32, tile_w: int = 32,
     tensors, e.g. ``Hits``. An image whose sides are not multiples of the
     tile raises, unless ``pad``: then the tile grid is padded to whole
     tiles with rays of an empty interval (``max_t < min_t``: they retire
-    before their first node), and ``untile`` drops the padding."""
+    before their first node), and ``untile`` drops the padding.
+    ``traverse_image`` makes no such copy: K1 walks a camera's (H, W)
+    batch as fast with its rays in raster order."""
     H, W = rays.org.shape[:2]
     if (H % tile_h or W % tile_w) and not pad:
         raise ValueError(f"image {H}x{W} is not a multiple of the "
@@ -908,18 +910,15 @@ def tile_image_rays(rays: Rays, tile_h: int = 32, tile_w: int = 32,
 def traverse_image(scene: BVH8Scene, rays: Rays,
                    options: BVHTraceOptions = BVHTraceOptions(),
                    specialize: tuple | None = None) -> Hits:
-    """A camera's batch through K1: an (H, W) batch in pixel tiles of
-    ``min(128, H) x min(64, W)`` (each warp covers a compact frustum),
-    the tile grid padded to whole tiles where the sides are not
-    multiples of the tile; any other shape through
+    """A camera's batch through K1: an (H, W) batch in one launch over
+    its rays as they lie, in raster order (a warp's claim of 32 rays is
+    32 neighbouring pixels of a row), with no tiled copy of the rays or
+    the records; any other shape through
     ``ray_sort.traverse_bvh8_sorted``. Records in the rays' shape."""
     bs = rays.batch_shape
     if len(bs) == 2:
-        h, w = bs
-        rays_t, untile = tile_image_rays(rays, min(128, h), min(64, w),
-                                         pad=True)
-        return untile(traverse_bvh8(scene, rays_t, options,
-                                    specialize=specialize))
+        return traverse_bvh8(scene, Rays(*(x.contiguous() for x in rays)),
+                             options, specialize=specialize)
     from .ray_sort import traverse_bvh8_sorted
 
     return traverse_bvh8_sorted(scene, rays, options)

@@ -2113,7 +2113,7 @@ def test_sphere_kernel_matches_plain_small_cloud(dev, small_cloud, width,
 
 def test_sphere_kernel_matches_plain_on_a_4k_frame(dev):
     """The sphere kernel on a 3840 x 2160 frame of a 1M-point tile (the
-    padded tiled route: one launch) equals the plain version bit for bit
+    rays in raster order: one launch) equals the plain version bit for bit
     on t and prim id on every 64th ray, and the stack engine's records
     (t bit for bit, the sphere but at exactly equal t) on every 1024th."""
     from nanort_tpu_torch.ops import sphere
@@ -2127,7 +2127,7 @@ def test_sphere_kernel_matches_plain_on_a_4k_frame(dev):
     hits = packet.traverse_image(s8, rays)
     moved = trace.since(before)
     assert moved["packet_traverse[sphere]"] == 1
-    assert moved["k1.rays"] == 2176 * 3840  # the grid padded to tiles
+    assert moved["k1.rays"] == 2160 * 3840  # the image's rays, no padding
     n = 3840 * 2160
     flat = nt.Rays(*(x.reshape(n, *x.shape[2:])[::64].contiguous()
                      for x in rays))
@@ -2166,3 +2166,71 @@ def test_render_sphere_aovs_on_card_matches_cpu(dev, small_cloud):
             assert float((a - b).abs().max()) <= 1e-6, k
         else:
             assert torch.equal(a, b), k
+
+
+# ---- a camera's batch through K1 (traverse_image)
+
+def _tiled_route(scene, rays, **kw):
+    """The records of a camera's batch copied into padded pixel tiles
+    (``tile_image_rays``), traced by K1 over the copy and copied back."""
+    h, w = rays.batch_shape
+    flat, untile = packet.tile_image_rays(rays, min(128, h), min(64, w),
+                                          pad=True)
+    return untile(packet.traverse_bvh8(scene, flat, **kw))
+
+
+@pytest.fixture(scope="module")
+def image_scene():
+    """100k triangles (the subdivided sphere), BVH16, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    v, f = make_subdivided_sphere_scene(100_000)
+    return _scene(v, f, 16).to("cuda")
+
+
+@pytest.mark.parametrize("shape,occlusion", [
+    ((8192, 8192), False), ((2160, 3840), False), ((70, 100), False),
+    ((40, 24), False), ((70, 100), True)])
+def test_image_route_equals_the_tiled_route(dev, image_scene, shape,
+                                            occlusion):
+    """K1 over a camera's (H, W) rays as they lie, in raster order, gives
+    the tiled route's records bit for bit, at sides that are and are not
+    multiples of the tile (8192^2; 2160 rows; 70 x 100; W < 32), closest
+    and any-hit; ``traverse_image`` is that one launch over the image's
+    rays."""
+    h, w = shape
+    rays = pinhole_rays(look_at((0.0, 0.3, 2.2), (0.0, 0.0, 0.0), width=w,
+                                height=h, fov=60.0, device=dev))
+    want = _tiled_route(image_scene, rays, occlusion=occlusion)
+    if occlusion:
+        got = packet.traverse_bvh8(image_scene, rays, occlusion=True)
+    else:
+        before = trace.counts()
+        got = packet.traverse_image(image_scene, rays)
+        assert trace.since(before) == {"packet_traverse": 1,
+                                       "k1.rays": h * w}
+    for a, b in zip(got, want):
+        assert a.shape == (h, w) and torch.equal(a, b)
+    assert bool(want.prim_id.ne(nt.INVALID_PRIM_ID).any())
+    del got, want, rays
+    torch.cuda.empty_cache()
+
+
+def test_image_route_equals_the_tiled_route_on_spheres(dev):
+    """The LiDAR viewer's frame: 3840 x 2160 over a 1M-point tile's BVH8
+    (sphere leaves), ``traverse_image`` against the tiled route bit for
+    bit."""
+    s, bvh, mean_y = _cloud(1_000_000, 316.0, 32)
+    s8 = collapse_bvh8(bvh, width=8, spheres=s).to(dev)
+    rays = pinhole_rays(look_at((0.0, mean_y + 80.0, 234.0),
+                                (0.0, mean_y, 0.0), width=3840, height=2160,
+                                fov=45.0, device=dev))
+    before = trace.counts()
+    got = packet.traverse_image(s8, rays)
+    assert trace.since(before) == {"packet_traverse[sphere]": 1,
+                                   "k1.rays": 2160 * 3840}
+    want = _tiled_route(s8, rays)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hit = float(want.prim_id.ne(nt.INVALID_PRIM_ID).float().mean())
+    assert 0.3 < hit < 1.0

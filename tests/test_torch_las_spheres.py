@@ -7,7 +7,7 @@ CUDA mock, ``testing.build_with_cuda_mock``, each ray walked by its
 ``begin``/``step``/``finish``), the stack engine (``ops/sphere.py::
 traverse_spheres(..., precise=True)``), the benchmark's float64 reference (``rtbench/ref/
 spheres.py``), ``models/pointcloud.py::render_sphere_aovs`` and the padded
-pixel tiling of ``traverse/packet.py::traverse_image``.
+pixel tiling of ``traverse/packet.py::tile_image_rays``.
 
 Tolerances: the kernel and its plain version share the tables, the child
 order and ``ops.sphere.sphere_hit``'s arithmetic (g++ with
@@ -494,12 +494,22 @@ def _profiled(fn):
     return out, names
 
 
-def test_frame_takes_the_padded_tiles_not_the_sort(cloud):
+def test_frame_takes_the_padded_tiles_not_the_sort(cloud, monkeypatch):
     s, _, tabs, _, _ = cloud
     rays = _frame(70, 100)
+    calls, inner = [], packet.traverse_bvh8
+
+    def spy(scene, r, *a, **kw):
+        calls.append(tuple(r.batch_shape))
+        return inner(scene, r, *a, **kw)
+
+    monkeypatch.setattr(packet, "traverse_bvh8", spy)
     (aovs, hits), names = _profiled(
         lambda: render_sphere_aovs(s, rays, scene8=tabs[16, 10]))
-    assert "tile" in names and "untile" in names and "k1" in names
+    # one K1 call over the (70, 100) rays as they lie, with no tile and
+    # untile copies
+    assert calls == [(70, 100)]
+    assert "k1" in names and "tile" not in names and "untile" not in names
     assert "sphere.post" in names and "render_sphere_aovs" in names
     assert not [n for n in names if n.startswith("ray_sort")]
     flat = nt.Rays(*(x.reshape(7000, *x.shape[2:]) for x in rays))

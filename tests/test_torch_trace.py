@@ -399,22 +399,44 @@ def test_camera_spans():
     assert spans == [("camera", None), ("camera", None)]
 
 
-def test_render_aovs_spans(small):
+def _k1_calls(monkeypatch) -> list:
+    """Record the rays' batch shape of each ``traverse_bvh8`` call: the
+    plain versions count nothing, so on the CPU the call tells which
+    batch K1 took."""
+    from nanort_tpu_torch.traverse import packet
+
+    calls, inner = [], packet.traverse_bvh8
+
+    def spy(scene, rays, *a, **kw):
+        calls.append(tuple(rays.batch_shape))
+        return inner(scene, rays, *a, **kw)
+
+    monkeypatch.setattr(packet, "traverse_bvh8", spy)
+    return calls
+
+
+def test_render_aovs_spans(small, monkeypatch):
+    calls = _k1_calls(monkeypatch)
     _, spans, _ = _profiled(lambda: objrender.render_aovs(
         small["bvh"], small["mesh"], small["rays"], scene8=small["s16"]))
-    assert spans == [("tile", "render_aovs"), ("k1", "render_aovs"),
-                     ("untile", "render_aovs"), ("aovs", "render_aovs"),
+    # K1 takes the camera's (H, W) rays as they lie, in one call: no
+    # tile and untile copies
+    assert spans == [("k1", "render_aovs"), ("aovs", "render_aovs"),
                      ("render_aovs", None)]
+    assert calls == [(64, 64)]
 
 
 @pytest.mark.parametrize("octant_major", [False, True])
-def test_render_ao_spans(small, octant_major):
+def test_render_ao_spans(small, octant_major, monkeypatch):
+    calls = _k1_calls(monkeypatch)
     _, spans, _ = _profiled(lambda: objrender.render_ao(
         small["bvh"], small["mesh"], small["rays"], seed=1, n_samples=2,
         max_leaf=8, scene8=small["s16"], octant_major=octant_major))
-    primary = [("tile", "render_aovs"), ("k1", "render_aovs"),
-               ("untile", "render_aovs"), ("aovs", "render_aovs"),
+    primary = [("k1", "render_aovs"), ("aovs", "render_aovs"),
                ("render_aovs", "render_ao")]
+    # the primary pass over the (H, W) rays as they lie, then the
+    # occlusion pass
+    assert len(calls) == 2 and calls[0] == (64, 64)
     # the sorted route permutes the rays, then the per-ray skip ids
     occ = ([("ray_sort.sort", "render_ao"), ("ray_sort.sort", "render_ao"),
             ("k1", "render_ao"), ("ray_sort.unsort", "render_ao")]
