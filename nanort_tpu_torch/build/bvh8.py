@@ -47,6 +47,14 @@ place of the triangle ones, the same slots of the same binary leaves:
   lanes [4s, 4s+4):      sphere s centre xyz and radius (one 16-byte load)
   lane  108 + s:         sphere s original prim id (exact float integer)
 
+A curve scene (``curves=``, the cubic Bezier curves of ``ops/curve.py``;
+``leaf_kind == "curve"``) has curve leaf rows, at most 6 curves a row:
+
+  lanes [16c, 16c+16):   curve c control points p0, p1, p2, p3, each xyz
+                         and a w lane: r0 (p0), 0 (p1, p2), r1 (p3), so
+                         four 16-byte loads a curve
+  lane  108 + c:         curve c original prim id (exact float integer)
+
 The collapse walks the binary tree (build.sah output, reference layout
 nanort.h:1759-1890) and repeatedly expands the largest-surface-area member
 of the cut until 8 slots fill — the standard greedy BVH2->BVH8 conversion.
@@ -63,6 +71,7 @@ from ..core.bvh import BVH
 from ..utils import trace
 
 MAX_LEAF_TRIS = 10
+MAX_LEAF_CURVES = 6  # 16 lanes a curve below the prim-id block at lane 108
 EMPTY_BIG = 3.0e38
 
 
@@ -86,8 +95,9 @@ class BVH8Scene:
     # row for row beside ``leafs``: the input of the turbo intersector
     # (traverse_bvh8(..., intersector="woop"))
     leafs_woop: np.ndarray | None = None
-    # what the leaf rows hold: "triangle" or "sphere" (collapse_bvh8's
-    # ``spheres=``); traverse_bvh8 launches the leaf test of the kind
+    # what the leaf rows hold: "triangle", "sphere" or "curve"
+    # (collapse_bvh8's ``spheres=``, ``curves=``); traverse_bvh8 launches
+    # the leaf test of the kind
     leaf_kind: str = "triangle"
 
     def _replace(self, **kw):
@@ -241,6 +251,7 @@ def collapse_bvh8(
     width: int = 8,
     woop: bool = False,
     spheres=None,
+    curves=None,
 ) -> BVH8Scene:
     """Collapse the binary BVH into width-wide packet-kernel tables.
 
@@ -259,15 +270,21 @@ def collapse_bvh8(
 
     ``spheres`` (an ``ops.sphere.Spheres`` or ``(centers, radii)``, with
     no ``vertices`` or ``faces``) collapses ``build_sphere_bvh``'s tree
-    into sphere leaf rows (``leaf_kind="sphere"``).
+    into sphere leaf rows (``leaf_kind="sphere"``); ``curves`` (an
+    ``ops.curve.Curves`` or ``(points (N, 4, 3), radii (N, 4))``)
+    collapses ``build_curve_bvh``'s tree, whose leaves hold at most 6
+    curves, into curve leaf rows (``leaf_kind="curve"``).
     """
     if width not in (8, 16):
         raise ValueError(f"width must be 8 or 16: {width}")
-    if (spheres is None) == (vertices is None or faces is None):
+    kinds = (vertices is not None and faces is not None, spheres is not None,
+             curves is not None)
+    if sum(kinds) != 1 or (not kinds[0] and (vertices is not None
+                                             or faces is not None)):
         raise ValueError("collapse_bvh8 takes vertices and faces, or "
-                         "spheres")
-    if spheres is not None and woop:
-        raise ValueError("woop rows hold triangles, not spheres")
+                         "spheres, or curves")
+    if woop and not kinds[0]:
+        raise ValueError("woop rows hold triangles, not spheres or curves")
     # 16-wide nodes use the DENSE single-row layout: 16 children in ONE
     # fully-occupied (1, 128) f32 row — child w's exact slab bounds
     # (lo.xyz, hi.xyz) at lanes [6w, 6w+6), metas at 96+w, leaf counts
@@ -279,7 +296,7 @@ def collapse_bvh8(
     packed16 = width == 16
     W = width
     NR = 1 if packed16 else W // 8  # rows per node
-    if spheres is None:
+    if kinds[0]:
         vertices = np.asarray(vertices, np.float32)
         faces = np.asarray(faces)
     bmin = np.asarray(bvh.bmin, np.float32)
@@ -299,6 +316,10 @@ def collapse_bvh8(
             f"max_leaf_primitives<={MAX_LEAF_TRIS}"
         )
     cap = int(counts.max(initial=1))
+    if curves is not None and cap > MAX_LEAF_CURVES:
+        raise ValueError(f"curve rows hold <= {MAX_LEAF_CURVES} curves; "
+                         f"build with max_leaf_primitives <= "
+                         f"{MAX_LEAF_CURVES}")
     if woop and cap > 9:
         raise ValueError("woop rows hold <= 9 tris; build with "
                          "max_leaf_primitives <= 9")
@@ -620,6 +641,11 @@ def collapse_bvh8(
             leafs, seg_row, seg_slot, seg_len, seg_src,
             _sphere_rows_from(spheres, indices), 4, 0, 108, pid_all,
         )
+    elif curves is not None:
+        _fill_leaf_segments(
+            leafs, seg_row, seg_slot, seg_len, seg_src,
+            _curve_rows_from(curves, indices), 16, 0, 108, pid_all,
+        )
     else:
         tri_all = vertices[faces[indices]].reshape(-1, 9)  # leaf-ordered
         _fill_leaf_segments(
@@ -643,23 +669,38 @@ def collapse_bvh8(
         max_leaf=max_leaf_out,
         width=W,
         leafs_woop=leafs_woop,
-        leaf_kind="triangle" if spheres is None else "sphere",
+        leaf_kind=("triangle", "sphere", "curve")[kinds.index(True)],
     )
+
+
+def _host(*xs):
+    return [x.detach().cpu().numpy() if hasattr(x, "detach") else x
+            for x in xs]
 
 
 def _sphere_rows_from(spheres, indices) -> np.ndarray:
     """(L, 4) float32 [centre xyz | radius] of the leaf-ordered sphere
     stream ``indices``."""
-    centers, radii = spheres
-    if hasattr(centers, "detach"):
-        centers, radii = centers.detach().cpu().numpy(), \
-            radii.detach().cpu().numpy()
+    centers, radii = _host(*spheres)
     c = np.asarray(centers, np.float32)
     r = np.asarray(radii, np.float32).reshape(-1)
     out = np.empty((indices.shape[0], 4), np.float32)
     out[:, :3] = c[indices]
     out[:, 3] = r[indices]
     return out
+
+
+def _curve_rows_from(curves, indices) -> np.ndarray:
+    """(L, 16) float32 [p0 r0 | p1 0 | p2 0 | p3 r1] of the leaf-ordered
+    curve stream ``indices``."""
+    points, radii = _host(*curves)
+    p = np.asarray(points, np.float32)[indices]  # (L, 4, 3)
+    r = np.asarray(radii, np.float32)[indices]  # (L, 4)
+    out = np.zeros((indices.shape[0], 4, 4), np.float32)
+    out[..., :3] = p
+    out[:, 0, 3] = r[:, 0]
+    out[:, 3, 3] = r[:, 3]
+    return out.reshape(-1, 16)
 
 
 def collapse_bvh16(bvh: BVH, vertices, faces) -> BVH8Scene:

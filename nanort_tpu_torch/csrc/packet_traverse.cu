@@ -1,7 +1,8 @@
 // Wide-BVH ray traversal for NVIDIA Hopper (sm_90a): closest-hit or
 // any-hit, watertight triangle test with the Dekker exact-edge fallback,
-// the Woop unit-triangle test (the "turbo" intersector), or the sphere
-// test of the particle primitive (ops/sphere.py::sphere_hit).
+// the Woop unit-triangle test (the "turbo" intersector), the sphere test
+// of the particle primitive (ops/sphere.py::sphere_hit), or the cubic
+// Bezier curve test of hair (ops/curve.py::curve_hit).
 //
 // Replaces nanort_tpu/traverse/pallas_packet.py::_kernel_body (the TPU
 // kernel behind traverse_bvh8), with its intersector="woop" leaf test
@@ -49,19 +50,40 @@
 // the triangle's plane it is +-inf, and the inf or NaN t that follows
 // fails every comparison, so the triangle is missed.
 //
-// The leaf test is a template parameter (kLeaf: kTriangle, kWoop or
-// kSphere), so the watertight instantiation is the same code, with the
-// same registers, as without the Woop and sphere tests. The sphere test
-// is ops/sphere.py::sphere_hit operation for operation (sphere_intersect's
-// q-form of the quadratic with a precise discriminant, the |disc| < eps
-// double root, the near root in [min_t, t_cur] or else the far one, an
-// equal t accepted); with IEEE sqrtf and division and no FMA its t is the
-// plain version's bit for bit. A sphere is one 16-byte load (centre,
-// radius); u and v stay 0 (ops/sphere.py::sphere_post fills them for the
-// final hit). The sphere instantiations are bound as the triangle ones
-// are, by dependent row fetches, and more of them a ray: a LiDAR tile's
-// spheres overlap (points closer than their radii), so a ray that grazes
-// the canopy pops many leaf rows before the nearest hit prunes the rest.
+// The leaf test is a template parameter (kLeaf: kTriangle, kWoop, kSphere
+// or kCurve), so the watertight instantiation is the same code, with the
+// same registers, as without the Woop, sphere and curve tests. The sphere
+// test is ops/sphere.py::sphere_hit operation for operation
+// (sphere_intersect's q-form of the quadratic with a precise
+// discriminant, the |disc| < eps double root, the near root in [min_t,
+// t_cur] or else the far one, an equal t accepted); with IEEE sqrtf and
+// division and no FMA its t is the plain version's bit for bit. A sphere
+// is one 16-byte load (centre, radius); u and v stay 0
+// (ops/sphere.py::sphere_post fills them for the final hit). The sphere
+// instantiations are bound as the triangle ones are, by dependent row
+// fetches, and more of them a ray: a LiDAR tile's spheres overlap
+// (points closer than their radii), so a ray that grazes the canopy pops
+// many leaf rows before the nearest hit prunes the rest.
+//
+// The curve test is ops/curve.py::curve_hit operation for operation, the
+// Nakamaru-Ohno test of make_curve_intersect(4) (upstream
+// examples/curves_primitive/main.cc:481-800): the ray's z-align rotation
+// and translation (_z_align, with its dxz == 0 branch), computed once a
+// ray when it is claimed (curve_ray), then per curve the 4 control points
+// projected into that space, the near reject, 5 de Casteljau points at
+// s / 4 and the 4 spans between them, each the closest point of a 2D
+// segment to the z axis, accepted on d2 <= r^2 and t < best t; a curve
+// whose best span lies before min_t is a miss. A curve is four 16-byte
+// loads (p0 r0, p1, p2, p3 r1). The stack engine tests a leaf's curves
+// against the t it entered the leaf with and keeps the least t; here
+// they are tested in turn against the running best, which accepts the
+// same curve with the same record (a curve's record depends on the t it
+// is tested against only through whether its least span t lies below
+// it), the first of a leaf's curves at exactly equal t. The curve
+// instantiations are bound by the test itself (~480 float32 operations a
+// curve, about ten times the sphere's) above K1's dependent fetches: a
+// hair's boxes are long, thin and overlap, so a ray that grazes the hair
+// opens many leaves before its nearest hit.
 //
 // The TPU kernel's other modes, each a template parameter, so the
 // instantiations above keep their code when a mode is off:
@@ -127,6 +149,8 @@ constexpr int kNone = 0x7fffffff;  // no entry to run (no node row has it)
 constexpr int kTriangle = 0;       // watertight, leafs rows
 constexpr int kWoop = 1;           // Woop unit triangles, leafs_woop rows
 constexpr int kSphere = 2;         // spheres, sphere leaf rows
+constexpr int kCurve = 3;          // cubic Bezier curves, curve leaf rows
+constexpr int kSpans = 4;          // curve spans (num_subdivisions)
 
 struct Params {
   const float* nodes;   // (N+1, 128) node rows
@@ -160,7 +184,10 @@ struct Params {
 // row-major unit-triangle transform M (9 lanes) and anchor vertex p0 (3),
 // its prim id at lane 108 + t. With the sphere test, ``leafs`` is a
 // sphere scene's table: sphere s at lanes [4s, 4s+4) as its centre and
-// radius, its prim id at lane 108 + s.
+// radius, its prim id at lane 108 + s. With the curve test, a curve
+// scene's table: curve c at lanes [16c, 16c+16) as its control points p0,
+// p1, p2, p3, each a float4 whose w is r0 (p0), 0 (p1, p2) or r1 (p3),
+// its prim id at lane 108 + c.
 
 __device__ __forceinline__ float sel3(int k, float x, float y, float z) {
   return k == 0 ? x : (k == 1 ? y : z);
@@ -341,6 +368,134 @@ __device__ __forceinline__ bool hit_sphere(const RayState& r, float a,
   return !(disc < 0.0f) && a != 0.0f && tt >= r.min_t && tt <= t_cur;
 }
 
+// A ray's z-align frame (ops/curve.py::_z_align, upstream GetZAlign,
+// main.cc:382-417): the rotation m (row-major) and translation t that
+// take the ray to the +z axis through the origin; a point x projects to
+// x m + t, each coordinate summed over its three products in order.
+struct CurveRay {
+  float m00, m01, m02, m10, m11, m12, m20, m21, m22;
+  float tx, ty, tz;
+};
+
+// The frame of the (sanitised) ray r, with _z_align's degenerate branch
+// for a ray whose x and z are both 0 (dxz == 0).
+__device__ __forceinline__ void curve_ray(const RayState& r, CurveRay& c) {
+  const float lx = r.dx, ly = r.dy, lz = r.dz;
+  const float dxz = sqrtf(lx * lx + lz * lz);
+  if (dxz > 0.0f) {
+    c.m00 = lz / dxz;
+    c.m01 = -lx / dxz * ly;
+    c.m02 = lx;
+    c.m10 = 0.0f;
+    c.m11 = dxz;
+    c.m12 = ly;
+    c.m20 = -lx / dxz;
+    c.m21 = -ly / dxz * lz;
+    c.m22 = lz;
+  } else {
+    const float sgn = ly > 0.0f ? 1.0f : -1.0f;
+    c.m00 = 1.0f;
+    c.m01 = 0.0f;
+    c.m02 = 0.0f;
+    c.m10 = 0.0f;
+    c.m11 = 0.0f;
+    c.m12 = -sgn;
+    c.m20 = 0.0f;
+    c.m21 = sgn;
+    c.m22 = 0.0f;
+  }
+  c.tx = -((r.ox * c.m00 + r.oy * c.m10) + r.oz * c.m20);
+  c.ty = -((r.ox * c.m01 + r.oy * c.m11) + r.oz * c.m21);
+  c.tz = -((r.ox * c.m02 + r.oy * c.m12) + r.oz * c.m22);
+}
+
+// A point in ray space: x m + t.
+struct P3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ P3 project(const CurveRay& c, float4 p) {
+  return {((p.x * c.m00 + p.y * c.m10) + p.z * c.m20) + c.tx,
+          ((p.x * c.m01 + p.y * c.m11) + p.z * c.m21) + c.ty,
+          ((p.x * c.m02 + p.y * c.m12) + p.z * c.m22) + c.tz};
+}
+
+__device__ __forceinline__ float lerp1(float u, float a, float t, float b) {
+  return u * a + t * b;
+}
+
+// de Casteljau at parameter t (u = 1 - t), coordinate by coordinate
+// (ops/curve.py::_bezier).
+__device__ __forceinline__ float casteljau(float u, float t, float a0,
+                                           float a1, float a2, float a3) {
+  const float a = lerp1(u, a0, t, a1);
+  const float b = lerp1(u, a1, t, a2);
+  const float cc = lerp1(u, a2, t, a3);
+  const float d = lerp1(u, a, t, b);
+  const float e = lerp1(u, b, t, cc);
+  return lerp1(u, d, t, e);
+}
+
+__device__ __forceinline__ P3 bezier(const P3& a, const P3& b, const P3& c,
+                                     const P3& d, float t) {
+  const float u = 1.0f - t;
+  return {casteljau(u, t, a.x, b.x, c.x, d.x),
+          casteljau(u, t, a.y, b.y, c.y, d.y),
+          casteljau(u, t, a.z, b.z, c.z, d.z)};
+}
+
+// Curve test of one cubic Bezier curve (control points q0..q3, r0 in
+// q0.w, r1 in q3.w) of a curve row against the ray of frame c
+// (ops/curve.py::curve_hit, the same operations in the same order): its
+// best span's t below t_cur, u = (u_s + s) / 4 and v = sqrt(d2); the
+// curve is a miss when that t lies before min_t. Returns true on
+// acceptance.
+__device__ __forceinline__ bool hit_curve(const CurveRay& c, float min_t,
+                                          float4 q0, float4 q1, float4 q2,
+                                          float4 q3, float t_cur, float& tt,
+                                          float& uu, float& vv) {
+  const P3 a = project(c, q0), b = project(c, q1), e = project(c, q2),
+           f = project(c, q3);
+  // the largest projected z (amax; the points are finite)
+  float t_z = a.z > b.z ? a.z : b.z;
+  t_z = t_z > e.z ? t_z : e.z;
+  t_z = t_z > f.z ? t_z : f.z;
+  const float r0 = q0.w, r1 = q3.w;
+  const float uw = (r0 > r1 ? r0 : r1) / 2.0f;
+  if (t_z < 4.0f * uw) return false;  // near reject (main.cc:676-680)
+  const float w0 = 0.5f * r0;
+  const float w1 = 0.5f * r1;
+  const float bw = w1 - w0;
+  float best_t = t_cur;
+  bool got = false;
+  P3 p0 = bezier(a, b, e, f, 0.0f);
+#pragma unroll
+  for (int s = 0; s < kSpans; ++s) {
+    const P3 p1 = bezier(a, b, e, f, (float)(s + 1) * (1.0f / kSpans));
+    const float bx = p1.x - p0.x;
+    const float by = p1.y - p0.y;
+    const float bz = p1.z - p0.z;
+    const float d0 = -p0.x * bx + -p0.y * by;
+    const float d1 = bx * bx + by * by;
+    float us = d0 / (d1 != 0.0f ? d1 : 1.0f);
+    us = us < 0.0f ? 0.0f : (us > 1.0f ? 1.0f : us);  // a NaN stays NaN
+    const float px = p0.x + us * bx;
+    const float py = p0.y + us * by;
+    const float t = p0.z + us * bz;
+    const float r = w0 + us * bw;
+    const float d2 = px * px + py * py;
+    if (d2 <= r * r && t < best_t) {
+      best_t = t;
+      uu = (us + (float)s) * (1.0f / kSpans);
+      vv = sqrtf(d2);
+      got = true;
+    }
+    p0 = p1;
+  }
+  tt = best_t;
+  return got && best_t >= min_t;
+}
+
 // One ray's walk: its set-up, its best record, the entry it runs next
 // and its stack pointer (the stack itself is the caller's), plus the
 // counters and the flag of the debug modes (dead code, and no registers,
@@ -351,11 +506,13 @@ struct Walk {
   int pid_best, skip, sp, e;
   bool found;
   int n_nodes, n_leaves, zero;
+  CurveRay c;  // the curve test's frame (kCurve only)
 };
 
 // Set up ray i; its first entry is row 0, or (kRoots, when the launch
-// has roots) its packet's root.
-template <bool kRoots>
+// has roots) its packet's root. The curve test's frame is set up with
+// kLeaf == kCurve alone.
+template <bool kRoots, int kLeaf = kTriangle>
 __device__ __forceinline__ void begin(const Params& p, long long i, Walk& w) {
   float ox = p.org[3 * i], oy = p.org[3 * i + 1], oz = p.org[3 * i + 2];
   float dx = p.dir[3 * i], dy = p.dir[3 * i + 1], dz = p.dir[3 * i + 2];
@@ -401,6 +558,7 @@ __device__ __forceinline__ void begin(const Params& p, long long i, Walk& w) {
     r.sy = sel3(ky, dx, dy, dz) / dkz;
     r.sz = 1.0f / dkz;
   }
+  if constexpr (kLeaf == kCurve) curve_ray(r, w.c);
   w.skip = p.skip ? p.skip[i] : -1;
   w.t_best = t_best;
   w.max_t_in = max_t_in;
@@ -520,8 +678,8 @@ __device__ __forceinline__ void node_step(const Params& p, Walk& w,
   pop(w, stack);
 }
 
-// Runs the leaf entry ``w.e`` of a live ray: its row's triangle (or
-// sphere) tests in slot order, then the top of the stack (any-hit: retire
+// Runs the leaf entry ``w.e`` of a live ray: its row's triangle (sphere,
+// curve) tests in slot order, then the top of the stack (any-hit: retire
 // on a hit).
 template <int kLeaf, bool kCounts, bool kFlags>
 __device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
@@ -542,6 +700,32 @@ __device__ __forceinline__ void leaf_step(const Params& p, Walk& w,
       w.t_best = tt;
       w.u_best = 0.0f;
       w.v_best = 0.0f;
+      w.pid_best = pid;
+      w.found = true;
+      if (p.occlusion) break;
+    }
+    if (p.occlusion && w.found) {  // any-hit: retire
+      w.sp = 0;
+      w.e = kNone;
+    } else {
+      pop(w, stack);
+    }
+    return;
+  }
+  if constexpr (kLeaf == kCurve) {
+    for (int s = 0; s < cnt; ++s) {
+      const float* q = row + 16 * s;
+      float tt, uu, vv;
+      if (!hit_curve(w.c, r.min_t, ld4(q), ld4(q + 4), ld4(q + 8),
+                     ld4(q + 12), w.t_best, tt, uu, vv)) {
+        continue;
+      }
+      const int pid = (int)__ldg(row + 108 + s);
+      if (pid == w.skip) continue;
+      if (p.use_range && (pid < p.range_lo || pid >= p.range_hi)) continue;
+      w.t_best = tt;
+      w.u_best = uu;
+      w.v_best = vv;
       w.pid_best = pid;
       w.found = true;
       if (p.occlusion) break;
@@ -648,7 +832,7 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(Params p) {
     const unsigned long long i = base + lane;
     if (i < n) {
       Walk w;
-      begin<kRoots>(p, (long long)i, w);
+      begin<kRoots, kLeaf>(p, (long long)i, w);
       while (w.e != kNone) step<W, kLeaf, kCounts, kFlags>(p, w, stack);
       finish<kCounts, kFlags>(p, (long long)i, w);
     }
@@ -840,6 +1024,7 @@ const void* k1_kernel(int counts, int flags, int roots) {
 template <int W>
 const void* k1_width(int leaf, int counts, int flags, int roots) {
   if (leaf == kSphere) return k1_kernel<W, kSphere>(counts, flags, roots);
+  if (leaf == kCurve) return k1_kernel<W, kCurve>(counts, flags, roots);
   return leaf == kWoop ? k1_kernel<W, kWoop>(counts, flags, roots)
                        : k1_kernel<W, kTriangle>(counts, flags, roots);
 }
@@ -852,7 +1037,7 @@ const void* k1_pick(int width, int leaf, int counts, int flags, int roots) {
 // The K1b instantiation (K is the launch's packets a claim): triangle
 // leaves only.
 const void* il_pick(int width, int leaf) {
-  if (leaf == kSphere) return nullptr;
+  if (leaf == kSphere || leaf == kCurve) return nullptr;
   if (width == 16) {
     return leaf == kWoop ? (const void*)traverse_kernel_il<16, kWoop>
                          : (const void*)traverse_kernel_il<16, kTriangle>;
@@ -865,7 +1050,8 @@ const void* il_pick(int width, int leaf) {
 
 // counts, flags and interleave > 1 are exclusive modes; flags need the
 // watertight test and interleave > 1 a triangle test; roots (with packet
-// > 0) combine with any mode. ``leaf``: kTriangle, kWoop or kSphere.
+// > 0) combine with any mode. ``leaf``: kTriangle, kWoop, kSphere or
+// kCurve.
 // ``scratch``: two zeroed uint64, the claim counter and the overflow
 // word. ``grid`` and, for K1b, ``packets`` (packets of 32 rays a claim:
 // interleave, or 1) are traverse/packet.py::launch_plan's.
@@ -884,8 +1070,7 @@ extern "C" int nrt_packet_traverse(
     return (int)cudaErrorInvalidValue;
   if ((counts != 0) + (zero_flags != 0) + (interleave > 1) > 1)
     return (int)cudaErrorInvalidValue;
-  if (leaf != kTriangle && leaf != kWoop && leaf != kSphere)
-    return (int)cudaErrorInvalidValue;
+  if (leaf < kTriangle || leaf > kCurve) return (int)cudaErrorInvalidValue;
   if (zero_flags && (leaf != kTriangle || flags == nullptr))
     return (int)cudaErrorInvalidValue;
   if (roots && packet < 1) return (int)cudaErrorInvalidValue;
@@ -924,8 +1109,7 @@ extern "C" int nrt_packet_traverse_occupancy(int width, int leaf, int counts,
   if (width != 8 && width != 16) return (int)cudaErrorInvalidValue;
   if (interleave != 1 && interleave != 2 && interleave != 4)
     return (int)cudaErrorInvalidValue;
-  if (leaf != kTriangle && leaf != kWoop && leaf != kSphere)
-    return (int)cudaErrorInvalidValue;
+  if (leaf < kTriangle || leaf > kCurve) return (int)cudaErrorInvalidValue;
   const void* fn = interleave > 1 ? il_pick(width, leaf)
                                   : k1_pick(width, leaf, counts, flags, roots);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;

@@ -150,12 +150,39 @@ def overlap_soup(n_tris: int, n_rays: int, seed: int = 3):
 MAX_LEAF_SLOTS = 10  # triangles a leaf row holds (build/bvh8.py)
 
 
+def _leaf_prims(leafs, rows, count, kind: str):
+    """The prims of leaf rows ``rows`` holding ``count`` prims of
+    ``kind`` (build/bvh8.py's layouts): ``(held, pids, lo, hi)``, held
+    (rows, slots) and per slot the prim id and the box its row gives of
+    it (a triangle's vertices, a sphere's centre +- radius, a curve's
+    control points with p0 +- r0 and p3 +- r1)."""
+    slots = 6 if kind == "curve" else MAX_LEAF_SLOTS
+    t = np.arange(slots)
+    held = t < count[:, None]
+    pid_lane = 90 if kind == "triangle" else 108
+    pids = leafs[rows[:, None], pid_lane + t]
+    if kind == "triangle":
+        pts = np.stack([leafs[rows[:, None], 9 * t + j] for j in range(9)],
+                       -1).reshape(len(rows), slots, 3, 3)
+        return held, pids, pts.min(2), pts.max(2)
+    if kind == "sphere":
+        q = np.stack([leafs[rows[:, None], 4 * t + j] for j in range(4)], -1)
+        return held, pids, q[..., :3] - q[..., 3:], q[..., :3] + q[..., 3:]
+    q = np.stack([leafs[rows[:, None], 16 * t + j] for j in range(16)],
+                 -1).reshape(len(rows), slots, 4, 4)
+    p, r = q[..., :3], q[..., 3:]
+    ends, r_ends = p[..., ::3, :], r[..., ::3, :]  # p0 r0, p3 r1
+    pts = np.concatenate([p, ends - r_ends, ends + r_ends], 2)
+    return held, pids, pts.min(2), pts.max(2)
+
+
 def wide_table_report(scene, n_prims: int) -> dict:
     """Structural checks of BVH8/BVH16 tables (host NumPy, vectorized),
     walked level by level from root row 0: ``prims_once`` (every prim id
     in exactly one reachable leaf slot), ``enclosed`` (each child node's
-    slot boxes inside its parent's slot box, and each leaf triangle's
-    vertices inside its slot box; exact comparisons), ``acyclic`` (no row
+    slot boxes inside its parent's slot box, and each leaf prim inside its
+    slot box: a triangle's vertices, a sphere's box, a curve's control
+    points and its end points' radii; exact comparisons), ``acyclic`` (no row
     reached twice), ``leaf_rows_once``, ``pad_rows_empty`` (every slot
     box of a row past ``num_nodes`` inverted) and ``depth_ok`` (the
     levels walked equal ``scene.depth``), with ``ok`` when all hold."""
@@ -195,13 +222,11 @@ def wide_table_report(scene, n_prims: int) -> dict:
     ls = np.concatenate([x[1] for x in leaf_slots])
     rows = -meta[lp, ls] - 1
     count = cnt[lp, ls]
-    t = np.arange(MAX_LEAF_SLOTS)
-    held = t < count[:, None]  # (slots, 10)
-    pids = leafs[rows[:, None], 90 + t][held].astype(np.int64)
-    tri = np.stack([leafs[rows[:, None], 9 * t + j] for j in range(9)],
-                   -1).reshape(len(rows), MAX_LEAF_SLOTS, 3, 3)
-    vmin = np.where(held[..., None], tri.min(2), np.inf)
-    vmax = np.where(held[..., None], tri.max(2), -np.inf)
+    held, pids, plo, phi = _leaf_prims(
+        leafs, rows, count, getattr(scene, "leaf_kind", "triangle"))
+    pids = pids[held].astype(np.int64)
+    vmin = np.where(held[..., None], plo, np.inf)
+    vmax = np.where(held[..., None], phi, -np.inf)
     enclosed &= bool((vmin >= lo[lp, ls][:, None]).all()
                      and (vmax <= hi[lp, ls][:, None]).all())
     r = dict(

@@ -41,6 +41,7 @@ from ..build.bvh8 import BVH8Scene
 from ..core.math import safe_inverse
 from ..core.options import BVHTraceOptions, INVALID_PRIM_ID, PRIM_RANGE_MAX
 from ..core.ray import PRIM_ID_DTYPE, Hits, Rays
+from ..ops.curve import _project, _z_align, curve_hit
 from ..ops.sphere import sphere_hit
 from ..ops.triangle import (RayCoeffs, TriangleMesh, intersect_triangles,
                             ray_coeffs)
@@ -58,12 +59,13 @@ MAX_MULT = 1.00000024  # 4-ulp exit-plane multiplier (core/aabb.max_mult)
 # counted in utils.trace, one key a launch: the mode it ran in
 # ("[interleave=K]", "[counts]", "[flags]", else "[roots]" when it had
 # packet roots), or else its leaf test: "packet_traverse" (watertight),
-# "packet_traverse_woop", "packet_traverse[sphere]"; "k1.rays" adds each
-# launch's rays.
+# "packet_traverse_woop", "packet_traverse[sphere]",
+# "packet_traverse[curve]"; "k1.rays" adds each launch's rays.
 LAUNCH_KEYS = ("packet_traverse", "packet_traverse_woop",
                "packet_traverse[roots]", "packet_traverse[counts]",
                "packet_traverse[flags]", "packet_traverse[interleave=2]",
-               "packet_traverse[interleave=4]", "packet_traverse[sphere]")
+               "packet_traverse[interleave=4]", "packet_traverse[sphere]",
+               "packet_traverse[curve]")
 trace.declare_launches(*LAUNCH_KEYS)
 trace.count("k1.rays", 0)
 INTERSECTORS = ("watertight", "woop")
@@ -75,12 +77,16 @@ K1_CLAIM = 32
 INTERLEAVES = (1, 2, 4)
 WOOP_MAX_LEAF = 9  # 12 lanes a triangle + the prim-id block at lane 108
 SPHERE_MAX_LEAF = 10  # 4 lanes a sphere + the prim-id block at lane 108
-# the kernel's leaf tests (kTriangle, kWoop, kSphere in the source)
-LEAF_TRIANGLE, LEAF_WOOP, LEAF_SPHERE = 0, 1, 2
+CURVE_MAX_LEAF = 6  # 16 lanes a curve + the prim-id block at lane 108
+# the kernel's leaf tests (kTriangle, kWoop, kSphere, kCurve in the source)
+LEAF_TRIANGLE, LEAF_WOOP, LEAF_SPHERE, LEAF_CURVE = 0, 1, 2, 3
+LEAF_OF_KIND = {"triangle": LEAF_TRIANGLE, "sphere": LEAF_SPHERE,
+                "curve": LEAF_CURVE}
 
 
-def _leaf(woop: bool, sphere: bool) -> int:
-    return LEAF_SPHERE if sphere else (LEAF_WOOP if woop else LEAF_TRIANGLE)
+def _leaf(woop: bool, kind: str) -> int:
+    """The leaf test of a scene of ``leaf_kind`` ``kind`` (Woop's)."""
+    return LEAF_WOOP if woop else LEAF_OF_KIND[kind]
 
 
 def stack_slots(scene: BVH8Scene) -> int:
@@ -136,9 +142,10 @@ def launch_plan(n_rays: int, blocks_per_sm: int, sms: int,
 def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
                  flags: bool = False, roots: bool = False,
                  device=None, interleave: int = 1,
-                 sphere: bool = False) -> dict:
+                 kind: str = "triangle") -> dict:
     """What the card's occupancy API and the compiled kernel say of one K1
-    instantiation (``sphere``: the sphere leaf test), or with
+    instantiation (``kind``: the leaf test of a scene of that
+    ``leaf_kind``, Woop with ``woop``), or with
     ``interleave`` 2 or 4 of the K1b one: resident ``blocks_per_sm``,
     ``registers`` and ``local_bytes`` (the stack frame) a thread,
     ``shared_bytes`` a block, ``threads`` a block and rays a ``claim``,
@@ -148,7 +155,7 @@ def k1_occupancy(width: int, woop: bool = False, counts: bool = False,
     return _ext.occupancy(
         "packet_traverse", "nrt_packet_traverse_occupancy",
         ("blocks_per_sm", "registers", "local_bytes", "shared_bytes",
-         "threads", "claim"), width, _leaf(woop, sphere), int(counts),
+         "threads", "claim"), width, _leaf(woop, kind), int(counts),
         int(flags), int(roots), interleave, device=device)
 
 
@@ -268,18 +275,24 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
     skip and range filters and the modes above but ``_flag_zero_edges``
     and ``interleave`` > 1; spheres have no back face and no edges, so
     ``cull_back_face`` and ``exact_edge_fallback`` do not apply, and the
-    intersector stays "watertight".
+    intersector stays "watertight". A curve scene (``collapse_bvh8(...,
+    curves=)``, ``"curve"``) takes the curve test of ``ops/curve.py``
+    (``curve_hit``, 4 spans) under the same rules, its t, u (the curve
+    parameter) and v (the distance to the curve's axis) bit for bit;
+    of a leaf's curves at exactly equal t the first wins.
     """
     _check_specialize(specialize)
     if intersector not in INTERSECTORS:
         raise ValueError(f"unknown intersector {intersector!r}")
     woop = intersector == "woop"
-    sphere = scene.leaf_kind == "sphere"
-    if sphere and (woop or _flag_zero_edges or interleave > 1):
-        raise ValueError("a sphere scene takes the sphere test without "
+    kind = scene.leaf_kind
+    sphere, curve = kind == "sphere", kind == "curve"
+    if kind != "triangle" and (woop or _flag_zero_edges or interleave > 1):
+        raise ValueError(f"a {kind} scene takes the {kind} test without "
                          "intersector='woop', _flag_zero_edges and "
                          "interleave")
-    exact_edge = options.exact_edge_fallback and not woop and not sphere
+    exact_edge = (options.exact_edge_fallback and not woop
+                  and kind == "triangle")
     if interleave not in INTERLEAVES:
         raise ValueError(f"interleave must be 1, 2 or 4: {interleave}")
     if interleave > 1 and rays.org.numel() // 3 > IL_MAX_RAYS:
@@ -364,7 +377,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             nodes, leafs, scene.width, org, dir, min_t, max_t, skip,
             prim_range, options.cull_back_face, exact_edge, occlusion,
             slots, woop, start=start, debug_counts=debug_counts,
-            flag_zero_edges=_flag_zero_edges, sphere=sphere)
+            flag_zero_edges=_flag_zero_edges, sphere=sphere, curve=curve)
         t, u, v, pid = out[:4]
         if _flag_zero_edges:
             flags = out[4]
@@ -390,7 +403,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
         scratch = torch.zeros(2, dtype=torch.int64, device=dev)
         occ = k1_occupancy(scene.width, woop, debug_counts,
                            _flag_zero_edges, roots is not None, dev,
-                           interleave, sphere)
+                           interleave, kind)
         plan = launch_plan(n, occ["blocks_per_sm"], occ["sms"], interleave,
                            occlusion)
         _ext.launch(
@@ -399,11 +412,11 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
             packet, scene.width, slots, int(occlusion),
             int(options.cull_back_face), int(exact_edge),
             int(prim_range is not None), prim_range[0] if prim_range else 0,
-            prim_range[1] if prim_range else 0, _leaf(woop, sphere),
+            prim_range[1] if prim_range else 0, _leaf(woop, kind),
             int(debug_counts), int(_flag_zero_edges), int(interleave),
             plan.grid, plan.claim // K1_CLAIM, device=dev,
             count=_launch_key(woop, roots is not None, debug_counts,
-                              _flag_zero_edges, interleave, sphere))
+                              _flag_zero_edges, interleave, sphere, curve))
         trace.count("k1.rays", n)
         _check_overflow(scratch[1], slots)
     else:
@@ -415,7 +428,7 @@ def traverse_bvh8(scene: BVH8Scene, rays: Rays,
 
 
 def _launch_key(woop, roots, counts, flags, interleave,
-                sphere=False) -> str:
+                sphere=False, curve=False) -> str:
     """The launch counter of one launch."""
     if interleave > 1:
         return f"packet_traverse[interleave={interleave}]"
@@ -427,6 +440,8 @@ def _launch_key(woop, roots, counts, flags, interleave,
         return "packet_traverse[roots]"
     if sphere:
         return "packet_traverse[sphere]"
+    if curve:
+        return "packet_traverse[curve]"
     return "packet_traverse_woop" if woop else "packet_traverse"
 
 
@@ -474,18 +489,32 @@ def _sphere_test(rows, o, d, min_t, t_cur):
     return valid, tt, rows[:, 108:108 + SPHERE_MAX_LEAF].long()
 
 
+def _curve_test(rows, rot, trans, min_t, t_cur):
+    """Curve test of the (m, 6) curves of curve leaf rows against m rays
+    of z-align frames ``rot`` (m, 3, 3), ``trans`` (m, 3)
+    (``ops.curve.curve_hit`` with 4 spans, the kernel's ``hit_curve``).
+    Returns ``(valid, tt, u, v, prim_ids)``."""
+    m = rows.shape[0]
+    q = rows[:, :16 * CURVE_MAX_LEAF].view(m, CURVE_MAX_LEAF, 4, 4)
+    cps = _project(q[..., :3], rot[:, None]) + trans[:, None, None, :]
+    valid, tt, uu, vv = curve_hit(cps, q[..., 0, 3], q[..., 3, 3],
+                                  min_t[:, None], t_cur[:, None])
+    return valid, tt, uu, vv, rows[:, 108:108 + CURVE_MAX_LEAF].long()
+
+
 def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
                         prim_range, cull_back_face, exact_edge_fallback,
                         occlusion, slots, woop=False, stats=None, start=None,
                         debug_counts=False, flag_zero_edges=False,
-                        sphere=False):
+                        sphere=False, curve=False):
     """Plain torch version of the kernel: a batched per-ray stack
     traversal over the same tables, in the same child order, with the
     same arithmetic (``ops/triangle.py``, ``_woop_test`` when ``woop``,
-    ``_sphere_test`` over sphere leaf rows when ``sphere``). Every loop
-    step pops one entry for every live ray: node entries run ``width``
-    slab tests and push their hit children far-first; leaf entries test
-    their <= 10 (woop: <= 9) triangles or <= 10 spheres.
+    ``_sphere_test`` over sphere leaf rows when ``sphere``, ``_curve_test``
+    over curve leaf rows when ``curve``). Every loop step pops one entry
+    for every live ray: node entries run ``width`` slab tests and push
+    their hit children far-first; leaf entries test their <= 10 (woop:
+    <= 9) triangles, <= 10 spheres or <= 6 curves.
     ``start`` is each ray's first node row (default row 0).
 
     Returns flat ``(t, u, v, prim_id)``; with ``debug_counts`` u and v
@@ -510,6 +539,8 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
     inv = safe_inverse(d)
     neg = d < 0
     coeffs = ray_coeffs(d)
+    if curve:  # each ray's z-align frame, once (the kernel's curve_ray)
+        rot, trans = _z_align(o, d)
 
     u_best = torch.zeros(n, device=dev)
     v_best = torch.zeros(n, device=dev)
@@ -531,7 +562,7 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
     if stats is not None and n:
         stats["max_sp"] = max(stats.get("max_sp", 0), int(sp.max()))
     ar_w = torch.arange(width, device=dev)
-    n_slots = 9 if woop else 10
+    n_slots = CURVE_MAX_LEAF if curve else (9 if woop else 10)
     ar_l = torch.arange(n_slots, device=dev)
     zeros_l = torch.zeros(n_slots, device=dev)
     if width == 16:
@@ -617,6 +648,9 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
                 valid, tt, pids = _sphere_test(rows, o[li], d[li], mint[li],
                                                tc)
                 uu = vv = zeros_l.expand(m, n_slots)
+            elif curve:
+                valid, tt, uu, vv, pids = _curve_test(rows, rot[li],
+                                                      trans[li], mint[li], tc)
             elif woop:
                 valid, tt, uu, vv, pids = _woop_test(
                     rows, o[li], d[li], mint[li], tc, cull_back_face)
@@ -637,15 +671,17 @@ def _traverse_reference(nodes, leafs, width, org, dir, min_t, max_t, skip,
             if prim_range is not None:
                 valid &= (pids >= prim_range[0]) & (pids < prim_range[1])
             # sequential tt <= t replacement == the LAST slot holding the
-            # minimum t; any-hit stops at the FIRST accepted slot
+            # minimum t (a curve's t < t replacement: the FIRST); any-hit
+            # stops at the FIRST accepted slot
             t_m = torch.where(valid, tt, inf)
             t_min = t_m.amin(1)
-            if occlusion:
-                sel = torch.where(valid, ar_l, n_slots).amin(1)
+            if occlusion or curve:
+                first = valid if occlusion else valid & (t_m == t_min[:, None])
+                sel = torch.where(first, ar_l, n_slots).amin(1)
             else:
                 sel = torch.where(valid & (t_m == t_min[:, None]), ar_l,
                                   -1).amax(1)
-            if flag_zero_edges and not woop and not sphere:
+            if flag_zero_edges and not woop and not sphere and not curve:
                 # the kernel's any-hit loop stops after the accepted slot
                 tested = in_row & (ar_l <= sel[:, None]) if occlusion else in_row
                 zflag[li] |= (zmask & tested).any(1).int()

@@ -36,9 +36,9 @@ few times a process, and no profiler window covers it.
 snapshot of it and ``since(snapshot)`` the counters that moved after it.
 The kernel wrappers declare their launch counters
 (``declare_launches``), one key a launch kind (``packet_traverse``,
-``packet_traverse[sphere]``, ``bvh16_trace``, ``pt_fused_bvh``,
-``ao_fused``, ...), count each launch there, and K1's wrapper adds its
-rays to ``k1.rays``;
+``packet_traverse[sphere]``, ``packet_traverse[curve]``,
+``bvh16_trace``, ``pt_fused_bvh``, ``ao_fused``, ...), count each launch
+there, and K1's wrapper adds its rays to ``k1.rays``;
 ``launches(snapshot)`` gives the launch counters alone.
 
 Span names hold no kernel's name: readers of a profiler trace find
@@ -60,10 +60,12 @@ PREFIX = "nanort."
 SETUP = ("build.", "commit.", "rtc.commit")
 # spans whose device time is kept (a CUDA event at each edge): the
 # phases of the API's call and of a camera frame that a reader of
-# stream ms takes (``sphere.post``: a sphere frame's UV and AOVs);
-# every other span costs its range alone
+# stream ms takes (``sphere.post``: a sphere frame's UV and AOVs;
+# ``curve.post``: a curve frame's AOVs); every other span costs its range
+# alone
 STREAMED = frozenset({"ray_sort.sort", "ray_sort.unsort", "rtc.remap",
-                      "camera", "tile", "untile", "aovs", "sphere.post"})
+                      "camera", "tile", "untile", "aovs", "sphere.post",
+                      "curve.post"})
 # the share of outermost spans, drawn at random, inside which the
 # STREAMED spans record their events
 STREAM_SHARE = 1 / 8

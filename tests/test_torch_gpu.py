@@ -2234,3 +2234,125 @@ def test_image_route_equals_the_tiled_route_on_spheres(dev):
         assert torch.equal(a, b)
     hit = float(want.prim_id.ne(nt.INVALID_PRIM_ID).float().mean())
     assert 0.3 < hit < 1.0
+
+
+# ---- K1's curve leaf (hair as cubic Bezier curves)
+
+def _hair(n_strands, leaf):
+    """The benchmark's head of hair at ``n_strands`` strands of 32
+    segments (``rtbench/generators/hair_head.py``): (Curves on the CPU,
+    its binary tree of leaves of ``leaf`` curves)."""
+    from nanort_tpu_torch.ops import curve
+    from rtbench.harness import load_module
+
+    v, _, _, m = load_module("generators", "hair_head").make(
+        n_strands=n_strands)
+    n = len(m["radii"])
+    c = curve.Curves(torch.from_numpy(v.reshape(n, 4, 3)),
+                     torch.from_numpy(m["radii"]))
+    bvh, _ = curve.build_curve_bvh(c, nt.BVHBuildOptions(
+        min_leaf_primitives=leaf, max_leaf_primitives=leaf))
+    return c, bvh
+
+
+def _hair_frame(w, h, dev, a=0.7):
+    """The hair cell's camera: 0.9 m from the head, 0.15 rad up."""
+    eye = (0.9 * np.cos(0.15) * np.sin(a), 0.9 * np.sin(0.15),
+           0.9 * np.cos(0.15) * np.cos(a))
+    return pinhole_rays(look_at(eye, (0.0, 0.0, 0.0), width=w, height=h,
+                                fov=30.0, device=dev))
+
+
+@pytest.fixture(scope="module")
+def small_hair():
+    return _hair(2000, 4)
+
+
+CURVE_MODES = {
+    "closest": ("packet_traverse[curve]", {}),
+    "any_hit": ("packet_traverse[curve]", dict(occlusion=True)),
+    "range": ("packet_traverse[curve]", dict(
+        options=nt.BVHTraceOptions(prim_ids_range=(1000, 40000)))),
+    "counts": ("packet_traverse[counts]", dict(debug_counts=True)),
+}
+
+
+@pytest.mark.parametrize("mode", list(CURVE_MODES) + ["skip"])
+@pytest.mark.parametrize("width", [8, 16])
+def test_curve_kernel_matches_plain_small_hair(dev, small_hair, width, mode):
+    c, bvh = small_hair
+    scene = collapse_bvh8(bvh, width=width, curves=c)
+    flat = _hair_frame(64, 48, "cpu")
+    rays = nt.Rays(*(x.reshape(64 * 48, *x.shape[2:]).contiguous()
+                     for x in flat))
+    rays.org[0::10, 0] = float("nan")  # degenerate rays among them
+    rays.dir[2::10] = 0.0
+    key, kw = CURVE_MODES.get(mode, ("packet_traverse[curve]", {}))
+    if mode == "skip":
+        first = packet.traverse_bvh8(scene, rays).prim_id.clone()
+        first[1::2] = nt.INVALID_PRIM_ID
+        kw = dict(skip_prim_id=first)
+    _mode_on_both(scene, rays, dev, key, **kw)
+
+
+@pytest.mark.parametrize("width", [8, 16])
+def test_curve_kernel_matches_plain_on_hair_frames(dev, width):
+    """K1's curve leaf over 131,072 rays of a hair frame (512 x 256 at the
+    hair cell's camera, 640,000 curves, leaves of 1 as the cell builds
+    them): one launch, equal to the plain version on the card bit for bit,
+    and to the stack engine (t, u, v bit for bit, the curve but at exactly
+    equal t) on every 64th ray."""
+    from nanort_tpu_torch.ops import curve
+
+    c, bvh = _hair(20_000, 1)
+    s8 = collapse_bvh8(bvh, width=width, curves=c).to(dev)
+    rays = _hair_frame(512, 256, dev)
+    before = trace.counts()
+    hits = packet.traverse_image(s8, rays)
+    assert trace.since(before) == {"packet_traverse[curve]": 1,
+                                   "k1.rays": 512 * 256}
+    n = 512 * 256
+    flat = nt.Rays(*(x.reshape(n, *x.shape[2:]).contiguous() for x in rays))
+    want = packet._traverse_reference(
+        s8.nodes, s8.leafs, width, flat.org, flat.dir, flat.min_t,
+        flat.max_t, None, None, False, False, False, packet.stack_slots(s8),
+        curve=True)
+    got = [x.reshape(n) for x in hits]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hit = float(got[3].ne(nt.INVALID_PRIM_ID).float().mean())
+    assert 0.01 < hit < 1.0
+    sub = nt.Rays(*(x[::64].contiguous() for x in flat))
+    cd = curve.Curves(c.points.to(dev), c.radii.to(dev))
+    stack = curve.traverse_curves(bvh, cd, sub, max_leaf=None)
+    cmp = compare_hits(nt.Hits(*(x[::64] for x in got)), stack, t_ulps=0,
+                       uv_atol=0.0)
+    assert cmp["ok"], cmp
+
+
+def test_render_curve_aovs_on_card_matches_cpu(dev, small_hair):
+    """One K1 launch a frame and no stack-engine launch; the records bit
+    for bit and the AOVs within 1e-6 of the CPU's."""
+    from nanort_tpu_torch.models.hair import render_curve_aovs
+    from nanort_tpu_torch.ops import curve
+
+    c, bvh = small_hair
+    s8 = collapse_bvh8(bvh, width=8, curves=c)
+    rays = _hair_frame(100, 70, "cpu")
+    want, want_h = render_curve_aovs(c, rays, scene8=s8)
+    cd = curve.Curves(c.points.to(dev), c.radii.to(dev))
+    card = nt.Rays(*(x.to(dev) for x in rays))
+    s8d = s8.to(dev)
+    before = trace.counts()
+    got, got_h = render_curve_aovs(cd, card, scene8=s8d)
+    assert trace.since(before) == {"packet_traverse[curve]": 1,
+                                   "k1.rays": 7000}
+    _same_records((got_h.t, got_h.u, got_h.v, got_h.prim_id),
+                  (want_h.t, want_h.u, want_h.v, want_h.prim_id))
+    assert bool(want_h.hit.any())
+    for k in want:
+        a, b = got[k].cpu(), want[k]
+        if a.dtype.is_floating_point:
+            assert float((a - b).abs().max()) <= 1e-6, k
+        else:
+            assert torch.equal(a, b), k
