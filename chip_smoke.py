@@ -8,7 +8,7 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a),
 nothing of JAX. Phases, one line or more each:
 
 1. the card (``nvidia-smi`` name and power limit);
-2. the builds: the six CUDA sources (one nvcc each, started together)
+2. the builds: the seven CUDA sources (one nvcc each, started together)
    and the native SAH builder (g++), with their seconds (and, beside
    them, ``ptxas -v`` reports of the AOV and camera kernels, printed in
    phase 6, and of K5 and K2, printed in phase 14);
@@ -213,7 +213,10 @@ nothing of JAX. Phases, one line or more each:
     entry builds (width 8, the builder's default leaves), one 3840x2160
     frame through ``traverse_image``: one launch over the rays in raster
     order, every 64th ray == plain bit for bit on t and prim id, and its
-    records == the tiled route's, timed beside it;
+    records == the tiled route's, timed beside it; the frame's sphere AOVs
+    (csrc/sphere_aovs.cu, one launch) == their plain version bit for bit,
+    the kernel's device ms beside its byte bound and the plain version's,
+    and its ``ptxas -v`` report;
 24. the multi-device layer on one card: a one-rank NCCL group through a
     ``file://`` store in a temporary directory, ``ray_mesh(1)``;
     ``sharded_traverse_triangles``, ``sharded_traverse_wavefront`` and
@@ -315,6 +318,22 @@ def cuda_ms(fn, reps: int) -> list[float]:
         torch.cuda.synchronize()
         out.append(e0.elapsed_time(e1))
     return out
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms a call of ``fn()``: ``reps`` calls queued behind a 50-ms
+    sleep that outlasts their enqueueing, between two CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(50e-3 * 2e9))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def same_frac(a, b) -> float:
@@ -3619,7 +3638,7 @@ def loader_phases(dev, hres: int = 1024, res: int = 2048, dres: int = 512,
     from nanort_tpu_torch.ops import sphere
     from nanort_tpu_torch.ops.triangle import TriangleMesh
     from nanort_tpu_torch.testing import compare_hits
-    from nanort_tpu_torch.traverse import packet
+    from nanort_tpu_torch.traverse import _ext, packet
     from nanort_tpu_torch.utils.trackball import camera_from_quat
 
     t_phase = time.perf_counter()
@@ -3941,7 +3960,20 @@ def loader_phases(dev, hres: int = 1024, res: int = 2048, dres: int = 512,
           and sum(counts.values()) == 1 and same_t and 0.3 < hit_t < 1.0,
           "phase 23: K1's spheres on the benchmark's tile differ from the "
           "plain version or did not take one launch")
-    del holder, flat
+    sa = hold_sphere_aovs(st.spheres, rays, holder["h"], 10)
+    say(f"phase 23 the benchmark's LiDAR tile: the {st.W}x{st.H} frame's "
+        f"sphere AOVs (csrc/sphere_aovs.cu; launches {sa['launches']}): == "
+        f"plain bit for bit {sa['same']}; kernel {sa['ms']:.4f} ms a call "
+        f"(device, mean of 10) vs bound {sa['bound'][0]:.4f} ms "
+        f"({sa['bound'][1]}, {sa['bytes'] / 1e9:.3f} GB); plain "
+        f"{sa['plain_ms']:.3f} ms; ptxas -v: " + " | ".join(
+            " ".join(ln.split()) for ln in _ext.resource_usage(
+                "sphere_aovs").splitlines()
+            if "Used" in ln or "spill" in ln))
+    check(sa["same"] and sa["launches"] == {"sphere_aovs_fused": 1},
+          "phase 23: the sphere AOV kernel differs from its plain version "
+          f"or did not launch once ({sa['launches']})")
+    del holder, flat, sa
     torch.cuda.empty_cache()
     say_route("phase 23 the benchmark's LiDAR tile",
               route_split(st.s8, rays), st.H, st.W, 5)
@@ -4153,13 +4185,11 @@ def hold_k1_launch(scene8, rays, args, kw, hits, every: int) -> dict:
 def hold_aovs(mesh, rays, hits, reps: int) -> dict:
     """objrender's AOVs of ``hits``: ``aovs_from_hits`` (one launch of
     csrc/aovs.cu) against ``_aovs_plain`` on the same card tensors, bit
-    for bit; the kernel's device ms (``reps`` calls queued behind a 50-ms
-    sleep that outlasts their enqueueing, between two CUDA events: a
-    call's mean), its bound (each pixel's record and ray read once, 44 B,
-    its AOVs written once, 49 B, the mesh read once; 39 operations a
-    pixel), the plain version's ms (CUDA events, best of 2) and the AOV
-    kernel's launches in all (``total``: the held call and the timed
-    ones)."""
+    for bit; the kernel's device ms (``queued_ms``), its bound (each
+    pixel's record and ray read once, 44 B, its AOVs written once, 49 B,
+    the mesh read once; 39 operations a pixel), the plain version's ms
+    (CUDA events, best of 2) and the AOV kernel's launches in all
+    (``total``: the held call and the timed ones)."""
     import torch
 
     from nanort_tpu_torch.models import objrender
@@ -4172,21 +4202,47 @@ def hold_aovs(mesh, rays, hits, reps: int) -> dict:
     del got, want
     plain_ms = min(cuda_ms(
         lambda: objrender._aovs_plain(mesh, None, rays, hits), 2))
-    holder = {}
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(int(50e-3 * 2e9))
-    e0.record()
-    for _ in range(reps):
-        holder["aovs"] = objrender.aovs_from_hits(mesh, None, rays, hits)
-    e1.record()
-    torch.cuda.synchronize()
+    ms = queued_ms(lambda: objrender.aovs_from_hits(mesh, None, rays, hits),
+                   reps)
     total = launch_counts()["aovs_fused"]
     n = hits.t.numel()
     return {"same": same, "launches": launches, "total": total,
-            "ms": e0.elapsed_time(e1) / reps, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms,
             "bound": bound(n * 93 + nbytes(mesh.vertices, mesh.faces),
                            n * 39)}
+
+
+def hold_sphere_aovs(spheres, rays, hits, reps: int) -> dict:
+    """The sphere frame's AOVs of ``hits``: ``sphere_aovs_from_hits`` (one
+    launch of csrc/sphere_aovs.cu) against ``_sphere_aovs_plain`` on the
+    same card tensors, bit for bit (the AOVs and the records' UV); the
+    kernel's device ms (``queued_ms``), its bound (each pixel's t, prim id
+    and ray read once, 36 B, a miss's u and v, 8 B, each sphere hit once
+    its centre, 12 B, and the AOVs written once, 49 B; 31 operations a
+    hit, atan2f and acosf one each) and the plain version's ms (CUDA
+    events, best of 2)."""
+    import torch
+
+    from nanort_tpu_torch.models import pointcloud
+
+    zero_launch_counts()
+    got = pointcloud.sphere_aovs_from_hits(spheres, rays, hits)
+    launches = nonzero(launch_counts())
+    want = pointcloud._sphere_aovs_plain(spheres, rays, hits)
+    same = (all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+            and all(torch.equal(a, b) for a, b in zip(got[1], want[1])))
+    del got, want
+    plain_ms = min(cuda_ms(
+        lambda: pointcloud._sphere_aovs_plain(spheres, rays, hits), 2))
+    ms = queued_ms(
+        lambda: pointcloud.sphere_aovs_from_hits(spheres, rays, hits), reps)
+    hit = hits.hit
+    n, n_hit = hit.numel(), int(hit.sum())
+    spheres_hit = int(torch.unique(hits.prim_id[hit]).numel())
+    n_bytes = n * (36 + 49) + (n - n_hit) * 8 + spheres_hit * 12
+    return {"same": same, "launches": launches, "bytes": n_bytes,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound": bound(n_bytes, n_hit * 31)}
 
 
 def say_aovs(what: str, h: dict, reps: int):
@@ -4252,10 +4308,9 @@ def say_route(what: str, s: dict, h: int, w: int, reps: int):
 def hold_camera(dev, w: int, h: int, reps: int) -> dict:
     """The perspective camera's w x h batch: ``pinhole_rays`` (one launch
     of csrc/camera.cu) against ``_pinhole_plain`` on the same card, bit
-    for bit; the kernel's device ms (``reps`` calls queued behind a 50-ms
-    sleep that outlasts their enqueueing, between two CUDA events: a
-    call's mean), its bound (32 B written a ray, nothing read but the
-    basis) and the plain version's ms (CUDA events, best of 2)."""
+    for bit; the kernel's device ms (``queued_ms``), its bound (32 B
+    written a ray, nothing read but the basis) and the plain version's ms
+    (CUDA events, best of 2)."""
     import torch
 
     from nanort_tpu_torch.models import cameras
@@ -4270,18 +4325,9 @@ def hold_camera(dev, w: int, h: int, reps: int) -> dict:
                for a, b in zip(got, want))
     del got, want
     plain_ms = min(cuda_ms(lambda: cameras._pinhole_plain(cam), 2))
-    holder = {}
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(int(50e-3 * 2e9))
-    e0.record()
-    for _ in range(reps):
-        holder["rays"] = cameras.pinhole_rays(cam)
-    e1.record()
-    torch.cuda.synchronize()
-    del holder
     return {"shape": (w, h), "same": same, "launches": launches,
-            "ms": e0.elapsed_time(e1) / reps, "plain_ms": plain_ms,
+            "ms": queued_ms(lambda: cameras.pinhole_rays(cam), reps),
+            "plain_ms": plain_ms,
             "bound": bound(w * h * 32, 0)}
 
 

@@ -26,6 +26,8 @@ glTF input of the loader tests and of ``chip_smoke.py``.
 
 ``aov_case`` makes the inputs that the AOV kernel's tests hold it to its
 plain version on: degenerate triangles, hits and misses.
+``sphere_aov_case`` does the same for the sphere AOV kernel: spheres at
+a LiDAR tile's distance, grazing rays, normals at the poles.
 
 ``mesh_checks`` is the rank body that the multi-device tests spawn on
 each rank of a gloo group (``parallel.dryrun.spawn_ranks``).
@@ -424,6 +426,75 @@ def aov_case(bs, seed: int, face_dtype=np.int64, facevarying=False,
     hits = Hits(on(t), on(u), on(w),
                 torch.from_numpy(prim).reshape(tuple(bs)).to(device))
     return mesh, attrs, make_rays(on(org, 3), on(d, 3)), hits
+
+
+# sphere_aov_case's spheres: the LiDAR tile's radius and distance
+SPHERE_RADIUS = 0.33
+SPHERE_DIST = 740.0
+# its pole normals' y: lengths that underflow to 0 (the 1e-30 guard, then
+# the clamp of n.y to [-1, 1]), that are subnormal (no -ftz), and ordinary
+POLE_Y = (0.33, -0.33, 1.0, 1e-20, -1e-20, 3.7e-19, 1e-25, -1e-25, 0.0)
+
+
+def sphere_aov_case(bs, seed: int, device="cpu", dtype="float32"):
+    """``(spheres, rays, hits)`` for ``models.pointcloud``'s sphere AOVs
+    over the batch shape ``bs``: 48 spheres of 0.33 m about 740 m down the
+    z axis (a LiDAR tile's sizes), half of them within 0.25 m of the other
+    half, so that they overlap; rays from the origin aimed within 1.6
+    radii of a sphere's centre, a third of them at its silhouette (1 +-
+    1e-4 radii out: grazing rays); each record the nearest hit by brute
+    force with K1's test (``ops.sphere.sphere_hit``), a miss the miss id
+    and the largest float. The last sphere, centred at the origin, takes
+    the pole cases: a ray from (0, y, 0) with t = 0, so that n = (0, y,
+    0), for each y of ``POLE_Y``, and one from (-0, 0, -0), as many as
+    half the batch holds. Every record, hit or miss, carries a random u
+    and v (a miss keeps them)."""
+    import torch
+
+    from .core.ray import Hits, make_rays
+    from .ops.sphere import Spheres, sphere_hit
+
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(bs))
+    k = 48
+    c = np.stack([rng.uniform(-6.0, 6.0, k), rng.uniform(-3.0, 3.0, k),
+                  SPHERE_DIST + rng.uniform(-1.5, 1.5, k)], 1)
+    c[k // 2:] = c[:k // 2] + rng.uniform(-0.25, 0.25, (k // 2, 3))
+    off = rng.normal(size=(n, 3))
+    off /= np.linalg.norm(off, axis=1, keepdims=True)
+    scale = rng.uniform(0.0, 1.6, n)
+    graze = rng.random(n) < 0.33
+    scale[graze] = 1.0 + rng.choice([-1e-4, 1e-4], int(graze.sum()))
+    target = c[rng.integers(0, k, n)] + SPHERE_RADIUS * scale[:, None] * off
+    dirs = torch.from_numpy((target / np.linalg.norm(
+        target, axis=1, keepdims=True)).astype(np.float32))
+    centers = torch.from_numpy(c.astype(np.float32))
+    org = torch.zeros(n, 3)
+    big = float(np.finfo(np.float32).max)
+    valid, t = sphere_hit(org[:, None], dirs[:, None], centers[None],
+                          torch.full((1, k), SPHERE_RADIUS),
+                          torch.zeros(n, 1), torch.full((n, 1), big))
+    t, prim = torch.where(valid, t, float("inf")).min(dim=1)
+    hit = torch.isfinite(t)
+    t = torch.where(hit, t, big)
+    prim = torch.where(hit, prim, INVALID_PRIM_ID)
+    poles = [(0.0, y, 0.0) for y in POLE_Y] + [(-0.0, 0.0, -0.0)]
+    at = rng.choice(n, min(len(poles), n // 2), replace=False)
+    for i, o in zip(at, poles):
+        org[i] = torch.tensor(o)
+        t[i], prim[i] = 0.0, k
+    u = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    v = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    dt = getattr(torch, dtype)
+
+    def on(x, *tail):
+        x = torch.as_tensor(x)
+        return x.reshape(tuple(bs) + tail).to(device, dt)
+
+    s = Spheres(torch.cat([centers, torch.zeros(1, 3)]).to(device, dt),
+                torch.full((k + 1,), SPHERE_RADIUS).to(device, dt))
+    hits = Hits(on(t), on(u), on(v), prim.reshape(tuple(bs)).to(device))
+    return s, make_rays(on(org, 3), on(dirs, 3)), hits
 
 
 def ring_glb(path, v, f, xfs):

@@ -21,6 +21,8 @@ another stream than the torch ops around it.
                         models/objrender.py::aovs_from_hits
     camera.cu           the perspective camera's rays,
                         models/cameras.py::pinhole_rays
+    sphere_aovs.cu      the sphere frame's AOVs from primary-hit records,
+                        models/pointcloud.py::render_sphere_aovs
 """
 
 from __future__ import annotations
@@ -74,6 +76,9 @@ KERNELS = {
     }),
     "camera": ("camera.cu", (), {
         "nrt_pinhole": [_P] * 8 + [_L, _L, _F, _F, _F, _P],
+    }),
+    "sphere_aovs": ("sphere_aovs.cu", (), {
+        "nrt_sphere_aovs": [_P] * 13 + [_L, _L, _P],
     }),
 }
 

@@ -17,6 +17,12 @@ models/objrender.py::_aovs_plain on the same card tensors, image and
 flat batches, int32 and int64 faces, geometric and facevarying normals,
 degenerate triangles, and a K1 frame; one ``aovs_fused`` launch a float32
 call, none for float64; a prim id past the faces fails the launch). The
+sphere AOV kernel (csrc/sphere_aovs.cu vs models/pointcloud.py::
+_sphere_aovs_plain on the same card tensors, texcoord included: spheres
+740 m away, grazing rays, poles, image and flat batches, a small cloud's
+frame and a 1M-sphere 3840 x 2160 frame through K1; one
+``sphere_aovs_fused`` launch a float32 call; float64 raises and launches
+nothing; a prim id past the centres fails the launch). The
 camera kernel (csrc/camera.cu vs models/cameras.py::_pinhole_plain at
 8192^2, 3840 x 2160 and two widths that are not a multiple of 4; one
 ``pinhole_fused`` launch a float32 camera, none for float64 or an
@@ -74,7 +80,7 @@ from nanort_tpu_torch.models import ao_fused, objrender, path_tracer, pt_fused
 from nanort_tpu_torch.models.cameras import look_at, pinhole_rays
 from nanort_tpu_torch.ops.triangle import TriangleMesh
 from nanort_tpu_torch.testing import (aov_case, compare_hits, overlap_soup,
-                                      zero_edge_rays)
+                                      sphere_aov_case, zero_edge_rays)
 from nanort_tpu_torch.traverse import fused_trace, packet
 from nanort_tpu_torch.utils import trace
 # this slice's modules: importable where only torch is installed
@@ -2111,18 +2117,31 @@ def test_sphere_kernel_matches_plain_small_cloud(dev, small_cloud, width,
     _mode_on_both(scene, rays, dev, key, **kw)
 
 
-def test_sphere_kernel_matches_plain_on_a_4k_frame(dev):
+@pytest.fixture(scope="module")
+def tile_4k():
+    """A 1M-point tile's spheres on the card (a 316 m tile), their BVH16
+    sphere tables there, the binary tree, and a 3840 x 2160 frame of
+    camera rays over it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nanort_tpu_torch.ops import sphere
+
+    s, bvh, mean_y = _cloud(1_000_000, 316.0, 32)
+    s8 = collapse_bvh8(bvh, width=16, spheres=s).to("cuda")
+    cam = look_at((0.0, mean_y + 80.0, 234.0), (0.0, mean_y, 0.0),
+                  width=3840, height=2160, fov=45.0, device="cuda")
+    spd = sphere.Spheres(s.centers.to("cuda"), s.radii.to("cuda"))
+    return spd, s8, bvh, pinhole_rays(cam)
+
+
+def test_sphere_kernel_matches_plain_on_a_4k_frame(dev, tile_4k):
     """The sphere kernel on a 3840 x 2160 frame of a 1M-point tile (the
     rays in raster order: one launch) equals the plain version bit for bit
     on t and prim id on every 64th ray, and the stack engine's records
     (t bit for bit, the sphere but at exactly equal t) on every 1024th."""
     from nanort_tpu_torch.ops import sphere
 
-    s, bvh, mean_y = _cloud(1_000_000, 316.0, 32)
-    s8 = collapse_bvh8(bvh, width=16, spheres=s).to(dev)
-    cam = look_at((0.0, mean_y + 80.0, 234.0), (0.0, mean_y, 0.0),
-                  width=3840, height=2160, fov=45.0, device=dev)
-    rays = pinhole_rays(cam)
+    spd, s8, bvh, rays = tile_4k
     before = trace.counts()
     hits = packet.traverse_image(s8, rays)
     moved = trace.since(before)
@@ -2139,7 +2158,6 @@ def test_sphere_kernel_matches_plain_on_a_4k_frame(dev):
     hit = float(got[3].ne(nt.INVALID_PRIM_ID).float().mean())
     assert 0.3 < hit < 1.0
     sub = nt.Rays(*(x[::16].contiguous() for x in flat))
-    spd = sphere.Spheres(s.centers.to(dev), s.radii.to(dev))
     stack = sphere.traverse_spheres(bvh, spd, sub, max_leaf=None,
                                     precise=True, post=False)
     c = compare_hits(nt.Hits(*(x[::16] for x in got)), stack, t_ulps=0)
@@ -2166,6 +2184,119 @@ def test_render_sphere_aovs_on_card_matches_cpu(dev, small_cloud):
             assert float((a - b).abs().max()) <= 1e-6, k
         else:
             assert torch.equal(a, b), k
+
+
+# ---- the sphere AOVs (csrc/sphere_aovs.cu)
+
+def _same_sphere_aovs(got, want):
+    """Every AOV of the two ``(aovs, hits)`` bit for bit, and the records
+    (the UV with them)."""
+    for k in AOV_KEYS:
+        a, b = got[0][k], want[0][k]
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, k
+        assert torch.equal(a, b), k
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bs", [(96, 160), (100_003,)],
+                         ids=["image", "flat"])
+def test_sphere_aovs_kernel_equals_plain(dev, bs):
+    """One launch a call, and every AOV the plain version's bit for bit
+    on the same card tensors, texcoord included: spheres 740 m away,
+    grazing rays, misses that keep their record's UV, normals at the
+    poles (``testing.sphere_aov_case``)."""
+    from nanort_tpu_torch.models import pointcloud
+
+    case = sphere_aov_case(bs, 9, device=dev)
+    before = trace.counts()
+    got = pointcloud.sphere_aovs_from_hits(*case)
+    assert trace.since(before) == {"sphere_aovs_fused": 1}
+    _same_sphere_aovs(got, pointcloud._sphere_aovs_plain(*case))
+    assert got[0]["rgb"].is_contiguous()
+    assert got[0]["texcoord"].shape == bs + (2,)
+
+
+def test_sphere_aovs_float64_on_card_raise(dev):
+    """Card input the kernel cannot take raises and launches nothing: no
+    plain version runs on the card."""
+    from nanort_tpu_torch.models import pointcloud
+
+    case = sphere_aov_case((64, 48), 3, device=dev, dtype="float64")
+    before = trace.counts()
+    with pytest.raises(TypeError, match="rays.org of dtype torch.float64"):
+        pointcloud.sphere_aovs_from_hits(*case)
+    s, rays, hits = sphere_aov_case((64, 48), 3, device=dev)
+    with pytest.raises(TypeError, match="hits.prim_id of dtype"):
+        pointcloud.sphere_aovs_from_hits(
+            s, rays, hits._replace(prim_id=hits.prim_id.int()))
+    assert trace.since(before) == {}
+
+
+def test_sphere_aovs_id_past_the_centers_fails_on_card(dev):
+    """A hit whose prim id names no sphere fails the launch at the next
+    synchronise, where the plain version's gather fails too. The trap
+    poisons the process's CUDA context: run it in a child."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from nanort_tpu_torch.models import pointcloud
+from nanort_tpu_torch.testing import sphere_aov_case
+s, rays, hits = sphere_aov_case((4096,), 9, device="cuda")
+prim = hits.prim_id.clone()
+prim[77] = s.centers.shape[0]
+torch.cuda.synchronize()
+try:
+    pointcloud.sphere_aovs_from_hits(s, rays, hits._replace(prim_id=prim))
+    torch.cuda.synchronize()
+    print("NO ERROR")
+except RuntimeError as e:
+    print("RAISED", "CUDA" in str(e))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=root, timeout=300)
+    assert "RAISED True" in r.stdout, (r.stdout, r.stderr[-2000:])
+
+
+def _sphere_frame_on_card(spd, s8, rays):
+    """``render_sphere_aovs`` over ``rays`` through K1: one K1 and one
+    sphere AOV launch, and its AOVs and records the plain version's on
+    the same K1 records."""
+    from nanort_tpu_torch.models import pointcloud
+
+    before = trace.counts()
+    got = pointcloud.render_sphere_aovs(spd, rays, scene8=s8)
+    assert _launched(before) == {"packet_traverse[sphere]": 1,
+                                 "sphere_aovs_fused": 1}
+    raw = packet.traverse_image(s8, rays)
+    _same_sphere_aovs(got, pointcloud._sphere_aovs_plain(spd, rays, raw))
+    return got[0]
+
+
+def test_render_sphere_aovs_frame_on_card(dev, small_cloud):
+    from nanort_tpu_torch.ops import sphere
+
+    s, bvh, mean_y = small_cloud
+    s8 = collapse_bvh8(bvh, width=8, spheres=s).to(dev)
+    rays = pinhole_rays(look_at((0.0, mean_y + 12.0, 26.0),
+                                (0.0, mean_y, 0.0), width=100, height=70,
+                                fov=45.0, device=dev))
+    spd = sphere.Spheres(s.centers.to(dev), s.radii.to(dev))
+    aovs = _sphere_frame_on_card(spd, s8, rays)
+    assert 0.1 < float(aovs["hit"].float().mean()) < 1.0
+
+
+def test_render_sphere_aovs_on_a_4k_frame(dev, tile_4k):
+    """The LiDAR-like 3840 x 2160 frame over 1M spheres: one sphere AOV
+    launch, every AOV and the records' UV the plain version's bit for
+    bit."""
+    spd, s8, _, rays = tile_4k
+    aovs = _sphere_frame_on_card(spd, s8, rays)
+    assert 0.3 < float(aovs["hit"].float().mean()) < 1.0
 
 
 # ---- a camera's batch through K1 (traverse_image)

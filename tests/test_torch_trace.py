@@ -290,12 +290,13 @@ def test_count_deltas_are_exact():
 
 
 def test_registry_holds_the_launch_keys():
-    from nanort_tpu_torch.models import ao_fused, pt_fused  # noqa: F401
+    from nanort_tpu_torch.models import (ao_fused, pointcloud,  # noqa: F401
+                                         pt_fused)
     from nanort_tpu_torch.traverse import fused_trace, packet
 
     launch = set(packet.LAUNCH_KEYS) | set(fused_trace.LAUNCH_KEYS) \
         | set(pt_fused.LAUNCH_KEYS) | {"ao_fused", "aovs_fused",
-                                       "pinhole_fused"}
+                                       "pinhole_fused", "sphere_aovs_fused"}
     assert set(trace.launches()) == launch
     assert launch | {"k1.rays"} <= set(trace.counts())
     for mod in (packet, fused_trace, pt_fused, ao_fused):
